@@ -1,0 +1,143 @@
+"""The paged KV cache pool of the serving engine.
+
+Counterpart of ``repro.serve.cache.PagedCachePool``: KV leaves are ONE
+preallocated pool of fixed-size pages per layer stack, plus a host-side
+per-slot page table and a FIFO free-list allocator with recycling.
+Capacity is reserved per request (``prompt + max_new_tokens``), not per
+worst-case ``max_len``.
+
+The pool is one pair of ``(n_layers, num_pages, page_size, KV, D)`` tensors
+(``{"k", "v"}``), updated **in place** by the model's attention; the
+reference rebuilds its immutable arrays instead.
+
+Physical **page 0 is the trash page**: never allocated, the target of every
+unallocated page-table entry, and the engine redirects inactive slots'
+whole rows to it. Stray writes land there; reads from it are masked by the
+positional validity mask.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.context import resolve_device
+from repro_torch.kernels.paged_attention import TRASH_PAGE
+
+
+class PoolExhausted(RuntimeError):
+    """The page pool cannot cover a requested allocation. The engine
+    catches it at admission and leaves the request queued."""
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """True when every block's cache is a full-attention KV cache."""
+    return tuple(cfg.block_unit) == ("attn",)
+
+
+class PagedCachePool:
+    """Fixed-size pages in one preallocated pool + per-slot page tables.
+
+    ``num_pages`` counts physical pages including the trash page; the
+    default matches a dense pool of the same ``slots``/``max_len`` plus the
+    trash page. The free list is a FIFO deque: pages allocate in ascending
+    id order from a fresh pool and recycle in the order they were freed.
+    """
+
+    def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 device: Union[str, torch.device, None] = None):
+        if not paged_supported(cfg):
+            raise ValueError(f"{cfg.name}: the port pages block_unit "
+                             f"('attn',) only, got {cfg.block_unit}")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.slots = slots
+        self.max_len = int(max_len)
+        self.page_size = int(page_size)
+        self.pages_per_slot = math.ceil(self.max_len / self.page_size)
+        if num_pages is None:
+            num_pages = slots * self.pages_per_slot + 1
+        if num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is the "
+                             f"trash page), got {num_pages}")
+        self.num_pages = int(num_pages)
+        self._free: collections.deque = collections.deque(
+            range(1, self.num_pages))
+        self._owned: List[List[int]] = [[] for _ in range(slots)]
+        self._table = np.full((slots, self.pages_per_slot), TRASH_PAGE,
+                              np.int32)
+        self._hwm = 0
+
+    # -- allocator ------------------------------------------------------
+
+    def pages_for(self, n_tokens: int) -> int:
+        return math.ceil(n_tokens / self.page_size)
+
+    def alloc_pages(self, slot: int, n_tokens: int) -> None:
+        """Ensure ``slot`` owns pages covering positions [0, n_tokens)."""
+        if n_tokens > self.max_len:
+            raise PoolExhausted(
+                f"slot page table holds {self.max_len} positions, request "
+                f"needs {n_tokens}")
+        owned = self._owned[slot]
+        need = self.pages_for(n_tokens) - len(owned)
+        if need <= 0:
+            return
+        if need > len(self._free):
+            raise PoolExhausted(
+                f"pool has {len(self._free)} free pages, slot {slot} "
+                f"needs {need} more (of {self.num_pages - 1} usable)")
+        for _ in range(need):
+            page = self._free.popleft()
+            self._table[slot, len(owned)] = page
+            owned.append(page)
+        self._hwm = max(self._hwm, self.pages_in_use)
+
+    def free(self, slot: int) -> None:
+        """Recycle the slot's pages (FIFO) and trash its table row."""
+        self._free.extend(self._owned[slot])
+        self._owned[slot] = []
+        self._table[slot, :] = TRASH_PAGE
+
+    def gather_args(self) -> Dict[str, torch.Tensor]:
+        """The page table (slots, pages_per_slot) int32 on the pool's
+        device."""
+        return {"page_table": torch.as_tensor(self._table,
+                                              device=self.device)}
+
+    @property
+    def pages_in_use(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    @property
+    def pages_hwm(self) -> int:
+        return self._hwm
+
+    @property
+    def total_pages(self) -> int:
+        return self.num_pages
+
+    def free_list(self) -> Tuple[int, ...]:
+        return tuple(self._free)
+
+    def slot_pages(self, slot: int) -> Tuple[int, ...]:
+        return tuple(self._owned[slot])
+
+    # -- the pool tensors -------------------------------------------------
+
+    def init(self) -> Dict[str, torch.Tensor]:
+        """Zeroed ``{"k", "v"}`` pools, (n_layers, N, ps, KV, D) each, in
+        the compute dtype on the pool's device."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, self.num_pages, self.page_size,
+                 cfg.n_kv_heads, cfg.head_dim_)
+        return {t: torch.zeros(shape, dtype=cfg.cdtype(), device=self.device)
+                for t in ("k", "v")}
