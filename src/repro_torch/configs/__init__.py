@@ -1,1 +1,2 @@
-"""Model configurations served by the port (smollm-135m and its variants)."""
+"""Model and training configurations of the port (smollm-135m and its
+variants)."""

@@ -1,7 +1,9 @@
-"""Config dataclasses: model architecture and where the butterfly goes.
+"""Config dataclasses: model architecture, where the butterfly goes, and
+training.
 
 Frozen and hashable, like the reference's. Only the fields the port's
-serving path reads are kept; dtypes resolve to ``torch`` dtypes.
+serving and training paths read are kept; dtypes resolve to ``torch``
+dtypes.
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ class ModelConfig:
     norm_eps: float = 1e-6
     logit_softcap: float = 0.0
     butterfly: Optional[ButterflyConfig] = None
+    # --- training: per-layer activation checkpointing, attention tiles ---
+    remat: bool = True
+    attn_block_q: int = 512        # blockwise attention tile sizes
+    attn_block_kv: int = 1024
+    blockwise_threshold: int = 8192  # use blockwise attention if S >= this
 
     @property
     def head_dim_(self) -> int:
@@ -60,3 +67,21 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training knobs. Gradient compression is not ported:
+    ``grad_compression`` must stay ``""``."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    max_grad_norm: float = 1.0
+    microbatches: int = 1          # gradient-accumulation factor
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = ""
+    keep_checkpoints: int = 3
+    grad_compression: str = ""     # "" only in the port

@@ -14,4 +14,5 @@ CONFIG = ModelConfig(
 def smoke() -> ModelConfig:
     return CONFIG.with_(
         name="smollm-135m-smoke", n_layers=2, d_model=64, n_heads=4,
-        n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=512)
+        n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=512,
+        blockwise_threshold=64, attn_block_q=16, attn_block_kv=16)

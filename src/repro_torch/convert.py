@@ -1,4 +1,4 @@
-"""Weight carry-over from the JAX reference into the port's modules.
+"""Weight carry-over between the JAX reference's param tree and the port.
 
 :func:`from_jax_params` takes the reference's param tree as numpy arrays
 (``{"embed": {"table"}, "unit": [stacked layer tree], "tail": [],
@@ -6,12 +6,16 @@
 site keys, and returns an :class:`~repro_torch.models.lm.LM` holding the
 same weights. The reference derives the truncation indices from
 ``jax.random``, which the port cannot reproduce, so they come in with the
-weights.
+weights. :func:`load_jax_params` loads such a tree into an existing model
+(a checkpoint's params), :func:`to_jax_params` is the inverse (the port's
+checkpoints store their params in the reference's layout, layers stacked
+as ``unit``), and :func:`names_by_reference_key` names the port parameters
+behind each reference leaf, so gradients compare leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, List, Mapping, Union
 
 import numpy as np
 import torch
@@ -21,6 +25,9 @@ from repro_torch.core.layers import ButterflySpec
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
 
+_INDEX_BUFFERS = ("idx_in", "idx_out")
+
+
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     if isinstance(tree, Mapping):
         out = {}
@@ -28,6 +35,37 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
             out.update(_flatten(v, f"{prefix}{k}."))
         return out
     return {prefix[:-1]: np.asarray(tree)}
+
+
+def _port_flat(cfg: ModelConfig, params_np: Mapping) -> Dict[str, Any]:
+    """The reference tree as ``{port state name: array}``; the stacked
+    ``(R, ...)`` unit leaves split per layer."""
+    if params_np.get("tail"):
+        raise ValueError("tail layers are outside the port's block_unit")
+    (unit,) = params_np["unit"]
+    flat = {}
+    for path, leaf in _flatten(unit).items():
+        for i in range(cfg.n_layers):
+            flat[f"layers.{i}.{path}"] = leaf[i]
+    rest = {k: v for k, v in params_np.items() if k not in ("unit", "tail")}
+    flat.update(_flatten(rest))
+    return flat
+
+
+@torch.no_grad()
+def load_jax_params(model: LM, params_np: Mapping) -> LM:
+    """Copy a reference-layout param tree into ``model`` in place; the
+    truncation-index buffers are kept."""
+    flat = _port_flat(model.cfg, params_np)
+    for name, t in model.state_dict(keep_vars=True).items():
+        if name in flat:
+            t.copy_(torch.as_tensor(np.array(flat.pop(name))))
+        elif not name.endswith(_INDEX_BUFFERS):
+            raise KeyError(f"no reference weight for {name}")
+    if flat:
+        raise KeyError(f"reference weights without a port module: "
+                       f"{sorted(flat)}")
+    return model
 
 
 def from_jax_params(cfg: ModelConfig, params_np: Mapping,
@@ -47,26 +85,50 @@ def from_jax_params(cfg: ModelConfig, params_np: Mapping,
         idx_out=tuple(int(i) for i in s.idx_out),
         use_bias=s.use_bias, jl_scale=s.jl_scale)
         for key, s in site_specs.items()}
-    if params_np.get("tail"):
-        raise ValueError("tail layers are outside the port's block_unit")
-    (unit,) = params_np["unit"]
-    flat = {}
-    for path, leaf in _flatten(unit).items():
-        for i in range(cfg.n_layers):
-            flat[f"layers.{i}.{path}"] = leaf[i]
-    rest = {k: v for k, v in params_np.items() if k not in ("unit", "tail")}
-    flat.update(_flatten(rest))
-
-    model = LM(cfg, site_specs=specs)
-    state = model.state_dict()
-    for name, t in state.items():
-        if name in flat:
-            state[name] = torch.from_numpy(
-                np.array(flat.pop(name))).to(t.dtype)
-        elif not name.endswith(("idx_in", "idx_out")):
-            raise KeyError(f"no reference weight for {name}")
-    if flat:
-        raise KeyError(f"reference weights without a port module: "
-                       f"{sorted(flat)}")
-    model.load_state_dict(state)
+    model = load_jax_params(LM(cfg, site_specs=specs), params_np)
     return model.to(dev)
+
+
+def _reference_key(name: str) -> str:
+    """The checkpoint key of the reference leaf holding port parameter
+    ``name`` (``layers.3.ffn.up.b_in`` -> ``unit[0].ffn.up.b_in``)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "unit[0]." + ".".join(parts[2:])
+    return name
+
+
+def names_by_reference_key(names) -> Dict[str, List[str]]:
+    """``{reference key: [port names]}`` for the port names ``names`` (index
+    buffers dropped); a unit key lists its layers in order, which is the
+    order of the reference's stacked leading axis."""
+    out: Dict[str, List[str]] = {}
+    for name in names:
+        if not name.endswith(_INDEX_BUFFERS):
+            out.setdefault(_reference_key(name), []).append(name)
+    for key, group in out.items():
+        if key.startswith("unit[0]."):
+            group.sort(key=lambda n: int(n.split(".")[1]))
+    return out
+
+
+def _insert(tree: Dict, path: List[str], leaf) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = leaf
+
+
+def to_jax_params(named: Mapping[str, torch.Tensor]) -> Dict:
+    """The reference's param tree, as host numpy arrays, from port tensors
+    ``named`` (``model.named_parameters()`` as a dict, or gradients under
+    the same names): unit leaves stacked over layers into ``unit[0]``,
+    ``tail`` empty."""
+    unit: Dict = {}
+    tree: Dict = {"unit": [unit], "tail": []}
+    for key, group in names_by_reference_key(named).items():
+        arrays = [named[n].detach().cpu().numpy() for n in group]
+        if key.startswith("unit[0]."):
+            _insert(unit, key[len("unit[0]."):].split("."), np.stack(arrays))
+        else:
+            _insert(tree, key.split("."), arrays[0])
+    return tree

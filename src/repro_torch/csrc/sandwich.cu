@@ -41,39 +41,11 @@
 //   block of a row recomputes the cheap input side.
 // * A ragged last block needs no care: one block owns one row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sandwich_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 4096;    // output-butterfly elements per block
-constexpr int kMaxN1 = 8192;   // input butterfly held whole in shared memory
-constexpr int kMaxK = 64;      // core dims k1, k2
-constexpr int kMaxTiles = 64;  // n2 <= kTile * kMaxTiles
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// round a float32 value to T and back: the reference's cast points
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f32<T>(from_f32<T>(v));
-}
+using namespace sandwich;
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads) sandwich_fwd_kernel(
@@ -99,17 +71,8 @@ __global__ void __launch_bounds__(kThreads) sandwich_fwd_kernel(
 
   // 2. input butterfly B x, stage 0 first: pairs (i, i|st) update in place
   for (int s = 0; s < p1; ++s) {
-    const int st = 1 << s;
     const float* a = b_in + (size_t)(2 * s) * n1;
-    const float* b = a + n1;
-    for (int q = tid; q < n1 / 2; q += kThreads) {
-      const int i = ((q >> s) << (s + 1)) | (q & (st - 1));
-      const int j = i | st;
-      const float xi = row[i], xj = row[j];
-      row[i] = rnd<T>(a[i]) * xi + rnd<T>(b[i]) * xj;
-      row[j] = rnd<T>(a[j]) * xj + rnd<T>(b[j]) * xi;
-    }
-    __syncthreads();
+    stage<T, false>(row, row, a, a + n1, n1, s);
   }
 
   // 3. select: exact gather of the T-rounded butterfly output, JL scale
@@ -127,63 +90,14 @@ __global__ void __launch_bounds__(kThreads) sandwich_fwd_kernel(
 
   // 5. cross-tile stages (stride >= tile), highest first, on the short
   //    vectors v[j] = z[l + j*tile]; keep the entry of tile t
-  for (int l = tid; l < tile; l += kThreads) {
-    float v[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) v[j] = 0.f;
-    bool any = false;
-    for (int m = 0; m < k2; ++m) {
-      const int g = zidx[m];
-      if ((g & (tile - 1)) == l) {
-        const int jj = g >> log_tile;
-        any = true;
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          if (j == jj) v[j] = zval[m];
-      }
-    }
-    if (!any) {
-      row[l] = 0.f;
-      continue;
-    }
-#pragma unroll
-    for (int c = NT / 2; c >= 1; c >>= 1) {
-      const int s = log_tile + (31 - __clz(c));
-      const float* a = b_out + (size_t)(2 * s) * n2;
-      const float* b = a + n2;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (j & c) continue;
-        const int gi = (j << log_tile) | l;
-        const int gj = ((j | c) << log_tile) | l;
-        const float vi = v[j], vj = v[j | c];
-        // transposed stage: y[i] = a[i] x[i] + b[i^st] x[i^st]
-        v[j] = rnd<T>(a[gi]) * vi + rnd<T>(b[gj]) * vj;
-        v[j | c] = rnd<T>(a[gj]) * vj + rnd<T>(b[gi]) * vi;
-      }
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      if (j == t) mine = v[j];
-    row[l] = mine;
-  }
+  cross_tile_row<T, NT>(row, zval, zidx, k2, b_out, n2, tile, log_tile, t);
   __syncthreads();
 
   // 6. in-tile stages, highest stride first (Bᵀ applies stages reversed)
   const int base = t << log_tile;
   for (int s = log_tile - 1; s >= 0; --s) {
-    const int st = 1 << s;
     const float* a = b_out + (size_t)(2 * s) * n2 + base;
-    const float* b = a + n2;
-    for (int q = tid; q < tile / 2; q += kThreads) {
-      const int i = ((q >> s) << (s + 1)) | (q & (st - 1));
-      const int j = i | st;
-      const float xi = row[i], xj = row[j];
-      row[i] = rnd<T>(a[i]) * xi + rnd<T>(b[j]) * xj;
-      row[j] = rnd<T>(a[j]) * xj + rnd<T>(b[i]) * xi;
-    }
-    __syncthreads();
+    stage<T, true>(row, row, a, a + n2, tile, s);
   }
 
   // 7. store the tile's columns below n_out
@@ -192,12 +106,6 @@ __global__ void __launch_bounds__(kThreads) sandwich_fwd_kernel(
     const int g = base + i;
     if (g < n_out) orow[g] = from_f32<T>(row[i]);
   }
-}
-
-int log2_exact(int n) {
-  int p = 0;
-  while ((1 << p) < n) ++p;
-  return (1 << p) == n ? p : -1;
 }
 
 template <typename T, int NT>

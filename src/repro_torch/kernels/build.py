@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the repo
-root, keyed by a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one loads at once. :func:`build` starts one
+root, keyed by a hash of the source, every shared header ``csrc/*.cuh`` and
+the flags, so a changed source or header rebuilds and an unchanged one
+loads at once. :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for them; it keeps the
 ``-Xptxas -v`` report (registers, shared memory, spills) beside each
 library. Nothing is built when a module is imported: the wrappers call
@@ -23,7 +24,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("sandwich", "paged_attention")
+SOURCES = ("sandwich", "sandwich_bwd", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,8 +39,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,4 +1,5 @@
-"""Shared model components: projections, norms, RoPE, embedding, head.
+"""Shared model components: projections, norms, RoPE, embedding, head,
+loss.
 
 A projection site is a plain dense matmul or, when the site is listed in
 the config's :class:`~repro_torch.configs.base.ButterflyConfig`, the
@@ -129,3 +130,17 @@ def head_apply(cfg: ModelConfig, head: nn.Module, x: torch.Tensor,
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over valid positions, in float32; logits (..., V), labels
+    (...), mask (...) of 0/1 weights."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

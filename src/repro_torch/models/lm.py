@@ -1,19 +1,24 @@
-"""The decoder-only LM for ``block_unit=("attn",)``: serving entry points.
+"""The decoder-only LM for ``block_unit=("attn",)``: serving and training
+entry points.
 
-Counterpart of ``repro.models.lm`` for the port's serving path. The
-reference scans one stacked layer unit with ``lax.scan``; here
-:func:`backbone` is a Python loop over an ``nn.ModuleList``. The KV caches
-are one pair of ``(n_layers, N, ps, KV, D)`` page pools
+Counterpart of ``repro.models.lm`` for the port's serving and training
+paths. The reference scans one stacked layer unit with ``lax.scan``; here
+:func:`backbone` is a Python loop over an ``nn.ModuleList``. Serving: the
+KV caches are one pair of ``(n_layers, N, ps, KV, D)`` page pools
 (:class:`repro_torch.serve.cache.PagedCachePool`), updated in place, so the
-entry points return no caches.
+entry points return no caches. Training: :func:`loss_fn` runs the stack
+without caches; with ``cfg.remat`` each layer is checkpointed
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` of the scan body) and runs again in the backward pass.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -61,9 +66,11 @@ class LM(nn.Module):
 
 def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
                 positions: torch.Tensor,
-                cache: Tuple[torch.Tensor, torch.Tensor],
-                page_table: torch.Tensor,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                page_table: Optional[torch.Tensor] = None,
                 backend: str = "auto") -> torch.Tensor:
+    """One layer; without ``cache`` the attention runs over the whole
+    sequence (training)."""
     h = cm.rmsnorm(x, layer.norm1, cfg.norm_eps)
     x = x + attn.attention(cfg, layer.attn, h, positions=positions,
                            cache=cache, page_table=page_table,
@@ -73,15 +80,45 @@ def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
 
 
 def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
-             caches: Dict[str, torch.Tensor], page_table: torch.Tensor,
+             caches: Optional[Dict[str, torch.Tensor]] = None,
+             page_table: Optional[torch.Tensor] = None,
              backend: str = "auto") -> torch.Tensor:
-    """Run the layer stack; ``caches`` is ``{"k", "v"}`` of
-    ``(n_layers, N, ps, KV, D)`` pools, written in place."""
+    """Run the layer stack. Serving: ``caches`` is ``{"k", "v"}`` of
+    ``(n_layers, N, ps, KV, D)`` pools, written in place. Training
+    (``caches=None``): with ``cfg.remat`` and gradients on, each layer is
+    checkpointed and recomputed in the backward pass."""
+    cfg = model.cfg
+    remat = caches is None and cfg.remat and torch.is_grad_enabled()
     for i, layer in enumerate(model.layers):
-        x = layer_apply(model.cfg, layer, x, positions=positions,
-                        cache=(caches["k"][i], caches["v"][i]),
-                        page_table=page_table, backend=backend)
+        cache = None if caches is None else (caches["k"][i], caches["v"][i])
+        if remat:
+            x = checkpoint(layer_apply, cfg, layer, x, positions=positions,
+                           backend=backend, use_reentrant=False)
+        else:
+            x = layer_apply(cfg, layer, x, positions=positions, cache=cache,
+                            page_table=page_table, backend=backend)
     return x
+
+
+def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
+            backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
+    """Training loss, the mean next-token CE over ``batch`` ``tokens``
+    (B, S), ``targets`` (B, S) and optional ``mask`` (B, S), plus metrics
+    ``{"ce", "aux"}`` (``aux`` is 0: the port has no MoE)."""
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    x = cm.embed(cfg, model.embed, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    x = backbone(model, x, positions=positions, backend=backend)
+    x = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    logits = cm.head_apply(cfg, model.head, x, backend)
+    mask = batch.get("mask")
+    ce = cm.cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
+                          None if mask is None else mask[:, 1:])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def decode_step(model: LM, token: torch.Tensor,

@@ -6,7 +6,9 @@ so it runs on a machine that has only PyTorch; from the repo root:
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu_kernels.py
 
 Tolerances are the reference's own: the sandwich kernel's float32 2e-4 and
-bfloat16 5e-2, the paged kernel's float32 1e-5 and bfloat16 2e-2.
+bfloat16 5e-2, the paged kernel's float32 1e-5 and bfloat16 2e-2; the
+sandwich backward's float32 1e-5 and bfloat16 8% of max|want|
+(`tests/test_kernels_grad.py`).
 """
 
 import math
@@ -68,6 +70,60 @@ def test_sandwich_kernel_matches_plain(cuda, n_in, n_out, rows, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _assert_grad_close(got, want, dtype, what=""):
+    """float32: atol = rtol = 1e-5 relative to max|want|; bfloat16: 8%."""
+    frac = 1e-5 if dtype == torch.float32 else 0.08
+    want = want.float()
+    atol = frac * max(float(want.abs().max()), 1e-3)
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=frac,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_in,n_out,rows", [
+    (576, 1536, 256), (1536, 576, 256), (576, 49152, 256), (100, 36, 3),
+    (64, 8192, 5), (48, 80, 7),
+    # many rows per block: the row loops, uneven chunks, partial sums
+    (576, 1536, 1000), (1536, 576, 8192), (576, 49152, 1000)])
+def test_sandwich_bwd_kernel_matches_plain(cuda, n_in, n_out, rows, dtype):
+    args, kw = _sandwich_case(n_in, n_out, rows, dtype, cuda)
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn(rows, n_out, generator=gen).to(cuda, dtype)
+    before = ks.sandwich_backward.launches
+    got = ks.sandwich_backward(**args, g=g, **kw, backend="cuda")
+    again = ks.sandwich_backward(**args, g=g, **kw, backend="cuda")
+    want = ks.sandwich_backward(**args, g=g, **kw, backend="torch")
+    torch.cuda.synchronize()
+    assert ks.sandwich_backward.launches == before + 2 * ks.BWD_KERNELS
+    assert got[0].shape == (rows, n_in) and got[0].dtype == dtype
+    for name, a, b, w in zip(("dx", "d b_in", "d core", "d b_out"), got,
+                             again, want):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), f"{name} differs between two launches"
+        _assert_grad_close(a, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sandwich_fn_autograd_on_card(cuda, dtype):
+    """Autograd through sandwich_forward on CUDA tensors reaches the
+    backward kernel and gives every input its gradient."""
+    args, kw = _sandwich_case(576, 1536, 32, dtype, cuda)
+    leaves = {k: args[k].requires_grad_() for k in
+              ("x", "b_in", "core", "b_out")}
+    g = torch.randn(32, 1536, device=cuda).to(dtype)
+    before = (ks.sandwich_forward.launches, ks.sandwich_backward.launches)
+    out = ks.sandwich_forward(**args, **kw)
+    out.backward(g)
+    assert (ks.sandwich_forward.launches,
+            ks.sandwich_backward.launches) == (before[0] + 1,
+                                               before[1] + ks.BWD_KERNELS)
+    want = ks.sandwich_bwd_plain(*(args[k].detach() for k in (
+        "x", "b_in", "core", "b_out", "idx_in", "idx_out")), g, **kw)
+    for (name, leaf), w in zip(leaves.items(), want):
+        assert leaf.grad is not None, name
+        _assert_grad_close(leaf.grad, w, dtype, name)
+
+
 def _paged_case(dtype, dev, seed=0, B=8, KV=3, G=3, D=64, ps=16, P=32):
     gen = torch.Generator().manual_seed(seed)
     N = 1 + B * P
@@ -107,6 +163,9 @@ def test_kernels_reject_bad_inputs(cuda):
     args, kw = _sandwich_case(576, 1536, 4, torch.float16, cuda)
     with pytest.raises(TypeError):
         ks.sandwich_forward(**args, **kw, backend="cuda")
+    g = torch.zeros(4, 1536, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ks.sandwich_backward(**args, g=g, **kw, backend="cuda")
     q, k_pool, v_pool, ids, cur = _paged_case(torch.float32, cuda)
     with pytest.raises(TypeError):
         pa.paged_decode_attention(q, k_pool, v_pool, ids.long(), cur,

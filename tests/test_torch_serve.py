@@ -156,7 +156,11 @@ def test_engine_without_device_and_card_raises(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    code = ("import sys, repro_torch.serve.engine, repro_torch.convert; "
+    code = ("import sys, repro_torch.serve.engine, repro_torch.convert, "
+            "repro_torch.train.trainer, repro_torch.train.steps, "
+            "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.checkpointing, "
+            "repro_torch.runtime.fault_tolerance; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
