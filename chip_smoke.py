@@ -4,7 +4,7 @@
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 
 1. Device: the card's name, count and power limit.
-2. Build: the three CUDA kernels from ``src/repro_torch/csrc`` (one
+2. Build: the five CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register,
    shared-memory and spill lines.
 3. Sandwich forward kernel vs its plain twin at the three full-width sites
@@ -49,6 +49,23 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     within 1e-3.
 11. Timing of the backward kernel per train step, its plain twin and its
     bound.
+12. Butterfly kernels (forward and backward) vs their plain twins at the
+    encoder's 70,000 x 1024, Olivetti faces' 400 x 4096, 5 x 1024,
+    1237 x 2048 and 300 x 8192, both directions, float32 within 1e-5 and
+    bfloat16 within 5e-2 of max|want|; the backward with and without dx,
+    two launches bit-identical, its stage applications for the first row
+    equal to ``stage_applies`` and at most 3p.
+13. The encoder-decoder (paper §4) at the MNIST auto-encoder's shape:
+    n = 784 (padded to 1024), d = 70,000, k = 32, on the stand-in
+    ``synthetic_image_matrix(784, 70000, 0)``: the closed-form loss against
+    the Theorem 1 prediction (rtol 1e-3), FJLT+PCA, and the two-phase row
+    of ``launch.encdec`` (400 + 300 Adam steps) with finite losses, phase 1
+    no better than the prediction, phase 2 within 1.02 of phase 1, and the
+    butterfly launches the design implies; step time p50 and peak memory.
+14. The same path through kernels and plain versions, float32: one
+    gradient of B, E, D within 1e-4 and 10 phase-2 losses at rtol 1e-4.
+15. Timing of the butterfly kernels at 70,000 x 1024: kernel, plain twin,
+    bound, and for the forward a matmul by the materialized B.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
@@ -132,10 +149,10 @@ def phase_device(torch) -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    # the plain float32 twins must stay float32: no TF32 in their matmuls
-    # or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the plain float32 twins and the encoder-decoder's products must stay
+    # float32: no TF32 in matmuls or convolutions (set and checked)
+    from repro_torch.launch.encdec import full_float32
+    full_float32()
     say("device:", torch.cuda.get_device_name(0), "| count:",
         torch.cuda.device_count(), "| torch", torch.__version__, "cuda",
         torch.version.cuda)
@@ -999,12 +1016,343 @@ def phase_timing_bwd(torch, cfg, dev, kernel, time_fn, launches, err,
                    f"of {step['full_bound_ms']:.5f} ms"}
 
 
+# -- the encoder-decoder (slice 3) --------------------------------------------
+
+MNIST = (784, 70000, 32)      # n (28 x 28 pixels, padded to 1024), d, k
+TWO_PHASE_STEPS = (400, 300)  # bench_two_phase.py: lr 3e-3, then 1e-3
+# (name, rows, n) of the butterfly kernels against their plain twins: the
+# encoder's product, Olivetti faces (400 images of 64 x 64), fewer rows than
+# blocks, a row count that the chunks do not divide, and the widest n
+BFLY_SHAPES = (("mnist", 70000, 1024), ("olivetti", 400, 4096),
+               ("few_rows", 5, 1024), ("ragged", 1237, 2048),
+               ("n8192", 300, 8192))
+BFLY_TOL = {"float32": 1e-5, "bfloat16": 5e-2}   # fractions of max|want|
+
+
+def close_to_max_or_raise(torch, what, got, want, frac) -> tuple:
+    """Max |got - want| and its share of max|want|; raises unless it is
+    within frac·max|want| + frac·|want| everywhere and ``got`` is
+    finite."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err = (got - want).abs()
+    limit = frac * max(float(want.abs().max()), 1e-3) + frac * want.abs()
+    if not bool((err <= limit).all()):
+        raise AssertionError(f"{what}: max |err| {float(err.max()):.3e} "
+                             f"beyond {frac} of max|want| "
+                             f"{float(want.abs().max()):.3e} "
+                             f"({int((err > limit).sum())} of {err.numel()} "
+                             f"outside)")
+    return float(err.max()), float(err.max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def butterfly_case(torch, rows, n, dtype, dev, seed):
+    from repro_torch.core import butterfly as bf
+    gen = torch.Generator().manual_seed(seed)
+    w = bf.random_weights(gen, n).to(dev)
+    x = torch.randn(rows, n, generator=gen).to(dev, getattr(torch, dtype))
+    g = torch.randn(rows, n, generator=gen).to(dev, getattr(torch, dtype))
+    return x, w, g
+
+
+def phase_butterfly(torch, dev, kernel: str, shapes) -> dict:
+    """The butterfly kernels against their plain twins at ``shapes``, both
+    directions, float32 and bfloat16: the forward; the backward with and
+    without dx, two launches bit-identical and dw the same without dx; the
+    kernel's stage-application count for the first row equal to
+    ``stage_applies(p, ⌈√p⌉)`` and at most 3p. Returns the worst float32
+    max|err| of the forward and of dw."""
+    from repro_torch.kernels import butterfly as kb
+    on_card = dev.type == "cuda"
+    worst = {"butterfly_fwd": 0.0, "butterfly_bwd": 0.0}
+    seed = 20
+    for name, rows, n in shapes:
+        p = int(math.log2(n))
+        want_applied = kb.stage_applies(p)
+        if want_applied > 3 * p:
+            raise AssertionError(f"stage_applies({p}) = {want_applied} > 3p")
+        for transpose in (False, True):
+            for dtype in ("float32", "bfloat16"):
+                seed += 1
+                what = (f"butterfly {name} {rows}x{n} "
+                        f"{'Bt' if transpose else 'B '} {dtype}")
+                frac = BFLY_TOL[dtype]
+                x, w, g = butterfly_case(torch, rows, n, dtype, dev, seed)
+                with torch.no_grad():
+                    got = kb.butterfly_forward(x, w, transpose=transpose,
+                                               backend=kernel)
+                    want = kb.butterfly_forward(x, w, transpose=transpose,
+                                                backend="torch")
+                sync(torch, dev)
+                e_fwd = close_to_max_or_raise(torch, what, got, want, frac)
+                del got, want
+                applied = torch.zeros(1, dtype=torch.int32, device=dev)
+                dx, dw = kb.butterfly_backward(x, w, g, transpose=transpose,
+                                               backend=kernel,
+                                               applied=applied)
+                dx2, dw2 = kb.butterfly_backward(x, w, g,
+                                                 transpose=transpose,
+                                                 backend=kernel)
+                none, dw3 = kb.butterfly_backward(
+                    x, w, g, transpose=transpose, need_dx=False,
+                    backend=kernel)
+                pdx, pdw = kb.butterfly_backward(
+                    x, w, g, transpose=transpose, backend="torch")
+                sync(torch, dev)
+                if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+                    raise AssertionError(f"{what}: two backward launches "
+                                         f"differ")
+                if none is not None or not torch.equal(dw, dw3):
+                    raise AssertionError(f"{what}: the backward without dx "
+                                         f"gives another dw")
+                e_dx = close_to_max_or_raise(torch, f"{what} dx", dx, pdx,
+                                             frac)
+                e_dw = close_to_max_or_raise(torch, f"{what} dw", dw, pdw,
+                                             frac)
+                got_applied = int(applied) if on_card else want_applied
+                if got_applied != want_applied:
+                    raise AssertionError(f"{what}: the kernel applied "
+                                         f"{got_applied} stages for its "
+                                         f"first row, stage_applies gives "
+                                         f"{want_applied}")
+                say(f"{what:38s} max|err| (share of max|want|) "
+                    + " ".join(f"{k} {e:.3e} ({r:.1e})" for k, (e, r) in
+                               (("fwd", e_fwd), ("dx", e_dx), ("dw", e_dw)))
+                    + f"; tol {frac} of max|want|; dw bit-identical (repeat,"
+                      f" no dx); stage applications {got_applied} (3p = "
+                      f"{3 * p})")
+                if name == "mnist" and dtype == "float32" and not transpose:
+                    worst["butterfly_fwd"] = max(worst["butterfly_fwd"],
+                                                 e_fwd[0])
+                    worst["butterfly_bwd"] = max(worst["butterfly_bwd"],
+                                                 e_dw[0])
+                del x, w, g, dx, dw, dx2, dw2, dw3, pdx, pdw
+    return worst
+
+
+def encdec_setup(torch, dev, shape, seed=0):
+    """The MNIST-shape problem: the stand-in data, a spec and params from
+    seeds, as ``launch.encdec`` sets them up."""
+    from repro_torch.core import encdec as ed
+    from repro_torch.data.synthetic import synthetic_image_matrix
+    n, d, k = shape
+    t0 = time.monotonic()
+    X_np = synthetic_image_matrix(n, d, seed)
+    say(f"encdec data: synthetic_image_matrix({n}, {d}, {seed}) in "
+        f"{time.monotonic() - t0:.1f} s")
+    X = torch.from_numpy(X_np).to(dev)
+    spec = ed.make_spec(torch.Generator().manual_seed(seed), n=n, d=d, k=k)
+    params = ed.init_params(torch.Generator().manual_seed(seed + 1), spec,
+                            device=dev)
+    return spec, params, X
+
+
+def encdec_step_p50(torch, spec, params, X, dev, train_B, reps=10):
+    """p50 ms of one train step (host clock, synchronised): ``reps`` calls
+    of one step each."""
+    from repro_torch.core import encdec as ed
+    ts = []
+    for _ in range(reps):
+        sync(torch, dev)
+        t0 = time.monotonic()
+        ed.train(spec, params, X, X, steps=1, lr=1e-3, train_B=train_B)
+        sync(torch, dev)
+        ts.append(1e3 * (time.monotonic() - t0))
+    return sorted(ts)[len(ts) // 2]
+
+
+def phase_encdec(torch, dev, shape, steps) -> tuple:
+    """The encoder-decoder main path at ``shape``: the Theorem 1 row (the
+    closed form against the prediction, rtol 1e-3), FJLT+PCA, and the
+    two-phase row (``steps`` of phase 1 and 2 with the bench's rates) with
+    the counts set to 0 just before and read just after; every loss finite,
+    phase 1 no better than the prediction, phase 2 within 2% of phase 1 or
+    better, launches as the design implies. Returns (launches, summary,
+    (spec, params, X))."""
+    from repro_torch.core import encdec as ed
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.launch import encdec as launch
+    on_card = dev.type == "cuda"
+    spec, params, X = encdec_setup(torch, dev, shape)
+    n, d, k = shape
+    t0 = time.monotonic()
+    th = launch.theorem1_row(spec, params, X)
+    fjlt = float(ed.fjlt_pca_loss(torch.Generator().manual_seed(2), X, k,
+                                  spec.ell))
+    sync(torch, dev)
+    say(f"encdec n={n} (pad {spec.pad_n}) d={d} k={k} ell={spec.ell}: "
+        f"closed-form loss {th['measured']:.4f}, theorem1_loss "
+        f"{th['predicted']:.4f}, rel_err {th['rel_err']:.3e} (tol 1e-3); "
+        f"fjlt_pca_loss {fjlt:.4f} ({time.monotonic() - t0:.1f} s)")
+    if not th["rel_err"] <= 1e-3:
+        raise AssertionError(f"closed-form loss {th['measured']} is not the "
+                             f"Theorem 1 prediction {th['predicted']}")
+    s1, s2 = steps
+    sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    kb.butterfly_forward.launches = 0
+    kb.butterfly_backward.launches = 0
+    t0 = time.monotonic()
+    row = launch.two_phase_row(spec, params, X, steps1=s1, steps2=s2,
+                               log_every=1)
+    sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = {"butterfly_fwd": kb.butterfly_forward.launches,
+                "butterfly_bwd": kb.butterfly_backward.launches}
+    # a forward per step of both phases, and for the prediction and the two
+    # final losses; phase 1 leaves B out of the gradient, so backward
+    # launches come from phase 2 only
+    want = {"butterfly_fwd": on_card * (s1 + s2 + 3),
+            "butterfly_bwd": on_card * kb.BWD_KERNELS * s2}
+    if launches != want:
+        raise AssertionError(f"encdec launch counts {launches}, expected "
+                             f"{want}")
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    losses = row["h1"] + row["h2"] + [row["phase1"], row["phase2"],
+                                      row["thm1_prediction"], row["pca"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite encdec loss: {row['derived']}")
+    pred = row["thm1_prediction"]
+    if not row["phase1"] >= pred * (1 - 1e-3):
+        raise AssertionError(f"phase 1 loss {row['phase1']} beats the "
+                             f"global optimum {pred}")
+    if not row["phase2"] <= row["phase1"] * 1.02:
+        raise AssertionError(f"phase 2 loss {row['phase2']} above phase 1 "
+                             f"{row['phase1']} x 1.02")
+    p50 = {b: encdec_step_p50(torch, spec, params, X, dev, b)
+           for b in (False, True)}
+    say(f"encdec {row['name']}: {row['derived']}; fjlt_pca={fjlt:.4f}")
+    say(f"encdec two-phase: {s1} + {s2} steps in {wall:.2f} s; step ms p50 "
+        f"phase 1 {p50[False]:.3f}, phase 2 {p50[True]:.3f} (one-step "
+        f"calls, host clock, synchronised); peak memory "
+        f"{peak / 2**20:.1f} MiB; launches {launches} = {s1 + s2} + 3 "
+        f"forward, {kb.BWD_KERNELS} x {s2} backward")
+    summary = {"encdec_closed_loss": th["measured"],
+               "encdec_theorem1_loss": pred, "encdec_pca_loss": row["pca"],
+               "encdec_fjlt_pca_loss": fjlt,
+               "encdec_phase1_loss": row["phase1"],
+               "encdec_phase2_loss": row["phase2"],
+               "encdec_two_phase_wall_s": wall,
+               "encdec_step_ms_p50_phase1": p50[False],
+               "encdec_step_ms_p50_phase2": p50[True],
+               "encdec_peak_mib": peak / 2**20}
+    return launches, summary, (spec, params, X)
+
+
+def phase_encdec_vs_plain(torch, dev, kernel, spec, params, X) -> None:
+    """Kernels against the plain versions on the whole path, float32: one
+    loss gradient (B, E, D each within 1e-4 in relative norm of the
+    difference) and the losses of 10 phase-2 steps (rtol 1e-4)."""
+    from repro_torch.core import encdec as ed
+    grads = {}
+    for backend in (kernel, "torch"):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = ed.loss_fn(spec, leaves, X, X, backend=backend)
+        grads[backend] = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    rel = {k: float((grads[kernel][k] - grads["torch"][k]).norm()
+                    / grads["torch"][k].norm()) for k in params}
+    hist = {b: ed.train(spec, params, X, X, steps=10, lr=1e-3, train_B=True,
+                        log_every=1, backend=b)[1] for b in (kernel, "torch")}
+    worst = max(abs(a - b) / abs(b) for a, b in zip(hist[kernel],
+                                                    hist["torch"]))
+    say(f"encdec kernels vs plain: gradient relative norm of the difference "
+        f"{' '.join(f'{k} {v:.2e}' for k, v in rel.items())} (tol 1e-4); "
+        f"10 phase-2 steps, losses {hist[kernel][0]:.4f} .. "
+        f"{hist[kernel][-1]:.4f}, max rel diff {worst:.2e} (tol 1e-4)")
+    bad = {k: v for k, v in rel.items() if not v <= 1e-4}
+    if bad:
+        raise AssertionError(f"encdec gradients beyond 1e-4: {bad}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"encdec 10-step losses differ: {hist}")
+
+
+def butterfly_bound(rows: int, n: int, itemsize: int, backward: bool,
+                    need_dx: bool = False):
+    """(bytes, ops) of one butterfly call: the activations in and out once,
+    float32 weights read once (and dw written once); 3 operations per
+    element and stage application, and in the backward 4 per element and
+    stage for the two weight products, :func:`stage_applies` stages."""
+    from repro_torch.kernels import butterfly as kb
+    p = int(math.log2(n))
+    wbytes = 4 * 2 * p * n
+    if not backward:
+        return 2 * rows * n * itemsize + wbytes, rows * 3 * n * p
+    nbytes = (2 + need_dx) * rows * n * itemsize + 2 * wbytes
+    return nbytes, rows * (3 * n * kb.stage_applies(p) + 4 * n * p)
+
+
+def phase_timing_butterfly(torch, dev, kernel, time_fn, launches, errs,
+                           shape) -> list:
+    """CUDA-event times at the encoder's product, float32, as the path calls
+    them (B x forward, the backward without dx): each kernel, its plain twin
+    and its bound; for the forward one ``torch.matmul`` of x by the
+    materialized B (materialized outside the timed window) as a yardstick
+    the port never calls."""
+    from repro_torch.core import butterfly as bf
+    from repro_torch.kernels import butterfly as kb
+    n = 1 << (shape[0] - 1).bit_length()
+    rows = shape[1]
+    x, w, g = butterfly_case(torch, rows, n, "float32", dev, seed=40)
+    with torch.no_grad():
+        ms_f = time_fn(torch, lambda: kb.butterfly_forward(
+            x, w, backend=kernel), reps=20)
+        plain_f = time_fn(torch, lambda: kb.butterfly_forward(
+            x, w, backend="torch"), reps=5)
+        Bm = bf.materialize(w)
+        lib_f = time_fn(torch, lambda: torch.matmul(x, Bm.T), reps=5)
+        del Bm
+    ms_b = time_fn(torch, lambda: kb.butterfly_backward(
+        x, w, g, need_dx=False, backend=kernel), reps=10)
+    plain_b = time_fn(torch, lambda: kb.butterfly_backward(
+        x, w, g, need_dx=False, backend="torch"), reps=3)
+    fb, fo = butterfly_bound(rows, n, 4, backward=False)
+    bb, bo = butterfly_bound(rows, n, 4, backward=True)
+    bnd_f, by_f = bound_ms(fb, fo, PEAK_OPS["float32"])
+    bnd_b, by_b = bound_ms(bb, bo, PEAK_OPS["float32"])
+    say(f"time butterfly_fwd {rows}x{n} float32: kernel {ms_f:.4f} ms, plain "
+        f"{plain_f:.4f} ms, matmul by materialized B {lib_f:.4f} ms "
+        f"({2 * rows * n * n} flop), bound {bnd_f:.5f} ms ({by_f}: {fb} B, "
+        f"{fo} ops)")
+    say(f"time butterfly_bwd {rows}x{n} float32 without dx: kernel "
+        f"{ms_b:.4f} ms ({kb.BWD_KERNELS} launches), plain {plain_b:.4f} ms, "
+        f"no library call, bound {bnd_b:.5f} ms ({by_b}: {bb} B, {bo} ops)")
+    per = f"launch: {rows} rows x n {n}, float32"
+    return [
+        {"name": "butterfly_fwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/butterfly.cu",
+         "replaces": "src/repro/kernels/butterfly.py:96",
+         "launches": launches["butterfly_fwd"],
+         "max_abs_err": errs["butterfly_fwd"], "ms": ms_f,
+         "plain_ms": plain_f, "bound_ms": bnd_f, "bound_by": by_f,
+         "library_ms": lib_f,
+         "launches_by_path": {"encdec": launches["butterfly_fwd"]},
+         "per": per},
+        {"name": "butterfly_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/butterfly_bwd.cu",
+         "replaces": "src/repro/kernels/butterfly.py:168",
+         "launches": launches["butterfly_bwd"],
+         "max_abs_err": errs["butterfly_bwd"], "ms": ms_b,
+         "plain_ms": plain_b, "bound_ms": bnd_b, "bound_by": by_b,
+         "library_ms": None,
+         "launches_by_path": {"encdec": launches["butterfly_bwd"]},
+         "per": f"call of {kb.BWD_KERNELS} launches without dx: {rows} rows "
+                f"x n {n}, float32"},
+    ]
+
+
 def run(torch, np, cfg, dev, *, kernel: str, time_fn,
-        train_shape=(2048, 4)) -> list:
-    """Phases 3 to 11 on ``cfg`` and ``dev``; ``kernel`` is the backend
+        train_shape=(2048, 4), encdec_shape=MNIST,
+        encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES) -> list:
+    """Phases 3 to 15 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
-    ``train_shape`` the training run's (seq_len, global_batch). Prints a
-    ``summary:`` line of the end-to-end readings and returns the
+    ``train_shape`` the training run's (seq_len, global_batch),
+    ``encdec_shape`` the encoder-decoder's (n, d, k), ``encdec_steps`` its
+    two phases' steps and ``bfly_shapes`` the butterfly kernels' checks.
+    Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     train_rows = train_shape[0] * train_shape[1]
     errs = {"sandwich_fwd": phase_sandwich(torch, cfg, dev, kernel,
@@ -1012,6 +1360,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
             "paged_decode_attention": phase_paged(torch, cfg, dev, kernel),
             "sandwich_bwd": phase_sandwich_bwd(torch, cfg, dev, kernel,
                                                train_rows)}
+    errs.update(phase_butterfly(torch, dev, kernel, bfly_shapes))
     launches, summary = phase_serve(torch, np, cfg, dev, kernel)
     kernels = phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs)
     summary.update(phase_profile(torch, np, cfg, dev))
@@ -1028,6 +1377,13 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
                                "train": train_launches["sandwich_fwd"]}
     fwd["launches"] += train_launches["sandwich_fwd"]
     kernels[-1]["launches_by_path"] = {"train": kernels[-1]["launches"]}
+    encdec_launches, encdec_summary, problem = phase_encdec(
+        torch, dev, encdec_shape, encdec_steps)
+    summary.update(encdec_summary)
+    phase_encdec_vs_plain(torch, dev, kernel, *problem)
+    del problem
+    kernels += phase_timing_butterfly(torch, dev, kernel, time_fn,
+                                      encdec_launches, errs, encdec_shape)
     say("summary: " + json.dumps(summary))
     return kernels
 

@@ -11,6 +11,8 @@ weights. :func:`load_jax_params` loads such a tree into an existing model
 checkpoints store their params in the reference's layout, layers stacked
 as ``unit``), and :func:`names_by_reference_key` names the port parameters
 behind each reference leaf, so gradients compare leaf by leaf.
+:func:`encdec_from_jax` does the same for the encoder–decoder network: the
+reference's ``B``, ``E``, ``D`` and its spec, truncation indices included.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.encdec import EncDecSpec
 from repro_torch.core.layers import ButterflySpec
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
@@ -87,6 +90,20 @@ def from_jax_params(cfg: ModelConfig, params_np: Mapping,
         for key, s in site_specs.items()}
     model = load_jax_params(LM(cfg, site_specs=specs), params_np)
     return model.to(dev)
+
+
+def encdec_from_jax(spec: Any, params_np: Mapping, *,
+                    device: Union[str, torch.device, None] = None):
+    """The reference's encoder–decoder ``spec`` (any object with the
+    :class:`EncDecSpec` fields) and params (``B``, ``E``, ``D`` as numpy) as
+    the port's ``(EncDecSpec, {name: float32 tensor on device})``."""
+    dev = resolve_device(device)
+    port_spec = EncDecSpec(n=spec.n, m=spec.m, d=spec.d, k=spec.k,
+                           ell=spec.ell, jl_scale=spec.jl_scale,
+                           trunc_idx=tuple(int(i) for i in spec.trunc_idx))
+    params = {k: torch.as_tensor(np.array(params_np[k], np.float32),
+                                 device=dev) for k in ("B", "E", "D")}
+    return port_spec, params
 
 
 def _reference_key(name: str) -> str:

@@ -27,9 +27,15 @@ __all__ = [
     "butterfly_apply",
     "butterfly_transpose_apply",
     "fjlt_weights",
+    "identity_weights",
+    "random_weights",
     "truncation_indices",
     "truncate",
     "untruncate",
+    "materialize",
+    "materialize_truncated",
+    "effective_param_count",
+    "effective_param_bound",
 ]
 
 
@@ -114,6 +120,25 @@ def fjlt_weights(generator: Optional[torch.Generator], n: int,
     return torch.from_numpy(np.stack([a, b], axis=1)).to(dtype)
 
 
+def identity_weights(n: int, dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
+    """Stage weights that make the butterfly the identity map."""
+    w = torch.zeros(num_stages(n), 2, n, dtype=dtype)
+    w[:, 0, :] = 1.0
+    return w
+
+
+def random_weights(generator: Optional[torch.Generator], n: int,
+                   scale: Optional[float] = None,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Gaussian stage weights; the default scale ``1/sqrt(2)`` keeps each
+    stage an isometry in expectation (every output mixes two inputs)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(2.0)
+    return scale * torch.randn(num_stages(n), 2, n, generator=generator,
+                               dtype=dtype)
+
+
 def truncation_indices(generator: Optional[torch.Generator], n: int,
                        ell: int) -> Tuple[int, ...]:
     """``ell`` output coordinates drawn uniformly without replacement, sorted
@@ -143,3 +168,49 @@ def untruncate(y: torch.Tensor, idx: Sequence[int], n: int,
     out = y.new_zeros(y.shape[:-1] + (n,))
     out[..., ind] = y
     return out
+
+
+# ---------------------------------------------------------------------------
+# Dense materialization (oracles and analysis; O(n^2) memory)
+# ---------------------------------------------------------------------------
+
+def materialize(w: torch.Tensor) -> torch.Tensor:
+    """The dense ``n x n`` matrix ``B`` with ``B @ x == butterfly_apply(w,
+    x)``."""
+    _, n = _check_weights(w)
+    eye = torch.eye(n, dtype=w.dtype, device=w.device)
+    return butterfly_apply(w, eye).T       # row j of the product is B·e_j
+
+
+def materialize_truncated(w: torch.Tensor, idx: Sequence[int],
+                          jl_scale: bool = True) -> torch.Tensor:
+    """Dense ``ell x n`` matrix of the truncated butterfly ``T ∘ B``."""
+    _, n = _check_weights(w)
+    ind = torch.as_tensor(idx, dtype=torch.long, device=w.device)
+    M = materialize(w)[ind, :]
+    if jl_scale:
+        M = M * math.sqrt(n / len(idx))
+    return M
+
+
+# ---------------------------------------------------------------------------
+# Parameter accounting (paper Appendix F)
+# ---------------------------------------------------------------------------
+
+def effective_param_count(n: int, idx: Sequence[int]) -> int:
+    """Number of weights on a path from some input to a kept output, by
+    backward reachability through the stages; Appendix F bounds it by
+    ``2 n log2(ell) + 6 n``."""
+    p = num_stages(n)
+    alive = np.zeros(n, dtype=bool)
+    alive[list(idx)] = True
+    total = 0
+    for s in reversed(range(p)):
+        total += 2 * int(alive.sum())        # two weights into each node
+        alive = alive | alive[np.arange(n) ^ (1 << s)]
+    return total
+
+
+def effective_param_bound(n: int, ell: int) -> int:
+    """Appendix F upper bound ``2 n log2(ell) + 6 n``."""
+    return int(2 * n * max(math.log2(max(ell, 2)), 1) + 6 * n)

@@ -77,84 +77,6 @@ __device__ __forceinline__ void zero_partial(float* p, size_t n) {
   __syncthreads();
 }
 
-// VJP of one stage on smem buffers: t the stage input, g the cotangent of
-// its output, replaced by the cotangent of its input. pda/pdb: the stage's
-// partial da/db rows, indexed like t. Ends with a barrier.
-template <typename T, bool kTransposed>
-__device__ __forceinline__ void stage_vjp(float* g, const float* t,
-                                          const float* a, const float* b,
-                                          float* pda, float* pdb, int n,
-                                          int s) {
-  const int st = 1 << s;
-  for (int q = threadIdx.x; q < n / 2; q += kThreads) {
-    const int i = pair_lo(q, s);
-    const int j = i | st;
-    const float gi = g[i], gj = g[j], xi = t[i], xj = t[j];
-    pda[i] += gi * xi;
-    pda[j] += gj * xj;
-    if (kTransposed) {
-      pdb[i] += gj * xi;
-      pdb[j] += gi * xj;
-      g[i] = rnd<T>(a[i]) * gi + rnd<T>(b[i]) * gj;
-      g[j] = rnd<T>(a[j]) * gj + rnd<T>(b[j]) * gi;
-    } else {
-      pdb[i] += gi * xj;
-      pdb[j] += gj * xi;
-      g[i] = rnd<T>(a[i]) * gi + rnd<T>(b[j]) * gj;
-      g[j] = rnd<T>(a[j]) * gj + rnd<T>(b[i]) * gi;
-    }
-  }
-  __syncthreads();
-}
-
-// Segmented VJP of a chain of p stages over n elements. Chain position j
-// applies stage s(j) = kTransposed ? p-1-j : j, whose weights start at
-// w + 2·s·ldw (a) and w + (2·s+1)·ldw (b); its partial rows at
-// part + 2·s·n (da) and part + (2·s+1)·n (db).
-// On entry `work` holds the chain input and g the cotangent of the chain
-// output; on exit g holds the cotangent of the chain input and, before the
-// reverse sweep, `work` held the chain output (read it through `on_out`).
-// ck: nck buffers of n; acts: max(seg-1, 1) buffers of n, the first of
-// which is `work`.
-template <typename T, bool kTransposed, typename OnOut>
-__device__ void chain_vjp(float* work, float* g, float* ck, int n, int p,
-                          int seg, const float* w, size_t ldw, float* part,
-                          OnOut on_out) {
-  auto s_of = [&](int j) { return kTransposed ? p - 1 - j : j; };
-  const int nck = (p + seg - 1) / seg;
-  // forward sweep: checkpoint the input of every segment, run to the end
-  for (int ci = 0; ci < nck; ++ci) {
-    float* c = ck + (size_t)ci * n;
-    for (int i = threadIdx.x; i < n; i += kThreads) c[i] = work[i];
-    __syncthreads();
-    const int j1 = min((ci + 1) * seg, p);
-    for (int j = ci * seg; j < j1; ++j) {
-      const float* a = w + (size_t)(2 * s_of(j)) * ldw;
-      stage<T, kTransposed>(work, work, a, a + ldw, n, s_of(j));
-    }
-  }
-  on_out(work);
-  // reverse sweep: recompute each segment's stage inputs once
-  for (int ci = nck - 1; ci >= 0; --ci) {
-    const int j0 = ci * seg, j1 = min(j0 + seg, p);
-    // act(j) = input of chain position j: ck[ci] for j0, work + (j-j0-1)·n
-    // after it
-    auto act = [&](int j) -> float* {
-      return j == j0 ? ck + (size_t)ci * n : work + (size_t)(j - j0 - 1) * n;
-    };
-    for (int j = j0; j < j1 - 1; ++j) {
-      const float* a = w + (size_t)(2 * s_of(j)) * ldw;
-      stage<T, kTransposed>(act(j + 1), act(j), a, a + ldw, n, s_of(j));
-    }
-    for (int j = j1 - 1; j >= j0; --j) {
-      const int s = s_of(j);
-      const float* a = w + (size_t)(2 * s) * ldw;
-      float* pda = part + (size_t)(2 * s) * n;
-      stage_vjp<T, kTransposed>(g, act(j), a, a + ldw, pda, pda + n, n, s);
-    }
-  }
-}
-
 struct Dims {
   int rows, n_in, n1, p1, k1, k2, n2, n_out, tile, log_tile, nt, ncross;
   int seg1, seg2, chunks_a, chunks_b;
@@ -232,7 +154,7 @@ __global__ void __launch_bounds__(kThreads) sandwich_bwd_out_kernel(
       g[i] = base + i < d.n_out ? to_f32<T>(gr[base + i]) : 0.f;
     __syncthreads();
     chain_vjp<T, true>(work, g, ck, tile, p, d.seg2, b_out + base,
-                       (size_t)d.n2, part, [](float*) {});
+                       (size_t)d.n2, part, true, [](float*) {});
     // G at the k2 offsets, for the cross-tile part and gz in kernel B
     if (threadIdx.x < d.k2)
       gsel[((size_t)r * d.k2 + threadIdx.x) * NT + t] =
@@ -277,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) sandwich_bwd_in_kernel(
     // the chain's forward sweep runs first and calls back with its output;
     // the cotangent g is filled in there before the reverse sweep starts
     chain_vjp<T, false>(work, g, ck, n1, p, d.seg1, b_in, (size_t)n1, part,
-                        [&](float* h) {
+                        true, [&](float* h) {
       if (tid < d.k1) h1[tid] = rnd<T>(h[idx_in[tid]]) * d.scale_in;
       __syncthreads();
       if (tid < d.k2) {

@@ -1,0 +1,127 @@
+"""`repro_torch.kernels.butterfly` on the CPU against the reference's fused
+butterfly kernel `butterfly_matmul(..., interpret=True)`: the plain twin and
+`butterfly_apply(..., backend="torch")` (through `ButterflyFn`), forward and
+gradients, both directions, at n in {8, 64, 256} with 1, 11 and 300 rows
+and a (2, 3, 5, n) batch. float32 within 1e-5·max|want| + 1e-5·|want|
+(dw sums over up to 300 rows in another order than the reference);
+bfloat16 within 5% of max|want|, the reference's own bf16 tolerance
+(`tests/test_kernels_grad.py:_assert_close_bf16`). Also the port of the
+reference's CI gate on the backward's stage applications."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import butterfly as jkern
+from repro.kernels.butterfly import butterfly_matmul
+from repro_torch.kernels import butterfly as kb
+
+# (n, leading shape): each row count and the batch once, n = 8 twice
+CASES = [(8, (1,)), (8, (2, 3, 5)), (64, (11,)), (256, (300,))]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(n, lead, seed):
+    rng = np.random.default_rng(seed)
+    p = int(np.log2(n))
+    w = (rng.normal(size=(p, 2, n)) / np.sqrt(2)).astype(np.float32)
+    x = rng.normal(size=(*lead, n)).astype(np.float32)
+    c = rng.normal(size=(*lead, n)).astype(np.float32)
+    return w, x, c
+
+
+def _close(got, want, dtype):
+    got = got.detach().float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    frac = 1e-5 if dtype == "float32" else 0.05
+    atol = frac * max(float(np.abs(want).max()), 1e-3)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=frac)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("n,lead", CASES)
+def test_forward_and_grads_match_reference_kernel(n, lead, transpose,
+                                                  dtype):
+    jdt, tdt = DTYPES[dtype]
+    w, x, c = _inputs(n, lead, seed=n + len(lead))
+    jx = jnp.asarray(x).astype(jdt)
+    want = butterfly_matmul(jx, jnp.asarray(w), transpose=transpose,
+                            interpret=True)
+    gx_w, gw_w = jax.grad(lambda x_, w_: jnp.vdot(
+        jnp.asarray(c), butterfly_matmul(x_, w_, transpose=transpose,
+                                         interpret=True).astype(jnp.float32)),
+        argnums=(0, 1))(jx, jnp.asarray(w))
+
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    _close(kb.butterfly_plain(tx, tw, transpose=transpose), want, dtype)
+    got = kb.butterfly_apply(tx, tw, transpose=transpose, backend="torch")
+    assert got.shape == tx.shape and got.dtype == tdt
+    _close(got, want, dtype)
+    (got.float() * torch.from_numpy(c)).sum().backward()
+    assert tx.grad.dtype == tdt and tw.grad.dtype == torch.float32
+    _close(tx.grad, gx_w, dtype)
+    _close(tw.grad, gw_w, dtype)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_backward_without_dx(transpose):
+    """`need_dx=False` (the encoder's data needs no gradient) returns no dx
+    and the same dw; autograd asks for it when x needs no gradient."""
+    w, x, c = _inputs(64, (9,), seed=3)
+    tw, tx, g = (torch.from_numpy(a) for a in (w, x, c))
+    dx, dw = kb.butterfly_backward(tx, tw, g, transpose=transpose,
+                                   backend="torch")
+    none, dw2 = kb.butterfly_backward(tx, tw, g, transpose=transpose,
+                                      need_dx=False, backend="torch")
+    assert none is None and dx.shape == tx.shape
+    torch.testing.assert_close(dw2, dw, rtol=0, atol=0)
+    tw.requires_grad_()
+    (kb.butterfly_apply(tx, tw, transpose=transpose) * g).sum().backward()
+    torch.testing.assert_close(tw.grad, dw, rtol=1e-6, atol=1e-6)
+
+
+def test_plain_route_launches_nothing():
+    w, x, _ = _inputs(8, (4,), seed=5)
+    before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
+    tw = torch.from_numpy(w).requires_grad_()
+    kb.butterfly_apply(torch.from_numpy(x), tw).sum().backward()
+    assert (kb.butterfly_forward.launches,
+            kb.butterfly_backward.launches) == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kb.butterfly_apply(torch.from_numpy(x), tw, backend="cuda")
+
+
+def test_stage_applies_match_reference_count():
+    """`stage_applies` is the reference's traced count of stage applications
+    in `_butterfly_bwd_block`, for every segment size."""
+    for n in (16, 256, 1024):
+        p = int(np.log2(n))
+        x = jnp.ones((2, n))
+        w = jnp.ones((p, 2, n))
+        for seg in sorted({1, 2, kb.default_segment(p), p}):
+            with jkern.count_stage_applies() as applied:
+                jkern._butterfly_bwd_block(x, w, x, p, transpose=False,
+                                           segment=seg)
+            assert kb.stage_applies(p, seg) == applied(), (n, seg)
+
+
+@pytest.mark.parametrize("seg", [1, 2, 4, None])
+def test_backward_stage_applies_bounded_for_all_segments(seg):
+    """Port of the reference's CI gate: at n = 1024 every segment keeps the
+    backward within p <= applications <= 3p (None: seg = p)."""
+    p = 10
+    assert p <= kb.stage_applies(p, seg or p) <= 3 * p
+
+
+def test_backward_stage_applies_linear_bound():
+    """At n = 4096 the default segment keeps the backward within 3p, and
+    below the O(p²) full-prefix recompute."""
+    p = 12
+    assert kb.default_segment(p) == 4
+    assert kb.stage_applies(p) <= 3 * p
+    assert kb.stage_applies(p) < p * (p - 1) // 2 + p

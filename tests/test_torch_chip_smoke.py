@@ -1,8 +1,9 @@
 """Rehearsal of `chip_smoke.py` on the CPU: every phase after the build
-(serving, the sandwich backward check, training and its gradient check)
-runs on the smoke-sized butterfly config with the plain PyTorch versions
-in place of the kernels, so wrong paths, shapes and control flow show up
-before the script reaches a card. Also the script's refusals: no result
+(serving, the sandwich backward check, training and its gradient check,
+the butterfly kernels' checks and the encoder-decoder at 64 x 256) runs on
+the smoke-sized butterfly config with the plain PyTorch versions in place
+of the kernels, so wrong paths, shapes and control flow show up before the
+script reaches a card. Also the script's refusals: no result
 and a non-zero exit without a CUDA device, or alone in a directory."""
 
 import importlib.util
@@ -43,15 +44,24 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     smoke = _load_script()
     cfg = registry.get("smollm-135m-butterfly-smoke")
     kernels = smoke.run(torch, np, cfg, torch.device("cpu"), kernel="torch",
-                        time_fn=_call_once, train_shape=(64, 2))
+                        time_fn=_call_once, train_shape=(64, 2),
+                        encdec_shape=(64, 256, 4), encdec_steps=(3, 2),
+                        bfly_shapes=(("small", 5, 64), ("ragged", 37, 128)))
     out = capsys.readouterr().out
     assert "serve: 16 requests" in out
     assert "train: losses" in out
     assert (f"cotangents: {3 * (3 * cfg.n_layers + 1)} butterfly leaves"
             in out)
+    assert "butterfly ragged 37x128 Bt bfloat16" in out
+    assert "encdec two_phase/k4: thm1_prediction=" in out
+    assert "encdec kernels vs plain: gradient" in out
     assert [k["name"] for k in kernels] == ["sandwich_fwd",
                                             "paged_decode_attention",
-                                            "sandwich_bwd"]
+                                            "sandwich_bwd", "butterfly_fwd",
+                                            "butterfly_bwd"]
+    assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
+    assert {k["name"]: set(k["launches_by_path"]) for k in kernels[3:]} == {
+        "butterfly_fwd": {"encdec"}, "butterfly_bwd": {"encdec"}}
     for k in kernels:
         assert KEYS <= set(k)
         assert k["launches"] == 0          # plain versions launch nothing

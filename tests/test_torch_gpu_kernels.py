@@ -8,7 +8,8 @@ so it runs on a machine that has only PyTorch; from the repo root:
 Tolerances are the reference's own: the sandwich kernel's float32 2e-4 and
 bfloat16 5e-2, the paged kernel's float32 1e-5 and bfloat16 2e-2; the
 sandwich backward's float32 1e-5 and bfloat16 8% of max|want|
-(`tests/test_kernels_grad.py`).
+(`tests/test_kernels_grad.py`); the butterfly kernels' float32 1e-5 and
+bfloat16 5% of max|want|, forward and backward.
 """
 
 import math
@@ -16,7 +17,9 @@ import math
 import pytest
 import torch
 
+from repro_torch.core import butterfly as bf
 from repro_torch.core import layers as blayers
+from repro_torch.kernels import butterfly as kb
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sandwich as ks
 
@@ -170,3 +173,59 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):
         pa.paged_decode_attention(q, k_pool, v_pool, ids.long(), cur,
                                   backend="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("rows,n", [(1, 2), (11, 64), (300, 256),
+                                    (1237, 1024), (400, 4096), (7, 8192)])
+def test_butterfly_kernels_match_plain(cuda, rows, n, dtype, transpose):
+    gen = torch.Generator().manual_seed(rows + n)
+    w = bf.random_weights(gen, n).to(cuda)
+    x = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    frac = 1e-5 if dtype == torch.float32 else 0.05
+    before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
+    got = kb.butterfly_forward(x, w, transpose=transpose, backend="cuda")
+    applied = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dx, dw = kb.butterfly_backward(x, w, g, transpose=transpose,
+                                   backend="cuda", applied=applied)
+    dx2, dw2 = kb.butterfly_backward(x, w, g, transpose=transpose,
+                                     need_dx=False, backend="cuda")
+    want = kb.butterfly_forward(x, w, transpose=transpose, backend="torch")
+    pdx, pdw = kb.butterfly_backward(x, w, g, transpose=transpose,
+                                     backend="torch")
+    torch.cuda.synchronize()
+    assert (kb.butterfly_forward.launches,
+            kb.butterfly_backward.launches) == (
+        before[0] + 1, before[1] + 2 * kb.BWD_KERNELS)
+    assert got.dtype == dtype and dx.dtype == dtype and dx2 is None
+    assert torch.equal(dw, dw2)
+    p = int(math.log2(n))
+    assert int(applied) == kb.stage_applies(p) <= 3 * p
+    _assert_grad_close(got, want, dtype, "y")
+    for name, a, b in (("dx", dx, pdx), ("dw", dw, pdw)):
+        assert torch.isfinite(a).all(), name
+        atol = frac * max(float(b.float().abs().max()), 1e-3)
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=frac, msg=lambda m: f"{name}: {m}")
+
+
+def test_butterfly_fn_autograd_on_card(cuda):
+    """Autograd through butterfly_apply on CUDA tensors reaches both
+    kernels, and skips dx where x needs no gradient."""
+    gen = torch.Generator().manual_seed(3)
+    w = bf.random_weights(gen, 1024).to(cuda).requires_grad_()
+    x = torch.randn(50, 1024, generator=gen).to(cuda)
+    c = torch.randn(50, 1024, generator=gen).to(cuda)
+    before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
+    (kb.butterfly_apply(x, w) * c).sum().backward()
+    assert (kb.butterfly_forward.launches,
+            kb.butterfly_backward.launches) == (before[0] + 1,
+                                                before[1] + kb.BWD_KERNELS)
+    _, want = kb.butterfly_bwd_plain(x, w.detach(), c, need_dx=False)
+    torch.testing.assert_close(w.grad, want, atol=1e-5 * float(
+        want.abs().max()), rtol=1e-5)
+    with pytest.raises(ValueError):
+        kb.butterfly_forward(torch.zeros(2, 16384, device=cuda),
+                             torch.zeros(14, 2, 16384, device=cuda))
