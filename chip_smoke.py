@@ -4,7 +4,7 @@
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 
 1. Device: the card's name, count and power limit.
-2. Build: the five CUDA kernels from ``src/repro_torch/csrc`` (one
+2. Build: the seven CUDA libraries from ``src/repro_torch/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register,
    shared-memory and spill lines.
 3. Sandwich forward kernel vs its plain twin at the three full-width sites
@@ -17,7 +17,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    1e-5 and bfloat16 at 2e-2.
 5. Sandwich backward kernel vs its plain twin at the three sites, at 256
    rows and at the training run's 8192 (the head at 2048: the plain twin's
-   memory), float32 at 1e-5 and bfloat16 at 8% of max|want|; two launches
+   memory), and at ``bench_backward``'s 8192 -> 8192 sandwich (k = 13, 64
+   rows), float32 at 1e-5 and bfloat16 at 8% of max|want|; two launches
    bit-identical.
 6. Serving: a ServeEngine on full-width ``smollm-135m-butterfly``
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
@@ -31,9 +32,11 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    relative norm. (The whole tick's logits through both paths are
    printed, not held: bf16 rounding differences grow through a
    random-init stack.)
-7. Timing with CUDA events: each forward kernel, its plain twin, and for
-   the paged kernel one library call (``scaled_dot_product_attention``
-   over gathered KV) as a yardstick the port never calls; each kernel's
+7. Timing with CUDA events: each forward kernel, its plain twin, and one
+   library call as a yardstick the port never calls (for the sandwich a
+   ``torch.matmul`` by its materialized dense matrix, at 8 rows and at
+   the training run's 8192; for the paged kernel
+   ``scaled_dot_product_attention`` over gathered KV); each kernel's
    bound from its bytes and operations (the sandwich's on the support it
    needs) over the H100's 3.35 TB/s and peak rates.
 8. Profile: ``torch.profiler`` over three pooled decode ticks — device
@@ -66,6 +69,24 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     gradient of B, E, D within 1e-4 and 10 phase-2 losses at rtol 1e-4.
 15. Timing of the butterfly kernels at 70,000 x 1024: kernel, plain twin,
     bound, and for the forward a matmul by the materialized B.
+16. Flash-attention kernels (forward, dq, dkv) vs their plain twins: o and
+    lse, and dq/dk/dv for one dO, at (a) the training attention of
+    ``smollm-135m-butterfly`` (B 4, H 9, S 2048, D 64, bf16, causal), (b)
+    ``bench_backward``'s B 1, H 2, D 64, float32, causal at S 1024 and
+    8192, (c) a ``gemma3-27b`` local layer (B 1, H 32, S 4096, D 128,
+    window 1024, bf16), (d) B 2, H 3, S 1000, D 256, non-causal, float32,
+    (e) D 8 and 192 at S 77, ``causal=False, window=24``, both dtypes;
+    forward within 1e-5 (float32) / 2e-2 (bf16) of max|want|, lse 1e-5,
+    gradients 1e-4 / 5e-2; two backward launches bit-identical.
+17. The benches (``launch.speed``): every ``kernel/*``, ``speed/*`` and
+    ``backward/*`` row at the reference's sizes, with the counts set to 0
+    just before and read just after; every row present and timed, and the
+    launches of every kernel equal to what the timed calls imply.
+18. ``FlashFn`` through autograd at (a), kernels against plain twins, 1
+    forward and 2 backward launches per call.
+19. Timing of the flash kernels at (a) and (b): kernel, plain twin,
+    bound, ``scaled_dot_product_attention`` forward and backward, and at
+    (a) the port's plain ``_attend_masked`` in grouped layout.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
@@ -487,13 +508,20 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
                                  else "operations")
 
 
-def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs) -> list:
+def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
+                 train_rows: int) -> list:
+    """CUDA-event times of the forward kernels. The sandwich: kernel, plain
+    twin, bound and, as the library yardstick, one ``torch.matmul`` by its
+    dense (n_in, n_out) matrix (materialized outside the timed window, in
+    the compute dtype), over a decode tick's site mix at 8 rows and a train
+    step's forward at ``train_rows``. The paged kernel: kernel, plain twin,
+    SDPA over gathered KV, bound."""
     from repro_torch.kernels import paged_attention as pa
     dt = cfg.compute_dtype
     gen = torch.Generator().manual_seed(3)
     mix = {"up_gate": 2 * cfg.n_layers, "down": cfg.n_layers, "lm_head": 1}
-    tick = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
-            "ops": 0}
+    tick = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bytes": 0, "ops": 0, "train_ms": 0.0, "train_library_ms": 0.0}
     with torch.no_grad():
         for site, count in mix.items():
             spec, layer = sandwich_site(torch, cfg, site, dev)
@@ -503,20 +531,35 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs) -> list:
                 torch, spec, layer, x, kernel), reps=200)
             plain = time_fn(torch, lambda: sandwich_call(
                 torch, spec, layer, x, "torch"), reps=20)
+            eye = torch.eye(spec.n_in, device=dev)
+            dense = sandwich_call(torch, spec, layer, eye, "torch").to(x.dtype)
+            lib = time_fn(torch, lambda: torch.matmul(x, dense), reps=200)
+            xt = torch.randn(train_rows, spec.n_in, generator=gen).to(
+                dev, getattr(torch, dt))
+            ms_t = time_fn(torch, lambda: sandwich_call(
+                torch, spec, layer, xt, kernel), reps=5)
+            lib_t = time_fn(torch, lambda: torch.matmul(xt, dense), reps=5)
+            del eye, dense, xt
             nbytes, ops = sandwich_bound(spec, SLOTS, dt)
             bnd, _ = bound_ms(nbytes, ops, PEAK_OPS["float32"])
             say(f"time sandwich {site:8s} rows={SLOTS} {dt}: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms "
-                f"({nbytes} B, {ops} ops); x{count} per decode tick")
+                f"{ms:.4f} ms, plain {plain:.4f} ms, matmul by the dense "
+                f"matrix {lib:.4f} ms, bound {bnd:.5f} ms ({nbytes} B, {ops} "
+                f"ops); rows={train_rows}: kernel {ms_t:.4f} ms, matmul "
+                f"{lib_t:.4f} ms; x{count} per decode tick and train step")
             for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("bound_ms", bnd)):
+                             ("bound_ms", bnd), ("library_ms", lib),
+                             ("train_ms", ms_t), ("train_library_ms", lib_t)):
                 tick[key] += count * val
             tick["bytes"] += count * nbytes
             tick["ops"] += count * ops
         _, by = bound_ms(tick["bytes"], tick["ops"], PEAK_OPS["float32"])
         say(f"time sandwich per decode tick ({sum(mix.values())} launches): "
             f"kernel {tick['ms']:.4f} ms, plain {tick['plain_ms']:.4f} ms, "
-            f"bound {tick['bound_ms']:.5f} ms")
+            f"matmul {tick['library_ms']:.4f} ms, bound "
+            f"{tick['bound_ms']:.5f} ms; per train step's forward at "
+            f"{train_rows} rows: kernel {tick['train_ms']:.4f} ms, matmul "
+            f"{tick['train_library_ms']:.4f} ms")
 
         q, k_pool, v_pool, ids, cur = paged_inputs(
             torch, cfg, getattr(torch, dt), dev)
@@ -558,8 +601,12 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs) -> list:
          "launches": launches["sandwich_fwd"],
          "max_abs_err": errs["sandwich_fwd"],
          "ms": tick["ms"], "plain_ms": tick["plain_ms"],
-         "bound_ms": tick["bound_ms"], "bound_by": by, "library_ms": None,
-         "per": f"decode tick: {sum(mix.values())} launches at {SLOTS} rows"},
+         "bound_ms": tick["bound_ms"], "bound_by": by,
+         "library_ms": tick["library_ms"],
+         "per": f"decode tick: {sum(mix.values())} launches at {SLOTS} rows "
+                f"(library: torch.matmul by the dense matrix); at "
+                f"{train_rows} rows the same mix took {tick['train_ms']:.4f}"
+                f" ms, the matmul {tick['train_library_ms']:.4f} ms"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:92",
@@ -659,6 +706,28 @@ def sandwich_bwd_call(torch, spec, layer, x, g, backend):
         n_out=spec.n_out, backend=backend)
 
 
+def check_sandwich_bwd(torch, dev, what, spec, layer, x, g, kernel: str,
+                       dtype: str) -> list:
+    """The backward kernel against its plain twin on (x, g): two launches
+    bit-identical, each gradient within GRAD_TOL; prints one line, returns
+    [(max|err|, share of max|want|)] for dx, d b_in, d core, d b_out."""
+    names = ("dx", "d b_in", "d core", "d b_out")
+    got = sandwich_bwd_call(torch, spec, layer, x, g, kernel)
+    again = sandwich_bwd_call(torch, spec, layer, x, g, kernel)
+    want = sandwich_bwd_call(torch, spec, layer, x, g, "torch")
+    sync(torch, dev)
+    errs = []
+    for name, a, b, w in zip(names, got, again, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} {name}: two launches differ")
+        errs.append(grad_close_or_raise(torch, f"{what} {name}", a, w, dtype))
+    say(f"{what} max|err| (share of max|want|) "
+        + " ".join(f"{n.replace(' ', '')} {e:.3e} ({r:.1e})"
+                   for n, (e, r) in zip(names, errs))
+        + f"; tol {GRAD_TOL[dtype]} of max|want|; repeat bit-identical")
+    return errs
+
+
 def phase_sandwich_bwd(torch, cfg, dev, kernel: str, train_rows: int
                        ) -> float:
     """The backward kernel against its plain twin at the three full-width
@@ -668,7 +737,6 @@ def phase_sandwich_bwd(torch, cfg, dev, kernel: str, train_rows: int
     bit-identical gradients."""
     worst = 0.0
     gen = torch.Generator().manual_seed(11)
-    names = ("dx", "d b_in", "d core", "d b_out")
     cases = [(site, rows, dtype) for site in sites(cfg)
              for rows in sorted({BWD_ROWS, train_rows if site != "lm_head"
                                  else min(train_rows, HEAD_BWD_ROWS)})
@@ -679,28 +747,34 @@ def phase_sandwich_bwd(torch, cfg, dev, kernel: str, train_rows: int
             dt = getattr(torch, dtype)
             x = torch.randn(rows, spec.n_in, generator=gen).to(dev, dt)
             g = torch.randn(rows, spec.n_out, generator=gen).to(dev, dt)
-            got = sandwich_bwd_call(torch, spec, layer, x, g, kernel)
-            again = sandwich_bwd_call(torch, spec, layer, x, g, kernel)
-            want = sandwich_bwd_call(torch, spec, layer, x, g, "torch")
-            sync(torch, dev)
-            errs = []
-            for name, a, b, w in zip(names, got, again, want):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"sandwich_bwd {site} rows={rows} "
-                                         f"{dtype} {name}: two launches "
-                                         f"differ")
-                errs.append(grad_close_or_raise(
-                    torch, f"sandwich_bwd {site} rows={rows} {dtype} {name}",
-                    a, w, dtype))
-            say(f"sandwich_bwd {site:8s} rows={rows:4d} {dtype:9s} max|err| "
-                "(share of max|want|) "
-                + " ".join(f"{n.replace(' ', '')} {e:.3e} ({r:.1e})"
-                           for n, (e, r) in zip(names, errs))
-                + f"; tol {GRAD_TOL[dtype]} of max|want|; repeat "
-                  f"bit-identical")
+            errs = check_sandwich_bwd(
+                torch, dev, f"sandwich_bwd {site:8s} rows={rows:4d} "
+                f"{dtype:9s}", spec, layer, x, g, kernel, dtype)
             if dtype == cfg.compute_dtype:
                 worst = max(worst, *(e for e, _ in errs))
     return worst
+
+
+def phase_sandwich_bwd_bench(torch, dev, kernel: str, n: int,
+                             rows: int = 64) -> None:
+    """The backward kernel against its plain twin at ``bench_backward``'s
+    widest sandwich, n -> n with k = log2 n at its batch of 64 rows (at n =
+    8192 the input side's checkpoints live in device memory), float32 and
+    bfloat16, two launches bit-identical."""
+    from repro_torch.core import layers as blayers
+    from repro_torch.nn import ButterflyLinear
+    k = max(2, int(math.log2(n)))
+    gen = torch.Generator().manual_seed(12)
+    spec = blayers.make_spec(gen, n, n, k_in=k, k_out=k, use_bias=False)
+    layer = ButterflyLinear(spec, generator=gen).to(dev)
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x = torch.randn(rows, n, generator=gen).to(dev, dt)
+            g = torch.randn(rows, n, generator=gen).to(dev, dt)
+            check_sandwich_bwd(torch, dev, f"sandwich_bwd bench n={n} k={k} "
+                               f"rows={rows} {dtype:9s}", spec, layer, x, g,
+                               kernel, dtype)
 
 
 def train_counts(cfg) -> tuple:
@@ -1344,14 +1418,440 @@ def phase_timing_butterfly(torch, dev, kernel, time_fn, launches, errs,
     ]
 
 
+# -- flash attention and the benches (slice 4) --------------------------------
+
+# (name, B, H, S, D, dtypes, causal, window), besides (a) the training
+# attention, which :func:`run` takes from the config (seq_len 2048 x batch
+# 4, 9 heads from 3 KV heads expanded, head_dim 64, bf16, causal): (b)
+# bench_backward's flash rows, (c) a gemma3-27b local layer
+# (configs/gemma3_27b.py), (d) ragged and wide, (e) the narrowest and a
+# wide head under the asymmetric non-causal window
+FLASH_SHAPES = (
+    ("bench_s1024", 1, 2, 1024, 64, ("float32",), True, 0),
+    ("bench_s8192", 1, 2, 8192, 64, ("float32",), True, 0),
+    ("gemma3_local", 1, 32, 4096, 128, ("bfloat16",), True, 1024),
+    ("ragged_d256", 2, 3, 1000, 256, ("float32",), False, 0),
+    ("d8_window", 2, 3, 77, 8, ("float32", "bfloat16"), False, 24),
+    ("d192_window", 2, 3, 77, 192, ("float32", "bfloat16"), False, 24),
+)
+# timed besides (a); the first is the bench path's widest flash call, whose
+# numbers the kernels line reports
+FLASH_TIMED = ("bench_s8192",)
+# fractions of max|want|: float32 sums run in another order; bfloat16
+# rounds once at the output
+FLASH_FWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FLASH_LSE_TOL = 1e-5
+FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# bfloat16 is held row by row besides: each row of o and dq, each key's row
+# of dk and dv, within 1% of its own norm (one bf16 step is at most 2^-7 of
+# a value), so that a small row cannot pass against the tensor's largest
+FLASH_ROW_TOL = 1e-2
+# the bench path's rows against the plain versions on their own inputs, all
+# float32: (output, gradients) as fractions of max|want|
+BENCH_TOL = {"butterfly": (BFLY_TOL["float32"], BFLY_TOL["float32"]),
+             "sandwich": (SANDWICH_TOL["float32"], GRAD_TOL["float32"]),
+             "flash": (FLASH_FWD_TOL["float32"], FLASH_GRAD_TOL["float32"])}
+
+
+def rows_close_or_raise(torch, what, got, want, rel) -> float:
+    """The largest ‖got − want‖ over a row (the last dim) against the row's
+    ‖want‖; raises unless every row is within rel·(‖want_row‖ + 1e-3·the
+    largest ‖want_row‖, at least 1e-3, as close_to_max_or_raise floors
+    it)."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    scale = ref + 1e-3 * max(float(ref.max()), 1e-3)
+    if not bool((err <= rel * scale).all()):
+        raise AssertionError(f"{what}: {int((err > rel * scale).sum())} of "
+                             f"{err.numel()} rows beyond {rel} of their norm "
+                             f"(worst {float((err / scale).max()):.3e})")
+    return float((err / scale).max())
+
+
+def flash_inputs(torch, shape, dtype, dev, seed):
+    """q, k, v, dO of one flash shape, standard normal from ``seed``."""
+    _, B, H, S, D = shape[:5]
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, H, S, D, generator=gen).to(dev,
+                                                      getattr(torch, dtype))
+            for _ in range(4)]
+
+
+def phase_flash(torch, dev, kernel: str, shapes) -> dict:
+    """The three flash kernels against their plain twins at ``shapes``: o
+    and lse of the forward; dq, dk, dv of the backward for one dO from the
+    plain forward's o and lse, two launches bit-identical; in bfloat16 also
+    row by row (FLASH_ROW_TOL). Returns {shape name: max|err|} in the
+    shape's first dtype: the forward's, dq's, and the larger of dk's and
+    dv's."""
+    from repro_torch.kernels import flash as kf
+    found = {}
+    seed = 60
+    for shape in shapes:
+        name, B, H, S, D, dtypes, causal, window = shape
+        for dtype in dtypes:
+            seed += 1
+            q, k, v, do = flash_inputs(torch, shape, dtype, dev, seed)
+            kw = dict(causal=causal, window=window)
+            what = (f"flash {name} B={B} H={H} S={S} D={D} {dtype} "
+                    f"causal={causal} window={window}")
+            out, lse = kf.flash_forward(q, k, v, backend=kernel, **kw)
+            pout, plse = kf.flash_forward(q, k, v, backend="torch", **kw)
+            sync(torch, dev)
+            errs = {"o": close_to_max_or_raise(torch, f"{what} o", out, pout,
+                                               FLASH_FWD_TOL[dtype]),
+                    "lse": close_to_max_or_raise(torch, f"{what} lse", lse,
+                                                 plse, FLASH_LSE_TOL)}
+            by_row = {}
+            if dtype == "bfloat16":
+                by_row["o"] = rows_close_or_raise(torch, f"{what} o", out,
+                                                  pout, FLASH_ROW_TOL)
+            del out, lse
+            got = kf.flash_backward(q, k, v, pout, plse, do, backend=kernel,
+                                    **kw)
+            again = kf.flash_backward(q, k, v, pout, plse, do,
+                                      backend=kernel, **kw)
+            want = kf.flash_backward(q, k, v, pout, plse, do,
+                                     backend="torch", **kw)
+            sync(torch, dev)
+            for g, a, w, n in zip(got, again, want, ("dq", "dk", "dv")):
+                if not torch.equal(g, a):
+                    raise AssertionError(f"{what} {n}: two backward launches "
+                                         f"differ")
+                errs[n] = close_to_max_or_raise(torch, f"{what} {n}", g, w,
+                                                FLASH_GRAD_TOL[dtype])
+                if dtype == "bfloat16":
+                    by_row[n] = rows_close_or_raise(torch, f"{what} {n}", g,
+                                                    w, FLASH_ROW_TOL)
+            say(f"{what}: max|err| (share of max|want|) "
+                + " ".join(f"{n} {e:.3e} ({r:.1e})"
+                           for n, (e, r) in errs.items())
+                + f"; max|want| dq {float(want[0].abs().max()):.3e}; tol "
+                  f"{FLASH_FWD_TOL[dtype]} / {FLASH_LSE_TOL} / "
+                  f"{FLASH_GRAD_TOL[dtype]} of max|want|; backward "
+                  f"bit-identical"
+                + ("; worst row |err|/|want| " + " ".join(
+                    f"{n} {r:.1e}" for n, r in by_row.items())
+                   + f" (tol {FLASH_ROW_TOL})" if by_row else ""))
+            if dtype == dtypes[0]:
+                found[name] = {"flash_fwd": errs["o"][0],
+                               "flash_bwd_dq": errs["dq"][0],
+                               "flash_bwd_dkv": max(errs["dk"][0],
+                                                    errs["dv"][0])}
+            del q, k, v, do, pout, plse, got, again, want
+    return found
+
+
+def phase_flash_autograd(torch, dev, kernel: str, shape) -> None:
+    """``FlashFn`` through ``torch.autograd.grad`` at ``shape``: the
+    gradients of ``vdot(c, flash_attention(q, k, v))`` through the kernels
+    against the same through the plain twins, at the flash tolerances (in
+    bfloat16 also row by row); one forward and two backward launches per
+    call."""
+    from repro_torch.kernels import flash as kf
+    name, B, H, S, D, (dtype, *_), causal, window = shape
+    q, k, v, c = flash_inputs(torch, shape, dtype, dev, seed=80)
+    on_card = dev.type == "cuda"
+    grads = {}
+    for backend in (kernel, "torch"):
+        f0, b0 = kf.flash_forward.launches, kf.flash_backward.launches
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = kf.flash_attention(*leaves, causal=causal, window=window,
+                                 backend=backend)
+        grads[backend] = torch.autograd.grad((c.float() * out.float()).sum(),
+                                             leaves)
+        sync(torch, dev)
+        rose = (kf.flash_forward.launches - f0,
+                kf.flash_backward.launches - b0)
+        want = (1, kf.BWD_KERNELS) if backend == "cuda" else (0, 0)
+        if rose != want:
+            raise AssertionError(f"flash_attention ({backend}): launches "
+                                 f"rose by {rose}, expected {want}")
+    names = ("dq", "dk", "dv")
+    errs = [close_to_max_or_raise(torch, f"FlashFn {name} {n}", g, w,
+                                  FLASH_GRAD_TOL[dtype])
+            for n, g, w in zip(names, grads[kernel], grads["torch"])]
+    by_row = ([rows_close_or_raise(torch, f"FlashFn {name} {n}", g, w,
+                                   FLASH_ROW_TOL)
+               for n, g, w in zip(names, grads[kernel], grads["torch"])]
+              if dtype == "bfloat16" else [])
+    say(f"FlashFn {name} {dtype} through autograd, kernels vs plain: "
+        + " ".join(f"{n} {e:.3e} ({r:.1e})" for n, (e, r) in zip(names, errs))
+        + ("; worst row |err|/|want| " + " ".join(
+            f"{n} {r:.1e}" for n, r in zip(names, by_row))
+           + f" (tol {FLASH_ROW_TOL})" if by_row else "")
+        + f"; launches per call 1 + {kf.BWD_KERNELS}"
+        + ("" if on_card else " (plain: 0)"))
+
+
+def bench_want(rows, on_card: bool) -> dict:
+    """The launches of every kernel that the timed calls of ``rows`` imply:
+    ``kernel/*`` the butterfly forward; ``speed/*`` the sandwich forward,
+    and its train step the sandwich backward (3 launches); each fused
+    ``backward/*`` step one forward and one backward call of its op."""
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import flash as kf
+    from repro_torch.kernels import sandwich as ks
+    calls = {}
+    for r in rows:
+        kind = r["name"].split("_n")[0]
+        calls[kind] = calls.get(kind, 0) + r["calls"]
+    bfly = calls.get("backward/butterfly_fwdbwd_fused", 0)
+    sand = (calls.get("speed/train", 0)
+            + calls.get("backward/sandwich_fwdbwd_fused", 0))
+    flash = calls.get("backward/flash_fwdbwd_fused", 0)
+    want = {"butterfly_fwd": calls.get("kernel/butterfly", 0) + bfly,
+            "butterfly_bwd": kb.BWD_KERNELS * bfly,
+            "sandwich_fwd": calls.get("speed/forward", 0) + sand,
+            "sandwich_bwd": ks.BWD_KERNELS * sand,
+            "flash_fwd": flash, "flash_bwd": kf.BWD_KERNELS * flash}
+    return {k: on_card * v for k, v in want.items()}
+
+
+def check_bench(torch, dev, kernel: str, checks) -> None:
+    """Each kernel row of the bench path run once through ``kernel`` and
+    once through the plain versions on that row's own inputs: the output,
+    and a step's gradients, within BENCH_TOL."""
+    for name, op, make in checks:
+        got, want = make(kernel)(), make("torch")()
+        sync(torch, dev)
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        if len(got) != len(want):
+            raise AssertionError(f"bench {name}: {len(got)} results against "
+                                 f"the plain version's {len(want)}")
+        tol_out, tol_grad = BENCH_TOL[op]
+        errs = [close_to_max_or_raise(
+            torch, f"bench {name} {'out' if i == 0 else f'grad {i}'}", g, w,
+            tol_out if i == 0 else tol_grad)
+            for i, (g, w) in enumerate(zip(got, want))]
+        say(f"bench {name} kernels vs plain, float32: max|err| (share of "
+            f"max|want|) out {errs[0][0]:.3e} ({errs[0][1]:.1e})"
+            + "".join(f", grad {i} {e:.3e} ({r:.1e})"
+                      for i, (e, r) in enumerate(errs[1:], 1))
+            + f"; tol {tol_out} / {tol_grad} of max|want|")
+        del got, want
+
+
+def phase_bench(torch, dev, kernel: str, bench: dict) -> dict:
+    """The benches' main path: ``launch.speed.run`` at the reference's sizes
+    (``bench`` may cut them for a rehearsal), with every launch counter set
+    to 0 just before and read just after. Every reference row name must be
+    present; on the card every row is timed and finite, and each kernel's
+    launches are what the timed calls imply (:func:`bench_want`). Then
+    every kernel row is held against the plain versions on its own inputs
+    (:func:`check_bench`). Returns the launches by kernel."""
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import flash as kf
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.launch import speed
+    on_card = dev.type == "cuda"
+    counters = {"butterfly_fwd": kb.butterfly_forward,
+                "butterfly_bwd": kb.butterfly_backward,
+                "sandwich_fwd": ks.sandwich_forward,
+                "sandwich_bwd": ks.sandwich_backward,
+                "flash_fwd": kf.flash_forward,
+                "flash_bwd": kf.flash_backward}
+    sync(torch, dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    checks = []
+    rows = speed.run(dev, checks=checks, **bench)
+    sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for r in rows:
+        say("bench: " + speed.line(r))
+    names = [r["name"] for r in rows]
+    want_names = speed.row_names(ns=bench.get("ns"))
+    if names != want_names:
+        raise AssertionError(f"bench rows {names} are not the reference's "
+                             f"{want_names}")
+    for r in rows:
+        us = r["us_per_call"]
+        fused = "_fused_" in r["name"]
+        if on_card and (us is None or not math.isfinite(us)):
+            raise AssertionError(f"bench row {r['name']} not timed: {r}")
+        if not on_card and fused and "reason=no_cuda" not in r["derived"]:
+            raise AssertionError(f"bench row {r['name']}: {r['derived']}")
+    want = bench_want(rows, on_card)
+    if launches != want:
+        raise AssertionError(f"bench launches {launches}, expected {want}")
+    if on_card and not all(launches.values()):
+        raise AssertionError(f"a kernel of the bench path never launched: "
+                             f"{launches}")
+    say(f"bench: {len(rows)} rows in {wall:.1f} s; launches {launches} as "
+        f"the timed calls imply")
+    check_bench(torch, dev, kernel, checks)
+    return launches
+
+
+def flash_pairs(S: int, causal: bool, window: int) -> int:
+    """Visible (q, k) pairs of one head under the mask."""
+    total = 0
+    for q in range(S):
+        hi = q + 1 if causal else S
+        lo = max(0, q - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def flash_bound(shape, dtype: str):
+    """{kernel: (bytes, ops)} of one call of each flash kernel: its inputs
+    read once and outputs written once; 4·D (forward), 6·D (dq) and 8·D
+    (dkv) operations per visible pair."""
+    _, B, H, S, D, _, causal, window = shape
+    item = 2 if dtype == "bfloat16" else 4
+    arr, rows = B * H * S * D * item, B * H * S * 4
+    pairs = B * H * flash_pairs(S, causal, window)
+    return {"flash_fwd": (4 * arr + rows, 4 * D * pairs),
+            "flash_bwd_dq": (5 * arr + 2 * rows, 6 * D * pairs),
+            "flash_bwd_dkv": (6 * arr + 2 * rows, 8 * D * pairs)}
+
+
+def phase_timing_flash(torch, dev, kernel, time_fn, launches, errs,
+                       shapes, entry: str, kv_heads: int) -> list:
+    """CUDA-event times of the three flash kernels at ``shapes`` (the
+    training attention first): each kernel alone and its plain twin, its
+    bound, and as the library yardstick the port never calls
+    ``scaled_dot_product_attention(is_causal=True)``: its forward for the
+    forward, its backward (fwd+bwd through ``torch.autograd.grad`` minus
+    fwd) for the dq/dkv pair. At the first shape also the port's plain
+    ``models.attention._attend_masked`` forward and fwd+bwd in grouped
+    layout over ``kv_heads`` heads, without KV expansion. The kernels
+    line's entries carry the numbers of the shape named ``entry``, where
+    the bench path launches them, with ``errs[entry]`` from
+    :func:`phase_flash`; the other shapes go in ``per``. The SDPA backward
+    computes dq, dk and dv in one: it stands as ``library_ms`` of the dq
+    entry, for the pair, and the dkv entry has none."""
+    from repro_torch.kernels import flash as kf
+    from repro_torch.models.attention import _attend_masked
+    on_card = dev.type == "cuda"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dq_k = kf.dq_cuda if on_card else kf.flash_dq_plain
+    dkv_k = kf.dkv_cuda if on_card else kf.flash_dkv_plain
+    found = {}
+    for shape in shapes:
+        name, B, H, S, D, (dtype, *_), causal, window = shape
+        q, k, v, do = flash_inputs(torch, shape, dtype, dev, seed=90)
+        kw = dict(causal=causal, window=window)
+        with torch.no_grad():
+            out, lse = kf.flash_forward(q, k, v, backend=kernel, **kw)
+            delta = kf.row_delta(out, do)
+        reps = 10 if S >= 4096 else 20
+        t = {"flash_fwd": (
+            time_fn(torch, lambda: kf.flash_forward(q, k, v, backend=kernel,
+                                                    **kw), reps=reps),
+            time_fn(torch, lambda: kf.flash_forward(q, k, v, backend="torch",
+                                                    **kw), reps=3)),
+            "flash_bwd_dq": (
+            time_fn(torch, lambda: dq_k(q, k, v, do, lse, delta, **kw),
+                    reps=reps),
+            time_fn(torch, lambda: kf.flash_dq_plain(q, k, v, do, lse, delta,
+                                                     **kw), reps=3)),
+            "flash_bwd_dkv": (
+            time_fn(torch, lambda: dkv_k(q, k, v, do, lse, delta, **kw),
+                    reps=reps),
+            time_fn(torch, lambda: kf.flash_dkv_plain(q, k, v, do, lse,
+                                                      delta, **kw), reps=3))}
+        with torch.no_grad():
+            lib_f = time_fn(torch, lambda: sdpa(q, k, v, is_causal=causal),
+                            reps=reps)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_fb = time_fn(torch, lambda: torch.autograd.grad(
+            sdpa(*leaves, is_causal=causal), leaves, grad_outputs=do),
+            reps=reps)
+        lib = {"flash_fwd": lib_f, "flash_bwd_dq": lib_fb - lib_f,
+               "flash_bwd_dkv": lib_fb - lib_f}
+        bounds = flash_bound(shape, dtype)
+        res = {}
+        for kname, (ms, plain) in t.items():
+            nbytes, ops = bounds[kname]
+            bnd, by = bound_ms(nbytes, ops, PEAK_OPS[dtype])
+            res[kname] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                              bound_by=by, library_ms=lib[kname])
+            say(f"time {kname} {name} B={B} H={H} S={S} D={D} {dtype}: "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                f"{bnd:.5f} ms ({by}: {nbytes} B, {ops} ops), sdpa "
+                f"{'forward' if kname == 'flash_fwd' else 'backward (pair)'}"
+                f" {lib[kname]:.4f} ms")
+        if shape is shapes[0]:
+            KV = kv_heads
+            G = H // KV
+            qg = q.permute(0, 2, 1, 3).reshape(B, S, KV, G, D).contiguous()
+            kg, vg = (x[:, ::G].permute(0, 2, 1, 3).contiguous()
+                      for x in (k, v))
+            pos = torch.arange(S, device=dev)[None].expand(B, S)
+            dog = do.permute(0, 2, 1, 3).reshape(B, S, KV, G, D)
+            with torch.no_grad():
+                m_f = time_fn(torch, lambda: _attend_masked(qg, kg, vg, pos,
+                                                            pos), reps=5)
+            gl = [x.detach().requires_grad_() for x in (qg, kg, vg)]
+            m_fb = time_fn(torch, lambda: torch.autograd.grad(
+                _attend_masked(*gl, pos, pos), gl, grad_outputs=dog), reps=5)
+            fl = sum(res[n]["ms"] for n in res)
+            say(f"time attention {name} B={B} S={S} {H} heads ({KV} KV) "
+                f"D={D} {dtype}: plain _attend_masked forward {m_f:.4f} ms, "
+                f"fwd+bwd {m_fb:.4f} ms; flash kernels forward "
+                f"{res['flash_fwd']['ms']:.4f} ms, fwd+bwd (3 kernels) "
+                f"{fl:.4f} ms; sdpa forward {lib_f:.4f} ms, fwd+bwd "
+                f"{lib_fb:.4f} ms")
+            res["flash_fwd"]["attend_masked_fwd_ms"] = m_f
+            res["flash_fwd"]["attend_masked_fwdbwd_ms"] = m_fb
+            del qg, kg, vg, gl, dog
+        found[name] = (shape, res)
+        del q, k, v, do, out, lse, delta, leaves
+    at_shape, at = found[entry]
+    _, B, H, S, D, (dtype, *_), causal, window = at_shape
+    lib_what = {"flash_fwd": "sdpa forward",
+                "flash_bwd_dq": "sdpa backward, for the dq/dkv pair",
+                "flash_bwd_dkv": "none: sdpa's backward stands on "
+                                 "flash_bwd_dq for the pair"}
+    entries = []
+    for kname, src, line in (("flash_fwd", "flash.cu", 69),
+                             ("flash_bwd_dq", "flash_bwd.cu", 101),
+                             ("flash_bwd_dkv", "flash_bwd.cu", 130)):
+        counter = "flash_fwd" if kname == "flash_fwd" else "flash_bwd"
+        n = launches[counter] // (1 if kname == "flash_fwd" else 2)
+        other = "; ".join(
+            f"{nm} (B={sh[1]} H={sh[2]} S={sh[3]} D={sh[4]} {sh[5][0]}): "
+            f"kernel {r[kname]['ms']:.4f} ms, plain "
+            f"{r[kname]['plain_ms']:.4f} ms, sdpa "
+            f"{'forward' if kname == 'flash_fwd' else 'backward (pair)'} "
+            f"{r[kname]['library_ms']:.4f} ms, bound "
+            f"{r[kname]['bound_ms']:.5f} ms ({r[kname]['bound_by']})"
+            for nm, (sh, r) in found.items() if nm != entry)
+        e = {"name": kname, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{src}",
+             "replaces": f"src/repro/kernels/flash.py:{line}",
+             "launches": n, "max_abs_err": errs[entry][kname],
+             "launches_by_path": {"bench": n},
+             "per": f"launch at {entry}, B={B} H={H} S={S} D={D} {dtype} "
+                    f"causal={causal} window={window} (library: "
+                    f"{lib_what[kname]}); {other}"}
+        e.update(at[kname])
+        if kname == "flash_bwd_dkv":
+            e["library_ms"] = None
+        entries.append(e)
+    return entries
+
+
 def run(torch, np, cfg, dev, *, kernel: str, time_fn,
         train_shape=(2048, 4), encdec_shape=MNIST,
-        encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES) -> list:
-    """Phases 3 to 15 on ``cfg`` and ``dev``; ``kernel`` is the backend
+        encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES,
+        flash_shapes=FLASH_SHAPES, flash_timed=FLASH_TIMED,
+        bench=None) -> list:
+    """Phases 3 to 19 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
     ``encdec_shape`` the encoder-decoder's (n, d, k), ``encdec_steps`` its
-    two phases' steps and ``bfly_shapes`` the butterfly kernels' checks.
+    two phases' steps, ``bfly_shapes`` the butterfly kernels' checks,
+    ``flash_shapes`` the flash kernels' besides the training attention
+    (``train_shape``, ``cfg``'s heads), ``flash_timed`` the names of those
+    timed besides it (the first is the one the kernels line reports), and
+    ``bench`` the keyword
+    arguments of ``launch.speed.run`` (none: the reference's sizes).
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     train_rows = train_shape[0] * train_shape[1]
@@ -1361,8 +1861,16 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
             "sandwich_bwd": phase_sandwich_bwd(torch, cfg, dev, kernel,
                                                train_rows)}
     errs.update(phase_butterfly(torch, dev, kernel, bfly_shapes))
+    from repro_torch.launch import speed
+    phase_sandwich_bwd_bench(torch, dev, kernel,
+                             max((bench or {}).get("ns") or speed.BACKWARD_NS))
+    train_attn = ("train", train_shape[1], cfg.n_heads, train_shape[0],
+                  cfg.head_dim_, (cfg.compute_dtype,), True, 0)
+    flash_shapes = (train_attn, *flash_shapes)
+    flash_errs = phase_flash(torch, dev, kernel, flash_shapes)
     launches, summary = phase_serve(torch, np, cfg, dev, kernel)
-    kernels = phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs)
+    kernels = phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
+                           train_rows)
     summary.update(phase_profile(torch, np, cfg, dev))
     train_launches, train_summary = phase_train(torch, np, cfg, dev,
                                                 *train_shape)
@@ -1384,6 +1892,17 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
     del problem
     kernels += phase_timing_butterfly(torch, dev, kernel, time_fn,
                                       encdec_launches, errs, encdec_shape)
+    bench_launches = phase_bench(torch, dev, kernel, bench or {})
+    phase_flash_autograd(torch, dev, kernel, flash_shapes[0])
+    for k in kernels:
+        n = bench_launches.get(k["name"], 0)
+        if n:
+            k["launches_by_path"]["bench"] = n
+            k["launches"] += n
+    kernels += phase_timing_flash(
+        torch, dev, kernel, time_fn, bench_launches, flash_errs,
+        [train_attn] + [s for s in flash_shapes if s[0] in flash_timed],
+        flash_timed[0], cfg.n_kv_heads)
     say("summary: " + json.dumps(summary))
     return kernels
 

@@ -62,6 +62,9 @@
 //   A (ceil(p/seg) + max(seg - 1, 1) + 1) tiles, at most n1 for the
 //   recomputed input; B the same count of n1 rows, plus k2·(cross stages +
 //   2)·tiles floats. At the head: A 7 x 16 KB = 112 KB, B 7 x 4 KB + 6 KB.
+//   Where B's rows would pass the 227 KB a block may use (n1 = 8192: 8 rows
+//   of 32 KB), its ceil(p/seg) checkpoints move to device memory, a slice
+//   of the block's own partial, as the butterfly backward's do.
 // * Selection and scatter are index gathers (int32 idx_in/idx_out), not
 //   the TPU's one-hot matmuls.
 
@@ -80,8 +83,11 @@ __device__ __forceinline__ void zero_partial(float* p, size_t n) {
 struct Dims {
   int rows, n_in, n1, p1, k1, k2, n2, n_out, tile, log_tile, nt, ncross;
   int seg1, seg2, chunks_a, chunks_b;
+  int ck_global;  // B keeps its checkpoints in device memory
   float scale_in, scale_out;
 };
+
+constexpr size_t kSmemLimit = 227 * 1024;
 
 __host__ __device__ inline int nbuf(int p, int seg) {
   return (p + seg - 1) / seg + (seg > 1 ? seg - 1 : 1) + 1;
@@ -89,9 +95,15 @@ __host__ __device__ inline int nbuf(int p, int seg) {
 __host__ __device__ inline size_t part_a(const Dims& d) {
   return (size_t)2 * d.log_tile * d.tile;
 }
-__host__ __device__ inline size_t part_b(const Dims& d) {
+// B's partial sums (d b_in, d core, cross-tile d b_out), then, with
+// ck_global, its checkpoint rows
+__host__ __device__ inline size_t part_b_sums(const Dims& d) {
   return (size_t)2 * d.p1 * d.n1 + (size_t)d.k1 * d.k2 +
          (size_t)2 * d.ncross * d.k2 * d.nt;
+}
+__host__ __device__ inline size_t part_b(const Dims& d) {
+  const int nck = (d.p1 + d.seg1 - 1) / d.seg1;
+  return part_b_sums(d) + (d.ck_global ? (size_t)nck * d.n1 : 0);
 }
 
 // Input butterfly of row r, then h1 and the rounded scattered values zval.
@@ -178,11 +190,11 @@ __global__ void __launch_bounds__(kThreads) sandwich_bwd_in_kernel(
   __shared__ float dh2[kMaxK];
   const int n1 = d.n1, p = d.p1, nt = d.nt, nc = d.ncross;
   const int nck = (p + d.seg1 - 1) / d.seg1;
-  float* ck = smem;                                       // nck rows
-  float* work = ck + (size_t)nck * n1;                    // max(seg-1,1) rows
+  float* part = partial + (size_t)blockIdx.x * part_b(d);
+  float* ck = d.ck_global ? part + part_b_sums(d) : smem;  // nck rows
+  float* work = d.ck_global ? smem : ck + (size_t)nck * n1;  // max(seg-1,1)
   float* g = work + (size_t)max(d.seg1 - 1, 1) * n1;      // one row
   float* xc = g + n1;  // per m: (nc + 1) stage inputs and G, nt floats each
-  float* part = partial + (size_t)blockIdx.x * part_b(d);
   float* part_core = part + (size_t)2 * p * n1;
   float* part_cross = part_core + (size_t)d.k1 * d.k2;
   zero_partial(part, part_b(d));
@@ -345,8 +357,16 @@ size_t smem_a(const Dims& d) {
           d.tile);
 }
 size_t smem_b(const Dims& d) {
-  return sizeof(float) * ((size_t)nbuf(d.p1, d.seg1) * d.n1 +
-                          (size_t)d.k2 * (d.ncross + 2) * d.nt);
+  const int rows = nbuf(d.p1, d.seg1) -
+                   (d.ck_global ? (d.p1 + d.seg1 - 1) / d.seg1 : 0);
+  return sizeof(float) *
+         ((size_t)rows * d.n1 + (size_t)d.k2 * (d.ncross + 2) * d.nt);
+}
+
+// B's checkpoints go to device memory where its shared memory would not fit.
+void place_checkpoints(Dims& d) {
+  d.ck_global = 0;
+  if (smem_b(d) > kSmemLimit) d.ck_global = 1;
 }
 
 template <typename T, int NT>
@@ -370,8 +390,8 @@ cudaError_t launch(const void* x, const void* g, const float* b_in,
                    const int* idx_out, void* dx, float* db_in, float* dcore,
                    float* db_out, float* gsel, float* pa, float* pb, Dims d,
                    cudaStream_t stream) {
-  const size_t limit = 227 * 1024;
-  if (smem_a(d) > limit || smem_b(d) > limit) return cudaErrorInvalidValue;
+  if (smem_a(d) > kSmemLimit || smem_b(d) > kSmemLimit)
+    return cudaErrorInvalidValue;
 #define SANDWICH_BWD_NT(NT)                                                \
   case NT:                                                                 \
     err = launch_out<T, NT>(x, g, b_in, core, b_out, idx_in, idx_out, gsel, \
@@ -427,6 +447,8 @@ extern "C" int sandwich_bwd_workspace(int rows, int n1, int k1, int k2,
   d.log_tile = log2_exact(d.tile);
   d.nt = n2 / d.tile;
   d.ncross = p2 - d.log_tile;
+  d.seg1 = default_seg(p1);
+  place_checkpoints(d);
   sizes[0] = (long long)rows * k2 * d.nt;
   sizes[1] = (long long)chunks_a * d.nt * part_a(d);
   sizes[2] = (long long)chunks_b * part_b(d);
@@ -460,6 +482,7 @@ extern "C" int sandwich_bwd(const void* x, const float* b_in,
   d.ncross = p2 - d.log_tile;
   d.seg1 = default_seg(p1);
   d.seg2 = default_seg(d.log_tile);
+  place_checkpoints(d);
   d.chunks_a = chunks_a, d.chunks_b = chunks_b;
   d.scale_in = scale_in, d.scale_out = scale_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

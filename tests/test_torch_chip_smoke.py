@@ -1,8 +1,9 @@
 """Rehearsal of `chip_smoke.py` on the CPU: every phase after the build
 (serving, the sandwich backward check, training and its gradient check,
-the butterfly kernels' checks and the encoder-decoder at 64 x 256) runs on
-the smoke-sized butterfly config with the plain PyTorch versions in place
-of the kernels, so wrong paths, shapes and control flow show up before the
+the butterfly kernels' checks, the encoder-decoder at 64 x 256, the flash
+kernels' checks at small shapes and the benches at n = 64) runs on the
+smoke-sized butterfly config with the plain PyTorch versions in place of
+the kernels, so wrong paths, shapes and control flow show up before the
 script reaches a card. Also the script's refusals: no result
 and a non-zero exit without a CUDA device, or alone in a directory."""
 
@@ -43,10 +44,15 @@ def _call_once(torch_mod, fn, reps, warm=0):
 def test_rehearsal_runs_every_phase_on_cpu(capsys):
     smoke = _load_script()
     cfg = registry.get("smollm-135m-butterfly-smoke")
+    flash_shapes = (("window", 1, 2, 33, 8, ("float32",), False, 24),
+                    ("wide", 1, 1, 9, 192, ("float32",), True, 4))
     kernels = smoke.run(torch, np, cfg, torch.device("cpu"), kernel="torch",
                         time_fn=_call_once, train_shape=(64, 2),
                         encdec_shape=(64, 256, 4), encdec_steps=(3, 2),
-                        bfly_shapes=(("small", 5, 64), ("ragged", 37, 128)))
+                        bfly_shapes=(("small", 5, 64), ("ragged", 37, 128)),
+                        flash_shapes=flash_shapes,
+                        flash_timed=("window",),
+                        bench=dict(ns=(64,), batch=4, iters=1))
     out = capsys.readouterr().out
     assert "serve: 16 requests" in out
     assert "train: losses" in out
@@ -55,13 +61,31 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     assert "butterfly ragged 37x128 Bt bfloat16" in out
     assert "encdec two_phase/k4: thm1_prediction=" in out
     assert "encdec kernels vs plain: gradient" in out
-    assert [k["name"] for k in kernels] == ["sandwich_fwd",
-                                            "paged_decode_attention",
-                                            "sandwich_bwd", "butterfly_fwd",
-                                            "butterfly_bwd"]
+    assert "flash wide B=1 H=1 S=9 D=192 float32 causal=True window=4" in out
+    assert "FlashFn train bfloat16 through autograd" in out
+    assert ("bench: backward/flash_fwdbwd_fused_n64,,status=skipped;"
+            "reason=no_cuda" in out)
+    assert "time flash_bwd_dkv window B=1 H=2 S=33 D=8 float32" in out
+    for row in ("kernel/butterfly_n64", "speed/train_n64",
+                "backward/sandwich_fwdbwd_fused_n64",
+                "backward/flash_fwdbwd_fused_n64"):
+        assert f"bench {row} kernels vs plain, float32" in out
+    assert "flash train B=2 H=4 S=64 D=16 bfloat16 causal=True" in out
+    assert "time attention train B=2 S=64 4 heads (2 KV)" in out
+    assert [k["name"] for k in kernels] == [
+        "sandwich_fwd", "paged_decode_attention", "sandwich_bwd",
+        "butterfly_fwd", "butterfly_bwd", "flash_fwd", "flash_bwd_dq",
+        "flash_bwd_dkv"]
+    assert kernels[0]["library_ms"] == 0.0
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
+    # sdpa's backward stands once, on dq, for the dq/dkv pair
+    assert [k["library_ms"] for k in kernels[5:]] == [0.0, 0.0, None]
     assert {k["name"]: set(k["launches_by_path"]) for k in kernels[3:]} == {
-        "butterfly_fwd": {"encdec"}, "butterfly_bwd": {"encdec"}}
+        "butterfly_fwd": {"encdec"}, "butterfly_bwd": {"encdec"},
+        "flash_fwd": {"bench"}, "flash_bwd_dq": {"bench"},
+        "flash_bwd_dkv": {"bench"}}
+    assert [k["replaces"] for k in kernels[5:]] == [
+        f"src/repro/kernels/flash.py:{n}" for n in (69, 101, 130)]
     for k in kernels:
         assert KEYS <= set(k)
         assert k["launches"] == 0          # plain versions launch nothing
@@ -99,6 +123,45 @@ def test_sandwich_op_counts(case):
                              idx_out=(1,))
         want = (9, 26)
     assert smoke.sandwich_ops(spec) == want
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
+                                           (False, 0), (False, 5)])
+def test_flash_bound_counts_the_visible_pairs(causal, window):
+    """The flash bounds count the entries the mask keeps, and per kernel
+    4·D, 6·D and 8·D operations per entry."""
+    from repro_torch.kernels import flash as kf
+    smoke = _load_script()
+    S = 13
+    pairs = int(kf.visible_mask(S, causal, window).sum())
+    assert smoke.flash_pairs(S, causal, window) == pairs
+    shape = ("x", 2, 3, S, 8, ("bfloat16",), causal, window)
+    b = smoke.flash_bound(shape, "bfloat16")
+    arr, rows = 2 * 3 * S * 8 * 2, 2 * 3 * S * 4
+    assert b == {"flash_fwd": (4 * arr + rows, 4 * 8 * 6 * pairs),
+                 "flash_bwd_dq": (5 * arr + 2 * rows, 6 * 8 * 6 * pairs),
+                 "flash_bwd_dkv": (6 * arr + 2 * rows, 8 * 8 * 6 * pairs)}
+
+
+def test_bench_launch_counts_follow_the_timed_calls():
+    """What each kernel must have launched for the bench rows' timed calls:
+    a ``kernel/*`` call one butterfly forward, a ``speed/forward`` call one
+    sandwich forward, a ``speed/train`` call one sandwich forward and one
+    backward (3 launches), each fused ``backward/*`` call one forward and
+    one backward of its op; plain and skipped rows nothing."""
+    smoke = _load_script()
+    calls = {"kernel/butterfly_n256": 23, "speed/forward_n512": 23,
+             "speed/train_n512": 23, "backward/butterfly_fwdbwd_jnp_n1024": 23,
+             "backward/butterfly_fwdbwd_fused_n1024": 23,
+             "backward/sandwich_fwdbwd_fused_n1024": 23,
+             "backward/sandwich_fwdbwd_fused_n8192": 8,
+             "backward/flash_fwdbwd_jnp_n8192": 8,
+             "backward/flash_fwdbwd_fused_n8192": 8}
+    rows = [{"name": n, "calls": c} for n, c in calls.items()]
+    assert smoke.bench_want(rows, on_card=True) == {
+        "butterfly_fwd": 46, "butterfly_bwd": 46, "sandwich_fwd": 77,
+        "sandwich_bwd": 162, "flash_fwd": 8, "flash_bwd": 16}
+    assert set(smoke.bench_want(rows, on_card=False).values()) == {0}
 
 
 @pytest.mark.parametrize("alone", [False, True])

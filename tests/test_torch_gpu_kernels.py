@@ -9,7 +9,11 @@ Tolerances are the reference's own: the sandwich kernel's float32 2e-4 and
 bfloat16 5e-2, the paged kernel's float32 1e-5 and bfloat16 2e-2; the
 sandwich backward's float32 1e-5 and bfloat16 8% of max|want|
 (`tests/test_kernels_grad.py`); the butterfly kernels' float32 1e-5 and
-bfloat16 5% of max|want|, forward and backward.
+bfloat16 5% of max|want|, forward and backward; the flash kernels' forward
+1e-5 / 2e-2 of max|want|, lse 1e-5, gradients 1e-4 / 5e-2 (float32 sums
+in another order; bfloat16 rounds once at the output), and in bfloat16
+also each row of o and dq and each key's row of dk and dv within 1% of its
+own norm.
 """
 
 import math
@@ -20,6 +24,7 @@ import torch
 from repro_torch.core import butterfly as bf
 from repro_torch.core import layers as blayers
 from repro_torch.kernels import butterfly as kb
+from repro_torch.kernels import flash as kf
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sandwich as ks
 
@@ -87,7 +92,9 @@ def _assert_grad_close(got, want, dtype, what=""):
     (576, 1536, 256), (1536, 576, 256), (576, 49152, 256), (100, 36, 3),
     (64, 8192, 5), (48, 80, 7),
     # many rows per block: the row loops, uneven chunks, partial sums
-    (576, 1536, 1000), (1536, 576, 8192), (576, 49152, 1000)])
+    (576, 1536, 1000), (1536, 576, 8192), (576, 49152, 1000),
+    # n1 = 8192: the input side's checkpoints in device memory
+    (8192, 8192, 64)])
 def test_sandwich_bwd_kernel_matches_plain(cuda, n_in, n_out, rows, dtype):
     args, kw = _sandwich_case(n_in, n_out, rows, dtype, cuda)
     gen = torch.Generator().manual_seed(5)
@@ -229,3 +236,111 @@ def test_butterfly_fn_autograd_on_card(cuda):
     with pytest.raises(ValueError):
         kb.butterfly_forward(torch.zeros(2, 16384, device=cuda),
                              torch.zeros(14, 2, 16384, device=cuda))
+
+
+FLASH_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+FLASH_ROW_TOL = 1e-2
+
+
+def _close_to_max(got, want, frac, what):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), what
+    atol = frac * max(float(want.abs().max()), 1e-3)
+    torch.testing.assert_close(got, want, atol=atol, rtol=frac,
+                               msg=lambda m: f"{what}: {m}")
+
+
+def _rows_close(got, want, what):
+    """Every row (last dim) within FLASH_ROW_TOL of its own norm, plus
+    1e-3 of the largest row's (at least 1e-3, as _close_to_max floors it):
+    no row passes for being small."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    scale = ref + 1e-3 * max(float(ref.max()), 1e-3)
+    worst = float((err / scale).max())
+    assert worst <= FLASH_ROW_TOL, f"{what}: a row off by {worst:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0), (False, 40)])
+@pytest.mark.parametrize("B,H,S,D", [(1, 2, 1, 8), (2, 3, 77, 8),
+                                     (1, 2, 200, 64), (2, 1, 130, 128),
+                                     (1, 2, 100, 256), (1, 1, 65, 136)])
+def test_flash_kernels_match_plain(cuda, B, H, S, D, causal, window, dtype):
+    gen = torch.Generator().manual_seed(S + D)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen).to(cuda, dtype)
+                   for _ in range(4))
+    kw = dict(causal=causal, window=window)
+    before = (kf.flash_forward.launches, kf.flash_backward.launches)
+    out, lse = kf.flash_forward(q, k, v, backend="cuda", **kw)
+    pout, plse = kf.flash_forward(q, k, v, backend="torch", **kw)
+    got = kf.flash_backward(q, k, v, pout, plse, do, backend="cuda", **kw)
+    again = kf.flash_backward(q, k, v, pout, plse, do, backend="cuda", **kw)
+    want = kf.flash_backward(q, k, v, pout, plse, do, backend="torch", **kw)
+    torch.cuda.synchronize()
+    assert (kf.flash_forward.launches, kf.flash_backward.launches) == (
+        before[0] + 1, before[1] + 2 * kf.BWD_KERNELS)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == (B * H, S)
+    _close_to_max(out, pout, FLASH_FWD_TOL[dtype], "o")
+    _close_to_max(lse, plse, 1e-5, "lse")
+    if dtype == torch.bfloat16:
+        _rows_close(out, pout, "o")
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, b), f"{name} differs between two launches"
+        assert a.dtype == dtype
+        _close_to_max(a, w, FLASH_GRAD_TOL[dtype], name)
+        if dtype == torch.bfloat16:
+            _rows_close(a, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fn_autograd_on_card(cuda, dtype):
+    """Autograd through flash_attention on CUDA tensors runs one forward
+    and two backward launches and gives the plain twins' gradients."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v, c = (torch.randn(2, 3, 150, 64, generator=gen).to(cuda, dtype)
+                  for _ in range(4))
+    grads = {}
+    for backend in ("cuda", "torch"):
+        before = (kf.flash_forward.launches, kf.flash_backward.launches)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = kf.flash_attention(*leaves, window=64, backend=backend)
+        grads[backend] = torch.autograd.grad(
+            (c.float() * out.float()).sum(), leaves)
+        rose = (kf.flash_forward.launches - before[0],
+                kf.flash_backward.launches - before[1])
+        assert rose == ((1, kf.BWD_KERNELS) if backend == "cuda" else (0, 0))
+    for name, a, b in zip(("dq", "dk", "dv"), grads["cuda"],
+                          grads["torch"]):
+        _close_to_max(a, b, FLASH_GRAD_TOL[dtype], name)
+        if dtype == torch.bfloat16:
+            _rows_close(a, b, name)
+
+
+@pytest.mark.parametrize("D,rows", [(8, 64), (64, 64), (128, 64), (136, 32),
+                                    (256, 32)])
+def test_flash_tile_rows_from_library(cuda, D, rows):
+    """The tile rows the bench rows report come from the built library."""
+    assert kf.tile_rows(D) == rows
+
+
+def test_flash_kernels_reject_bad_inputs(cuda):
+    q = torch.zeros(1, 2, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        kf.flash_forward(*[torch.zeros(1, 2, 16, 12, device=cuda)] * 3,
+                         backend="cuda")
+    with pytest.raises(TypeError):
+        kf.flash_forward(q.half(), q.half(), q.half(), backend="cuda")
+    t = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kf.flash_forward(q, t, q, backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kf.flash_forward(q.cpu(), q.cpu(), q.cpu(), backend="cuda")
+    out, lse = kf.flash_forward(q, q, q, backend="cuda")
+    with pytest.raises(ValueError, match="lse"):
+        kf.dq_cuda(q, q, q, q, lse.double(), lse)

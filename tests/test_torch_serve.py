@@ -162,10 +162,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.checkpoint.checkpointing, "
             "repro_torch.runtime.fault_tolerance, repro_torch.core.encdec, "
             "repro_torch.kernels.butterfly, repro_torch.launch.encdec, "
-            "repro_torch.data.synthetic; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.')]; "
+            "repro_torch.data.synthetic, repro_torch.kernels.flash, "
+            "repro_torch.launch.speed; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'benchmarks')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
