@@ -7,10 +7,13 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 2. Build: the seven CUDA libraries from ``src/repro_torch/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register,
    shared-memory and spill lines.
-3. Sandwich forward kernel vs its plain twin at the three full-width sites
-   of ``smollm-135m-butterfly`` (up/gate 576->1536, down 1536->576,
-   lm_head 576->49152), at 8, 8x16 and the training run's 8192 rows,
-   float32 at 2e-4 and bfloat16 at 5e-2.
+3. Sandwich forward (two kernels: the truncated factors, then the row
+   products) vs its plain twins at the three full-width sites of
+   ``smollm-135m-butterfly`` (up/gate 576->1536, down 1536->576, lm_head
+   576->49152) and the widest output the kernels take (32->262144): the
+   factor kernel against ``sandwich_factors_plain`` within 1e-5, and the
+   whole forward against the stage-by-stage ``sandwich_plain`` at 8, 8x16
+   and the training run's 8192 rows, float32 at 2e-4 and bfloat16 at 5e-2.
 4. Paged decode kernel vs its plain twin: 8 slots, 3 KV heads, 3 query
    heads per group, head dim 64, pages of 16, up to 512 positions, with a
    dirty trash page, stale rows and NaN pages past ``cur_pos``; float32 at
@@ -24,18 +27,18 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
    200 tokens and 32 new tokens each. Checks: every request gets its 32
-   tokens, the kernels' launch counters rose by 91 (sandwich) and 30
-   (paged) per decode tick and 91 per chunk tick, no NaN appears in the
-   logits or the KV pool, and a pooled decode tick on live engine state
-   agrees with the plain versions layer by layer: each of the 30 layers
-   and the head runs under both on the same input, within 5e-2 in
-   relative norm. (The whole tick's logits through both paths are
-   printed, not held: bf16 rounding differences grow through a
+   tokens, the kernels' launch counters rose by 2 x 91 (sandwich: factors
+   and rows) and 30 (paged) per decode tick and 2 x 91 per chunk tick, no
+   NaN appears in the logits or the KV pool, and a pooled decode tick on
+   live engine state agrees with the plain versions layer by layer: each
+   of the 30 layers and the head runs under both on the same input,
+   within 5e-2 in relative norm. (The whole tick's logits through both
+   paths are printed, not held: bf16 rounding differences grow through a
    random-init stack.)
 7. Timing with CUDA events: each forward kernel, its plain twin, and one
    library call as a yardstick the port never calls (for the sandwich a
    ``torch.matmul`` by its materialized dense matrix, at 8 rows and at
-   the training run's 8192; for the paged kernel
+   the training run's 8192, each with its bound; for the paged kernel
    ``scaled_dot_product_attention`` over gathered KV); each kernel's
    bound from its bytes and operations (the sandwich's on the support it
    needs) over the H100's 3.35 TB/s and peak rates.
@@ -43,8 +46,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    time by kernel and the device-busy share of the ticks' wall time.
 9. Training: ``Trainer`` on full-width ``smollm-135m-butterfly`` (bf16
    compute, remat), seq_len 2048 x batch 4, 2 warm and 5 timed steps;
-   finite losses, 181 forward and 3 x 91 backward sandwich launches per
-   step; one more step under ``torch.profiler``.
+   finite losses, 2 x 181 forward and 3 x 91 backward sandwich launches
+   per step; one more step under ``torch.profiler``.
 10. Gradient checks of one step (seq_len 256, batch 1): each layer and the
     head under the kernels and the plain versions on the plain path's
     inputs and cotangents, every butterfly leaf within 5e-2 in relative
@@ -109,6 +112,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 TC / fp32
 SANDWICH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+FACTOR_TOL = 1e-5         # the factors are float32 in both routes
+WIDEST = ("widest", 32, 262144)   # n2 = 4096 x 64, the kernels' limit
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SLOTS, MAX_LEN, CHUNK, NEW_TOKENS, N_REQUESTS = 8, 512, 16, 32, 16
 
@@ -210,6 +215,39 @@ def sandwich_call(torch, spec, layer, x, backend):
         x, layer.b_in, layer.core, layer.b_out, layer.idx_in, layer.idx_out,
         scale_in=spec.scale_in, scale_out=spec.scale_out, n_out=spec.n_out,
         backend=backend)
+
+
+def phase_sandwich_factors(torch, cfg, dev, kernel: str) -> float:
+    """The factor kernel against its plain twin at the three full-width
+    sites and the widest output, for both dtypes the weights are rounded
+    to: F_in and F_out within FACTOR_TOL (atol = rtol)."""
+    from repro_torch.core import layers as blayers
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.nn import ButterflyLinear
+    worst = 0.0
+    cases = [(site, *sandwich_site(torch, cfg, site, dev)) for site in
+             sites(cfg)]
+    name, n_in, n_out = WIDEST
+    gen = torch.Generator().manual_seed(11)
+    spec = blayers.make_spec(gen, n_in, n_out, use_bias=False)
+    cases.append((name, spec, ButterflyLinear(spec, generator=gen).to(dev)))
+    for site, spec, layer in cases:
+        for dtype in ("float32", "bfloat16"):
+            got, want = (ks.sandwich_factors(
+                layer.b_in.detach(), layer.b_out.detach(), layer.idx_in,
+                layer.idx_out, n_in=spec.n_in, n_out=spec.n_out,
+                dtype=getattr(torch, dtype), backend=b)
+                for b in (kernel, "torch"))
+            sync(torch, dev)
+            errs = [allclose_or_raise(
+                torch, f"sandwich factors {site} {dtype} {part}", g, w,
+                FACTOR_TOL) for part, g, w in zip(("F_in", "F_out"), got,
+                                                   want)]
+            say(f"sandwich factors {site:8s} {dtype:9s} F_in "
+                f"{tuple(got[0].shape)} F_out {tuple(got[1].shape)}: "
+                f"max|err| {errs[0]:.3e} / {errs[1]:.3e} (tol {FACTOR_TOL})")
+            worst = max(worst, *errs)
+    return worst
 
 
 def phase_sandwich(torch, cfg, dev, kernel: str, train_rows: int) -> float:
@@ -399,8 +437,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
             raise AssertionError(f"request {i}: {len(toks)} tokens, "
                                  f"expected {NEW_TOKENS}")
     on_card = dev.type == "cuda"       # on the CPU the plain versions run
-    want = {"sandwich_fwd": on_card * per_tick * (snap["decode_steps"]
-                                                  + snap["chunk_ticks"]),
+    want = {"sandwich_fwd": on_card * ks.FWD_KERNELS * per_tick
+            * (snap["decode_steps"] + snap["chunk_ticks"]),
             "paged_decode_attention": on_card * cfg.n_layers
             * snap["decode_steps"]}
     if launches != want:
@@ -417,8 +455,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
         f"{snap['ttft_ms']['p95']} ms; TPOT p50 {snap['tpot_ms']['p50']} ms; "
         f"decode {snap['decode_tok_per_s']:.1f} tok/s; peak memory "
         f"{peak / 2**20:.1f} MiB")
-    say(f"serve: launches {launches} = {per_tick}/tick x (decode + chunk), "
-        f"{cfg.n_layers}/decode tick")
+    say(f"serve: launches {launches} = {ks.FWD_KERNELS} x {per_tick}/tick x "
+        f"(decode + chunk), {cfg.n_layers}/decode tick")
     summary = {"ttft_p50_ms": snap["ttft_ms"]["p50"],
                "ttft_p95_ms": snap["ttft_ms"]["p95"],
                "tpot_p50_ms": snap["tpot_ms"]["p50"],
@@ -510,18 +548,23 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
                  train_rows: int) -> list:
-    """CUDA-event times of the forward kernels. The sandwich: kernel, plain
-    twin, bound and, as the library yardstick, one ``torch.matmul`` by its
-    dense (n_in, n_out) matrix (materialized outside the timed window, in
-    the compute dtype), over a decode tick's site mix at 8 rows and a train
-    step's forward at ``train_rows``. The paged kernel: kernel, plain twin,
-    SDPA over gathered KV, bound."""
+    """CUDA-event times of the forward kernels. The sandwich: its two
+    kernels together, the factor kernel alone, the plain twin, the bound
+    and, as the library yardstick, one ``torch.matmul`` by its dense (n_in,
+    n_out) matrix (materialized outside the timed window, in the compute
+    dtype), over a decode tick's site mix at 8 rows and a train step's
+    forward at ``train_rows``, with the bound at both. The paged kernel:
+    kernel, plain twin, SDPA over gathered KV, bound."""
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sandwich as ks
     dt = cfg.compute_dtype
     gen = torch.Generator().manual_seed(3)
     mix = {"up_gate": 2 * cfg.n_layers, "down": cfg.n_layers, "lm_head": 1}
-    tick = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-            "bytes": 0, "ops": 0, "train_ms": 0.0, "train_library_ms": 0.0}
+    keys = ("ms", "factors_ms", "plain_ms", "bound_ms", "library_ms",
+            "train_ms", "train_bound_ms", "train_library_ms")
+    tick = dict.fromkeys(keys, 0.0)
+    for key in ("bytes", "ops", "train_bytes", "train_ops"):
+        tick[key] = 0
     with torch.no_grad():
         for site, count in mix.items():
             spec, layer = sandwich_site(torch, cfg, site, dev)
@@ -529,6 +572,10 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
                 dev, getattr(torch, dt))
             ms = time_fn(torch, lambda: sandwich_call(
                 torch, spec, layer, x, kernel), reps=200)
+            fac = time_fn(torch, lambda: ks.sandwich_factors(
+                layer.b_in, layer.b_out, layer.idx_in, layer.idx_out,
+                n_in=spec.n_in, n_out=spec.n_out, dtype=x.dtype,
+                backend=kernel), reps=200)
             plain = time_fn(torch, lambda: sandwich_call(
                 torch, spec, layer, x, "torch"), reps=20)
             eye = torch.eye(spec.n_in, device=dev)
@@ -542,24 +589,36 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
             del eye, dense, xt
             nbytes, ops = sandwich_bound(spec, SLOTS, dt)
             bnd, _ = bound_ms(nbytes, ops, PEAK_OPS["float32"])
-            say(f"time sandwich {site:8s} rows={SLOTS} {dt}: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, matmul by the dense "
-                f"matrix {lib:.4f} ms, bound {bnd:.5f} ms ({nbytes} B, {ops} "
-                f"ops); rows={train_rows}: kernel {ms_t:.4f} ms, matmul "
-                f"{lib_t:.4f} ms; x{count} per decode tick and train step")
-            for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("bound_ms", bnd), ("library_ms", lib),
-                             ("train_ms", ms_t), ("train_library_ms", lib_t)):
+            t_bytes, t_ops = sandwich_bound(spec, train_rows, dt)
+            t_bnd, t_by = bound_ms(t_bytes, t_ops, PEAK_OPS["float32"])
+            say(f"time sandwich {site:8s} rows={SLOTS} {dt}: kernels "
+                f"{ms:.4f} ms (factors alone {fac:.4f}), plain {plain:.4f} "
+                f"ms, matmul by the dense matrix {lib:.4f} ms, bound "
+                f"{bnd:.5f} ms ({nbytes} B, {ops} ops); rows={train_rows}: "
+                f"kernels {ms_t:.4f} ms, matmul {lib_t:.4f} ms, bound "
+                f"{t_bnd:.5f} ms ({t_by}: {t_bytes} B, {t_ops} ops); x{count}"
+                f" per decode tick and train step")
+            for key, val in (("ms", ms), ("factors_ms", fac),
+                             ("plain_ms", plain), ("bound_ms", bnd),
+                             ("library_ms", lib), ("train_ms", ms_t),
+                             ("train_bound_ms", t_bnd),
+                             ("train_library_ms", lib_t)):
                 tick[key] += count * val
             tick["bytes"] += count * nbytes
             tick["ops"] += count * ops
+            tick["train_bytes"] += count * t_bytes
+            tick["train_ops"] += count * t_ops
         _, by = bound_ms(tick["bytes"], tick["ops"], PEAK_OPS["float32"])
-        say(f"time sandwich per decode tick ({sum(mix.values())} launches): "
-            f"kernel {tick['ms']:.4f} ms, plain {tick['plain_ms']:.4f} ms, "
-            f"matmul {tick['library_ms']:.4f} ms, bound "
-            f"{tick['bound_ms']:.5f} ms; per train step's forward at "
-            f"{train_rows} rows: kernel {tick['train_ms']:.4f} ms, matmul "
-            f"{tick['train_library_ms']:.4f} ms")
+        _, t_by = bound_ms(tick["train_bytes"], tick["train_ops"],
+                           PEAK_OPS["float32"])
+        say(f"time sandwich per decode tick ({sum(mix.values())} calls of "
+            f"{ks.FWD_KERNELS} launches): kernels {tick['ms']:.4f} ms "
+            f"(factors alone {tick['factors_ms']:.4f}), plain "
+            f"{tick['plain_ms']:.4f} ms, matmul {tick['library_ms']:.4f} ms, "
+            f"bound {tick['bound_ms']:.5f} ms ({by}); per train step's "
+            f"forward at {train_rows} rows: kernels {tick['train_ms']:.4f} "
+            f"ms, matmul {tick['train_library_ms']:.4f} ms, bound "
+            f"{tick['train_bound_ms']:.5f} ms ({t_by})")
 
         q, k_pool, v_pool, ids, cur = paged_inputs(
             torch, cfg, getattr(torch, dt), dev)
@@ -595,7 +654,8 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
             f"x{cfg.n_layers} per decode tick")
 
     return [
-        {"name": "sandwich_fwd", "route": "cuda",
+        {"name": "sandwich_fwd (sandwich_factors + sandwich_rows)",
+         "counter": "sandwich_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/sandwich.cu",
          "replaces": "src/repro/kernels/sandwich.py:75",
          "launches": launches["sandwich_fwd"],
@@ -603,10 +663,13 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
          "ms": tick["ms"], "plain_ms": tick["plain_ms"],
          "bound_ms": tick["bound_ms"], "bound_by": by,
          "library_ms": tick["library_ms"],
-         "per": f"decode tick: {sum(mix.values())} launches at {SLOTS} rows "
-                f"(library: torch.matmul by the dense matrix); at "
-                f"{train_rows} rows the same mix took {tick['train_ms']:.4f}"
-                f" ms, the matmul {tick['train_library_ms']:.4f} ms"},
+         "factors_ms": tick["factors_ms"], "train_ms": tick["train_ms"],
+         "train_bound_ms": tick["train_bound_ms"], "train_bound_by": t_by,
+         "train_library_ms": tick["train_library_ms"],
+         "per": f"decode tick: {sum(mix.values())} calls of "
+                f"{ks.FWD_KERNELS} launches at {SLOTS} rows (library: "
+                f"torch.matmul by the dense matrix); train_*: a train "
+                f"step's forward mix at {train_rows} rows"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:92",
@@ -779,12 +842,14 @@ def phase_sandwich_bwd_bench(torch, dev, kernel: str, n: int,
 
 def train_counts(cfg) -> tuple:
     """Sandwich forward and backward launches per train step: every site
-    once forward and once backward (three kernels: output side, input side,
-    reduction), and with remat the 90 MLP sites (the checkpointed layers)
-    once more forward inside the backward pass."""
+    once forward (two kernels: factors, rows) and once backward (three
+    kernels: output side, input side, reduction), and with remat the 90 MLP
+    sites (the checkpointed layers) once more forward inside the backward
+    pass."""
     from repro_torch.kernels import sandwich as ks
     sites_per_step = 3 * cfg.n_layers + 1
-    return (sites_per_step + (3 * cfg.n_layers if cfg.remat else 0),
+    return (ks.FWD_KERNELS * (sites_per_step
+                              + (3 * cfg.n_layers if cfg.remat else 0)),
             ks.BWD_KERNELS * sites_per_step)
 
 
@@ -863,7 +928,8 @@ def profile_train_step(torch, trainer, model, opt_state, dev) -> dict:
         say("profile train: device time not measured")
         return {}
     bwd_us = sum(e[1] for e in events if "sandwich_bwd" in e[0])
-    fwd_us = sum(e[1] for e in events if "sandwich_fwd" in e[0])
+    fwd_us = sum(e[1] for e in events if "sandwich_factors" in e[0]
+                 or "sandwich_rows" in e[0])
     say(f"profile train: one step, wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e[2] for e in events)} device launches; sandwich backward "
@@ -1586,8 +1652,8 @@ def phase_flash_autograd(torch, dev, kernel: str, shape) -> None:
 
 def bench_want(rows, on_card: bool) -> dict:
     """The launches of every kernel that the timed calls of ``rows`` imply:
-    ``kernel/*`` the butterfly forward; ``speed/*`` the sandwich forward,
-    and its train step the sandwich backward (3 launches); each fused
+    ``kernel/*`` the butterfly forward; ``speed/*`` the sandwich forward (2
+    launches), and its train step the sandwich backward (3); each fused
     ``backward/*`` step one forward and one backward call of its op."""
     from repro_torch.kernels import butterfly as kb
     from repro_torch.kernels import flash as kf
@@ -1602,7 +1668,8 @@ def bench_want(rows, on_card: bool) -> dict:
     flash = calls.get("backward/flash_fwdbwd_fused", 0)
     want = {"butterfly_fwd": calls.get("kernel/butterfly", 0) + bfly,
             "butterfly_bwd": kb.BWD_KERNELS * bfly,
-            "sandwich_fwd": calls.get("speed/forward", 0) + sand,
+            "sandwich_fwd": ks.FWD_KERNELS * (calls.get("speed/forward", 0)
+                                              + sand),
             "sandwich_bwd": ks.BWD_KERNELS * sand,
             "flash_fwd": flash, "flash_bwd": kf.BWD_KERNELS * flash}
     return {k: on_card * v for k, v in want.items()}
@@ -1855,8 +1922,10 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     train_rows = train_shape[0] * train_shape[1]
-    errs = {"sandwich_fwd": phase_sandwich(torch, cfg, dev, kernel,
-                                           train_rows),
+    errs = {"sandwich_fwd": max(phase_sandwich_factors(torch, cfg, dev,
+                                                       kernel),
+                                phase_sandwich(torch, cfg, dev, kernel,
+                                               train_rows)),
             "paged_decode_attention": phase_paged(torch, cfg, dev, kernel),
             "sandwich_bwd": phase_sandwich_bwd(torch, cfg, dev, kernel,
                                                train_rows)}
@@ -1895,7 +1964,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
     bench_launches = phase_bench(torch, dev, kernel, bench or {})
     phase_flash_autograd(torch, dev, kernel, flash_shapes[0])
     for k in kernels:
-        n = bench_launches.get(k["name"], 0)
+        n = bench_launches.get(k.get("counter", k["name"]), 0)
         if n:
             k["launches_by_path"]["bench"] = n
             k["launches"] += n

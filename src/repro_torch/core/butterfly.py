@@ -184,10 +184,14 @@ def materialize(w: torch.Tensor) -> torch.Tensor:
 
 def materialize_truncated(w: torch.Tensor, idx: Sequence[int],
                           jl_scale: bool = True) -> torch.Tensor:
-    """Dense ``ell x n`` matrix of the truncated butterfly ``T ∘ B``."""
+    """Dense ``ell x n`` matrix of the truncated butterfly ``T ∘ B``: row
+    ``m`` is ``Bᵀ e_idx[m]``, the transposed butterfly on a one-hot row, so
+    it costs O(ell · n log n) and never forms the ``n x n`` matrix."""
     _, n = _check_weights(w)
     ind = torch.as_tensor(idx, dtype=torch.long, device=w.device)
-    M = materialize(w)[ind, :]
+    rows = torch.zeros(len(ind), n, dtype=w.dtype, device=w.device)
+    rows[torch.arange(len(ind), device=w.device), ind] = 1
+    M = butterfly_transpose_apply(w, rows)
     if jl_scale:
         M = M * math.sqrt(n / len(idx))
     return M

@@ -9,10 +9,26 @@ Counterpart of ``repro.kernels.sandwich``. The forward computes, per row of
 
 with the reference kernel's precision points: the input stages in ``x``'s
 dtype, select/core/scatter in float32, the scattered row cast to ``x``'s
-dtype before the output stages. Both versions here keep each stage chain in
-float32 over weights rounded to ``x``'s dtype and round once at its end.
-The two differ only in float32 rounding order (fused multiply-adds, the
-core's summation order), which the reference's tolerances cover.
+dtype before the output stages. :func:`sandwich_plain`, the forward's
+reference twin, keeps each stage chain in float32 over weights rounded to
+``x``'s dtype and rounds once at its end.
+
+On the card the forward is two kernels (``FWD_KERNELS``). A truncated
+butterfly with k kept outputs is a k × n factor, so the sandwich is
+``out = F_outᵀ · core · F_in · x`` with ``F_in = B_in[idx_in, :n_in]`` and
+``F_out = B_out[idx_out, :n_out]``, rows of the butterflies (the transposed
+butterfly on one-hot rows). The factor kernel builds both from the call's
+weights rounded to ``x``'s dtype (:func:`sandwich_factors_plain` is its
+twin); the row kernel runs tiles of rows through three products at the
+same rounding points, ``h1 = rnd(x · F_inᵀ) · scale_in``,
+``z = rnd((h1 · coreᵀ) · scale_out)``, ``out = rnd(z · F_out)``
+(:func:`sandwich_rows_plain`). In float32 the row kernel takes all three
+as products and sums in another order than the stage chain, which the
+reference's tolerances cover. In bfloat16 ``h1`` is a rounding point that
+every output of the row hangs on, so there the row kernel computes it by
+the input butterfly itself, operation for operation as
+:func:`sandwich_plain` does (same bits); ``z`` and the output round as
+above and differ from the twin at most by a bfloat16 step at a tie.
 
 The backward (the reference's ``_sandwich_bwd_kernel``) recomputes the
 forward and takes the VJP through both butterflies and the core, rounding
@@ -65,14 +81,130 @@ def sandwich_plain(x: torch.Tensor, b_in: torch.Tensor, core: torch.Tensor,
     return z[..., :n_out].to(dt)
 
 
+def sandwich_factors_plain(b_in: torch.Tensor, b_out: torch.Tensor,
+                           idx_in: torch.Tensor, idx_out: torch.Tensor,
+                           n_in: int, n_out: int, dtype: torch.dtype
+                           ) -> tuple:
+    """Plain twin of the factor kernel: ``F_in = B_in[idx_in, :n_in]`` (k1,
+    n_in) and ``F_out = B_out[idx_out, :n_out]`` (k2, n_out), float32, the
+    transposed butterfly on one-hot rows over the weights rounded to
+    ``dtype``."""
+    def rows(w, idx, n):
+        return bf.materialize_truncated(w.to(dtype).float(), idx.long(),
+                                        jl_scale=False)[:, :n]
+    return rows(b_in, idx_in, n_in), rows(b_out, idx_out, n_out)
+
+
+def sandwich_rows_plain(x: torch.Tensor, f_in: torch.Tensor,
+                        core: torch.Tensor, f_out: torch.Tensor, *,
+                        scale_in: float, scale_out: float) -> torch.Tensor:
+    """Plain twin of the row kernel: (..., n_in) -> (..., n_out) through
+    the factors of :func:`sandwich_factors_plain`, rounding to ``x``'s
+    dtype where the reference casts (``h1``, ``z``, the output)."""
+    dt = x.dtype
+    h1 = (x.float() @ f_in.float().T).to(dt).float() * scale_in
+    z = ((h1 @ core.float().T) * scale_out).to(dt).float()
+    return (z @ f_out.float()).to(dt)
+
+
+FWD_KERNELS = 2           # factors, rows
+_PAD_K, _PAD_N = 16, 128  # the factors' rows and columns padded to multiples
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("sandwich")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sandwich_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                 f, f, i, p]
+    lib.sandwich_factors.argtypes = [p] * 7 + [i] * 11 + [p]
+    lib.sandwich_factors.restype = ctypes.c_int
+    lib.sandwich_fwd.argtypes = [p] * 8 + [i] * 12 + [f, f, i, p]
     lib.sandwich_fwd.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _groups(rows: int, chunks: int, sms: int) -> int:
+    """Column groups of the row kernel (row tiles of 64 rows times groups
+    of 128-wide output chunks), about one block per SM where the chunks
+    allow. Every group of a row tile runs its input side again: narrow
+    outputs (the MLP's), where that side takes most of a block's time, round
+    the count down to one group per tile once there are about as many tiles
+    as SMs; wide ones (the head's), bound by their stores, round up, which
+    puts two blocks on an SM."""
+    tiles = -(-rows // 64)
+    if chunks >= 64:
+        return min(chunks, -(-sms // tiles))
+    return min(chunks, max(1, (sms + tiles // 2) // tiles))
+
+
+def _layout(k1: int, n_in: int, k2: int, n_out: int, dtype) -> tuple:
+    """The forward's workspace: F_in (kp1, ld1) and F_out (kp2, ld2)
+    float32, zero-padded (kp a multiple of 16, ld of 128), then for
+    bfloat16 F_out's (2, kp2, ld2) hi/lo pair, the row kernel's tensor-core
+    operand. Returns ``(kp1, ld1, kp2, ld2, bytes)``."""
+    kp1, ld1 = _up(k1, _PAD_K), _up(n_in, _PAD_N)
+    kp2, ld2 = _up(k2, _PAD_K), _up(n_out, _PAD_N)
+    nbytes = 4 * (kp1 * ld1 + kp2 * ld2)
+    if dtype == torch.bfloat16:
+        nbytes += 4 * kp2 * ld2
+    return kp1, ld1, kp2, ld2, nbytes
+
+
+def _factors_cuda(b_in, b_out, idx_in, idx_out, n_in, n_out, dtype):
+    """Launch the factor kernel alone into a new workspace (:func:`_layout`)
+    and return it as tensors ``(f_in, f_out, hl_out)``, ``hl_out`` None for
+    float32."""
+    k1, n1 = idx_in.numel(), b_in.shape[-1]
+    k2, n2 = idx_out.numel(), b_out.shape[-1]
+    kp1, ld1, kp2, ld2, nbytes = _layout(k1, n_in, k2, n_out, dtype)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=b_in.device)
+    a1, a2 = 4 * kp1 * ld1, 4 * kp2 * ld2
+    f_in = ws[:a1].view(torch.float32).view(kp1, ld1)
+    f_out = ws[a1:a1 + a2].view(torch.float32).view(kp2, ld2)
+    hl_out = (ws[a1 + a2:].view(torch.bfloat16).view(2, kp2, ld2)
+              if dtype == torch.bfloat16 else None)
+    err = _lib().sandwich_factors(
+        b_in.data_ptr(), b_out.data_ptr(), idx_in.data_ptr(),
+        idx_out.data_ptr(), f_in.data_ptr(), f_out.data_ptr(),
+        None if hl_out is None else hl_out.data_ptr(), n1, k1, n_in, kp1,
+        ld1, n2, k2, n_out, kp2, ld2, _DTYPES[dtype],
+        torch.cuda.current_stream(b_in.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sandwich_factors launch failed with cudaError "
+                           f"{err} (n1={n1}, n2={n2}, k1={k1}, k2={k2})")
+    sandwich_forward.launches += 1
+    return f_in, f_out, hl_out
+
+
+def sandwich_factors(b_in: torch.Tensor, b_out: torch.Tensor,
+                     idx_in: torch.Tensor, idx_out: torch.Tensor, *,
+                     n_in: int, n_out: int, dtype: torch.dtype,
+                     backend: str = "auto") -> tuple:
+    """``(F_in, F_out)`` of the sandwich, float32 (k1, n_in) and (k2,
+    n_out). The CUDA route launches the factor kernel (one count in
+    ``sandwich_forward.launches``) and returns views into its workspace."""
+    if resolve_backend(backend, b_in) == "torch":
+        return sandwich_factors_plain(b_in, b_out, idx_in, idx_out, n_in,
+                                      n_out, dtype)
+    if dtype not in _DTYPES:
+        raise TypeError(f"sandwich factors take float32 or bfloat16, got "
+                        f"{dtype}")
+    for name, t, want in (("b_in", b_in, torch.float32),
+                          ("b_out", b_out, torch.float32),
+                          ("idx_in", idx_in, torch.int32),
+                          ("idx_out", idx_out, torch.int32)):
+        _check(name, t, want, b_in.device)
+    f_in, f_out, _ = _factors_cuda(b_in, b_out, idx_in, idx_out, n_in,
+                                   n_out, dtype)
+    return f_in[:idx_in.numel(), :n_in], f_out[:idx_out.numel(), :n_out]
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,11 +233,21 @@ def _check_args(x, b_in, core, b_out, idx_in, idx_out, n_out):
         raise TypeError(f"sandwich kernel takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
     dev = x.device
-    _check("x", x, x.dtype, dev)
-    for name, w in (("b_in", b_in), ("core", core), ("b_out", b_out)):
-        _check(name, w, torch.float32, dev)
-    for name, w in (("idx_in", idx_in), ("idx_out", idx_out)):
-        _check(name, w, torch.int32, dev)
+    f32, i32 = torch.float32, torch.int32
+    if not (b_in.dtype is f32 and core.dtype is f32 and b_out.dtype is f32
+            and idx_in.dtype is i32 and idx_out.dtype is i32
+            and b_in.device == dev and core.device == dev
+            and b_out.device == dev and idx_in.device == dev
+            and idx_out.device == dev and x.is_contiguous()
+            and b_in.is_contiguous() and core.is_contiguous()
+            and b_out.is_contiguous() and idx_in.is_contiguous()
+            and idx_out.is_contiguous()):
+        # one test on the hot path; this one names the argument at fault
+        _check("x", x, x.dtype, dev)
+        for name, w in (("b_in", b_in), ("core", core), ("b_out", b_out)):
+            _check(name, w, f32, dev)
+        for name, w in (("idx_in", idx_in), ("idx_out", idx_out)):
+            _check(name, w, i32, dev)
     p1, two1, n1 = b_in.shape
     p2, two2, n2 = b_out.shape
     k2, k1 = core.shape
@@ -128,20 +270,25 @@ def _sandwich_cuda(x, b_in, core, b_out, idx_in, idx_out, scale_in,
                                  n_out)
     n_in = x.shape[-1]
     rows = x.numel() // n_in
-    out = torch.empty(x.shape[:-1] + (n_out,), dtype=x.dtype,
-                      device=x.device)
+    dev = x.device
+    out = torch.empty(x.shape[:-1] + (n_out,), dtype=x.dtype, device=dev)
     if rows == 0:
         return out
+    kp1, ld1, kp2, ld2, nbytes = _layout(k1, n_in, k2, n_out, x.dtype)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    index = dev.index
     err = _lib().sandwich_fwd(
         x.data_ptr(), b_in.data_ptr(), core.data_ptr(), b_out.data_ptr(),
-        idx_in.data_ptr(), idx_out.data_ptr(), out.data_ptr(), rows, n_in,
-        n1, k1, k2, n2, n_out, float(scale_in), float(scale_out),
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        idx_in.data_ptr(), idx_out.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), rows, n_in, n1, k1, n2, k2, n_out, kp1, ld1, kp2, ld2,
+        _groups(rows, ld2 // _PAD_N, _sm_count(index)), float(scale_in),
+        float(scale_out), _DTYPES[x.dtype],
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"sandwich_fwd launch failed with cudaError {err} "
                            f"(rows={rows}, n1={n1}, n2={n2}, k1={k1}, "
                            f"k2={k2})")
-    sandwich_forward.launches += 1
+    sandwich_forward.launches += FWD_KERNELS
     return out
 
 
@@ -293,11 +440,22 @@ def sandwich_forward(x: torch.Tensor, b_in: torch.Tensor, core: torch.Tensor,
 
     ``backend`` follows :mod:`repro_torch.kernels.context`. The CUDA route
     takes float32 or bfloat16 ``x`` and float32 weights, all contiguous on
-    ``x``'s device, and counts each forward launch in
-    ``sandwich_forward.launches``.
+    ``x``'s device, launches the factor and the row kernel and counts both
+    launches in ``sandwich_forward.launches``.
     """
+    route = resolve_backend(backend, x)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, b_in, core, b_out))):
+        # nothing to differentiate (serving, no_grad): skip autograd's
+        # bookkeeping, the host's share of a decode tick
+        if route == "torch":
+            return sandwich_plain(x, b_in, core, b_out, idx_in, idx_out,
+                                  scale_in=scale_in, scale_out=scale_out,
+                                  n_out=n_out)
+        return _sandwich_cuda(x, b_in, core, b_out, idx_in, idx_out,
+                              scale_in, scale_out, n_out)
     return SandwichFn.apply(x, b_in, core, b_out, idx_in, idx_out, scale_in,
-                            scale_out, n_out, resolve_backend(backend, x))
+                            scale_out, n_out, route)
 
 
 sandwich_forward.launches = 0

@@ -1,7 +1,8 @@
 """Rehearsal of `chip_smoke.py` on the CPU: every phase after the build
-(serving, the sandwich backward check, training and its gradient check,
-the butterfly kernels' checks, the encoder-decoder at 64 x 256, the flash
-kernels' checks at small shapes and the benches at n = 64) runs on the
+(the sandwich factor and forward checks, serving, the sandwich backward
+check, training and its gradient check, the butterfly kernels' checks, the
+encoder-decoder at 64 x 256, the flash kernels' checks at small shapes and
+the benches at n = 64) runs on the
 smoke-sized butterfly config with the plain PyTorch versions in place of
 the kernels, so wrong paths, shapes and control flow show up before the
 script reaches a card. Also the script's refusals: no result
@@ -55,6 +56,14 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
                         bench=dict(ns=(64,), batch=4, iters=1))
     out = capsys.readouterr().out
     assert "serve: 16 requests" in out
+    for site in ("up_gate", "down", "lm_head", "widest"):
+        for dtype in ("float32", "bfloat16"):
+            assert f"sandwich factors {site:8s} {dtype:9s} F_in" in out
+    assert "sandwich factors widest   bfloat16  F_in (5, 32) F_out (18, " \
+        "262144)" in out
+    assert "time sandwich lm_head  rows=8" in out
+    assert "rows=128: kernels" in out and "bound" in out
+    assert "per train step's forward at 128 rows" in out
     assert "train: losses" in out
     assert (f"cotangents: {3 * (3 * cfg.n_layers + 1)} butterfly leaves"
             in out)
@@ -73,10 +82,13 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     assert "flash train B=2 H=4 S=64 D=16 bfloat16 causal=True" in out
     assert "time attention train B=2 S=64 4 heads (2 KV)" in out
     assert [k["name"] for k in kernels] == [
-        "sandwich_fwd", "paged_decode_attention", "sandwich_bwd",
+        "sandwich_fwd (sandwich_factors + sandwich_rows)",
+        "paged_decode_attention", "sandwich_bwd",
         "butterfly_fwd", "butterfly_bwd", "flash_fwd", "flash_bwd_dq",
         "flash_bwd_dkv"]
     assert kernels[0]["library_ms"] == 0.0
+    assert kernels[0]["train_bound_ms"] > kernels[0]["bound_ms"] > 0
+    assert {"serve", "train"} <= kernels[0]["launches_by_path"].keys()
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
     # sdpa's backward stands once, on dq, for the dq/dkv pair
     assert [k["library_ms"] for k in kernels[5:]] == [0.0, 0.0, None]
@@ -146,9 +158,10 @@ def test_flash_bound_counts_the_visible_pairs(causal, window):
 def test_bench_launch_counts_follow_the_timed_calls():
     """What each kernel must have launched for the bench rows' timed calls:
     a ``kernel/*`` call one butterfly forward, a ``speed/forward`` call one
-    sandwich forward, a ``speed/train`` call one sandwich forward and one
-    backward (3 launches), each fused ``backward/*`` call one forward and
-    one backward of its op; plain and skipped rows nothing."""
+    sandwich forward (2 launches: factors, rows), a ``speed/train`` call one
+    sandwich forward and one backward (3 launches), each fused
+    ``backward/*`` call one forward and one backward of its op; plain and
+    skipped rows nothing."""
     smoke = _load_script()
     calls = {"kernel/butterfly_n256": 23, "speed/forward_n512": 23,
              "speed/train_n512": 23, "backward/butterfly_fwdbwd_jnp_n1024": 23,
@@ -159,7 +172,7 @@ def test_bench_launch_counts_follow_the_timed_calls():
              "backward/flash_fwdbwd_fused_n8192": 8}
     rows = [{"name": n, "calls": c} for n, c in calls.items()]
     assert smoke.bench_want(rows, on_card=True) == {
-        "butterfly_fwd": 46, "butterfly_bwd": 46, "sandwich_fwd": 77,
+        "butterfly_fwd": 46, "butterfly_bwd": 46, "sandwich_fwd": 154,
         "sandwich_bwd": 162, "flash_fwd": 8, "flash_bwd": 16}
     assert set(smoke.bench_want(rows, on_card=False).values()) == {0}
 

@@ -6,14 +6,14 @@ so it runs on a machine that has only PyTorch; from the repo root:
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu_kernels.py
 
 Tolerances are the reference's own: the sandwich kernel's float32 2e-4 and
-bfloat16 5e-2, the paged kernel's float32 1e-5 and bfloat16 2e-2; the
-sandwich backward's float32 1e-5 and bfloat16 8% of max|want|
-(`tests/test_kernels_grad.py`); the butterfly kernels' float32 1e-5 and
-bfloat16 5% of max|want|, forward and backward; the flash kernels' forward
-1e-5 / 2e-2 of max|want|, lse 1e-5, gradients 1e-4 / 5e-2 (float32 sums
-in another order; bfloat16 rounds once at the output), and in bfloat16
-also each row of o and dq and each key's row of dk and dv within 1% of its
-own norm.
+bfloat16 5e-2 (its factor kernel's float32 1e-5), the paged kernel's
+float32 1e-5 and bfloat16 2e-2; the sandwich backward's float32 1e-5 and
+bfloat16 8% of max|want| (`tests/test_kernels_grad.py`); the butterfly
+kernels' float32 1e-5 and bfloat16 5% of max|want|, forward and backward;
+the flash kernels' forward 1e-5 / 2e-2 of max|want|, lse 1e-5, gradients
+1e-4 / 5e-2 (float32 sums in another order; bfloat16 rounds once at the
+output), and in bfloat16 also each row of o and dq and each key's row of
+dk and dv within 1% of its own norm.
 """
 
 import math
@@ -72,10 +72,97 @@ def test_sandwich_kernel_matches_plain(cuda, n_in, n_out, rows, dtype):
     got = ks.sandwich_forward(**args, **kw, backend="cuda")
     want = ks.sandwich_forward(**args, **kw, backend="torch")
     torch.cuda.synchronize()
-    assert ks.sandwich_forward.launches == before + 1
+    assert ks.sandwich_forward.launches == before + ks.FWD_KERNELS
     assert got.shape == (rows, n_out) and got.dtype == dtype
     tol = SANDWICH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _layer_case(n_in, n_out, rows, dtype, dev, seed=0):
+    """``_sandwich_case`` with the layer's own weights (FJLT butterflies,
+    kaiming core: ``ButterflyLinear``'s init, as the model starts from)."""
+    from repro_torch.nn import ButterflyLinear
+    gen = torch.Generator().manual_seed(seed)
+    spec = blayers.make_spec(gen, n_in, n_out, use_bias=False)
+    layer = ButterflyLinear(spec, generator=gen)
+    args = dict(x=torch.randn(rows, n_in, generator=gen).to(dtype),
+                b_in=layer.b_in.detach(), core=layer.core.detach(),
+                b_out=layer.b_out.detach(), idx_in=layer.idx_in,
+                idx_out=layer.idx_out)
+    args = {k: v.to(dev) for k, v in args.items()}
+    kw = dict(scale_in=spec.scale_in, scale_out=spec.scale_out, n_out=n_out)
+    return args, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,n_in,n_out,rows", [
+    # the model's sites at the training run's rows, the layer's weights
+    ("layer", 576, 1536, 8192), ("layer", 1536, 576, 8192),
+    ("layer", 576, 49152, 8192),
+    # row counts off the 64-row tile
+    ("gaussian", 576, 1536, 1), ("gaussian", 576, 1536, 63),
+    ("gaussian", 1536, 576, 65), ("gaussian", 576, 49152, 1000),
+    ("gaussian", 100, 36, 65), ("gaussian", 48, 80, 63)])
+def test_sandwich_kernel_rows_and_repeats(cuda, case, n_in, n_out, rows,
+                                          dtype):
+    """The forward at many rows and off-tile row counts against the plain
+    twin; two launches give the same bits. The model's sites run on the
+    layer's own weights, whose outputs are of order one: with Gaussian
+    stage weights they reach the hundreds at these widths, and the float32
+    summation order alone then moves a near-zero element past the
+    elementwise 2e-4 (the twin sums stage by stage, the kernel as dot
+    products)."""
+    make = _layer_case if case == "layer" else _sandwich_case
+    args, kw = make(n_in, n_out, rows, dtype, cuda)
+    before = ks.sandwich_forward.launches
+    got = ks.sandwich_forward(**args, **kw, backend="cuda")
+    again = ks.sandwich_forward(**args, **kw, backend="cuda")
+    want = ks.sandwich_forward(**args, **kw, backend="torch")
+    torch.cuda.synchronize()
+    assert ks.sandwich_forward.launches == before + 2 * ks.FWD_KERNELS
+    assert torch.equal(got, again), "two launches differ"
+    tol = SANDWICH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_in,n_out,k", [
+    (576, 1536, None), (1536, 576, None), (576, 49152, None), (100, 36, None),
+    (64, 8192, None), (32, 262144, None), (48, 80, None), (128, 256, 64)])
+def test_sandwich_factor_kernel_matches_plain(cuda, n_in, n_out, k, dtype):
+    """The factor kernel through the wrapper's workspace: the float32
+    factors against the plain twin (each entry a product of path weights,
+    float32 1e-5 as the reference's tolerance), zeros in the padding, and
+    for bfloat16 F_out's hi/lo pair, hi = bf16(F) and hi + lo within 2^-16
+    of F."""
+    gen = torch.Generator().manual_seed(n_in + n_out)
+    spec = blayers.make_spec(gen, n_in, n_out, k_in=k, k_out=k,
+                             use_bias=False)
+    w_in = bf.random_weights(gen, spec.pad_in).to(cuda)
+    w_out = bf.random_weights(gen, spec.pad_out).to(cuda)
+    idx_in = torch.tensor(spec.idx_in, dtype=torch.int32, device=cuda)
+    idx_out = torch.tensor(spec.idx_out, dtype=torch.int32, device=cuda)
+    before = ks.sandwich_forward.launches
+    f_in, f_out, hl = ks._factors_cuda(w_in, w_out, idx_in, idx_out, n_in,
+                                       n_out, dtype)
+    want = ks.sandwich_factors_plain(w_in, w_out, idx_in, idx_out, n_in,
+                                     n_out, dtype)
+    views = ks.sandwich_factors(w_in, w_out, idx_in, idx_out, n_in=n_in,
+                                n_out=n_out, dtype=dtype, backend="cuda")
+    torch.cuda.synchronize()
+    assert ks.sandwich_forward.launches == before + 2
+    for f, w, v, (kk, n) in ((f_in, want[0], views[0], (spec.k_in, n_in)),
+                             (f_out, want[1], views[1], (spec.k_out, n_out))):
+        assert f.shape[0] % 16 == 0 and f.shape[1] % 128 == 0
+        torch.testing.assert_close(f[:kk, :n], w, atol=1e-5, rtol=1e-5)
+        assert torch.equal(v, f[:kk, :n])
+        assert not f[kk:].any() and not f[:, n:].any()
+    if dtype == torch.float32:
+        assert hl is None
+        return
+    hi, lo = hl[0].float(), hl[1].float()
+    assert torch.equal(hl[0], f_out.to(torch.bfloat16))
+    assert bool(((hi + lo - f_out).abs() <= 2.0**-16 * f_out.abs()).all())
 
 
 def _assert_grad_close(got, want, dtype, what=""):
@@ -125,7 +212,7 @@ def test_sandwich_fn_autograd_on_card(cuda, dtype):
     out = ks.sandwich_forward(**args, **kw)
     out.backward(g)
     assert (ks.sandwich_forward.launches,
-            ks.sandwich_backward.launches) == (before[0] + 1,
+            ks.sandwich_backward.launches) == (before[0] + ks.FWD_KERNELS,
                                                before[1] + ks.BWD_KERNELS)
     want = ks.sandwich_bwd_plain(*(args[k].detach() for k in (
         "x", "b_in", "core", "b_out", "idx_in", "idx_out")), g, **kw)
