@@ -18,11 +18,19 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    heads per group, head dim 64, pages of 16, up to 512 positions, with a
    dirty trash page, stale rows and NaN pages past ``cur_pos``; float32 at
    1e-5 and bfloat16 at 2e-2.
-5. Sandwich backward kernel vs its plain twin at the three sites, at 256
-   rows and at the training run's 8192 (the head at 2048: the plain twin's
-   memory), and at ``bench_backward``'s 8192 -> 8192 sandwich (k = 13, 64
-   rows), float32 at 1e-5 and bfloat16 at 8% of max|want|; two launches
-   bit-identical.
+5. Sandwich backward (six kernels: the factors again, the row products,
+   the column products, their sum over row splits, the factor-row VJP, the
+   reduction) vs its plain
+   twin at the three sites, at 256 rows and at the training run's 8192 (the
+   head at 2048: the plain twin's memory), and at ``bench_backward``'s 8192
+   -> 8192 sandwich (k = 13, 64 rows), float32 at 1e-5 and bfloat16 at 8%
+   of max|want|; two launches bit-identical. The factor-row VJP alone vs
+   its twin (autograd through the plain factors) at each site, float32 at
+   1e-5 of max|want|, two launches bit-identical.
+5a. Widths past the smollm sites: the sandwich forward and backward at
+   mistral-large-123b's ``down`` site (28,672 -> 12,288, n1 = 32,768, n2 =
+   16,384, k = log2 n) at 64 rows, float32 and bfloat16, against the plain
+   twins at the tolerances above.
 6. Serving: a ServeEngine on full-width ``smollm-135m-butterfly``
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
@@ -35,6 +43,13 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    within 5e-2 in relative norm. (The whole tick's logits through both
    paths are printed, not held: bf16 rounding differences grow through a
    random-init stack.)
+6a. Greedy tokens on the card: ``smollm-135m-butterfly-smoke`` in float32
+   compute, weights made once from seed 0 on the CPU, served by one engine
+   on the card (the kernels) and one on the CPU (the plain versions): 4
+   prompts (5, 23, 11 and 3 tokens) into 2 slots, prefill chunks of 16 (the
+   23-token prompt chunks twice), 16 new tokens each. The tokens must be
+   equal; at a flip the request, the step and the CPU run's top-1 minus
+   top-2 logit gap there are printed and the phase fails.
 7. Timing with CUDA events: each forward kernel, its plain twin, and one
    library call as a yardstick the port never calls (for the sandwich a
    ``torch.matmul`` by its materialized dense matrix, at 8 rows and at
@@ -46,18 +61,21 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    time by kernel and the device-busy share of the ticks' wall time.
 9. Training: ``Trainer`` on full-width ``smollm-135m-butterfly`` (bf16
    compute, remat), seq_len 2048 x batch 4, 2 warm and 5 timed steps;
-   finite losses, 2 x 181 forward and 3 x 91 backward sandwich launches
+   finite losses, 2 x 181 forward and 6 x 91 backward sandwich launches
    per step; one more step under ``torch.profiler``.
 10. Gradient checks of one step (seq_len 256, batch 1): each layer and the
     head under the kernels and the plain versions on the plain path's
     inputs and cotangents, every butterfly leaf within 5e-2 in relative
     norm; and the whole step in float32 compute, every butterfly leaf
     within 1e-3.
-11. Timing of the backward kernel per train step, its plain twin and its
-    bound.
+11. Timing of the backward kernels per train step, their plain twin, their
+    bound, and the dense layer's backward by ``torch.matmul`` (``dx = g·W``,
+    ``dW = gᵀ·x`` by the materialized W) as the yardstick, at 256 rows and
+    at the training run's 8192.
 12. Butterfly kernels (forward and backward) vs their plain twins at the
     encoder's 70,000 x 1024, Olivetti faces' 400 x 4096, 5 x 1024,
-    1237 x 2048 and 300 x 8192, both directions, float32 within 1e-5 and
+    1237 x 2048, 300 x 8192 and 64 x 32,768 (the widest the kernels take),
+    both directions, float32 within 1e-5 and
     bfloat16 within 5e-2 of max|want|; the backward with and without dx,
     two launches bit-identical, its stage applications for the first row
     equal to ``stage_applies`` and at most 3p.
@@ -114,6 +132,10 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 TC / fp32
 SANDWICH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 FACTOR_TOL = 1e-5         # the factors are float32 in both routes
 WIDEST = ("widest", 32, 262144)   # n2 = 4096 x 64, the kernels' limit
+# mistral-large-123b's down site (configs/mistral_large_123b.py: d_ff 28,672
+# -> d_model 12,288): n1 = 32,768, the sandwich kernels' widest input
+WIDE = ("mistral_down", 28672, 12288)
+WIDE_ROWS = 64
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SLOTS, MAX_LEN, CHUNK, NEW_TOKENS, N_REQUESTS = 8, 512, 16, 32, 16
 
@@ -466,6 +488,72 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     return launches, summary
 
 
+TOKEN_PROMPTS = (5, 23, 11, 3)   # tests/test_torch_serve.py's greedy prompts
+TOKEN_NEW = 16
+
+
+def phase_serve_tokens(torch, np, dev) -> None:
+    """Greedy tokens through the kernels against the plain path:
+    ``smollm-135m-butterfly-smoke`` in float32 compute, weights made once
+    from seed 0 on the CPU, one engine on ``dev`` and one on the CPU, the
+    greedy test's prompts into 2 slots with prefill chunks of 16. Every
+    request's tokens must be equal; at a flip, prints the request, the step
+    and the CPU run's top-1 minus top-2 logit gap there, and raises."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine, loader
+    cfg = registry.get("smollm-135m-butterfly-smoke").with_(
+        compute_dtype="float32")
+    cpu_model = loader.init_params(cfg, seed=0, device="cpu")
+    card_model = copy.deepcopy(cpu_model)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in TOKEN_PROMPTS]
+    assert max(TOKEN_PROMPTS) > 16             # one prompt chunks twice
+    before = (ks.sandwich_forward.launches,
+              pa.paged_decode_attention.launches)
+    tokens = {}
+    for where, model in ((dev, card_model), (torch.device("cpu"),
+                                             cpu_model)):
+        eng = ServeEngine(cfg, model, slots=2, max_len=48, prefill_chunk=16,
+                          device=where)
+        futs = [eng.submit(Request(prompt=p, max_new_tokens=TOKEN_NEW))
+                for p in prompts]
+        eng.run_until_idle()
+        tokens[where.type] = [f.result(timeout=0).tokens for f in futs]
+    rose = (ks.sandwich_forward.launches - before[0],
+            pa.paged_decode_attention.launches - before[1])
+    if dev.type == "cuda" and not all(rose):
+        raise AssertionError(f"the card's engine launched no kernel: {rose}")
+    card, cpu = tokens[dev.type], tokens["cpu"]
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a == b:
+            continue
+        step = next(j for j, (u, v) in enumerate(zip(a, b)) if u != v)
+        ctx = torch.tensor(np.concatenate([prompts[i], b[:step]]))[None]
+        with torch.no_grad():
+            x = cm.embed(cfg, cpu_model.embed, ctx)
+            pos = torch.arange(ctx.shape[1], dtype=torch.int32)[None]
+            x = lm.backbone(cpu_model, x, positions=pos, backend="torch")
+            x = cm.rmsnorm(x, cpu_model.final_norm, cfg.norm_eps)
+            top = cm.head_apply(cfg, cpu_model.head, x, "torch")[0, -1].float(
+                ).topk(2).values
+        say(f"serve tokens: request {i} flips at step {step}: card token "
+            f"{a[step]}, CPU token {b[step]}; the CPU run's top-1 minus "
+            f"top-2 logit gap there {float(top[0] - top[1]):.3e}")
+        raise AssertionError(f"greedy tokens differ, request {i} step {step}")
+    say(f"serve tokens: {cfg.name} float32, {len(prompts)} prompts of "
+        f"{TOKEN_PROMPTS} tokens into 2 slots, chunks of 16, {TOKEN_NEW} new "
+        f"tokens each: kernels on {dev.type} and plain on the CPU give the "
+        f"same greedy tokens ({sum(map(len, card))} tokens; launches on the "
+        f"card: sandwich {rose[0]}, paged {rose[1]})")
+
+
 def sandwich_ops(spec) -> tuple:
     """(forward, backward) operations per row of one sandwich site, counted
     on the support the function needs, not densely.
@@ -791,13 +879,42 @@ def check_sandwich_bwd(torch, dev, what, spec, layer, x, g, kernel: str,
     return errs
 
 
+def check_factors_vjp(torch, dev, what, spec, layer, kernel: str, gen
+                      ) -> None:
+    """The factor-row VJP (the backward's kernels 3 and 4 alone) against its
+    twin, autograd through ``sandwich_factors_plain``, for random
+    cotangents of F_in and F_out, with the weights rounded to each dtype:
+    two launches bit-identical, within GRAD_TOL["float32"] (both are
+    float32; only the summation order differs)."""
+    from repro_torch.kernels import sandwich as ks
+    d_f_in = torch.randn(spec.k_in, spec.n_in, generator=gen).to(dev)
+    d_f_out = torch.randn(spec.k_out, spec.n_out, generator=gen).to(dev)
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        got, again, want = (ks.sandwich_factors_vjp(
+            layer.b_in.detach(), layer.b_out.detach(), layer.idx_in,
+            layer.idx_out, d_f_in, d_f_out, dtype=dtype, backend=b)
+            for b in (kernel, kernel, "torch"))
+        sync(torch, dev)
+        for name, a, b, w in zip(("d b_in", "d b_out"), got, again, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} {name}: two launches differ")
+            errs.append(grad_close_or_raise(
+                torch, f"{what} {str(dtype)[6:]} {name}", a, w, "float32"))
+    say(f"{what} max|err| (share of max|want|) "
+        + " ".join(f"{n} {e:.3e} ({r:.1e})" for n, (e, r) in zip(
+            ("db_in f32", "db_out f32", "db_in bf16", "db_out bf16"), errs))
+        + f"; tol {GRAD_TOL['float32']} of max|want|; repeat bit-identical")
+
+
 def phase_sandwich_bwd(torch, cfg, dev, kernel: str, train_rows: int
                        ) -> float:
-    """The backward kernel against its plain twin at the three full-width
-    sites, float32 and bfloat16, at BWD_ROWS rows and at the training run's
-    ``train_rows`` (the head at no more than HEAD_BWD_ROWS), where each
-    block loops over many rows; two launches on the same inputs must give
-    bit-identical gradients."""
+    """The backward kernels against their plain twin at the three
+    full-width sites, float32 and bfloat16, at BWD_ROWS rows and at the
+    training run's ``train_rows`` (the head at no more than HEAD_BWD_ROWS),
+    where the column kernel splits the rows; two launches on the same
+    inputs must give bit-identical gradients. Then the factor-row VJP alone
+    against its twin at each site."""
     worst = 0.0
     gen = torch.Generator().manual_seed(11)
     cases = [(site, rows, dtype) for site in sites(cfg)
@@ -815,7 +932,46 @@ def phase_sandwich_bwd(torch, cfg, dev, kernel: str, train_rows: int
                 f"{dtype:9s}", spec, layer, x, g, kernel, dtype)
             if dtype == cfg.compute_dtype:
                 worst = max(worst, *(e for e, _ in errs))
+        for site in sites(cfg):
+            spec, layer = sandwich_site(torch, cfg, site, dev)
+            check_factors_vjp(torch, dev, f"sandwich factors vjp {site:8s}",
+                              spec, layer, kernel, gen)
     return worst
+
+
+def phase_wide(torch, dev, kernel: str, wide=WIDE, rows: int = WIDE_ROWS
+               ) -> None:
+    """The sandwich kernels at ``wide`` (name, n_in, n_out), past the smollm
+    sites' widths: the spec from ``make_spec`` (k = log2 n), the layer's own
+    weights, ``rows`` rows; the forward against ``sandwich_plain`` at
+    SANDWICH_TOL and the backward against ``sandwich_bwd_plain`` at
+    GRAD_TOL (two launches bit-identical), float32 and bfloat16, and the
+    factor-row VJP against its twin."""
+    from repro_torch.core import layers as blayers
+    from repro_torch.nn import ButterflyLinear
+    name, n_in, n_out = wide
+    gen = torch.Generator().manual_seed(14)
+    spec = blayers.make_spec(gen, n_in, n_out, use_bias=False)
+    layer = ButterflyLinear(spec, generator=gen).to(dev)
+    head = (f"{name} {n_in}->{n_out} (n1 {spec.pad_in}, n2 {spec.pad_out}, "
+            f"k {spec.k_in}/{spec.k_out}) rows={rows}")
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x = torch.randn(rows, n_in, generator=gen).to(dev, dt)
+            g = torch.randn(rows, n_out, generator=gen).to(dev, dt)
+            got = sandwich_call(torch, spec, layer, x, kernel)
+            want = sandwich_call(torch, spec, layer, x, "torch")
+            sync(torch, dev)
+            err = allclose_or_raise(torch, f"sandwich {head} {dtype}", got,
+                                    want, SANDWICH_TOL[dtype])
+            say(f"sandwich {head} {dtype:9s} max|err|={err:.3e} (tol "
+                f"{SANDWICH_TOL[dtype]})")
+            del got, want
+            check_sandwich_bwd(torch, dev, f"sandwich_bwd {head} {dtype:9s}",
+                               spec, layer, x, g, kernel, dtype)
+        check_factors_vjp(torch, dev, f"sandwich factors vjp {head}", spec,
+                          layer, kernel, gen)
 
 
 def phase_sandwich_bwd_bench(torch, dev, kernel: str, n: int,
@@ -842,10 +998,10 @@ def phase_sandwich_bwd_bench(torch, dev, kernel: str, n: int,
 
 def train_counts(cfg) -> tuple:
     """Sandwich forward and backward launches per train step: every site
-    once forward (two kernels: factors, rows) and once backward (three
-    kernels: output side, input side, reduction), and with remat the 90 MLP
-    sites (the checkpointed layers) once more forward inside the backward
-    pass."""
+    once forward (two kernels: factors, rows) and once backward (six
+    kernels: factors, rows, columns, their sum, factor-row VJP, reduction),
+    and with remat the 90 MLP sites (the checkpointed layers) once more
+    forward inside the backward pass."""
     from repro_torch.kernels import sandwich as ks
     sites_per_step = 3 * cfg.n_layers + 1
     return (ks.FWD_KERNELS * (sites_per_step
@@ -927,16 +1083,30 @@ def profile_train_step(torch, trainer, model, opt_state, dev) -> dict:
     if not busy_us:
         say("profile train: device time not measured")
         return {}
-    bwd_us = sum(e[1] for e in events if "sandwich_bwd" in e[0])
-    fwd_us = sum(e[1] for e in events if "sandwich_factors" in e[0]
-                 or "sandwich_rows" in e[0])
+    # the factor kernel serves the forward and the backward alike: its time
+    # is split between them by their launches (train_counts)
+    from repro_torch.kernels import sandwich as ks
+    fwd_n, bwd_n = train_counts(trainer.cfg)
+    fac_fwd, fac_bwd = fwd_n // ks.FWD_KERNELS, bwd_n // ks.BWD_KERNELS
+    fac_us = sum(e[1] for e in events if "sandwich_factors" in e[0])
+    fac_n = sum(e[2] for e in events if "sandwich_factors" in e[0])
+    bwd_us = (sum(e[1] for e in events if "sandwich_bwd" in e[0])
+              + fac_us * fac_bwd / (fac_fwd + fac_bwd))
+    fwd_us = (sum(e[1] for e in events if "sandwich_rows" in e[0])
+              + fac_us * fac_fwd / (fac_fwd + fac_bwd))
     say(f"profile train: one step, wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e[2] for e in events)} device launches; sandwich backward "
-        f"kernels {bwd_us / 1e3:.3f} ms, forward {fwd_us / 1e3:.3f} ms")
+        f"kernels {bwd_us / 1e3:.3f} ms, forward {fwd_us / 1e3:.3f} ms (the "
+        f"factor kernel's {fac_us / 1e3:.3f} ms over {fac_n} launches split "
+        f"{fac_fwd}:{fac_bwd} by launches)")
     for key, us, count in sorted(events, key=lambda e: -e[1])[:10]:
         say(f"profile train: {us / 1e3:9.3f} ms {count:6d} launches  "
             f"{key[:90]}")
+    for key, us, count in sorted(events, key=lambda e: -e[1]):
+        if "sandwich" in key:
+            say(f"profile train sandwich: {us / 1e3:8.3f} ms {count:5d} "
+                f"launches {us / count:8.2f} us each  {key[:70]}")
     return {"train_profile_wall_ms": wall_us / 1e3,
             "train_profile_busy_ms": busy_us / 1e3,
             "train_profile_sandwich_bwd_ms": bwd_us / 1e3,
@@ -1093,16 +1263,23 @@ def sandwich_bwd_bound(spec, rows: int, dtype: str):
 
 def phase_timing_bwd(torch, cfg, dev, kernel, time_fn, launches, err,
                      train_rows: int) -> dict:
-    """CUDA-event times of the backward: kernel, plain twin and bound over
-    one train step's site mix at BWD_ROWS rows (the plain twin cannot take
-    the head at the training run's rows), and the kernel and bound alone
-    at the training run's ``train_rows``. ``launches`` counts kernels, three
-    per call."""
+    """CUDA-event times of the backward over one train step's site mix: the
+    kernels, the plain twin, the bound and the dense layer's backward at
+    BWD_ROWS rows (the plain twin cannot take the head at the training
+    run's rows), and the kernels, the bound and the dense backward at the
+    training run's ``train_rows``. The dense backward, the yardstick the
+    port never calls, is ``dx = g·W`` and ``dW = gᵀ·x`` by ``torch.matmul``
+    with W (n_out, n_in) the sandwich materialized in the compute dtype
+    outside the timed window. ``launches`` counts kernels, BWD_KERNELS per
+    call."""
+    from repro_torch.kernels import sandwich as ks
     dt = cfg.compute_dtype
     gen = torch.Generator().manual_seed(13)
     mix = {"up_gate": 2 * cfg.n_layers, "down": cfg.n_layers, "lm_head": 1}
-    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
-            "ops": 0, "full_ms": 0.0, "full_bound_ms": 0.0}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "train_ms",
+            "train_bound_ms", "train_library_ms")
+    step = dict.fromkeys(keys, 0.0)
+    step.update(bytes=0, ops=0, train_bytes=0, train_ops=0)
     with torch.no_grad():
         for site, count in mix.items():
             spec, layer = sandwich_site(torch, cfg, site, dev)
@@ -1113,47 +1290,72 @@ def phase_timing_bwd(torch, cfg, dev, kernel, time_fn, launches, err,
                     torch.randn(rows, spec.n_out, generator=gen).to(
                     dev, getattr(torch, dt)))
 
+            eye = torch.eye(spec.n_in, device=dev)
+            w = sandwich_call(torch, spec, layer, eye, "torch").T.contiguous(
+                ).to(getattr(torch, dt))
+            del eye
+
+            def dense(x, g):
+                return torch.matmul(g, w), torch.matmul(g.T, x)
+
             x, g = inputs(BWD_ROWS)
             ms = time_fn(torch, lambda: sandwich_bwd_call(
                 torch, spec, layer, x, g, kernel), reps=20)
             plain = time_fn(torch, lambda: sandwich_bwd_call(
                 torch, spec, layer, x, g, "torch"), reps=5)
+            lib = time_fn(torch, lambda: dense(x, g), reps=20)
             nbytes, ops = sandwich_bwd_bound(spec, BWD_ROWS, dt)
             bnd, by = bound_ms(nbytes, ops, PEAK_OPS["float32"])
             xf, gf = inputs(train_rows)
             full = time_fn(torch, lambda: sandwich_bwd_call(
-                torch, spec, layer, xf, gf, kernel), reps=5)
+                torch, spec, layer, xf, gf, kernel), reps=10)
+            lib_t = time_fn(torch, lambda: dense(xf, gf), reps=10)
             fbytes, fops = sandwich_bwd_bound(spec, train_rows, dt)
             fbnd, fby = bound_ms(fbytes, fops, PEAK_OPS["float32"])
-            del xf, gf
-            say(f"time sandwich_bwd {site:8s} {dt}: rows={BWD_ROWS} kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms "
-                f"({by}); rows={train_rows} kernel {full:.4f} ms, bound "
-                f"{fbnd:.5f} ms ({fby}: {fbytes} B, {fops} ops); x{count} "
-                f"per train step")
+            del xf, gf, w
+            say(f"time sandwich_bwd {site:8s} {dt}: rows={BWD_ROWS} kernels "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, dense backward "
+                f"{lib:.4f} ms, bound {bnd:.5f} ms ({by}); rows={train_rows} "
+                f"kernels {full:.4f} ms, dense backward {lib_t:.4f} ms, bound "
+                f"{fbnd:.5f} ms ({fby}: {fbytes} B, {fops} ops); x{count} per "
+                f"train step")
             for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("bound_ms", bnd), ("full_ms", full),
-                             ("full_bound_ms", fbnd)):
+                             ("bound_ms", bnd), ("library_ms", lib),
+                             ("train_ms", full), ("train_bound_ms", fbnd),
+                             ("train_library_ms", lib_t)):
                 step[key] += count * val
             step["bytes"] += count * nbytes
             step["ops"] += count * ops
+            step["train_bytes"] += count * fbytes
+            step["train_ops"] += count * fops
     _, by = bound_ms(step["bytes"], step["ops"], PEAK_OPS["float32"])
-    say(f"time sandwich_bwd per train step ({sum(mix.values())} calls): "
-        f"rows={BWD_ROWS} kernel {step['ms']:.4f} ms, plain "
-        f"{step['plain_ms']:.4f} ms, bound {step['bound_ms']:.5f} ms; "
-        f"rows={train_rows} kernel {step['full_ms']:.4f} ms, bound "
-        f"{step['full_bound_ms']:.5f} ms")
+    _, t_by = bound_ms(step["train_bytes"], step["train_ops"],
+                       PEAK_OPS["float32"])
+    say(f"time sandwich_bwd per train step ({sum(mix.values())} calls of "
+        f"{ks.BWD_KERNELS} launches): rows={BWD_ROWS} kernels "
+        f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, dense "
+        f"backward {step['library_ms']:.4f} ms, bound {step['bound_ms']:.5f} "
+        f"ms ({by}); rows={train_rows} kernels {step['train_ms']:.4f} ms, "
+        f"dense backward {step['train_library_ms']:.4f} ms, bound "
+        f"{step['train_bound_ms']:.5f} ms ({t_by})")
     return {"name": "sandwich_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/sandwich_bwd.cu",
             "replaces": "src/repro/kernels/sandwich.py:89",
             "launches": launches, "max_abs_err": err,
             "ms": step["ms"], "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": by,
-            "library_ms": None,
-            "per": f"train step: {sum(mix.values())} calls of 3 launches at "
-                   f"{BWD_ROWS} rows; at {train_rows} rows the "
-                   f"kernel took {step['full_ms']:.4f} ms against a bound "
-                   f"of {step['full_bound_ms']:.5f} ms"}
+            "library_ms": step["library_ms"],
+            "train_ms": step["train_ms"],
+            "train_bound_ms": step["train_bound_ms"], "train_bound_by": t_by,
+            "train_library_ms": step["train_library_ms"],
+            "per": f"train step: {sum(mix.values())} calls of "
+                   f"{ks.BWD_KERNELS} launches (factors, rows, columns, "
+                   f"their sum, factor-row VJP, reduction; the factor kernel "
+                   f"from src/repro_torch/csrc/sandwich_factors.cuh) at "
+                   f"{BWD_ROWS} rows "
+                   f"(library: the dense layer's backward, dx = g·W and dW "
+                   f"= gT·x by torch.matmul); train_*: the same at "
+                   f"{train_rows} rows"}
 
 
 # -- the encoder-decoder (slice 3) --------------------------------------------
@@ -1162,10 +1364,11 @@ MNIST = (784, 70000, 32)      # n (28 x 28 pixels, padded to 1024), d, k
 TWO_PHASE_STEPS = (400, 300)  # bench_two_phase.py: lr 3e-3, then 1e-3
 # (name, rows, n) of the butterfly kernels against their plain twins: the
 # encoder's product, Olivetti faces (400 images of 64 x 64), fewer rows than
-# blocks, a row count that the chunks do not divide, and the widest n
+# blocks, a row count that the chunks do not divide, n = 8192 (checkpoints
+# in device memory) and the widest n (every working row there)
 BFLY_SHAPES = (("mnist", 70000, 1024), ("olivetti", 400, 4096),
                ("few_rows", 5, 1024), ("ragged", 1237, 2048),
-               ("n8192", 300, 8192))
+               ("n8192", 300, 8192), ("n32768", 64, 32768))
 BFLY_TOL = {"float32": 1e-5, "bfloat16": 5e-2}   # fractions of max|want|
 
 
@@ -1653,7 +1856,7 @@ def phase_flash_autograd(torch, dev, kernel: str, shape) -> None:
 def bench_want(rows, on_card: bool) -> dict:
     """The launches of every kernel that the timed calls of ``rows`` imply:
     ``kernel/*`` the butterfly forward; ``speed/*`` the sandwich forward (2
-    launches), and its train step the sandwich backward (3); each fused
+    launches), and its train step the sandwich backward (6); each fused
     ``backward/*`` step one forward and one backward call of its op."""
     from repro_torch.kernels import butterfly as kb
     from repro_torch.kernels import flash as kf
@@ -1908,7 +2111,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
         train_shape=(2048, 4), encdec_shape=MNIST,
         encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES,
         flash_shapes=FLASH_SHAPES, flash_timed=FLASH_TIMED,
-        bench=None) -> list:
+        bench=None, wide=WIDE) -> list:
     """Phases 3 to 19 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
@@ -1916,9 +2119,10 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
     two phases' steps, ``bfly_shapes`` the butterfly kernels' checks,
     ``flash_shapes`` the flash kernels' besides the training attention
     (``train_shape``, ``cfg``'s heads), ``flash_timed`` the names of those
-    timed besides it (the first is the one the kernels line reports), and
-    ``bench`` the keyword
-    arguments of ``launch.speed.run`` (none: the reference's sizes).
+    timed besides it (the first is the one the kernels line reports),
+    ``bench`` the keyword arguments of ``launch.speed.run`` (none: the
+    reference's sizes) and ``wide`` the sandwich widths of
+    :func:`phase_wide`.
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     train_rows = train_shape[0] * train_shape[1]
@@ -1929,6 +2133,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
             "paged_decode_attention": phase_paged(torch, cfg, dev, kernel),
             "sandwich_bwd": phase_sandwich_bwd(torch, cfg, dev, kernel,
                                                train_rows)}
+    phase_wide(torch, dev, kernel, wide)
     errs.update(phase_butterfly(torch, dev, kernel, bfly_shapes))
     from repro_torch.launch import speed
     phase_sandwich_bwd_bench(torch, dev, kernel,
@@ -1938,6 +2143,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
     flash_shapes = (train_attn, *flash_shapes)
     flash_errs = phase_flash(torch, dev, kernel, flash_shapes)
     launches, summary = phase_serve(torch, np, cfg, dev, kernel)
+    phase_serve_tokens(torch, np, dev)
     kernels = phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
                            train_rows)
     summary.update(phase_profile(torch, np, cfg, dev))

@@ -26,8 +26,9 @@
 //   on the SMs at once (occupancy query), so the row loop, not the launch,
 //   covers the rows. A ragged last chunk needs no care: a block owns whole
 //   rows.
-// * n <= 8192 (32 KB of float32 per row in shared memory); the wrapper
-//   raises above it.
+// * n <= 32768 (128 KB of float32 per row in shared memory, opted into with
+//   cudaFuncAttributeMaxDynamicSharedMemorySize); the wrapper raises above
+//   it.
 
 #include "sandwich_common.cuh"
 
@@ -35,7 +36,7 @@ namespace {
 
 using namespace sandwich;
 
-constexpr int kMaxN = 8192;
+constexpr int kMaxN = 32768;
 
 template <typename T, bool kTransposed>
 __global__ void __launch_bounds__(kThreads) butterfly_fwd_kernel(

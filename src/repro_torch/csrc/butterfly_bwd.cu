@@ -39,9 +39,11 @@
 //   them live there and the partial is copied out once per block. Above
 //   that (n = 2048 .. 8192) the checkpoints and the partial live in device
 //   memory, one slice per block; the activations and g stay in shared
-//   memory (at n = 8192, p = 13, seg = 4: 4 x 32 KB = 128 KB). The
-//   checkpoints of a row are written and read back by the same block, which
-//   mostly hits L2.
+//   memory (at n = 8192, p = 13, seg = 4: 4 x 32 KB = 128 KB). Where those
+//   pass the 227 KB too (n = 16384 and 32768), they move to device memory
+//   as well, beside the block's checkpoints, and the grid is one block an
+//   SM. The checkpoints of a row are written and read back by the same
+//   block, which mostly hits L2.
 // * The grid is as many blocks as fit on the SMs at once; each loops over a
 //   chunk of rows, so the partials number a few hundred, not one per row.
 // * The input x is data in the encoder and needs no gradient there: with
@@ -54,13 +56,15 @@ namespace {
 
 using namespace sandwich;
 
-constexpr int kMaxN = 8192;
+constexpr int kMaxN = 32768;
 constexpr size_t kSmemLimit = 227 * 1024;
 
 struct Plan {
   int nck, nact;
-  bool in_smem;
+  bool in_smem;      // everything in shared memory
+  bool work_global;  // the activations and g in device memory too
   size_t smem;
+  size_t ck_floats;  // device floats a block keeps beside its partial
 };
 
 Plan make_plan(int n, int p, int seg) {
@@ -71,7 +75,11 @@ Plan make_plan(int n, int p, int seg) {
   const size_t all =
       work + sizeof(float) * ((size_t)pl.nck * n + (size_t)2 * p * n);
   pl.in_smem = all <= kSmemLimit;
-  pl.smem = pl.in_smem ? all : work;
+  pl.work_global = work > kSmemLimit;
+  pl.smem = pl.in_smem ? all : pl.work_global ? 0 : work;
+  pl.ck_floats = pl.in_smem ? 0
+                 : (size_t)pl.nck * n +
+                       (pl.work_global ? (size_t)(pl.nact + 1) * n : 0);
   return pl;
 }
 
@@ -81,13 +89,14 @@ __global__ void __launch_bounds__(kThreads) butterfly_bwd_kernel(
     const T* __restrict__ gout, T* __restrict__ dx,
     float* __restrict__ partial, float* __restrict__ ckpt,
     int* __restrict__ applied, int rows, int n, int p, int seg, int nck,
-    int nact, int in_smem) {
+    int nact, int in_smem, int work_global, size_t ck_floats) {
   extern __shared__ float smem[];
-  float* work = smem;                          // nact rows
+  float* dev = ckpt + (size_t)blockIdx.x * ck_floats;  // this block's slice
+  float* work = work_global ? dev + (size_t)nck * n : smem;  // nact rows
   float* g = work + (size_t)nact * n;          // one row
   const size_t pn2 = (size_t)2 * p * n;
   float* slot = partial + (size_t)blockIdx.x * pn2;
-  float* ck = in_smem ? g + n : ckpt + (size_t)blockIdx.x * nck * n;
+  float* ck = in_smem ? g + n : dev;
   float* part = in_smem ? ck + (size_t)nck * n : slot;
   // zeroed before the first row's barrier, updated only after it
   for (size_t i = threadIdx.x; i < pn2; i += kThreads) part[i] = 0.f;
@@ -141,7 +150,9 @@ cudaError_t blocks_that_fit(const Plan& pl, int* blocks) {
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, kernel, kThreads, pl.smem)) != cudaSuccess)
     return err;
-  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  // with everything in device memory, one block an SM: each keeps 2pn + (nck
+  // + nact + 1)·n floats there
+  *blocks = sms * (per_sm > 0 && !pl.work_global ? per_sm : 1);
   return cudaSuccess;
 }
 
@@ -158,7 +169,7 @@ cudaError_t launch(const void* x, const float* w, const void* g, void* dx,
   kernel<<<chunks, kThreads, pl.smem, stream>>>(
       static_cast<const T*>(x), w, static_cast<const T*>(g),
       static_cast<T*>(dx), partial, ckpt, applied, rows, n, p, seg, pl.nck,
-      pl.nact, pl.in_smem ? 1 : 0);
+      pl.nact, pl.in_smem ? 1 : 0, pl.work_global ? 1 : 0, pl.ck_floats);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t total = (size_t)2 * p * n;
   const size_t want = (total + kThreads - 1) / kThreads;
@@ -178,8 +189,9 @@ bool bad_shape(int n, int p, int seg) {
 // blocks (row chunks) to pass to butterfly_bwd, sizes[1] the floats of the
 // partial workspace (chunks · 2pn), sizes[2] the floats of the checkpoint
 // workspace in device memory (0 where the checkpoints fit in shared
-// memory). Returns 0, or cudaErrorInvalidValue for a shape the kernel does
-// not take.
+// memory; with the activations and g where those do not fit either).
+// Returns 0, or cudaErrorInvalidValue for a shape the kernel does not
+// take.
 extern "C" int butterfly_bwd_plan(int rows, int n, int seg, int transposed,
                                   int dtype, long long* sizes) {
   const int p = log2_exact(n);
@@ -199,7 +211,7 @@ extern "C" int butterfly_bwd_plan(int rows, int n, int seg, int transposed,
   const int chunks = rows < fit ? rows : fit;
   sizes[0] = chunks;
   sizes[1] = (long long)chunks * 2 * p * n;
-  sizes[2] = pl.in_smem ? 0 : (long long)chunks * pl.nck * n;
+  sizes[2] = (long long)chunks * pl.ck_floats;
   return 0;
 }
 

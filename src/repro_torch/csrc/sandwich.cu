@@ -21,8 +21,9 @@
 //
 // Two kernels per call, on the current stream:
 //
-// 1. `sandwich_factors_kernel` builds F_in and F_out from this call's
-//    weights, one block per (factor row, column tile of kFacTile). A one-hot
+// 1. `sandwich_factors_kernel` (sandwich_factors.cuh, which the backward
+//    launches too) builds F_in and F_out from this call's weights, one
+//    block per (factor row, column tile of kFacTile). A one-hot
 //    row stays one path wide: the stages whose stride reaches across tiles
 //    act on the short vector {l + j·tile} at the single offset
 //    l = idx & (tile - 1) (one thread per tile), and each in-tile stage
@@ -66,195 +67,27 @@
 #include <type_traits>
 
 #include "sandwich_common.cuh"
+#include "sandwich_factors.cuh"
 
 namespace {
 
 using namespace sandwich;
 
-constexpr int kFacTile = 2048;     // factor columns per block
-constexpr int kFacThreads = 256;
-constexpr int kMaxCross = 7;       // log2(kMaxTiles * kTile / kFacTile)
 constexpr int kBM = 64;            // rows per row tile
 constexpr int kBN = 128;           // output columns per chunk
 constexpr int kRowThreads = 256;   // 8 warps
 constexpr int kStages = 4;         // cp.async ring depth
+constexpr int kSuper = 16;         // K chunks summed apart, then added
 constexpr int kPadK = 16;          // factor rows padded to a multiple
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
 constexpr int kChainFloats = 16384;  // input-butterfly batch, bfloat16 route
-constexpr int kMaxP = 13;          // log2(kMaxN1)
+constexpr int kMaxP = 15;          // log2(kMaxN1)
 constexpr int kTabPairs = 4096;    // stage-weight table of the input chain's
                                    // pair stages, at most n1 pairs
 constexpr int kWarpTabN1 = 2048;   // widest n1 whose warp stages' weights
                                    // are tabled
 
 // -- device helpers ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; an invalid source zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *static_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) · b (16x8 bf16, col), float32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- kernel 1: the truncated factors -----------------------------------------
-
-// Block b builds columns [t·tile, (t+1)·tile) ∩ [0, ld) of row m of F_in
-// (b < kp1·tiles1) or of F_out. Rows m >= k and columns >= n_valid are
-// stored as zeros.
-template <typename T>
-__global__ void __launch_bounds__(kFacThreads) sandwich_factors_kernel(
-    const float* __restrict__ b_in, const float* __restrict__ b_out,
-    const int* __restrict__ idx_in, const int* __restrict__ idx_out,
-    float* __restrict__ f_in, float* __restrict__ f_out,
-    __nv_bfloat16* __restrict__ hl_out, int n1, int k1, int n_in, int kp1,
-    int ld1, int tiles1, int n2, int k2, int n_out, int kp2, int ld2,
-    int tiles2) {
-  __shared__ float row[kFacTile];
-  __shared__ float4 w4[kFacTile - 1];           // in-tile pair weights
-  __shared__ float sv[2][kMaxTiles * kTile / kFacTile];
-
-  // the row kernel may start now: it waits for this grid before it reads
-  // the factors (programmatic dependent launch)
-  asm volatile("griddepcontrol.launch_dependents;\n" ::);
-  const int tid = threadIdx.x;
-  int b = blockIdx.x;
-  const bool is_in = b < kp1 * tiles1;
-  if (!is_in) b -= kp1 * tiles1;
-  const float* w = is_in ? b_in : b_out;
-  const int* idx = is_in ? idx_in : idx_out;
-  const int n = is_in ? n1 : n2, k = is_in ? k1 : k2;
-  const int nv = is_in ? n_in : n_out, kp = is_in ? kp1 : kp2;
-  const int ld = is_in ? ld1 : ld2, tiles = is_in ? tiles1 : tiles2;
-  float* f = is_in ? f_in : f_out;
-  __nv_bfloat16* hl = is_in ? nullptr : hl_out;
-  const int m = b / tiles, t = b % tiles;
-
-  const int tile = n < kFacTile ? n : kFacTile;
-  const int log_tile = 31 - __clz(tile);
-  const int nt = n / tile;                      // tiles of the butterfly
-  const int col0 = t * tile;
-  const bool active = m < k && col0 < n && col0 < nv;  // block-uniform
-
-  if (active) {
-    const int g = idx[m];
-    const int l = g & (tile - 1);
-    // weights of the in-tile pairs on the support, heap order: stage
-    // s = log_tile-1-lg holds 2^lg pairs at e = 2^lg - 1 + q
-    for (int e = tid; e < tile - 1; e += kFacThreads) {
-      const int lg = 31 - __clz(e + 1);
-      const int s = log_tile - 1 - lg;
-      const int q = e + 1 - (1 << lg);
-      const int i = (q << (s + 1)) | (l & ((1 << s) - 1));
-      const int j = i | (1 << s);
-      const float* a = w + (size_t)(2 * s) * n + col0;
-      const float* bw = a + n;
-      w4[e] = make_float4(rnd<T>(a[i]), rnd<T>(bw[j]), rnd<T>(a[j]),
-                          rnd<T>(bw[i]));
-    }
-    for (int i = tid; i < tile; i += kFacThreads) row[i] = 0.f;
-    // cross-tile stages, highest stride first, on v[j] = F[l + j·tile]
-    int cur = 0;
-    if (tid < nt) sv[0][tid] = tid == (g >> log_tile) ? 1.f : 0.f;
-    float wa[kMaxCross], wb[kMaxCross];
-    int ns = 0;
-    if (tid < nt) {
-#pragma unroll
-      for (int c = 0; c < kMaxCross; ++c) {
-        const int stride = (nt >> 1) >> c;     // nt/2, nt/4, ..., 1
-        if (stride < 1) break;
-        const int s = log_tile + (31 - __clz(stride));
-        const float* a = w + (size_t)(2 * s) * n;
-        wa[c] = rnd<T>(a[(tid << log_tile) | l]);
-        wb[c] = rnd<T>(a[n + (((tid ^ stride) << log_tile) | l)]);
-        ns = c + 1;
-      }
-    }
-    __syncthreads();
-    for (int c = 0; (nt >> 1) >> c >= 1; ++c) {
-      const int stride = (nt >> 1) >> c;
-      if (tid < nt) {
-        float y = 0.f;
-#pragma unroll
-        for (int cc = 0; cc < kMaxCross; ++cc)
-          if (cc == c && cc < ns)
-            y = wa[cc] * sv[cur][tid] + wb[cc] * sv[cur][tid ^ stride];
-        sv[cur ^ 1][tid] = y;
-      }
-      cur ^= 1;
-      __syncthreads();
-    }
-    if (tid == 0) row[l] = sv[cur][t];
-    __syncthreads();
-    // in-tile stages, highest stride first, only the pairs on the support
-    for (int lg = 0; lg < log_tile; ++lg) {
-      const int s = log_tile - 1 - lg;
-      for (int q = tid; q < (1 << lg); q += kFacThreads) {
-        const int i = (q << (s + 1)) | (l & ((1 << s) - 1));
-        const int j = i | (1 << s);
-        const float4 c4 = w4[(1 << lg) - 1 + q];
-        const float xi = row[i], xj = row[j];
-        row[i] = c4.x * xi + c4.y * xj;
-        row[j] = c4.z * xj + c4.w * xi;
-      }
-      __syncthreads();
-    }
-  }
-  // store the block's columns below ld (zeros outside the factor)
-  float* frow = f + (size_t)m * ld;
-  for (int i = tid; i < tile; i += kFacThreads) {
-    const int c = col0 + i;
-    if (c >= ld) break;
-    const float v = active && c < nv ? row[i] : 0.f;
-    frow[c] = v;
-    if (hl != nullptr) {
-      const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-      hl[(size_t)m * ld + c] = hi;
-      hl[(size_t)(kp + m) * ld + c] =
-          __float2bfloat16_rn(v - __bfloat162float(hi));
-    }
-  }
-}
 
 // -- kernel 2: the row-tile products -----------------------------------------
 
@@ -287,7 +120,9 @@ __host__ __device__ inline RowPlan row_plan(int k1, int k2, int kp1, int kp2,
   p.kc = 64;                                    // 256 bytes of a row
   p.xs_ld = p.kc + 4;
   p.a_stage = f32 ? round16((kBM + kp1) * p.xs_ld * 4) : 0;
-  p.chain_rb = kChainFloats / n1 < kBM ? kChainFloats / n1 : kBM;
+  // at least one row a batch: from n1 = 32768 a row takes 128 KB
+  p.chain_rb = kChainFloats / n1 < 1 ? 1
+               : kChainFloats / n1 < kBM ? kChainFloats / n1 : kBM;
   p.chain_ld = n1 + 4;
   p.tab_pairs = n1 < kTabPairs ? n1 : kTabPairs;
   p.wtab = !f32 && n1 >= 32 && n1 <= kWarpTabN1;
@@ -307,14 +142,27 @@ __host__ __device__ inline RowPlan row_plan(int k1, int k2, int kp1, int kp2,
   const int a = f32 ? kStages * p.a_stage
                     : round16(p.chain_rb * p.chain_ld * 4);
   const int c = kStages * p.c_stage + stg;
-  p.stg_off = p.pipe_off + kStages * p.c_stage;
   p.total = p.pipe_off + (a > c ? a : c);
+  if (p.total > kMaxSmem && !f32) {
+    // the widest rows with the largest cores: table fewer pair stages (the
+    // rest read their weights from device memory)
+    const int cut = (p.total - kMaxSmem + 15) / 10;
+    p.tab_pairs = p.tab_pairs > cut ? (p.tab_pairs - cut) & ~7 : 0;
+    const int shift = p.wtab_off - (p.tab_off + round16(10 * p.tab_pairs));
+    p.wtab_off -= shift;
+    p.pipe_off -= shift;
+    p.total -= shift;
+  }
+  p.stg_off = p.pipe_off + kStages * p.c_stage;
   return p;
 }
 
 // Product 1, float32 route: h1s[r][m] = (Σ_c x[r][c] F_in[m][c]) · scale_in
 // over the block's rows, x and F_in (kp1, ld1) streamed in K chunks through
-// a cp.async ring. No rounding point follows, so the sum's order is free.
+// a cp.async ring. No rounding point follows, so the sum's order is free;
+// it is blocked (each thread's share of kSuper chunks apart, then into its
+// running sum): at n_in = 28,672 a straight sum of a thread's 7,168 terms
+// strays past SANDWICH_TOL from the stage chain on near-zero outputs.
 __device__ __forceinline__ void product_in_dot(
     const float* __restrict__ x, const float* __restrict__ fin, char* smem,
     const RowPlan& P, float* h1s, int row0, int rows, int n_in, int kp1,
@@ -359,11 +207,11 @@ __device__ __forceinline__ void product_in_dot(
   // kg-th float4 of a chunk; the K groups' sums are added in a fixed order
   const int quads = kp1 / 4, per = 16 * quads, groups = kRowThreads / per;
   const int kg = tid / per, rq = tid % 16, mq = (tid / 16) % quads;
-  float acc[4][4];
+  float acc[4][4], part[4][4];
 #pragma unroll
   for (int u = 0; u < 4; ++u)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+    for (int v = 0; v < 4; ++v) acc[u][v] = part[u][v] = 0.f;
   for (int c = 0; c < nk; ++c) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
@@ -386,12 +234,21 @@ __device__ __forceinline__ void product_in_dot(
         for (int u = 0; u < 4; ++u)
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
-            acc[u][v] += xv[u].x * fv[v].x;
-            acc[u][v] += xv[u].y * fv[v].y;
-            acc[u][v] += xv[u].z * fv[v].z;
-            acc[u][v] += xv[u].w * fv[v].w;
+            part[u][v] += xv[u].x * fv[v].x;
+            part[u][v] += xv[u].y * fv[v].y;
+            part[u][v] += xv[u].z * fv[v].z;
+            part[u][v] += xv[u].w * fv[v].w;
           }
       }
+    }
+    if ((c + 1) % kSuper == 0 || c + 1 == nk) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          acc[u][v] += part[u][v];
+          part[u][v] = 0.f;
+        }
     }
   }
   cp_async_wait<0>();
@@ -893,24 +750,6 @@ __global__ void __launch_bounds__(kRowThreads) sandwich_rows_kernel(
 }
 
 template <typename T>
-cudaError_t launch_factors(const float* b_in, const float* b_out,
-                           const int* idx_in, const int* idx_out,
-                           float* f_in, float* f_out, void* hl_out,
-                           int n1, int k1, int n_in, int kp1,
-                           int ld1, int n2, int k2, int n_out, int kp2,
-                           int ld2, cudaStream_t stream) {
-  const int t1 = n1 < kFacTile ? n1 : kFacTile;
-  const int t2 = n2 < kFacTile ? n2 : kFacTile;
-  const int tiles1 = (ld1 + t1 - 1) / t1, tiles2 = (ld2 + t2 - 1) / t2;
-  sandwich_factors_kernel<T><<<kp1 * tiles1 + kp2 * tiles2, kFacThreads, 0,
-                               stream>>>(
-      b_in, b_out, idx_in, idx_out, f_in, f_out,
-      static_cast<__nv_bfloat16*>(hl_out), n1, k1, n_in, kp1, ld1, tiles1,
-      n2, k2, n_out, kp2, ld2, tiles2);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_rows(const void* x, const float* b_in, const int* idx_in,
                         const float* fin, const float* core, const void* fout,
                         void* out, int rows, int n_in, int n1, int k1,
@@ -934,8 +773,12 @@ cudaError_t launch_rows(const void* x, const float* b_in, const int* idx_in,
   }
   const RowPlan P = row_plan<T>(k1, k2, kp1, kp2, n1);
   constexpr int vw = 16 / sizeof(T);
+  // the bfloat16 chain loads a batch's x as eight 16-byte loads a thread
+  // at most: wider batches (one row of n1 > 16384) load element by element
   const int vec_in = n_in % vw == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     (std::is_same<T, float>::value ||
+                      P.chain_rb * (n1 / vw) <= 8 * kRowThreads);
   const int vec_out = n_out % vw == 0 &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int tiles = (rows + kBM - 1) / kBM;
@@ -955,23 +798,13 @@ cudaError_t launch_rows(const void* x, const float* b_in, const int* idx_in,
       k2, kp2, ld2, n_out, groups, scale_in, scale_out, vec_in, vec_out);
 }
 
-bool valid_factors(int n1, int k1, int n_in, int kp1, int ld1, int n2,
-                   int k2, int n_out, int kp2, int ld2) {
-  const int p1 = log2_exact(n1), p2 = log2_exact(n2);
-  return p1 >= 1 && p2 >= 1 && n1 <= kMaxN1 && n2 <= kTile * kMaxTiles &&
-         k1 >= 1 && k1 <= kMaxK && k2 >= 1 && k2 <= kMaxK && n_in >= 1 &&
-         n_in <= n1 && n_out >= 1 && n_out <= n2 && kp1 >= k1 &&
-         kp2 >= k2 && kp1 <= kMaxK && kp2 <= kMaxK && kp1 % kPadK == 0 &&
-         kp2 % kPadK == 0 && ld1 >= n_in && ld2 >= n_out && ld1 % kBN == 0 &&
-         ld2 % kBN == 0;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (the type the weights are rounded to).
-// f_in (kp1, ld1) and f_out (kp2, ld2) float32; for bfloat16 hl_out
-// (2, kp2, ld2) holds F_out's hi then lo (null for float32). Returns the
-// cudaError_t of the launch (0 on success).
+// f_in (kp1, ld1) and f_out (kp2, ld2) float32; hl_out (2, kp2, ld2), where
+// not null, receives F_out's hi then lo (bfloat16 only: the forward's
+// tensor-core operand; the backward passes null). Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int sandwich_factors(const float* b_in, const float* b_out,
                                 const int* idx_in, const int* idx_out,
                                 float* f_in, float* f_out, void* hl_out,
@@ -983,12 +816,13 @@ extern "C" int sandwich_factors(const float* b_in, const float* b_out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_factors<float>(b_in, b_out, idx_in, idx_out, f_in, f_out,
-                                 nullptr, n1, k1, n_in, kp1, ld1, n2, k2,
-                                 n_out, kp2, ld2, s);
-  if (dtype == 1 && hl_out != nullptr)
+                                 nullptr, nullptr, n1, k1, n_in, kp1, ld1,
+                                 n2, k2, n_out, kp2, ld2, s);
+  if (dtype == 1)
     return launch_factors<__nv_bfloat16>(b_in, b_out, idx_in, idx_out, f_in,
-                                         f_out, hl_out, n1, k1, n_in, kp1,
-                                         ld1, n2, k2, n_out, kp2, ld2, s);
+                                         f_out, nullptr, hl_out, n1, k1,
+                                         n_in, kp1, ld1, n2, k2, n_out, kp2,
+                                         ld2, s);
   return cudaErrorInvalidValue;
 }
 

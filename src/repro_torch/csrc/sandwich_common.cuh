@@ -1,10 +1,11 @@
 // Device code shared by the sandwich kernels (sandwich.cu, sandwich_bwd.cu)
 // and the butterfly kernels (butterfly.cu, butterfly_bwd.cu): dtype
-// conversions, the reference's rounding points, the butterfly stage and its
-// VJP in both directions, the segmented-checkpoint VJP of a stage chain, and
-// the cross-tile part of the sandwich's output butterfly for rows wider
-// than one tile.
+// conversions, the reference's rounding points, 16-byte asynchronous copies,
+// the butterfly stage and its VJP in both directions, and the
+// segmented-checkpoint VJP of a stage chain.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -13,7 +14,7 @@ namespace sandwich {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 4096;    // output-butterfly elements per block
-constexpr int kMaxN1 = 8192;   // input butterfly held whole in shared memory
+constexpr int kMaxN1 = 32768;  // input butterfly width (mistral-large's down)
 constexpr int kMaxK = 64;      // core dims k1, k2
 constexpr int kMaxTiles = 64;  // n2 <= kTile * kMaxTiles
 
@@ -38,6 +39,61 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 // round a float32 value to T and back: the reference's cast points
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f32<T>(from_f32<T>(v));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; an invalid source zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t lds32(const void* p) {
+  return *static_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16x16 bf16, row) · b (16x8 bf16, col), float32 accumulate
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Pair q of a stage with stride 2^s: elements (i, i | 2^s).
@@ -156,59 +212,6 @@ __device__ int chain_vjp(float* work, float* g, float* ck, int n, int p,
     }
   }
   return applied;
-}
-
-// Cross-tile stages of the transposed output butterfly (strides >= tile),
-// highest first, for the row whose k2 nonzeros are (zidx[m], zval[m]): for
-// every offset l of the tile the stages act on the short vector
-// v[j] = z[l + j*tile]; row[l] receives the entry of tile t. Offsets that
-// hold none of the nonzeros give 0. No barrier at the end.
-template <typename T, int NT>
-__device__ __forceinline__ void cross_tile_row(float* row, const float* zval,
-                                               const int* zidx, int k2,
-                                               const float* b_out, int n2,
-                                               int tile, int log_tile,
-                                               int t) {
-  for (int l = threadIdx.x; l < tile; l += kThreads) {
-    float v[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) v[j] = 0.f;
-    bool any = false;
-    for (int m = 0; m < k2; ++m) {
-      const int g = zidx[m];
-      if ((g & (tile - 1)) == l) {
-        const int jj = g >> log_tile;
-        any = true;
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          if (j == jj) v[j] = zval[m];
-      }
-    }
-    if (!any) {
-      row[l] = 0.f;
-      continue;
-    }
-#pragma unroll
-    for (int c = NT / 2; c >= 1; c >>= 1) {
-      const int s = log_tile + (31 - __clz(c));
-      const float* a = b_out + (size_t)(2 * s) * n2;
-      const float* b = a + n2;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (j & c) continue;
-        const int gi = (j << log_tile) | l;
-        const int gj = ((j | c) << log_tile) | l;
-        const float vi = v[j], vj = v[j | c];
-        v[j] = rnd<T>(a[gi]) * vi + rnd<T>(b[gj]) * vj;
-        v[j | c] = rnd<T>(a[gj]) * vj + rnd<T>(b[gi]) * vi;
-      }
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      if (j == t) mine = v[j];
-    row[l] = mine;
-  }
 }
 
 inline int log2_exact(int n) {

@@ -34,7 +34,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.context import resolve_backend
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_N = 8192              # one float32 row in shared memory
+MAX_N = 32768             # one float32 row in shared memory (128 KB)
 BWD_KERNELS = 2           # the per-row VJP, the reduction of dw over blocks
 
 
@@ -197,7 +197,7 @@ def butterfly_forward(x: torch.Tensor, w: torch.Tensor, *,
     """``B x`` (or ``Bᵀ x``) over the last axis of ``x`` (..., n), without
     autograd. ``backend`` follows :mod:`repro_torch.kernels.context`; the
     CUDA route takes contiguous float32 or bfloat16 ``x``, float32 ``w`` on
-    its device, ``2 <= n <= 8192``, and counts each launch in
+    its device, ``2 <= n <= MAX_N`` (32,768), and counts each launch in
     ``butterfly_forward.launches``."""
     if resolve_backend(backend, x) == "torch":
         with torch.no_grad():     # no autograd on either route

@@ -30,12 +30,32 @@ the input butterfly itself, operation for operation as
 :func:`sandwich_plain` does (same bits); ``z`` and the output round as
 above and differ from the twin at most by a bfloat16 step at a tie.
 
-The backward (the reference's ``_sandwich_bwd_kernel``) recomputes the
-forward and takes the VJP through both butterflies and the core, rounding
-where the reference casts: ``gz`` and ``du`` to ``x``'s dtype, ``dx`` when
-stored; the weight gradients are float32, taken w.r.t. the weights rounded
-to ``x``'s dtype. :class:`SandwichFn` runs the forward kernel and the
-backward kernel on a CUDA tensor, and both plain twins on a CPU tensor.
+The backward (the reference's ``_sandwich_bwd_kernel``) takes the VJP
+through the same factors, rounding where the reference casts: per row
+``gz = rnd(g · F_outᵀ)`` (the output butterfly's VJP at ``idx_out``),
+``dh2 = gz · scale_out``, ``du = rnd((dh2 · core) · scale_in)`` and ``dx =
+rnd(du · F_in)``; summed over rows ``d core = dh2ᵀ h1``, ``dF_in = duᵀ x``
+and ``dF_out = zᵀ g``; and the stage-weight gradients are the VJP of the
+factor construction (the transposed butterfly on k one-hot rows) at those
+cotangents, which by linearity is the stage chains' weight gradient over
+all rows, summed in another order. On the card that is six launches
+(``BWD_KERNELS``) in one call: the factor kernel again (the backward
+rebuilds the factors from the saved weights rather than keeping the
+forward's workspace alive across remat), the row kernel, the column kernel,
+the sum of its row splits, the factor-row VJP and the reduction. Each has a
+plain twin here (:func:`sandwich_factors_plain`,
+:func:`sandwich_bwd_rows_plain`, :func:`sandwich_bwd_cols_plain`,
+:func:`sandwich_factors_vjp_plain`); their composition is
+:func:`sandwich_bwd_plain`, the autograd VJP of :func:`sandwich_plain` and
+the oracle of the whole backward. The weight gradients are float32, taken
+w.r.t. the weights rounded to ``x``'s dtype. :class:`SandwichFn` runs the
+forward and backward kernels on a CUDA tensor, and the plain twins on a CPU
+tensor.
+
+The kernels take ``n1 <= MAX_N1``, ``n2 <= MAX_N2`` and ``k1, k2 <= MAX_K``
+(the reference's zoo reaches n1 = 32,768 at mistral-large's ``down`` and
+n2 = 262,144 at gemma3-27b's head); the wrappers raise ``ValueError`` past
+them, before any launch.
 
 Selection and scatter take int32 index arrays: the reference's one-hot
 matmuls were a TPU workaround. The wrappers also fold the sandwich layer's
@@ -108,6 +128,9 @@ def sandwich_rows_plain(x: torch.Tensor, f_in: torch.Tensor,
 
 
 FWD_KERNELS = 2           # factors, rows
+BWD_KERNELS = 6           # factors, rows, columns, their sum, factor-row
+                          # VJP, reduction
+MAX_N1, MAX_N2, MAX_K = 32768, 262144, 64   # the kernels' widths
 _PAD_K, _PAD_N = 16, 128  # the factors' rows and columns padded to multiples
 
 
@@ -158,12 +181,20 @@ def _layout(k1: int, n_in: int, k2: int, n_out: int, dtype) -> tuple:
     return kp1, ld1, kp2, ld2, nbytes
 
 
+def _check_widths(n1: int, n2: int, k1: int, k2: int) -> None:
+    if not (n1 <= MAX_N1 and n2 <= MAX_N2 and k1 <= MAX_K and k2 <= MAX_K):
+        raise ValueError(f"the sandwich kernels take n1 <= {MAX_N1}, n2 <= "
+                         f"{MAX_N2} and k1, k2 <= {MAX_K}; got n1={n1}, "
+                         f"n2={n2}, k1={k1}, k2={k2}")
+
+
 def _factors_cuda(b_in, b_out, idx_in, idx_out, n_in, n_out, dtype):
     """Launch the factor kernel alone into a new workspace (:func:`_layout`)
     and return it as tensors ``(f_in, f_out, hl_out)``, ``hl_out`` None for
     float32."""
     k1, n1 = idx_in.numel(), b_in.shape[-1]
     k2, n2 = idx_out.numel(), b_out.shape[-1]
+    _check_widths(n1, n2, k1, k2)
     kp1, ld1, kp2, ld2, nbytes = _layout(k1, n_in, k2, n_out, dtype)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=b_in.device)
     a1, a2 = 4 * kp1 * ld1, 4 * kp2 * ld2
@@ -211,10 +242,14 @@ def sandwich_factors(b_in: torch.Tensor, b_out: torch.Tensor,
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("sandwich_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sandwich_bwd_workspace.argtypes = [i, i, i, i, i, i, i, p]
-    lib.sandwich_bwd_workspace.restype = ctypes.c_int
-    lib.sandwich_bwd.argtypes = [p] * 14 + [i] * 9 + [f, f, i, p]
+    lib.sandwich_bwd_floats.argtypes = [i] * 9
+    lib.sandwich_bwd_floats.restype = ctypes.c_longlong
+    lib.sandwich_bwd.argtypes = [p] * 12 + [i] * 8 + [f, f, i, p]
     lib.sandwich_bwd.restype = ctypes.c_int
+    lib.sandwich_factors_vjp_floats.argtypes = [i] * 4
+    lib.sandwich_factors_vjp_floats.restype = ctypes.c_longlong
+    lib.sandwich_factors_vjp.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.sandwich_factors_vjp.restype = ctypes.c_int
     return lib
 
 
@@ -261,6 +296,7 @@ def _check_args(x, b_in, core, b_out, idx_in, idx_out, n_out):
                          f"{tuple(core.shape)}")
     if not (n_in <= n1 and n_out <= n2):
         raise ValueError(f"n_in {n_in} > n1 {n1} or n_out {n_out} > n2 {n2}")
+    _check_widths(n1, n2, k1, k2)
     return n1, k1, k2, n2
 
 
@@ -326,14 +362,66 @@ def sandwich_bwd_plain(x: torch.Tensor, b_in: torch.Tensor,
     return dx.to(dt), d_in, d_core, d_out
 
 
-BWD_KERNELS = 3           # output side, input side, reduction
+def sandwich_bwd_rows_plain(x: torch.Tensor, g: torch.Tensor,
+                            f_in: torch.Tensor, core: torch.Tensor,
+                            f_out: torch.Tensor, *, scale_in: float,
+                            scale_out: float) -> tuple:
+    """Plain twin of the backward's row kernel, rows (..., n) flattened:
+    ``(dx, h1, z, dh2, du)`` with ``h1 = rnd(x · F_inᵀ) · scale_in``, ``z =
+    rnd((h1 · coreᵀ) · scale_out)``, ``dh2 = rnd(g · F_outᵀ) · scale_out``,
+    ``du = rnd((dh2 · core) · scale_in)`` (float32 of ``x``'s dtype's
+    values, ``rnd`` the rounding to it) and ``dx = rnd(du · F_in)`` in
+    ``x``'s dtype and shape."""
+    dt = x.dtype
+    xf = x.reshape(-1, x.shape[-1]).float()
+    gf = g.reshape(-1, g.shape[-1]).float()
+    c = core.float()
+    h1 = (xf @ f_in.float().T).to(dt).float() * scale_in
+    z = ((h1 @ c.T) * scale_out).to(dt).float()
+    dh2 = (gf @ f_out.float().T).to(dt).float() * scale_out
+    du = ((dh2 @ c) * scale_in).to(dt).float()
+    dx = (du @ f_in.float()).to(dt).reshape(x.shape)
+    return dx, h1, z, dh2, du
 
 
-def _bwd_chunks(rows: int, tiles: int, device) -> tuple:
-    """Row chunks of the backward's output-side and input-side launches:
-    about two blocks per SM, each chunk at least one row."""
-    blocks = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    return (min(rows, max(1, blocks // tiles)), min(rows, blocks))
+def sandwich_bwd_cols_plain(x: torch.Tensor, g: torch.Tensor,
+                            h1: torch.Tensor, z: torch.Tensor,
+                            dh2: torch.Tensor, du: torch.Tensor) -> tuple:
+    """Plain twin of the backward's column kernel and its ``d core``: the
+    sums over rows ``(dF_in, d core, dF_out) = (duᵀ x, dh2ᵀ h1, zᵀ g)``,
+    float32 (k1, n_in), (k2, k1), (k2, n_out)."""
+    xf = x.reshape(-1, x.shape[-1]).float()
+    gf = g.reshape(-1, g.shape[-1]).float()
+    return du.T @ xf, dh2.T @ h1, z.T @ gf
+
+
+def sandwich_factors_vjp_plain(b_in: torch.Tensor, b_out: torch.Tensor,
+                               idx_in: torch.Tensor, idx_out: torch.Tensor,
+                               d_f_in: torch.Tensor, d_f_out: torch.Tensor,
+                               dtype: torch.dtype) -> tuple:
+    """Plain twin of the factor-row VJP: ``(d b_in, d b_out)`` float32, the
+    VJP of :func:`sandwich_factors_plain` (F_in (k1, n_in), F_out (k2,
+    n_out)) at the cotangents ``d_f_in``, ``d_f_out``, by autograd, w.r.t.
+    the weights rounded to ``dtype``."""
+    with torch.enable_grad():
+        w_in = b_in.detach().to(dtype).float().requires_grad_()
+        w_out = b_out.detach().to(dtype).float().requires_grad_()
+        f_in, f_out = sandwich_factors_plain(
+            w_in, w_out, idx_in, idx_out, d_f_in.shape[-1],
+            d_f_out.shape[-1], torch.float32)
+        return torch.autograd.grad((f_in, f_out), (w_in, w_out),
+                                   (d_f_in.float(), d_f_out.float()))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_floats(*dims) -> int:
+    """The floats of the backward's workspace for ``dims`` (rows, n_in,
+    n1, k1, n_out, n2, k2, sms, dtype)."""
+    floats = int(_bwd_lib().sandwich_bwd_floats(*dims))
+    if floats == 0:
+        raise ValueError(f"sandwich_bwd takes no rows, n_in, n1, k1, n_out, "
+                         f"n2, k2, sms, dtype = {dims}")
+    return floats
 
 
 def _sandwich_bwd_cuda(x, b_in, core, b_out, idx_in, idx_out, g, scale_in,
@@ -348,36 +436,81 @@ def _sandwich_bwd_cuda(x, b_in, core, b_out, idx_in, idx_out, g, scale_in,
                          f"{tuple(x.shape)} and n_out {n_out}")
     dev = x.device
     dx = torch.empty_like(x)
-    d_in = torch.empty(b_in.shape, dtype=torch.float32, device=dev)
-    d_core = torch.empty(core.shape, dtype=torch.float32, device=dev)
-    d_out = torch.empty(b_out.shape, dtype=torch.float32, device=dev)
+    # the three weight gradients in one allocation
+    sizes = (b_in.numel(), core.numel(), b_out.numel())
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    d_in, d_core, d_out = (t.view(w.shape) for t, w in zip(
+        grads.split(sizes), (b_in, core, b_out)))
     if rows == 0:
-        return dx, d_in.zero_(), d_core.zero_(), d_out.zero_()
-    lib = _bwd_lib()
-    tiles = n2 // min(n2, 4096)
-    chunks_a, chunks_b = _bwd_chunks(rows, tiles, dev)
-    sizes = (ctypes.c_longlong * 3)()
-    err = lib.sandwich_bwd_workspace(rows, n1, k1, k2, n2, chunks_a,
-                                     chunks_b, sizes)
-    if err != 0:
-        raise ValueError(f"sandwich_bwd takes no n1={n1}, n2={n2}, k1={k1}, "
-                         f"k2={k2}")
-    gsel, pa, pb = (torch.empty(int(n), dtype=torch.float32, device=dev)
-                    for n in sizes)
-    err = lib.sandwich_bwd(
-        x.data_ptr(), b_in.data_ptr(), core.data_ptr(), b_out.data_ptr(),
-        idx_in.data_ptr(), idx_out.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        d_in.data_ptr(), d_core.data_ptr(), d_out.data_ptr(),
-        gsel.data_ptr(), pa.data_ptr(), pb.data_ptr(), rows, n_in, n1, k1,
-        k2, n2, n_out, chunks_a, chunks_b, float(scale_in),
-        float(scale_out), _DTYPES[x.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        grads.zero_()
+        return dx, d_in, d_core, d_out
+    sms = _sm_count(dev.index)
+    ws = torch.empty(_bwd_floats(rows, n_in, n1, k1, n_out, n2, k2, sms,
+                                 _DTYPES[x.dtype]),
+                     dtype=torch.float32, device=dev)
+    err = _bwd_lib().sandwich_bwd(
+        x.data_ptr(), g.data_ptr(), core.data_ptr(), b_in.data_ptr(),
+        b_out.data_ptr(), idx_in.data_ptr(), idx_out.data_ptr(),
+        dx.data_ptr(), d_in.data_ptr(), d_core.data_ptr(), d_out.data_ptr(),
+        ws.data_ptr(), rows, n_in, n1, k1, n_out, n2, k2, sms,
+        float(scale_in), float(scale_out), _DTYPES[x.dtype],
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"sandwich_bwd launch failed with cudaError {err} "
                            f"(rows={rows}, n1={n1}, n2={n2}, k1={k1}, "
                            f"k2={k2})")
     sandwich_backward.launches += BWD_KERNELS
     return dx, d_in, d_core, d_out
+
+
+def sandwich_factors_vjp(b_in: torch.Tensor, b_out: torch.Tensor,
+                         idx_in: torch.Tensor, idx_out: torch.Tensor,
+                         d_f_in: torch.Tensor, d_f_out: torch.Tensor, *,
+                         dtype: torch.dtype, backend: str = "auto") -> tuple:
+    """``(d b_in, d b_out)``: the VJP of :func:`sandwich_factors` at the
+    cotangents ``d_f_in`` (k1, n_in) and ``d_f_out`` (k2, n_out), float32.
+    The CUDA route launches the backward's factor-row VJP and reduction
+    alone (two counts in ``sandwich_backward.launches``)."""
+    if resolve_backend(backend, b_in) == "torch":
+        return sandwich_factors_vjp_plain(b_in, b_out, idx_in, idx_out,
+                                          d_f_in, d_f_out, dtype)
+    if dtype not in _DTYPES:
+        raise TypeError(f"sandwich factors take float32 or bfloat16, got "
+                        f"{dtype}")
+    for name, t, want in (("b_in", b_in, torch.float32),
+                          ("b_out", b_out, torch.float32),
+                          ("idx_in", idx_in, torch.int32),
+                          ("idx_out", idx_out, torch.int32),
+                          ("d_f_in", d_f_in, torch.float32),
+                          ("d_f_out", d_f_out, torch.float32)):
+        _check(name, t, want, b_in.device)
+    n1, n2 = b_in.shape[-1], b_out.shape[-1]
+    k1, k2 = idx_in.numel(), idx_out.numel()
+    _check_widths(n1, n2, k1, k2)
+    (_, n_in), (_, n_out) = d_f_in.shape, d_f_out.shape
+    if d_f_in.shape != (k1, n_in) or d_f_out.shape != (k2, n_out) or not (
+            n_in <= n1 and n_out <= n2):
+        raise ValueError(f"cotangents {tuple(d_f_in.shape)}, "
+                         f"{tuple(d_f_out.shape)} do not fit k1={k1}, "
+                         f"k2={k2}, n1={n1}, n2={n2}")
+    lib = _bwd_lib()
+    dev = b_in.device
+    ws = torch.empty(int(lib.sandwich_factors_vjp_floats(n1, k1, n2, k2)),
+                     dtype=torch.float32, device=dev)
+    d_in = torch.empty(b_in.shape, dtype=torch.float32, device=dev)
+    d_out = torch.empty(b_out.shape, dtype=torch.float32, device=dev)
+    err = lib.sandwich_factors_vjp(
+        b_in.data_ptr(), b_out.data_ptr(), idx_in.data_ptr(),
+        idx_out.data_ptr(), d_f_in.data_ptr(), d_f_out.data_ptr(),
+        d_in.data_ptr(), d_out.data_ptr(), ws.data_ptr(), n_in, n1, k1,
+        n_out, n2, k2, _DTYPES[dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sandwich_factors_vjp launch failed with "
+                           f"cudaError {err} (n1={n1}, n2={n2}, k1={k1}, "
+                           f"k2={k2})")
+    sandwich_backward.launches += 2
+    return d_in, d_out
 
 
 def sandwich_backward(x: torch.Tensor, b_in: torch.Tensor,
@@ -387,9 +520,9 @@ def sandwich_backward(x: torch.Tensor, b_in: torch.Tensor,
                       n_out: int, backend: str = "auto"):
     """The sandwich's VJP: ``(dx, d b_in, d core, d b_out)`` for the output
     cotangent ``g`` (..., n_out). ``backend`` follows
-    :mod:`repro_torch.kernels.context`; the CUDA route adds its three kernel
-    launches (output side, input side, reduction) to
-    ``sandwich_backward.launches``."""
+    :mod:`repro_torch.kernels.context`; the CUDA route adds its
+    ``BWD_KERNELS`` launches (factors, rows, columns, their sum, factor-row
+    VJP, reduction) to ``sandwich_backward.launches``."""
     if resolve_backend(backend, x) == "torch":
         return sandwich_bwd_plain(x, b_in, core, b_out, idx_in, idx_out, g,
                                   scale_in=scale_in, scale_out=scale_out,

@@ -1,8 +1,9 @@
 """Rehearsal of `chip_smoke.py` on the CPU: every phase after the build
-(the sandwich factor and forward checks, serving, the sandwich backward
-check, training and its gradient check, the butterfly kernels' checks, the
-encoder-decoder at 64 x 256, the flash kernels' checks at small shapes and
-the benches at n = 64) runs on the
+(the sandwich factor and forward checks, serving and its greedy-token
+check, the sandwich backward and factor-VJP checks, the wide-width checks at
+100 -> 36, training and its gradient check, the butterfly kernels' checks,
+the encoder-decoder at 64 x 256, the flash kernels' checks at small shapes
+and the benches at n = 64) runs on the
 smoke-sized butterfly config with the plain PyTorch versions in place of
 the kernels, so wrong paths, shapes and control flow show up before the
 script reaches a card. Also the script's refusals: no result
@@ -53,9 +54,15 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
                         bfly_shapes=(("small", 5, 64), ("ragged", 37, 128)),
                         flash_shapes=flash_shapes,
                         flash_timed=("window",),
-                        bench=dict(ns=(64,), batch=4, iters=1))
+                        bench=dict(ns=(64,), batch=4, iters=1),
+                        wide=("wide", 100, 36))
     out = capsys.readouterr().out
     assert "serve: 16 requests" in out
+    assert "give the same greedy tokens (64 tokens" in out
+    assert "sandwich_bwd wide 100->36 (n1 128, n2 64, k 7/5) rows=64 " \
+        "bfloat16" in out
+    assert "sandwich factors vjp lm_head  max|err|" in out
+    assert "dense backward" in out
     for site in ("up_gate", "down", "lm_head", "widest"):
         for dtype in ("float32", "bfloat16"):
             assert f"sandwich factors {site:8s} {dtype:9s} F_in" in out
@@ -159,7 +166,7 @@ def test_bench_launch_counts_follow_the_timed_calls():
     """What each kernel must have launched for the bench rows' timed calls:
     a ``kernel/*`` call one butterfly forward, a ``speed/forward`` call one
     sandwich forward (2 launches: factors, rows), a ``speed/train`` call one
-    sandwich forward and one backward (3 launches), each fused
+    sandwich forward and one backward (6 launches), each fused
     ``backward/*`` call one forward and one backward of its op; plain and
     skipped rows nothing."""
     smoke = _load_script()
@@ -173,7 +180,7 @@ def test_bench_launch_counts_follow_the_timed_calls():
     rows = [{"name": n, "calls": c} for n, c in calls.items()]
     assert smoke.bench_want(rows, on_card=True) == {
         "butterfly_fwd": 46, "butterfly_bwd": 46, "sandwich_fwd": 154,
-        "sandwich_bwd": 162, "flash_fwd": 8, "flash_bwd": 16}
+        "sandwich_bwd": 324, "flash_fwd": 8, "flash_bwd": 16}
     assert set(smoke.bench_want(rows, on_card=False).values()) == {0}
 
 

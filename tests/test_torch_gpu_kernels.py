@@ -8,7 +8,8 @@ so it runs on a machine that has only PyTorch; from the repo root:
 Tolerances are the reference's own: the sandwich kernel's float32 2e-4 and
 bfloat16 5e-2 (its factor kernel's float32 1e-5), the paged kernel's
 float32 1e-5 and bfloat16 2e-2; the sandwich backward's float32 1e-5 and
-bfloat16 8% of max|want| (`tests/test_kernels_grad.py`); the butterfly
+bfloat16 8% of max|want| (`tests/test_kernels_grad.py`; its factor-row VJP,
+float32 in both dtypes, 1e-5); the butterfly
 kernels' float32 1e-5 and bfloat16 5% of max|want|, forward and backward;
 the flash kernels' forward 1e-5 / 2e-2 of max|want|, lse 1e-5, gradients
 1e-4 / 5e-2 (float32 sums in another order; bfloat16 rounds once at the
@@ -44,9 +45,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sandwich_case(n_in, n_out, rows, dtype, dev, seed=0):
+def _sandwich_case(n_in, n_out, rows, dtype, dev, seed=0, k=None):
     gen = torch.Generator().manual_seed(seed)
-    spec = blayers.make_spec(gen, n_in, n_out, use_bias=False)
+    spec = blayers.make_spec(gen, n_in, n_out, k_in=k, k_out=k,
+                             use_bias=False)
     p1 = int(math.log2(spec.pad_in))
     p2 = int(math.log2(spec.pad_out))
     args = dict(
@@ -99,6 +101,8 @@ def _layer_case(n_in, n_out, rows, dtype, dev, seed=0):
     # the model's sites at the training run's rows, the layer's weights
     ("layer", 576, 1536, 8192), ("layer", 1536, 576, 8192),
     ("layer", 576, 49152, 8192),
+    # mistral-large-123b's down site: n1 = 32,768, the widest input
+    ("layer", 28672, 12288, 64),
     # row counts off the 64-row tile
     ("gaussian", 576, 1536, 1), ("gaussian", 576, 1536, 63),
     ("gaussian", 1536, 576, 65), ("gaussian", 576, 49152, 1000),
@@ -128,7 +132,8 @@ def test_sandwich_kernel_rows_and_repeats(cuda, case, n_in, n_out, rows,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_in,n_out,k", [
     (576, 1536, None), (1536, 576, None), (576, 49152, None), (100, 36, None),
-    (64, 8192, None), (32, 262144, None), (48, 80, None), (128, 256, 64)])
+    (64, 8192, None), (32, 262144, None), (48, 80, None), (128, 256, 64),
+    (28672, 12288, None)])
 def test_sandwich_factor_kernel_matches_plain(cuda, n_in, n_out, k, dtype):
     """The factor kernel through the wrapper's workspace: the float32
     factors against the plain twin (each entry a product of path weights,
@@ -175,15 +180,27 @@ def _assert_grad_close(got, want, dtype, what=""):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_in,n_out,rows", [
-    (576, 1536, 256), (1536, 576, 256), (576, 49152, 256), (100, 36, 3),
-    (64, 8192, 5), (48, 80, 7),
-    # many rows per block: the row loops, uneven chunks, partial sums
-    (576, 1536, 1000), (1536, 576, 8192), (576, 49152, 1000),
-    # n1 = 8192: the input side's checkpoints in device memory
-    (8192, 8192, 64)])
-def test_sandwich_bwd_kernel_matches_plain(cuda, n_in, n_out, rows, dtype):
-    args, kw = _sandwich_case(n_in, n_out, rows, dtype, cuda)
+@pytest.mark.parametrize("n_in,n_out,rows,k", [
+    (576, 1536, 256, None), (1536, 576, 256, None), (576, 49152, 256, None),
+    (100, 36, 3, None), (64, 8192, 5, None), (48, 80, 7, None),
+    # many row tiles and row splits of the column kernel, ragged tiles
+    (576, 1536, 1000, None), (1536, 576, 8192, None),
+    (576, 49152, 1000, None),
+    # bench_backward's widest (k = 13), a core of 64 x 64
+    (8192, 8192, 64, None), (128, 256, 65, 64),
+    # n1 = 32,768 (mistral-large-123b's down) and n2 = 262,144: the widest
+    # factor rows, whose VJP runs in device memory
+    (28672, 12288, 64, None), (32, 262144, 2, None)])
+def test_sandwich_bwd_kernel_matches_plain(cuda, n_in, n_out, rows, k,
+                                           dtype):
+    """The backward's six launches against ``sandwich_bwd_plain``: the
+    model's weights where the widths pass 8192 (Gaussian stage weights grow
+    outputs to the hundreds there), Gaussian ones elsewhere; two launches
+    give the same bits."""
+    if max(n_in, n_out) > 8192:
+        args, kw = _layer_case(n_in, n_out, rows, dtype, cuda)
+    else:
+        args, kw = _sandwich_case(n_in, n_out, rows, dtype, cuda, k=k)
     gen = torch.Generator().manual_seed(5)
     g = torch.randn(rows, n_out, generator=gen).to(cuda, dtype)
     before = ks.sandwich_backward.launches
@@ -198,6 +215,36 @@ def test_sandwich_bwd_kernel_matches_plain(cuda, n_in, n_out, rows, dtype):
         assert torch.isfinite(a).all(), name
         assert torch.equal(a, b), f"{name} differs between two launches"
         _assert_grad_close(a, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_in,n_out,k", [
+    (576, 1536, None), (1536, 576, None), (576, 49152, None), (48, 80, None),
+    (128, 256, 64), (28672, 12288, None), (32, 262144, None)])
+def test_sandwich_factors_vjp_kernel_matches_plain(cuda, n_in, n_out, k,
+                                                   dtype):
+    """The factor-row VJP and its reduction alone against autograd through
+    ``sandwich_factors_plain``, for Gaussian cotangents: float32 1e-5 of
+    max|want| in both dtypes (the weights are rounded, the sums float32),
+    two launches bit-identical, two counts each."""
+    from repro_torch.nn import ButterflyLinear
+    gen = torch.Generator().manual_seed(n_in + 3 * n_out)
+    spec = blayers.make_spec(gen, n_in, n_out, k_in=k, k_out=k,
+                             use_bias=False)
+    layer = ButterflyLinear(spec, generator=gen).to(cuda)
+    d_f_in = torch.randn(spec.k_in, n_in, generator=gen).to(cuda)
+    d_f_out = torch.randn(spec.k_out, n_out, generator=gen).to(cuda)
+    w = (layer.b_in.detach(), layer.b_out.detach(), layer.idx_in,
+         layer.idx_out, d_f_in, d_f_out)
+    before = ks.sandwich_backward.launches
+    got = ks.sandwich_factors_vjp(*w, dtype=dtype, backend="cuda")
+    again = ks.sandwich_factors_vjp(*w, dtype=dtype, backend="cuda")
+    want = ks.sandwich_factors_vjp(*w, dtype=dtype, backend="torch")
+    torch.cuda.synchronize()
+    assert ks.sandwich_backward.launches == before + 4
+    for name, a, b, ww in zip(("d b_in", "d b_out"), got, again, want):
+        assert torch.equal(a, b), f"{name} differs between two launches"
+        _assert_grad_close(a, ww, torch.float32, name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -267,12 +314,41 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):
         pa.paged_decode_attention(q, k_pool, v_pool, ids.long(), cur,
                                   backend="cuda")
+    # past the widths the kernels take: ValueError naming the limit, before
+    # any launch
+    before = (ks.sandwich_forward.launches, ks.sandwich_backward.launches,
+              kb.butterfly_forward.launches, kb.butterfly_backward.launches)
+    for n_in, n_out, k in ((40000, 64, None), (64, 300000, None),
+                           (128, 256, 65)):
+        args, kw = _sandwich_case(n_in, n_out, 2, torch.float32, cuda, k=k)
+        g = torch.zeros(2, n_out, device=cuda)
+        for call in (lambda: ks.sandwich_forward(**args, **kw,
+                                                 backend="cuda"),
+                     lambda: ks.sandwich_backward(**args, g=g, **kw,
+                                                  backend="cuda"),
+                     lambda: ks.sandwich_factors(
+                         args["b_in"], args["b_out"], args["idx_in"],
+                         args["idx_out"], n_in=n_in, n_out=n_out,
+                         dtype=torch.float32, backend="cuda")):
+            with pytest.raises(ValueError, match="n1 <= 32768"):
+                call()
+    x = torch.zeros(2, 65536, device=cuda)
+    w = torch.zeros(16, 2, 65536, device=cuda)
+    with pytest.raises(ValueError, match="32768"):
+        kb.butterfly_forward(x, w, backend="cuda")
+    with pytest.raises(ValueError, match="32768"):
+        kb.butterfly_backward(x, w, x, backend="cuda")
+    assert before == (ks.sandwich_forward.launches,
+                      ks.sandwich_backward.launches,
+                      kb.butterfly_forward.launches,
+                      kb.butterfly_backward.launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("rows,n", [(1, 2), (11, 64), (300, 256),
-                                    (1237, 1024), (400, 4096), (7, 8192)])
+                                    (1237, 1024), (400, 4096), (7, 8192),
+                                    (3, 16384), (64, 32768)])
 def test_butterfly_kernels_match_plain(cuda, rows, n, dtype, transpose):
     gen = torch.Generator().manual_seed(rows + n)
     w = bf.random_weights(gen, n).to(cuda)
@@ -321,8 +397,8 @@ def test_butterfly_fn_autograd_on_card(cuda):
     torch.testing.assert_close(w.grad, want, atol=1e-5 * float(
         want.abs().max()), rtol=1e-5)
     with pytest.raises(ValueError):
-        kb.butterfly_forward(torch.zeros(2, 16384, device=cuda),
-                             torch.zeros(14, 2, 16384, device=cuda))
+        kb.butterfly_forward(torch.zeros(2, 65536, device=cuda),
+                             torch.zeros(16, 2, 65536, device=cuda))
 
 
 FLASH_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}

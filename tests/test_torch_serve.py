@@ -4,9 +4,16 @@ reference, plus its page pool and its import and device rules.
 Greedy outputs of the port's `ServeEngine` must equal the JAX unsharded
 `ServeEngine`'s token for token on the same carried weights in float32;
 `slots=2` with 4 requests makes slots refill, and one prompt is longer
-than the 16-token prefill chunk.
+than the 16-token prefill chunk. On the card (marked ``gpu``), the same
+prompts through the kernels must give the CPU plain path's tokens, which
+closes the chain from the card to the reference. The reference is imported
+inside the tests that use it, so the card's machine, which has no JAX, runs
+the ``gpu`` test from the repo root with
+
+    PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_serve.py
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -15,25 +22,24 @@ import numpy as np
 import pytest
 import torch
 
-from repro.serve import Request as JRequest
-from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import registry as treg
 from repro_torch.kernels.paged_attention import TRASH_PAGE
 from repro_torch.serve import (PagedCachePool, PoolExhausted, Request,
                                SamplingParams, ServeEngine, loader,
                                sample_logits)
 
-from test_torch_lm import carried_models
-
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
 @pytest.fixture(scope="module")
 def models():
+    from test_torch_lm import carried_models
     return carried_models(seed=1)
 
 
 def test_engine_greedy_tokens_match_reference_engine(models):
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeEngine as JServeEngine
     jcfg, params, tcfg, model = models
     rng = np.random.default_rng(3)
     lens = (5, 23, 11, 3)
@@ -170,3 +176,21 @@ def test_port_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    timeout=120)
+
+
+@pytest.mark.gpu
+def test_greedy_tokens_on_card_match_cpu_plain_path():
+    """``chip_smoke.py``'s token phase: ``smollm-135m-butterfly-smoke`` in
+    float32, weights made once on the CPU, served through the kernels on
+    the card and through the plain versions on the CPU with the prompts of
+    the test above (slots 2, chunks of 16, 16 new tokens): every token
+    equal, or the phase prints the request, step and logit gap and
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run `pytest -m gpu` on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(SRC, "..", "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.phase_serve_tokens(torch, np, torch.device("cuda"))
