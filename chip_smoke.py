@@ -14,10 +14,12 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    factor kernel against ``sandwich_factors_plain`` within 1e-5, and the
    whole forward against the stage-by-stage ``sandwich_plain`` at 8, 8x16
    and the training run's 8192 rows, float32 at 2e-4 and bfloat16 at 5e-2.
-4. Paged decode kernel vs its plain twin: 8 slots, 3 KV heads, 3 query
-   heads per group, head dim 64, pages of 16, up to 512 positions, with a
-   dirty trash page, stale rows and NaN pages past ``cur_pos``; float32 at
-   1e-5 and bfloat16 at 2e-2.
+4. Paged decode kernels (the split over runs of 4 pages, then the
+   combine) vs their plain twin: 8 slots, 3 KV heads, 3 query heads per
+   group, head dim 64, pages of 16, at the serving engine's 512 positions
+   and at a long 2048 (7,883 live positions), with a dirty trash page,
+   stale rows and NaN pages past ``cur_pos``; float32 at 1e-5 and bfloat16
+   at 2e-2; two launches bit-identical.
 5. Sandwich backward (six kernels: the factors again, the row products,
    the column products, their sum over row splits, the factor-row VJP, the
    reduction) vs its plain
@@ -36,7 +38,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
    200 tokens and 32 new tokens each. Checks: every request gets its 32
    tokens, the kernels' launch counters rose by 2 x 91 (sandwich: factors
-   and rows) and 30 (paged) per decode tick and 2 x 91 per chunk tick, no
+   and rows) and 2 x 30 (paged: split and combine) per decode tick and
+   2 x 91 per chunk tick, no
    NaN appears in the logits or the KV pool, and a pooled decode tick on
    live engine state agrees with the plain versions layer by layer: each
    of the 30 layers and the head runs under both on the same input,
@@ -50,11 +53,13 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    23-token prompt chunks twice), 16 new tokens each. The tokens must be
    equal; at a flip the request, the step and the CPU run's top-1 minus
    top-2 logit gap there are printed and the phase fails.
-7. Timing with CUDA events: each forward kernel, its plain twin, and one
-   library call as a yardstick the port never calls (for the sandwich a
-   ``torch.matmul`` by its materialized dense matrix, at 8 rows and at
-   the training run's 8192, each with its bound; for the paged kernel
-   ``scaled_dot_product_attention`` over gathered KV); each kernel's
+7. Timing: each forward kernel, its plain twin, and one library call as
+   a yardstick the port never calls (for the sandwich a ``torch.matmul``
+   by its materialized dense matrix, at 8 rows and at the training run's
+   8192, each with its bound, by CUDA events; for the paged kernels
+   ``scaled_dot_product_attention`` over gathered KV, at both shapes of 4,
+   by device time from ``torch.profiler`` beside the CUDA-event figure over
+   back-to-back calls, which the host's enqueue can set); each kernel's
    bound from its bytes and operations (the sandwich's on the support it
    needs) over the H100's 3.35 TB/s and peak rates.
 8. Profile: ``torch.profiler`` over three pooled decode ticks — device
@@ -107,7 +112,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     forward and 2 backward launches per call.
 19. Timing of the flash kernels at (a) and (b): kernel, plain twin,
     bound, ``scaled_dot_product_attention`` forward and backward, and at
-    (a) the port's plain ``_attend_masked`` in grouped layout.
+    (a) the port's plain ``_attend_masked`` in grouped layout; the forward
+    and SDPA's forward by device time beside their CUDA-event figures, the
+    float32 forward's bound at the 3xTF32 rate (495/3 TFLOP/s) beside the
+    CUDA-core one.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
@@ -129,6 +137,9 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 TC / fp32
+# a float32 route on the tensor cores in 3xTF32 (three TF32 products for
+# each float32 one): the TF32 peak over three
+PEAK_3XTF32 = 495e12 / 3
 SANDWICH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 FACTOR_TOL = 1e-5         # the factors are float32 in both routes
 WIDEST = ("widest", 32, 262144)   # n2 = 4096 x 64, the kernels' limit
@@ -138,6 +149,11 @@ WIDE = ("mistral_down", 28672, 12288)
 WIDE_ROWS = 64
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SLOTS, MAX_LEN, CHUNK, NEW_TOKENS, N_REQUESTS = 8, 512, 16, 32, 16
+# the paged kernel's shapes (cur_pos per slot, pages of 16): the serving
+# engine's (max_len 512) and a long one at the 2048-token context of
+# SmolLM-135M, the training run's seq_len (7,883 live positions)
+PAGED_SHAPES = (("serve", (0, 15, 16, 100, 255, 300, 511, 47), MAX_LEN),
+                ("long", (2047, 2000, 1500, 1024, 777, 511, 16, 0), 2048))
 
 
 def say(*parts) -> None:
@@ -171,6 +187,41 @@ def cuda_ms(torch, fn, reps: int, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, warm: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: the summed durations of the
+    kernels and copies it launches over ``reps`` calls, read from
+    ``torch.profiler`` after ``warm`` calls, over ``reps``. Unlike
+    :func:`cuda_ms`, the host's enqueue rate cannot set it: gaps between
+    launches do not count. Raises where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise RuntimeError("device_ms: the profiler saw no device time")
+    return us / reps / 1e3
+
+
+def clocks(dev) -> str:
+    """The card's SM clock and power draw now, for a timing line (calls
+    land on cards at other clocks); empty off the card."""
+    if dev.type != "cuda":
+        return ""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    return f"; SM clock, power after: {out}"
 
 
 def allclose_or_raise(torch, what, got, want, tol) -> float:
@@ -297,19 +348,21 @@ def phase_sandwich(torch, cfg, dev, kernel: str, train_rows: int) -> float:
     return worst
 
 
-def paged_inputs(torch, cfg, dtype, dev, seed=2):
-    """q, pools, page table and cur_pos at the engine's decode shape, with
-    a dirty trash page, stale rows and NaN pages past cur_pos."""
+def paged_inputs(torch, cfg, dtype, dev, seed=2, shape=PAGED_SHAPES[0]):
+    """q, pools, page table and cur_pos at one of PAGED_SHAPES (the
+    engine's decode shape by default), with a dirty trash page, stale rows
+    and NaN pages past cur_pos."""
     from repro_torch.kernels import paged_attention as pa
     KV, D = cfg.n_kv_heads, cfg.head_dim_
     G = cfg.n_heads // KV
-    ps, P = 16, MAX_LEN // 16
+    _, cur, max_len = shape
+    ps, P = 16, max_len // 16
     gen = torch.Generator().manual_seed(seed)
     N = 1 + SLOTS * P
     k_pool = torch.randn(N, ps, KV, D, generator=gen)
     v_pool = torch.randn(N, ps, KV, D, generator=gen)
     ids = (torch.randperm(N - 1, generator=gen) + 1).reshape(SLOTS, P)
-    cur = torch.tensor([0, 15, 16, 100, 255, 300, 511, 47])
+    cur = torch.tensor(cur)
     k_pool[pa.TRASH_PAGE] = 1e4
     v_pool[pa.TRASH_PAGE] = -1e4
     for b in range(SLOTS):
@@ -325,20 +378,30 @@ def paged_inputs(torch, cfg, dtype, dev, seed=2):
 
 
 def phase_paged(torch, cfg, dev, kernel: str) -> float:
+    """The paged kernels against their plain twin at PAGED_SHAPES, both
+    dtypes; two launches bit-identical."""
     from repro_torch.kernels import paged_attention as pa
     worst = 0.0
     with torch.no_grad():
-        for dtype in ("float32", "bfloat16"):
-            args = paged_inputs(torch, cfg, getattr(torch, dtype), dev)
-            got = pa.paged_decode_attention(*args, backend=kernel)
-            want = pa.paged_decode_attention(*args, backend="torch")
-            sync(torch, dev)
-            err = allclose_or_raise(torch, f"paged {dtype}", got, want,
-                                    PAGED_TOL[dtype])
-            say(f"paged B={SLOTS} {tuple(args[0].shape)} ps=16 {dtype:9s} "
-                f"max|err|={err:.3e} (tol {PAGED_TOL[dtype]})")
-            if dtype == cfg.compute_dtype:
-                worst = max(worst, err)
+        for shape in PAGED_SHAPES:
+            for dtype in ("float32", "bfloat16"):
+                args = paged_inputs(torch, cfg, getattr(torch, dtype), dev,
+                                    shape=shape)
+                got = pa.paged_decode_attention(*args, backend=kernel)
+                again = pa.paged_decode_attention(*args, backend=kernel)
+                want = pa.paged_decode_attention(*args, backend="torch")
+                sync(torch, dev)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"paged {shape[0]} {dtype}: two "
+                                         f"launches differ")
+                err = allclose_or_raise(torch, f"paged {shape[0]} {dtype}",
+                                        got, want, PAGED_TOL[dtype])
+                say(f"paged {shape[0]:5s} B={SLOTS} {tuple(args[0].shape)} "
+                    f"ps=16 P={args[3].shape[1]} {dtype:9s} max|err|="
+                    f"{err:.3e} (tol {PAGED_TOL[dtype]}); two launches "
+                    f"bit-identical")
+                if dtype == cfg.compute_dtype and shape is PAGED_SHAPES[0]:
+                    worst = max(worst, err)
     return worst
 
 
@@ -461,8 +524,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     on_card = dev.type == "cuda"       # on the CPU the plain versions run
     want = {"sandwich_fwd": on_card * ks.FWD_KERNELS * per_tick
             * (snap["decode_steps"] + snap["chunk_ticks"]),
-            "paged_decode_attention": on_card * cfg.n_layers
-            * snap["decode_steps"]}
+            "paged_decode_attention": on_card * pa.PAGED_KERNELS
+            * cfg.n_layers * snap["decode_steps"]}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     for name, pool in eng.caches.items():
@@ -478,7 +541,7 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
         f"decode {snap['decode_tok_per_s']:.1f} tok/s; peak memory "
         f"{peak / 2**20:.1f} MiB")
     say(f"serve: launches {launches} = {ks.FWD_KERNELS} x {per_tick}/tick x "
-        f"(decode + chunk), {cfg.n_layers}/decode tick")
+        f"(decode + chunk), {pa.PAGED_KERNELS} x {cfg.n_layers}/decode tick")
     summary = {"ttft_p50_ms": snap["ttft_ms"]["p50"],
                "ttft_p95_ms": snap["ttft_ms"]["p95"],
                "tpot_p50_ms": snap["tpot_ms"]["p50"],
@@ -634,15 +697,16 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
                                  else "operations")
 
 
-def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
-                 train_rows: int) -> list:
-    """CUDA-event times of the forward kernels. The sandwich: its two
+def phase_timing(torch, cfg, dev, kernel, time_fn, device_fn, launches,
+                 errs, train_rows: int) -> list:
+    """Times of the forward kernels. The sandwich: its two
     kernels together, the factor kernel alone, the plain twin, the bound
     and, as the library yardstick, one ``torch.matmul`` by its dense (n_in,
     n_out) matrix (materialized outside the timed window, in the compute
     dtype), over a decode tick's site mix at 8 rows and a train step's
-    forward at ``train_rows``, with the bound at both. The paged kernel:
-    kernel, plain twin, SDPA over gathered KV, bound."""
+    forward at ``train_rows``, with the bound at both, by CUDA events. The
+    paged kernel at PAGED_SHAPES (:func:`time_paged`): its device time and
+    SDPA's, which the kernels line carries, beside their event figures."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
     dt = cfg.compute_dtype
@@ -708,38 +772,12 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
             f"ms, matmul {tick['train_library_ms']:.4f} ms, bound "
             f"{tick['train_bound_ms']:.5f} ms ({t_by})")
 
-        q, k_pool, v_pool, ids, cur = paged_inputs(
-            torch, cfg, getattr(torch, dt), dev)
-        ms_p = time_fn(torch, lambda: pa.paged_decode_attention(
-            q, k_pool, v_pool, ids, cur, backend=kernel), reps=500)
-        plain_p = time_fn(torch, lambda: pa.paged_decode_attention(
-            q, k_pool, v_pool, ids, cur, backend="torch"), reps=50)
-        # yardstick: one SDPA call over KV gathered and head-expanded
-        # beforehand (not timed); head = kv * G + g
-        B, KV, G, D = q.shape
-        L = ids.shape[1] * k_pool.shape[1]
-
-        def heads(pool):
-            kv = pa.gather_pages(pool, ids).permute(0, 2, 1, 3)
-            return kv.repeat_interleave(G, dim=1).contiguous()
-
-        kg, vg = heads(k_pool), heads(v_pool)
-        mask = (torch.arange(L, device=dev)[None, :]
-                <= cur[:, None].long())[:, None, None, :]
-        qh = q.reshape(B, KV * G, 1, D)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_fn(torch, lambda: sdpa(qh, kg, vg, attn_mask=mask),
-                         reps=500)
-        live = int((cur.long() + 1).sum())
-        itemsize = q.element_size()
-        p_bytes = (2 * q.numel() * itemsize + 2 * live * KV * D * itemsize
-                   + ids.numel() * 4 + cur.numel() * 4)
-        p_ops = 4 * live * KV * G * D
-        p_bound, p_by = bound_ms(p_bytes, p_ops, PEAK_OPS[dt])
-        say(f"time paged B={B} live positions={live} {dt}: kernel "
-            f"{ms_p:.4f} ms, plain {plain_p:.4f} ms, sdpa {lib_ms:.4f} ms, "
-            f"bound {p_bound:.5f} ms ({p_bytes} B, {p_ops} ops); "
-            f"x{cfg.n_layers} per decode tick")
+        paged = {}
+        for shape in PAGED_SHAPES:
+            paged[shape[0]] = time_paged(torch, cfg, dev, kernel, time_fn,
+                                         device_fn, shape)
+    p = paged[PAGED_SHAPES[0][0]]
+    long_p = paged[PAGED_SHAPES[1][0]]
 
     return [
         {"name": "sandwich_fwd (sandwich_factors + sandwich_rows)",
@@ -763,10 +801,68 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
          "replaces": "src/repro/kernels/paged_attention.py:92",
          "launches": launches["paged_decode_attention"],
          "max_abs_err": errs["paged_decode_attention"],
-         "ms": ms_p, "plain_ms": plain_p, "bound_ms": p_bound,
-         "bound_by": p_by, "library_ms": lib_ms,
-         "per": f"launch: B={SLOTS}, {live} live positions"},
+         "ms": p["ms"], "event_ms": p["event_ms"], "plain_ms": p["plain_ms"],
+         "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+         "library_ms": p["library_ms"],
+         "library_event_ms": p["library_event_ms"],
+         "long_ms": long_p["ms"], "long_bound_ms": long_p["bound_ms"],
+         "long_library_ms": long_p["library_ms"],
+         "per": f"call ({pa.PAGED_KERNELS} launches), device time: "
+                f"B={SLOTS}, {p['live']} live positions (library: sdpa over "
+                f"KV gathered beforehand); long_*: {long_p['live']} live "
+                f"positions"},
     ]
+
+
+def time_paged(torch, cfg, dev, kernel, time_fn, device_fn, shape) -> dict:
+    """The paged kernel at one of PAGED_SHAPES in the compute dtype: device
+    time per call (``device_fn``) and the CUDA-event figure (``time_fn``)
+    of the kernel and of the yardstick, one ``scaled_dot_product_attention``
+    over KV gathered and head-expanded beforehand (not timed); the plain
+    twin by events; the bound from the live rows' bytes."""
+    from repro_torch.kernels import paged_attention as pa
+    dt = cfg.compute_dtype
+    q, k_pool, v_pool, ids, cur = paged_inputs(
+        torch, cfg, getattr(torch, dt), dev, shape=shape)
+
+    def call():
+        return pa.paged_decode_attention(q, k_pool, v_pool, ids, cur,
+                                         backend=kernel)
+
+    r = {"ms": device_fn(torch, call, reps=200),
+         "event_ms": time_fn(torch, call, reps=500),
+         "plain_ms": time_fn(torch, lambda: pa.paged_decode_attention(
+             q, k_pool, v_pool, ids, cur, backend="torch"), reps=20)}
+    B, KV, G, D = q.shape
+    L = ids.shape[1] * k_pool.shape[1]
+
+    def heads(pool):       # head = kv * G + g
+        kv = pa.gather_pages(pool, ids).permute(0, 2, 1, 3)
+        return kv.repeat_interleave(G, dim=1).contiguous()
+
+    kg, vg = heads(k_pool), heads(v_pool)
+    mask = (torch.arange(L, device=dev)[None, :]
+            <= cur[:, None].long())[:, None, None, :]
+    qh = q.reshape(B, KV * G, 1, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    r["library_ms"] = device_fn(torch, lambda: sdpa(qh, kg, vg,
+                                                    attn_mask=mask), reps=200)
+    r["library_event_ms"] = time_fn(torch, lambda: sdpa(
+        qh, kg, vg, attn_mask=mask), reps=500)
+    live = int((cur.long() + 1).sum())
+    itemsize = q.element_size()
+    nbytes = (2 * q.numel() * itemsize + 2 * live * KV * D * itemsize
+              + ids.numel() * 4 + cur.numel() * 4)
+    ops = 4 * live * KV * G * D
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, PEAK_OPS[dt])
+    r["live"] = live
+    say(f"time paged {shape[0]} B={B} P={ids.shape[1]} live positions={live}"
+        f" {dt}: kernel {r['ms']:.5f} ms device ({r['event_ms']:.5f} ms by "
+        f"events over back-to-back calls), plain {r['plain_ms']:.4f} ms, sdpa "
+        f"{r['library_ms']:.5f} ms device ({r['library_event_ms']:.5f} by "
+        f"events), bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes} B,"
+        f" {ops} ops); x{cfg.n_layers} per decode tick{clocks(dev)}")
+    return r
 
 
 def phase_profile(torch, np, cfg, dev) -> dict:
@@ -1980,10 +2076,12 @@ def flash_bound(shape, dtype: str):
             "flash_bwd_dkv": (6 * arr + 2 * rows, 8 * D * pairs)}
 
 
-def phase_timing_flash(torch, dev, kernel, time_fn, launches, errs,
-                       shapes, entry: str, kv_heads: int) -> list:
-    """CUDA-event times of the three flash kernels at ``shapes`` (the
-    training attention first): each kernel alone and its plain twin, its
+def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
+                       errs, shapes, entry: str, kv_heads: int) -> list:
+    """Times of the three flash kernels at ``shapes`` (the training
+    attention first): the forward and SDPA's forward by device time
+    (``device_fn``) beside their CUDA-event figures, the rest by CUDA
+    events (``time_fn``); each kernel alone and its plain twin, its
     bound, and as the library yardstick the port never calls
     ``scaled_dot_product_attention(is_causal=True)``: its forward for the
     forward, its backward (fwd+bwd through ``torch.autograd.grad`` minus
@@ -2010,9 +2108,16 @@ def phase_timing_flash(torch, dev, kernel, time_fn, launches, errs,
             out, lse = kf.flash_forward(q, k, v, backend=kernel, **kw)
             delta = kf.row_delta(out, do)
         reps = 10 if S >= 4096 else 20
+
+        def fwd():
+            return kf.flash_forward(q, k, v, backend=kernel, **kw)
+
+        with torch.no_grad():     # both figures of the forward back to back
+            fwd_ms = device_fn(torch, fwd, reps=reps)
+            fwd_event = time_fn(torch, fwd, reps=reps)
+            fwd_clocks = clocks(dev)
         t = {"flash_fwd": (
-            time_fn(torch, lambda: kf.flash_forward(q, k, v, backend=kernel,
-                                                    **kw), reps=reps),
+            fwd_ms,
             time_fn(torch, lambda: kf.flash_forward(q, k, v, backend="torch",
                                                     **kw), reps=3)),
             "flash_bwd_dq": (
@@ -2026,26 +2131,42 @@ def phase_timing_flash(torch, dev, kernel, time_fn, launches, errs,
             time_fn(torch, lambda: kf.flash_dkv_plain(q, k, v, do, lse,
                                                       delta, **kw), reps=3))}
         with torch.no_grad():
-            lib_f = time_fn(torch, lambda: sdpa(q, k, v, is_causal=causal),
-                            reps=reps)
+            lib_f = device_fn(torch, lambda: sdpa(q, k, v, is_causal=causal),
+                              reps=reps)
+            lib_f_event = time_fn(torch, lambda: sdpa(q, k, v,
+                                                      is_causal=causal),
+                                  reps=reps)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         lib_fb = time_fn(torch, lambda: torch.autograd.grad(
             sdpa(*leaves, is_causal=causal), leaves, grad_outputs=do),
             reps=reps)
-        lib = {"flash_fwd": lib_f, "flash_bwd_dq": lib_fb - lib_f,
-               "flash_bwd_dkv": lib_fb - lib_f}
+        lib = {"flash_fwd": lib_f, "flash_bwd_dq": lib_fb - lib_f_event,
+               "flash_bwd_dkv": lib_fb - lib_f_event}
         bounds = flash_bound(shape, dtype)
         res = {}
         for kname, (ms, plain) in t.items():
             nbytes, ops = bounds[kname]
             bnd, by = bound_ms(nbytes, ops, PEAK_OPS[dtype])
+            tf32 = ""
+            if kname == "flash_fwd" and dtype == "float32":
+                # the forward's float32 route runs in 3xTF32: its bound is
+                # at that rate, the CUDA-core bound printed beside it
+                tf32 = f" (CUDA-core float32 bound {bnd:.5f} ms)"
+                bnd, by = bound_ms(nbytes, ops, PEAK_3XTF32)
             res[kname] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                               bound_by=by, library_ms=lib[kname])
+            events = (f" device ({fwd_event:.4f} ms by events)"
+                      if kname == "flash_fwd" else "")
             say(f"time {kname} {name} B={B} H={H} S={S} D={D} {dtype}: "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                f"{bnd:.5f} ms ({by}: {nbytes} B, {ops} ops), sdpa "
+                f"kernel {ms:.4f} ms{events}, plain {plain:.4f} ms, bound "
+                f"{bnd:.5f} ms ({by}: {nbytes} B, {ops} ops){tf32}, sdpa "
                 f"{'forward' if kname == 'flash_fwd' else 'backward (pair)'}"
-                f" {lib[kname]:.4f} ms")
+                f" {lib[kname]:.4f} ms"
+                + (f" device ({lib_f_event:.4f} ms by events){fwd_clocks}"
+                   if kname == "flash_fwd" else ""))
+            if kname == "flash_fwd":
+                res[kname].update(event_ms=fwd_event,
+                                  library_event_ms=lib_f_event)
         if shape is shapes[0]:
             KV = kv_heads
             G = H // KV
@@ -2107,7 +2228,7 @@ def phase_timing_flash(torch, dev, kernel, time_fn, launches, errs,
     return entries
 
 
-def run(torch, np, cfg, dev, *, kernel: str, time_fn,
+def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         train_shape=(2048, 4), encdec_shape=MNIST,
         encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES,
         flash_shapes=FLASH_SHAPES, flash_timed=FLASH_TIMED,
@@ -2125,6 +2246,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
     :func:`phase_wide`.
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
+    device_fn = device_fn or time_fn
     train_rows = train_shape[0] * train_shape[1]
     errs = {"sandwich_fwd": max(phase_sandwich_factors(torch, cfg, dev,
                                                        kernel),
@@ -2144,8 +2266,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
     flash_errs = phase_flash(torch, dev, kernel, flash_shapes)
     launches, summary = phase_serve(torch, np, cfg, dev, kernel)
     phase_serve_tokens(torch, np, dev)
-    kernels = phase_timing(torch, cfg, dev, kernel, time_fn, launches, errs,
-                           train_rows)
+    kernels = phase_timing(torch, cfg, dev, kernel, time_fn, device_fn,
+                           launches, errs, train_rows)
     summary.update(phase_profile(torch, np, cfg, dev))
     train_launches, train_summary = phase_train(torch, np, cfg, dev,
                                                 *train_shape)
@@ -2175,7 +2297,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn,
             k["launches_by_path"]["bench"] = n
             k["launches"] += n
     kernels += phase_timing_flash(
-        torch, dev, kernel, time_fn, bench_launches, flash_errs,
+        torch, dev, kernel, time_fn, device_fn, bench_launches, flash_errs,
         [train_attn] + [s for s in flash_shapes if s[0] in flash_timed],
         flash_timed[0], cfg.n_kv_heads)
     say("summary: " + json.dumps(summary))
@@ -2202,7 +2324,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     kernels = run(torch, np, registry.get("smollm-135m-butterfly"), dev,
-                  kernel="cuda", time_fn=cuda_ms)
+                  kernel="cuda", time_fn=cuda_ms, device_fn=device_ms)
     say(f"total: {time.monotonic() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

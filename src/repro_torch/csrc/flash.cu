@@ -2,147 +2,396 @@
 // and the row logsumexp, for q/k/v (B·H, S, D), heads already expanded.
 //
 // Replaces the TPU kernel `_flash_kernel` in src/repro/kernels/flash.py
-// (entry `_flash_fwd_call`, reached from `flash_attention`). Precision
-// points are the reference kernel's: q/k/v read as float32, q pre-scaled by
-// D^-0.5, every product and the online-softmax state (m, l, the
-// accumulator) in float32, o rounded to the input dtype once when stored;
-// lse = m + log(max(l, 1e-30)) in float32. kernels/flash.py:flash_fwd_plain
-// is the plain twin.
+// (entry `_flash_fwd_call`, reached from `flash_attention`).
+// kernels/flash.py:flash_fwd_plain is the plain twin.
+//
+// What bounds it on the H100: operations. Per visible (q, k) pair it does
+// 4·D operations (q·k and p·v) against 4·S·D elements moved in all; at the
+// training attention (B·H = 36, S = 2048, D = 64, causal) that is
+// 19.3 GFLOP against 19 MB, ~1000 operations a byte. So the products run
+// on the tensor cores, in FlashAttention-2's layout:
+// * A block of four warps owns 64 query rows, 16 a warp, and sweeps the
+//   key tiles of 64 rows that the mask can reach (`key_tiles`), heaviest
+//   causal query tiles first. K and V tiles stream through shared memory
+//   by cp.async, double-buffered: the next tile loads while this one is
+//   used, one barrier a tile.
+// * s = q·kᵀ and o += p·v are mma.sync tiles (flash_common.cuh). The
+//   score fragments of s become the A operand of p·v in registers, so the
+//   probabilities never pass through shared memory; row max and row sum
+//   are quad shuffles, and each lane keeps its part of the row sum until
+//   the end.
+// * Any S >= 1: ragged tiles load zeros and the mask hides them. Head dims
+//   8..256 in steps of 8, compiled for 64, 128 and 256; bfloat16 rows
+//   are zero-padded to a multiple of 16 in shared memory (the k of
+//   m16n8k16).
+//
+// Precision points (the twin's, except where stated):
+// * bfloat16: q, k, v are exact in bfloat16, so q·kᵀ by m16n8k16 with a
+//   float32 sum differs from the twin only in summation order. The scores
+//   are scaled after the product by D^-0.5·log2(e) and the softmax runs in
+//   base 2 (ex2.approx, subnormal results flushed to zero), where the twin
+//   pre-scales q by D^-0.5 and uses exp: a float32 reordering. p enters p·v as a hi/lo bfloat16 pair, hi =
+//   bf16(p) and lo = bf16(p − hi), two products, so p keeps ~16 bits; v
+//   is exact; the sum is float32.
+// * float32: 3xTF32 on m16n8k8. Every operand x is split into big =
+//   tf32(x) and small = tf32(x − big), and a·b is big·big + big·small +
+//   small·big with a float32 sum (~21 bits a product); q·kᵀ and p·v both.
+// * The online softmax (m, l, the accumulator) is float32; lse = (m +
+//   log2(max(l, 1e-30)))·ln 2 in float32; o is rounded to the input dtype
+//   once, when stored.
 //
 // Masked entries: the reference writes -1e30 into masked scores and lets
-// exp(m_old - m_new) = 0 wipe what a row summed before its first visible
+// exp(m_old − m_new) = 0 wipe what a row summed before its first visible
 // key. Here a masked entry's probability is 0 outright and -1e30 enters
 // only the running max; every row sees at least its own key (k = q passes
 // every mask), so both give the softmax over the visible keys.
-//
-// What bounds it on the H100: operations. Per visible (q, k) pair it does
-// 4·D float operations (q·k and p·v) against 4·S·D elements moved in all;
-// at the training shape (B·H = 36, S = 2048, D = 64, causal) that is
-// 19.3 GFLOP against 19 MB. This first kernel runs the products on CUDA
-// cores in float32 (67 TFLOP/s), not on the tensor cores that the bf16
-// peak of 989 TFLOP/s assumes, and is bound by its shared-memory loads: a
-// thread's 4 x 4 score block takes 8 loads per 16 multiply-adds.
-//
-// What the design does about it (a first, simple kernel):
-// * One block per (b·h, tile of N query rows), heaviest causal tiles first.
-//   The q tile (scaled) stays in shared memory; the block sweeps the key
-//   tiles the mask can reach, staging K and V tiles in shared memory with
-//   two barriers a tile, and never writes a score to device memory.
-// * The score tile is split into 4 x 4 (2 x 2 at D > 128) blocks of
-//   registers; row max and row sum are half-warp shuffles, so m and l of a
-//   row live in the 16 threads that own it. The probabilities go through
-//   shared memory to the p·v product, whose accumulator stays in registers.
-// * Any S >= 1: the ragged last tiles load zeros and the mask hides them.
-//   Head dims 8..256 in steps of 8, compiled for 64, 128 and 256.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
+using sandwich::cp_async16;
+using sandwich::cp_async_commit;
+using sandwich::cp_async_wait;
+using sandwich::ldmatrix_x4;
+using sandwich::ldmatrix_x4_trans;
+using sandwich::pack_bf16;
+
+constexpr int BQ = kFwdRows, BK = kFwdRows;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Columns of a tile row in shared memory: bfloat16 rows zero-padded to a
+// multiple of 16 (the k of m16n8k16), float32 rows D wide.
+template <typename T>
+__host__ __device__ inline int padded(int D) {
+  return sizeof(T) == 2 ? (D + 15) / 16 * 16 : D;
+}
+
+// Row stride of a tile in shared memory, in elements. bfloat16: padded +
+// 8, so the 8 rows one ldmatrix reads sit 16 bytes apart modulo 128 (no
+// bank conflict). float32: D + 4, so the 8 rows of a fragment read sit 4
+// banks apart and the 4 lanes of a quad fill the gaps.
+template <typename T>
+__host__ __device__ inline int row_stride(int D) {
+  return sizeof(T) == 2 ? padded<T>(D) + 8 : D + 4;
+}
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+struct Fwd {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  // K/V tile buffers: two, the next tile loading while this one is used
+  // (a ring of three read slower: it leaves three blocks an SM, not four);
+  // float32 at D > 128 has one (two would pass the 227 KB a block may
+  // use) and two barriers a tile
+  static constexpr int kStages = (kBf16 || DMAX <= 128) ? 2 : 1;
+  // the q tile's A fragments stay in registers up to D = 128
+  static constexpr bool kQRegs = kBf16 && DMAX <= 128;
+  static size_t smem_bytes(int D) {
+    return sizeof(T) * (size_t)(BQ + kStages * 2 * BK) * row_stride<T>(D);
+  }
+};
+
+// A thread's walk over the 16-byte chunks of a 64-row tile, cpr chunks a
+// row: chunks threadIdx.x, + kFwdThreads, ... in row order, kept as
+// (row, chunk) and stepped by (dr, dc) without a division per chunk.
+struct ChunkWalk {
+  int cpr, r, c, dr, dc;
+  __device__ explicit ChunkWalk(int cpr_) : cpr(cpr_) {
+    r = threadIdx.x / cpr;
+    c = threadIdx.x - r * cpr;
+    dr = kFwdThreads / cpr;
+    dc = kFwdThreads - dr * cpr;
+  }
+};
+
+// Rows [r0, r0 + 64) of a (S, D) matrix into dst at stride LD by 16-byte
+// cp.async, columns [0, padded(D)); rows past S and columns past D zero.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
+                                          int S, int D, int LD,
+                                          const ChunkWalk& w) {
+  constexpr int E = 16 / sizeof(T);
+  int r = w.r, c = w.c;
+  while (r < kFwdRows) {
+    const int row = r0 + r, col = c * E;
+    const bool ok = row < S && col < D;
+    cp_async16(dst + r * LD + col, ok ? src + (size_t)row * D + col : src,
+               ok);
+    r += w.dr;
+    c += w.dc;
+    if (c >= w.cpr) {
+      c -= w.cpr;
+      ++r;
+    }
+  }
+}
+
+// 2^x by the SFU, subnormal results flushed to zero (they are below any
+// probability that can move a float32 row sum of at least 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// hi = bf16(x), bf16(y) and lo = the rounding residuals, packed as the
+// pairs an A fragment holds (x at the lower column)
+__device__ __forceinline__ void hi_lo(float x, float y, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int S, int D, int causal,
     int window, float scale) {
-  using Tl = Tile<DMAX>;
-  constexpr int N = Tl::N, R = Tl::R, DJ = Tl::DJ, PLD = Tl::PLD;
-  extern __shared__ float smem[];
-  const int LD = D + 1;
-  float* qs = smem;           // (N, LD) scaled q tile
-  float* ks = qs + N * LD;    // (N, LD) key tile
-  float* vs = ks + N * LD;    // (N, LD) value tile
-  float* ps = vs + N * LD;    // (N, PLD) probabilities
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  using F = Fwd<T, DMAX>;
+  constexpr int NT = BK / 8;    // key n-tiles of a score tile
+  constexpr int DT = DMAX / 8;  // d n-tiles of the accumulator, at most
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const qs = reinterpret_cast<T*>(smem_raw);
+  const int LD = row_stride<T>(D), DP = padded<T>(D);
+  // buffer b: K tile at kv(b), V tile at kv(b) + BK·LD
+  auto kv = [&](int b) { return qs + (BQ + 2 * b * BK) * LD; };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const size_t base = (size_t)blockIdx.x * S * D;
-  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * N;
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * BQ;
+  const int wq = 16 * warp;  // the warp's first row in the tile
+  const float sl2 = scale * kLog2e;
 
-  load_rows<T, N>(qs, q + base, q0, S, D, scale);
-  float m[R], l[R], acc[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
   int lo, hi;
-  key_tiles(q0, N, S, causal, window, &lo, &hi);
-  for (int t = lo; t < hi; ++t) {
-    const int k0 = t * N;
-    __syncthreads();  // the last tile's ks/vs/ps are consumed
-    load_rows<T, N>(ks, k + base, k0, S, D, 1.f);
-    load_rows<T, N>(vs, v + base, k0, S, D, 1.f);
-    __syncthreads();
-    float s[R][R];
+  key_tiles(q0, BQ, S, causal, window, &lo, &hi);
+  const int q_last = min(q0 + BQ, S) - 1;
+
+  const ChunkWalk walk(DP * (int)sizeof(T) / 16);
+  // key tile t into buffer (t − lo) mod kStages, one commit group a tile
+  auto load_kv = [&](int tile) {
+    T* dst = kv((tile - lo) % F::kStages);
+    load_tile<T>(dst, k + base, tile * BK, S, D, LD, walk);
+    load_tile<T>(dst + BK * LD, v + base, tile * BK, S, D, LD, walk);
+    cp_async_commit();
+  };
+  load_tile<T>(qs, q + base, q0, S, D, LD, walk);
+  load_kv(lo);
+
+  float acc[DT][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+  for (int d = 0; d < DT; ++d)
 #pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[R], b[R];
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  uint32_t qf[F::kQRegs ? DMAX / 16 : 1][4];
+
+  for (int tile = lo; tile < hi; ++tile) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile landed; the last one is consumed
+    const int buf = (tile - lo) % F::kStages;
+    if constexpr (F::kQRegs) {
+      if (tile == lo) {
 #pragma unroll
-      for (int i = 0; i < R; ++i) a[i] = qs[(ty * R + i) * LD + d];
+        for (int kk = 0; kk < DMAX / 16; ++kk)
+          if (kk * 16 < DP)
+            ldmatrix_x4(qf[kk], qs + (wq + (lane & 15)) * LD + kk * 16 +
+                                    8 * (lane >> 4));
+      }
+    }
+    if (F::kStages == 2 && tile + 1 < hi) load_kv(tile + 1);
+    const T* ks = kv(buf);
+    const T* vs = ks + BK * LD;
+    const int k0 = tile * BK;
+
+    // s = q·kᵀ for the warp's 16 rows x 64 keys
+    float s[NT][4];
 #pragma unroll
-      for (int j = 0; j < R; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (F::kBf16) {
 #pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        if (kk * 16 >= DP) continue;
+        uint32_t a[4];
+        if constexpr (F::kQRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+        } else {
+          ldmatrix_x4(a, qs + (wq + (lane & 15)) * LD + kk * 16 +
+                             8 * (lane >> 4));
+        }
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4(b, ks + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * LD +
+                             kk * 16 + 8 * ((lane >> 3) & 1));
+          mma_bf16(s[2 * jp], a, b[0], b[1]);
+          mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+    } else {
+      // the tensor cores' float32 sums truncate: each chunk of 64 dims
+      // accumulates in fresh registers, added into s by float32 adds
+#pragma unroll
+      for (int kc0 = 0; kc0 < DMAX / 8; kc0 += 8) {
+        if (kc0 * 8 >= D) continue;
+        float sc[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll 2
+        for (int kc = kc0; kc < kc0 + 8; ++kc) {
+          if (kc * 8 >= D) continue;
+          const float* qr = reinterpret_cast<const float*>(qs) +
+                            (wq + g) * LD + kc * 8 + t;
+          const float a[4] = {qr[0], qr[8 * LD], qr[4], qr[8 * LD + 4]};
+          uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
+          split_a(a, ab, as);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float* kr = reinterpret_cast<const float*>(ks) +
+                              (8 * j + g) * LD + kc * 8 + t;
+            split_tf32(kr[0], bb[j][0], bs[j][0]);
+            split_tf32(kr[4], bb[j][1], bs[j][1]);
+          }
+          mma_3xtf32<NT>(sc, ab, as, bb, bs);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e];
+      }
+    }
+
+    // scale to base 2, mask, online softmax (rows g and g + 8)
+    const bool full = k0 + BK <= S && (!causal || k0 + BK - 1 <= q0) &&
+                      (window <= 0 || k0 > q_last - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (!full && !visible(q0 + wq + g + 8 * (e >> 1),
+                              k0 + 8 * j + 2 * t + (e & 1), S, causal,
+                              window))
+          x = kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], max4(mx[h]));
+      corr[h] = exp2_ftz(m[h] - m_new);
+      m[h] = m_new;
     }
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q0 + ty * R + i;
-      bool ok[R];
-      float mx = kNegInf;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        ok[j] = visible(row, k0 + tx + 16 * j, S, causal, window);
-        mx = fmaxf(mx, ok[j] ? s[i][j] : kNegInf);
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p = x == kNegInf ? 0.f : exp2_ftz(x - m[e >> 1]);
+        s[j][e] = p;
+        rs[e >> 1] += p;
       }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps[(ty * R + i) * PLD + tx + 16 * j] = p;
-        sum += p;
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] *= corr[e >> 1];
+
+    // acc += p·v
+    if constexpr (F::kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t ah[4], al[4];
+        hi_lo(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+        hi_lo(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+        hi_lo(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+        hi_lo(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+        for (int dp = 0; dp < DT / 2; ++dp) {
+          if (dp * 16 >= DP) continue;
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vs + (16 * kk + (lane & 15)) * LD + 16 * dp +
+                                   8 * (lane >> 4));
+          mma_bf16(acc[2 * dp], al, b[0], b[1]);
+          mma_bf16(acc[2 * dp + 1], al, b[2], b[3]);
+          mma_bf16(acc[2 * dp], ah, b[0], b[1]);
+          mma_bf16(acc[2 * dp + 1], ah, b[2], b[3]);
+        }
       }
-      l[i] = l[i] * corr + sum16(sum);
-      m[i] = m_new;
+    } else {
+      // k of p·v in the order key 2t (A column t), key 2t + 1 (column
+      // t + 4): the order a C fragment holds them in; V's rows follow it.
+      // d n-tiles in chunks of 8 (D is a multiple of 8, DT of 8), each
+      // summed over the tile's keys in fresh registers, then added into
+      // acc by float32 adds (the tensor cores' sums truncate)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
+      for (int dc = 0; dc < DT; dc += 8) {
+        if (dc * 8 >= D) continue;
+        float pv[8][4];
+#pragma unroll
+        for (int dn = 0; dn < 8; ++dn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[dn][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float a[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+          uint32_t ab[4], as[4], bb[8][2], bs[8][2];
+          split_a(a, ab, as);
+          const float* vr = reinterpret_cast<const float*>(vs) +
+                            (8 * j + 2 * t) * LD + g + 8 * dc;
+#pragma unroll
+          for (int dn = 0; dn < 8; ++dn) {
+            const bool in = (dc + dn) * 8 < D;
+            split_tf32(in ? vr[8 * dn] : 0.f, bb[dn][0], bs[dn][0]);
+            split_tf32(in ? vr[LD + 8 * dn] : 0.f, bb[dn][1], bs[dn][1]);
+          }
+          mma_3xtf32<8>(pv, ab, as, bb, bs);
+        }
+#pragma unroll
+        for (int dn = 0; dn < 8; ++dn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[dc + dn][e] += pv[dn][e];
+      }
     }
-    __syncthreads();  // ps complete
-#pragma unroll 4
-    for (int c = 0; c < N; ++c) {
-      float p[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) p[i] = ps[(ty * R + i) * PLD + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        const float vv = d < D ? vs[c * LD + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
+
+    if (F::kStages == 1 && tile + 1 < hi) {
+      __syncthreads();  // every warp is done with the one buffer
+      load_kv(tile + 1);
     }
   }
+
   const size_t lbase = (size_t)blockIdx.x * S;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wq + g + 8 * h;
+    const float lm = fmaxf(sum4(l[h]), 1e-30f);
     if (row >= S) continue;
-    const float lm = fmaxf(l[i], 1e-30f);
+    T* orow = o + base + (size_t)row * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) o[base + (size_t)row * D + d] = from_f32<T>(acc[i][j] / lm);
+    for (int dn = 0; dn < DT; ++dn) {
+      const int col = 8 * dn + 2 * t;
+      if (col >= D) continue;
+      const float x = acc[dn][2 * h] / lm, y = acc[dn][2 * h + 1] / lm;
+      if constexpr (F::kBf16) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x, y);
+      } else {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+      }
     }
-    if (tx == 0) lse[lbase + row] = m[i] + logf(lm);
+    if (t == 0) lse[lbase + row] = (m[h] + log2f(lm)) * kLn2;
   }
 }
 
@@ -150,15 +399,13 @@ template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int bh, int S, int D, int causal, int window,
                    float scale, cudaStream_t stream) {
-  using Tl = Tile<DMAX>;
   auto kernel = flash_fwd_kernel<T, DMAX>;
-  const size_t smem =
-      sizeof(float) * ((size_t)3 * Tl::N * (D + 1) + Tl::N * Tl::PLD);
+  const size_t smem = Fwd<T, DMAX>::smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (S + Tl::N - 1) / Tl::N);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (S + BQ - 1) / BQ);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, D, causal, window,
       scale);
@@ -184,11 +431,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// o and lse for q, k, v, o (bh, S, D) contiguous and lse (bh, S) float32.
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o). causal: 0 or 1; window:
-// keys k > q - window only, when > 0. Returns the cudaError_t of the launch
-// (0 on success). scale: D^-0.5 as float32, passed in so that the plain twin
-// and the kernel scale by the same number.
+// o and lse for q, k, v, o (bh, S, D) contiguous, 16-byte aligned, and lse
+// (bh, S) float32. dtype: 0 = float32, 1 = bfloat16 (q, k, v, o). causal:
+// 0 or 1; window: keys k > q - window only, when > 0. Returns the
+// cudaError_t of the launch (0 on success). scale: D^-0.5 as float32,
+// passed in so that the plain twin and the kernel scale by the same number.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int bh, int S, int D, int causal,
                          int window, float scale, int dtype, void* stream) {
@@ -203,6 +450,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaErrorInvalidValue;
 }
 
-// Rows of the kernels' query and key tiles at head dim D, forward and
-// backward (0: D not taken); the bench rows report them.
+// Rows of the query and key tiles of the backward kernels (flash_bwd.cu)
+// at head dim D (0: D not taken); the bench rows report them. The
+// forward's tiles are kFwdRows (64) at every head dim.
 extern "C" int flash_tile_rows(int D) { return tile_rows(D); }

@@ -209,6 +209,10 @@ def _stream(t: torch.Tensor) -> int:
 
 def _fwd_cuda(q, k, v, causal, window):
     B, H, S, D = _check(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:     # the kernel copies 16-byte chunks
+            raise ValueError(f"flash forward: {name} must be 16-byte "
+                             f"aligned")
     out = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     err = _lib().flash_fwd(

@@ -197,3 +197,113 @@ def test_visible_mask_and_tile_rows(monkeypatch):
     assert kf.tile_rows(64) == 32 and asked == [64]
     with pytest.raises(ValueError, match="head dims"):
         kf.tile_rows(12)
+
+
+# -- the forward kernel's precision points, emulated on the CPU -------------
+#
+# The kernel (csrc/flash.cu) scales the scores after the product, by
+# D^-0.5·log2(e), runs the online softmax in base 2 over key tiles of 64,
+# and takes its products on tensor cores: in bfloat16 with p as a hi/lo
+# bfloat16 pair, in float32 in 3xTF32. The emulation repeats those
+# arithmetic choices in PyTorch; it must hold the kernel's tolerances
+# (chip_smoke.py): o within 1e-5 (float32) / 2e-2 (bfloat16) of max|want|,
+# in bfloat16 every row within 1e-2 of its own norm, lse within 1e-5 of
+# max|want|.
+KERNEL_FWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+KERNEL_LSE_TOL = 1e-5
+KERNEL_ROW_TOL = 1e-2
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as 3xTF32: big = tf32(x), small = tf32(x − big); the two
+    small products, then big · big."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def _emulated_fwd(q, k, v, causal, window, tile=64):
+    """(o, lse) with the kernel's precision points, over key tiles."""
+    B, H, S, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    mm = torch.matmul if bf16 else _mm_3xtf32
+    qf, kf_, vf = q.float(), k.float(), v.float()
+    sl2 = (torch.tensor(kf._scale(D), dtype=torch.float32)
+           * torch.tensor(LOG2E, dtype=torch.float32))
+    mask = kf.visible_mask(S, causal, window)
+    m = torch.full((B, H, S, 1), kf.NEG_INF)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, D)
+    for k0 in range(0, S, tile):
+        kt, vt = kf_[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        vis = mask[:, k0:k0 + tile]
+        s = (mm(qf, kt.transpose(-1, -2)) * sl2).masked_fill(~vis,
+                                                             kf.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).masked_fill(~vis, 0.0)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if bf16:
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = lo @ vt + hi @ vt
+        else:
+            pv = _mm_3xtf32(p, vt)
+        acc = acc * corr + pv
+        m = m_new
+    lm = l.clamp_min(1e-30)
+    lse = ((m + torch.log2(lm)) * LN2).reshape(B * H, S)
+    return (acc / lm).to(q.dtype), lse
+
+
+def _close_to_max(got, want, frac, what):
+    got, want = got.float(), want.float()
+    atol = frac * max(float(want.abs().max()), 1e-3)
+    torch.testing.assert_close(got, want, atol=atol, rtol=frac,
+                               msg=lambda m: f"{what}: {m}")
+
+
+def test_tf32_rounding_keeps_ten_bits_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -12, 3.0e-3])
+    got = _tf32(x)
+    assert got[:5].tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                                -(1.0 + 2 ** -10), 1.0]
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+    a = torch.randn(16, 64, generator=torch.Generator().manual_seed(0))
+    err = (_mm_3xtf32(a, a.T) - a.double() @ a.double().T).abs().max()
+    assert float(err) < 1e-5 * float((a @ a.T).abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_precision_points_hold_the_tolerances(shape, causal, window,
+                                                     dtype):
+    """The emulated kernel against ``flash_fwd_plain`` and the reference's
+    oracle (in float32, on the same values) within the kernel's
+    tolerances, on tiles of 64 keys and, for several tiles a row, of 16."""
+    q, k, v = _torch(_inputs(shape, 3, seed=23), getattr(torch, dtype))
+    want, want_lse = kf.flash_fwd_plain(q, k, v, causal, window)
+    oracle = _jax_oracle([t.float().numpy() for t in (q, k, v)], causal,
+                         window)
+    for tile in (64, 16):
+        got, lse = _emulated_fwd(q, k, v, causal, window, tile)
+        assert got.dtype == q.dtype
+        for w, name in ((want, "flash_fwd_plain"),
+                        (torch.from_numpy(oracle.copy()), "oracle")):
+            _close_to_max(got, w, KERNEL_FWD_TOL[dtype], f"o vs {name}")
+            if dtype == "bfloat16":
+                err = (got.float() - w.float()).norm(dim=-1)
+                ref = w.float().norm(dim=-1)
+                scale = ref + 1e-3 * max(float(ref.max()), 1e-3)
+                assert float((err / scale).max()) <= KERNEL_ROW_TOL
+        _close_to_max(lse, want_lse, KERNEL_LSE_TOL, "lse")

@@ -268,13 +268,22 @@ def test_sandwich_fn_autograd_on_card(cuda, dtype):
         _assert_grad_close(leaf.grad, w, dtype, name)
 
 
-def _paged_case(dtype, dev, seed=0, B=8, KV=3, G=3, D=64, ps=16, P=32):
+# cur_pos per slot: the serving engine's shape (max_len 512), a long one
+# (2048, SmolLM-135M's context), and positions at the runs' boundaries
+# (runs of 64 positions: 63 ends one, 64 starts the next)
+PAGED_CURS = {"serve": ((0, 15, 16, 100, 255, 300, 511, 47), 32),
+              "long": ((2047, 2000, 1500, 1024, 777, 511, 16, 0), 128),
+              "boundaries": ((63, 64, 127, 128, 191, 0, 1, 510), 32)}
+
+
+def _paged_case(dtype, dev, seed=0, B=8, KV=3, G=3, D=64, ps=16, P=32,
+                cur=PAGED_CURS["serve"][0]):
     gen = torch.Generator().manual_seed(seed)
     N = 1 + B * P
     k_pool = torch.randn(N, ps, KV, D, generator=gen)
     v_pool = torch.randn(N, ps, KV, D, generator=gen)
     ids = (torch.randperm(N - 1, generator=gen) + 1).reshape(B, P)
-    cur = torch.tensor([0, 15, 16, 100, 255, 300, 511, 47][:B])
+    cur = torch.tensor(cur[:B])
     k_pool[pa.TRASH_PAGE] = 1e4               # dirty trash page
     v_pool[pa.TRASH_PAGE] = -1e4
     for b in range(B):
@@ -291,14 +300,41 @@ def _paged_case(dtype, dev, seed=0, B=8, KV=3, G=3, D=64, ps=16, P=32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_kernel_matches_plain(cuda, dtype):
-    args = _paged_case(dtype, cuda)
+@pytest.mark.parametrize("case", sorted(PAGED_CURS))
+def test_paged_kernel_matches_plain(cuda, dtype, case):
+    """The split kernel and its combine against the oracle and the split's
+    plain twin, with a dirty trash page, stale rows and NaN pages past
+    cur_pos; two launches bit-identical."""
+    cur, P = PAGED_CURS[case]
+    args = _paged_case(dtype, cuda, P=P, cur=cur)
     before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(*args, backend="cuda")
+    again = pa.paged_decode_attention(*args, backend="cuda")
+    want = pa.paged_decode_attention(*args, backend="torch")
+    split = pa.paged_decode_split_plain(*args, pa.pages_per_split(16, P))
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == before + 2 * pa.PAGED_KERNELS
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    tol = PAGED_TOL[dtype]
+    for w in (want, split):
+        torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,D,ps", [(2, 1, 8, 16), (1, 4, 16, 4),
+                                       (2, 2, 128, 8), (1, 16, 256, 32),
+                                       (3, 7, 72, 64)])
+def test_paged_kernel_shapes(cuda, dtype, KV, G, D, ps):
+    """Head dims 8..256, groups up to 16 and pages of 4 to 64 positions
+    (runs of one to 16 pages); a slot with cur_pos -1 gets zeros."""
+    cur = (0, 3, 4, 63, 64, 200, 255, -1)
+    args = _paged_case(dtype, cuda, KV=KV, G=G, D=D, ps=ps, P=256 // ps,
+                       cur=cur)
     got = pa.paged_decode_attention(*args, backend="cuda")
     want = pa.paged_decode_attention(*args, backend="torch")
     torch.cuda.synchronize()
-    assert pa.paged_decode_attention.launches == before + 1
-    assert torch.isfinite(got).all()
+    assert torch.isfinite(got).all() and not got[-1].any()
     tol = PAGED_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
@@ -314,6 +350,17 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):
         pa.paged_decode_attention(q, k_pool, v_pool, ids.long(), cur,
                                   backend="cuda")
+    before = pa.paged_decode_attention.launches
+    for bad in (dict(D=12), dict(G=17), dict(D=264)):
+        args = _paged_case(torch.float32, cuda, **bad)
+        with pytest.raises(ValueError, match="head dims"):
+            pa.paged_decode_attention(*args, backend="cuda")
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)                       # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_decode_attention(shifted, k_pool, v_pool, ids, cur,
+                                  backend="cuda")
+    assert pa.paged_decode_attention.launches == before
     # past the widths the kernels take: ValueError naming the limit, before
     # any launch
     before = (ks.sandwich_forward.launches, ks.sandwich_backward.launches,
@@ -459,6 +506,33 @@ def test_flash_kernels_match_plain(cuda, B, H, S, D, causal, window, dtype):
         _close_to_max(a, w, FLASH_GRAD_TOL[dtype], name)
         if dtype == torch.bfloat16:
             _rows_close(a, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0), (False, 100)])
+@pytest.mark.parametrize("D", [8, 24, 64, 128, 192, 256])
+@pytest.mark.parametrize("S", [1, 63, 65, 300])
+def test_flash_forward_tensor_cores(cuda, S, D, causal, window, dtype):
+    """The forward kernel (mma tiles of 64 rows, bfloat16 with p as a hi/lo
+    pair, float32 in 3xTF32) against its plain twin: S around one tile and
+    ragged, head dims whose k is zero-padded (8, 24) up to the widest,
+    windows and non-causal sweeps; one launch a call, bit-identical."""
+    gen = torch.Generator().manual_seed(S * D)
+    q, k, v = (torch.randn(2, 3, S, D, generator=gen).to(cuda, dtype)
+               for _ in range(3))
+    kw = dict(causal=causal, window=window)
+    before = kf.flash_forward.launches
+    out, lse = kf.flash_forward(q, k, v, backend="cuda", **kw)
+    again, _ = kf.flash_forward(q, k, v, backend="cuda", **kw)
+    pout, plse = kf.flash_forward(q, k, v, backend="torch", **kw)
+    torch.cuda.synchronize()
+    assert kf.flash_forward.launches == before + 2
+    assert torch.equal(out, again)
+    _close_to_max(out, pout, FLASH_FWD_TOL[dtype], "o")
+    _close_to_max(lse, plse, 1e-5, "lse")
+    if dtype == torch.bfloat16:
+        _rows_close(out, pout, "o")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -149,3 +149,80 @@ def test_cuda_backend_rejects_cpu_tensors():
         tpa.paged_decode_attention(q, _t(k_pool), _t(v_pool), _t(ids).int(),
                                    torch.zeros(B, dtype=torch.int32),
                                    backend="cuda")
+
+
+# the split's plain twin: 6 slots over 5 pages of 4 positions, cur_pos at
+# 0, ps - 1, ps, a run boundary (8 starts the second run of 2 pages, 12 the
+# second of 3) and the last position
+SPLIT_PAGES, SPLIT_CUR = 5, (0, PS - 1, PS, 8, 12, 5 * PS - 1)
+
+
+def _split_setup(seed):
+    """A permuted pool for SPLIT_CUR with a dirty trash page, stale finite
+    rows past cur_pos in each slot's last page and NaN pages wholly past
+    it (the reference's kernel skips those, and scores the stale rows only
+    to mask them, so they must stay finite)."""
+    rng = np.random.default_rng(seed)
+    Bs, P = len(SPLIT_CUR), SPLIT_PAGES
+    n = 1 + Bs * P
+    k_pool = rng.normal(size=(n, PS, KV, D)).astype(np.float32)
+    v_pool = rng.normal(size=(n, PS, KV, D)).astype(np.float32)
+    ids = rng.permutation(np.arange(1, n)).reshape(Bs, P).astype(np.int32)
+    k_pool[tpa.TRASH_PAGE] = 1e4
+    v_pool[tpa.TRASH_PAGE] = -1e4
+    for b, cur in enumerate(SPLIT_CUR):
+        last, off = cur // PS, cur % PS + 1
+        k_pool[ids[b, last], off:] = 7e3
+        v_pool[ids[b, last], off:] = -7e3
+        for p in range(last + 1, P):
+            k_pool[ids[b, p]] = np.nan
+            v_pool[ids[b, p]] = np.nan
+    q = rng.normal(size=(Bs, KV, G, D))
+    return q, k_pool, v_pool, ids, np.asarray(SPLIT_CUR, np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pages", [1, 2, 3, SPLIT_PAGES])
+def test_split_twin_matches_oracle_and_pallas(pages, dtype):
+    """``paged_decode_split_plain`` over runs of 1, 2, 3 and all pages
+    against the port's oracle and the reference's Pallas kernel in
+    interpret mode."""
+    q, k_pool, v_pool, ids, cur = _split_setup(seed=9)
+    got = tpa.paged_decode_split_plain(
+        _t(q, dtype), _t(k_pool, dtype), _t(v_pool, dtype), _t(ids).int(),
+        _t(cur).int(), pages)
+    assert got.dtype == getattr(torch, dtype)
+    assert torch.isfinite(got).all()
+    oracle = tpa.paged_attend_ref(
+        _t(q[:, None], dtype), _t(k_pool, dtype), _t(v_pool, dtype),
+        _t(ids).int(), _t(cur[:, None]).int())[:, 0]
+    _close(got, oracle.float().numpy(), dtype)
+    pallas = jpa._paged_decode_pallas(
+        _j(q, dtype), _j(k_pool, dtype), _j(v_pool, dtype),
+        _j(ids, "int32"), _j(cur, "int32"), interpret=True)
+    _close(got, pallas, dtype)
+
+
+def test_split_twin_gives_zeros_before_the_first_position():
+    """A slot with cur_pos -1 (nothing written) sees no position: zeros,
+    as the oracle gives, whatever the pool holds."""
+    q, k_pool, v_pool, ids, cur = _split_setup(seed=10)
+    cur = cur.copy()
+    cur[1] = -1
+    got = tpa.paged_decode_split_plain(_t(q), _t(k_pool), _t(v_pool),
+                                       _t(ids).int(), _t(cur).int(), 2)
+    assert not got[1].any() and torch.isfinite(got).all()
+    want = tpa.paged_attend_ref(_t(q[:, None]), _t(k_pool), _t(v_pool),
+                                _t(ids).int(), _t(cur[:, None]).int())[:, 0]
+    _close(got, want.numpy())
+
+
+def test_pages_per_split_covers_64_positions():
+    """Runs of 64 positions, at least one page, and at most MAX_RUNS runs a
+    slot (the combine keeps a table of them in shared memory)."""
+    assert [tpa.pages_per_split(ps, 32) for ps in (1, 4, 16, 64, 128)] == [
+        64, 16, 4, 1, 1]
+    assert tpa.pages_per_split(16, 2048) == 4
+    assert tpa.pages_per_split(16, 4096) == 8
+    assert -(-100000 // tpa.pages_per_split(1, 100000)) <= tpa.MAX_RUNS
+    assert tpa.PAGED_KERNELS == 2
