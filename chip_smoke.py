@@ -112,10 +112,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     forward and 2 backward launches per call.
 19. Timing of the flash kernels at (a) and (b): kernel, plain twin,
     bound, ``scaled_dot_product_attention`` forward and backward, and at
-    (a) the port's plain ``_attend_masked`` in grouped layout; the forward
-    and SDPA's forward by device time beside their CUDA-event figures, the
-    float32 forward's bound at the 3xTF32 rate (495/3 TFLOP/s) beside the
-    CUDA-core one.
+    (a) the port's plain ``_attend_masked`` in grouped layout; the three
+    kernels and SDPA's forward and backward by device time beside their
+    CUDA-event figures, the float32 kernels' bounds at the 3xTF32 rate
+    (495/3 TFLOP/s) beside the CUDA-core ones.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
@@ -140,6 +140,7 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 TC / fp32
 # a float32 route on the tensor cores in 3xTF32 (three TF32 products for
 # each float32 one): the TF32 peak over three
 PEAK_3XTF32 = 495e12 / 3
+PROFILE_TRIES = 3         # device_ms: profiler windows read before it raises
 SANDWICH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 FACTOR_TOL = 1e-5         # the factors are float32 in both routes
 WIDEST = ("widest", 32, 262144)   # n2 = 4096 x 64, the kernels' limit
@@ -190,26 +191,40 @@ def cuda_ms(torch, fn, reps: int, warm: int = 3) -> float:
 
 
 def device_ms(torch, fn, reps: int, warm: int = 3) -> float:
-    """Device milliseconds per call of ``fn``: the summed durations of the
-    kernels and copies it launches over ``reps`` calls, read from
-    ``torch.profiler`` after ``warm`` calls, over ``reps``. Unlike
-    :func:`cuda_ms`, the host's enqueue rate cannot set it: gaps between
-    launches do not count. Raises where the profiler saw no device time."""
+    """Device milliseconds per call of ``fn``: the durations of the kernels
+    and copies it launches, read from ``torch.profiler`` over ``reps``
+    calls after ``warm`` calls. Unlike :func:`cuda_ms`, the host's enqueue
+    rate cannot set it: gaps between launches do not count. The profiler
+    records a window of ``reps`` calls after a window of as many that it
+    traces and drops: without it the profiler lost some of the first
+    calls' kernels, and at a window's edge it may still drop one or carry
+    one over. So each kernel's mean duration counts as many times a call
+    as it ran per call, rounded (a kernel seen fewer than reps/2 times is
+    a stray and does not count); a window with no device time is read
+    again, up to PROFILE_TRIES times, and then raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if not us:
-        raise RuntimeError("device_ms: the profiler saw no device time")
-    return us / reps / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us = sum(e.self_device_time_total / e.count * round(e.count / reps)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count)
+        if us:
+            return us / 1e3
+        say(f"device_ms: no device time over {reps} calls; read again")
+    raise RuntimeError(f"device_ms: the profiler saw no device time over "
+                       f"{reps} calls in each of {PROFILE_TRIES} windows")
 
 
 def clocks(dev) -> str:
@@ -266,7 +281,8 @@ def phase_build() -> None:
     say(f"build: {time.monotonic() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if any(k in line for k in ("registers", "spill", "smem")):
+            if any(k in line for k in ("Function properties", "registers",
+                                       "spill", "smem")):
                 say(f"ptxas[{name}]: {line.strip()}")
 
 
@@ -2079,10 +2095,11 @@ def flash_bound(shape, dtype: str):
 def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
                        errs, shapes, entry: str, kv_heads: int) -> list:
     """Times of the three flash kernels at ``shapes`` (the training
-    attention first): the forward and SDPA's forward by device time
-    (``device_fn``) beside their CUDA-event figures, the rest by CUDA
-    events (``time_fn``); each kernel alone and its plain twin, its
-    bound, and as the library yardstick the port never calls
+    attention first): each kernel alone and SDPA's forward and backward by
+    device time (``device_fn``) beside their CUDA-event figures
+    (``time_fn``), the plain twins by CUDA events; each kernel's bound (in
+    float32 at the 3xTF32 rate, the CUDA-core one printed beside it), and
+    as the library yardstick the port never calls
     ``scaled_dot_product_attention(is_causal=True)``: its forward for the
     forward, its backward (fwd+bwd through ``torch.autograd.grad`` minus
     fwd) for the dq/dkv pair. At the first shape also the port's plain
@@ -2109,64 +2126,62 @@ def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
             delta = kf.row_delta(out, do)
         reps = 10 if S >= 4096 else 20
 
-        def fwd():
-            return kf.flash_forward(q, k, v, backend=kernel, **kw)
-
-        with torch.no_grad():     # both figures of the forward back to back
-            fwd_ms = device_fn(torch, fwd, reps=reps)
-            fwd_event = time_fn(torch, fwd, reps=reps)
-            fwd_clocks = clocks(dev)
-        t = {"flash_fwd": (
-            fwd_ms,
-            time_fn(torch, lambda: kf.flash_forward(q, k, v, backend="torch",
-                                                    **kw), reps=3)),
-            "flash_bwd_dq": (
-            time_fn(torch, lambda: dq_k(q, k, v, do, lse, delta, **kw),
-                    reps=reps),
-            time_fn(torch, lambda: kf.flash_dq_plain(q, k, v, do, lse, delta,
-                                                     **kw), reps=3)),
-            "flash_bwd_dkv": (
-            time_fn(torch, lambda: dkv_k(q, k, v, do, lse, delta, **kw),
-                    reps=reps),
-            time_fn(torch, lambda: kf.flash_dkv_plain(q, k, v, do, lse,
-                                                      delta, **kw), reps=3))}
-        with torch.no_grad():
+        calls = {
+            "flash_fwd": lambda: kf.flash_forward(q, k, v, backend=kernel,
+                                                  **kw),
+            "flash_bwd_dq": lambda: dq_k(q, k, v, do, lse, delta, **kw),
+            "flash_bwd_dkv": lambda: dkv_k(q, k, v, do, lse, delta, **kw)}
+        plains = {
+            "flash_fwd": lambda: kf.flash_forward(q, k, v, backend="torch",
+                                                  **kw),
+            "flash_bwd_dq": lambda: kf.flash_dq_plain(q, k, v, do, lse,
+                                                      delta, **kw),
+            "flash_bwd_dkv": lambda: kf.flash_dkv_plain(q, k, v, do, lse,
+                                                        delta, **kw)}
+        t = {}
+        with torch.no_grad():     # both figures of a kernel back to back
+            for kname, fn in calls.items():
+                t[kname] = (device_fn(torch, fn, reps=reps),
+                            time_fn(torch, fn, reps=reps), clocks(dev),
+                            time_fn(torch, plains[kname], reps=3))
             lib_f = device_fn(torch, lambda: sdpa(q, k, v, is_causal=causal),
                               reps=reps)
             lib_f_event = time_fn(torch, lambda: sdpa(q, k, v,
                                                       is_causal=causal),
                                   reps=reps)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        lib_fb = time_fn(torch, lambda: torch.autograd.grad(
-            sdpa(*leaves, is_causal=causal), leaves, grad_outputs=do),
-            reps=reps)
-        lib = {"flash_fwd": lib_f, "flash_bwd_dq": lib_fb - lib_f_event,
-               "flash_bwd_dkv": lib_fb - lib_f_event}
+
+        def sdpa_fwdbwd():
+            return torch.autograd.grad(sdpa(*leaves, is_causal=causal),
+                                       leaves, grad_outputs=do)
+
+        lib_fb = device_fn(torch, sdpa_fwdbwd, reps=reps)
+        lib_fb_event = time_fn(torch, sdpa_fwdbwd, reps=reps)
+        lib = {"flash_fwd": (lib_f, lib_f_event),
+               "flash_bwd_dq": (lib_fb - lib_f, lib_fb_event - lib_f_event),
+               "flash_bwd_dkv": (lib_fb - lib_f, lib_fb_event - lib_f_event)}
         bounds = flash_bound(shape, dtype)
         res = {}
-        for kname, (ms, plain) in t.items():
+        for kname, (ms, event, clk, plain) in t.items():
             nbytes, ops = bounds[kname]
             bnd, by = bound_ms(nbytes, ops, PEAK_OPS[dtype])
             tf32 = ""
-            if kname == "flash_fwd" and dtype == "float32":
-                # the forward's float32 route runs in 3xTF32: its bound is
-                # at that rate, the CUDA-core bound printed beside it
+            if dtype == "float32":
+                # the float32 route runs in 3xTF32: its bound is at that
+                # rate, the CUDA-core bound printed beside it
                 tf32 = f" (CUDA-core float32 bound {bnd:.5f} ms)"
                 bnd, by = bound_ms(nbytes, ops, PEAK_3XTF32)
             res[kname] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                              bound_by=by, library_ms=lib[kname])
-            events = (f" device ({fwd_event:.4f} ms by events)"
-                      if kname == "flash_fwd" else "")
+                              bound_by=by, library_ms=lib[kname][0],
+                              event_ms=event,
+                              library_event_ms=lib[kname][1])
             say(f"time {kname} {name} B={B} H={H} S={S} D={D} {dtype}: "
-                f"kernel {ms:.4f} ms{events}, plain {plain:.4f} ms, bound "
-                f"{bnd:.5f} ms ({by}: {nbytes} B, {ops} ops){tf32}, sdpa "
+                f"kernel {ms:.4f} ms device ({event:.4f} ms by events), "
+                f"plain {plain:.4f} ms, bound {bnd:.5f} ms ({by}: {nbytes} "
+                f"B, {ops} ops){tf32}, sdpa "
                 f"{'forward' if kname == 'flash_fwd' else 'backward (pair)'}"
-                f" {lib[kname]:.4f} ms"
-                + (f" device ({lib_f_event:.4f} ms by events){fwd_clocks}"
-                   if kname == "flash_fwd" else ""))
-            if kname == "flash_fwd":
-                res[kname].update(event_ms=fwd_event,
-                                  library_event_ms=lib_f_event)
+                f" {lib[kname][0]:.4f} ms device ({lib[kname][1]:.4f} ms by "
+                f"events){clk}")
         if shape is shapes[0]:
             KV = kv_heads
             G = H // KV
@@ -2184,10 +2199,10 @@ def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
             fl = sum(res[n]["ms"] for n in res)
             say(f"time attention {name} B={B} S={S} {H} heads ({KV} KV) "
                 f"D={D} {dtype}: plain _attend_masked forward {m_f:.4f} ms, "
-                f"fwd+bwd {m_fb:.4f} ms; flash kernels forward "
+                f"fwd+bwd {m_fb:.4f} ms (by events); flash kernels forward "
                 f"{res['flash_fwd']['ms']:.4f} ms, fwd+bwd (3 kernels) "
                 f"{fl:.4f} ms; sdpa forward {lib_f:.4f} ms, fwd+bwd "
-                f"{lib_fb:.4f} ms")
+                f"{lib_fb:.4f} ms (device)")
             res["flash_fwd"]["attend_masked_fwd_ms"] = m_f
             res["flash_fwd"]["attend_masked_fwdbwd_ms"] = m_fb
             del qg, kg, vg, gl, dog
@@ -2223,7 +2238,7 @@ def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
                     f"{lib_what[kname]}); {other}"}
         e.update(at[kname])
         if kname == "flash_bwd_dkv":
-            e["library_ms"] = None
+            e["library_ms"] = e["library_event_ms"] = None
         entries.append(e)
     return entries
 

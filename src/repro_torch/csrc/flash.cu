@@ -15,11 +15,12 @@
 //   causal query tiles first. K and V tiles stream through shared memory
 //   by cp.async, double-buffered: the next tile loads while this one is
 //   used, one barrier a tile.
-// * s = q·kᵀ and o += p·v are mma.sync tiles (flash_common.cuh). The
-//   score fragments of s become the A operand of p·v in registers, so the
-//   probabilities never pass through shared memory; row max and row sum
-//   are quad shuffles, and each lane keeps its part of the row sum until
-//   the end.
+// * s = q·kᵀ and o += p·v are mma.sync tiles, the warp's tile products of
+//   flash_common.cuh (score_bf16 / score_f32, pack_hi_lo with accum_bf16,
+//   accum_f32), shared with the backward kernels. The score fragments of s
+//   become the A operand of p·v in registers, so the probabilities never
+//   pass through shared memory; row max and row sum are quad shuffles, and
+//   each lane keeps its part of the row sum until the end.
 // * Any S >= 1: ragged tiles load zeros and the mask hides them. Head dims
 //   8..256 in steps of 8, compiled for 64, 128 and 256; bfloat16 rows
 //   are zero-padded to a multiple of 16 in shared memory (the k of
@@ -30,12 +31,17 @@
 //   float32 sum differs from the twin only in summation order. The scores
 //   are scaled after the product by D^-0.5·log2(e) and the softmax runs in
 //   base 2 (ex2.approx, subnormal results flushed to zero), where the twin
-//   pre-scales q by D^-0.5 and uses exp: a float32 reordering. p enters p·v as a hi/lo bfloat16 pair, hi =
-//   bf16(p) and lo = bf16(p − hi), two products, so p keeps ~16 bits; v
-//   is exact; the sum is float32.
+//   pre-scales q by D^-0.5 and uses exp: a float32 reordering. p enters
+//   p·v as a hi/lo bfloat16 pair, hi = bf16(p) and lo = bf16(p − hi), two
+//   products, so p keeps ~16 bits; v is exact; the sum is float32.
 // * float32: 3xTF32 on m16n8k8. Every operand x is split into big =
-//   tf32(x) and small = tf32(x − big), and a·b is big·big + big·small +
-//   small·big with a float32 sum (~21 bits a product); q·kᵀ and p·v both.
+//   tf32(x) and small = x − big truncated to TF32, and a·b is big·big +
+//   big·small + small·big with a float32 sum (~21 bits a product); q·kᵀ
+//   and p·v both.
+// * Both: the tensor cores' float32 accumulation truncates, so q·kᵀ takes
+//   a fresh accumulator per 64 dims and p·v one per key tile, each added
+//   into the running sum by IEEE float32 adds (p·v's after the rescale by
+//   exp2(m_old − m_new)), as in the backward kernels.
 // * The online softmax (m, l, the accumulator) is float32; lse = (m +
 //   log2(max(l, 1e-30)))·ln 2 in float32; o is rounded to the input dtype
 //   once, when stored.
@@ -51,33 +57,11 @@
 namespace {
 
 using namespace flash;
-using sandwich::cp_async16;
 using sandwich::cp_async_commit;
 using sandwich::cp_async_wait;
-using sandwich::ldmatrix_x4;
-using sandwich::ldmatrix_x4_trans;
-using sandwich::pack_bf16;
+using bf16 = __nv_bfloat16;
 
-constexpr int BQ = kFwdRows, BK = kFwdRows;
-constexpr int kFwdThreads = 32 * kFwdWarps;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Columns of a tile row in shared memory: bfloat16 rows zero-padded to a
-// multiple of 16 (the k of m16n8k16), float32 rows D wide.
-template <typename T>
-__host__ __device__ inline int padded(int D) {
-  return sizeof(T) == 2 ? (D + 15) / 16 * 16 : D;
-}
-
-// Row stride of a tile in shared memory, in elements. bfloat16: padded +
-// 8, so the 8 rows one ldmatrix reads sit 16 bytes apart modulo 128 (no
-// bank conflict). float32: D + 4, so the 8 rows of a fragment read sit 4
-// banks apart and the 4 lanes of a quad fill the gaps.
-template <typename T>
-__host__ __device__ inline int row_stride(int D) {
-  return sizeof(T) == 2 ? padded<T>(D) + 8 : D + 4;
-}
+constexpr int BQ = kTileRows, BK = kTileRows;
 
 template <typename T, int DMAX>
 struct Fwd {
@@ -89,71 +73,19 @@ struct Fwd {
   static constexpr int kStages = (kBf16 || DMAX <= 128) ? 2 : 1;
   // the q tile's A fragments stay in registers up to D = 128
   static constexpr bool kQRegs = kBf16 && DMAX <= 128;
+  // float32: n-tiles a 3xTF32 pass covers at once (score_f32, accum_f32)
+  static constexpr int NG = 8;
   static size_t smem_bytes(int D) {
     return sizeof(T) * (size_t)(BQ + kStages * 2 * BK) * row_stride<T>(D);
   }
 };
 
-// A thread's walk over the 16-byte chunks of a 64-row tile, cpr chunks a
-// row: chunks threadIdx.x, + kFwdThreads, ... in row order, kept as
-// (row, chunk) and stepped by (dr, dc) without a division per chunk.
-struct ChunkWalk {
-  int cpr, r, c, dr, dc;
-  __device__ explicit ChunkWalk(int cpr_) : cpr(cpr_) {
-    r = threadIdx.x / cpr;
-    c = threadIdx.x - r * cpr;
-    dr = kFwdThreads / cpr;
-    dc = kFwdThreads - dr * cpr;
-  }
-};
-
-// Rows [r0, r0 + 64) of a (S, D) matrix into dst at stride LD by 16-byte
-// cp.async, columns [0, padded(D)); rows past S and columns past D zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
-                                          int S, int D, int LD,
-                                          const ChunkWalk& w) {
-  constexpr int E = 16 / sizeof(T);
-  int r = w.r, c = w.c;
-  while (r < kFwdRows) {
-    const int row = r0 + r, col = c * E;
-    const bool ok = row < S && col < D;
-    cp_async16(dst + r * LD + col, ok ? src + (size_t)row * D + col : src,
-               ok);
-    r += w.dr;
-    c += w.dc;
-    if (c >= w.cpr) {
-      c -= w.cpr;
-      ++r;
-    }
-  }
-}
-
-// 2^x by the SFU, subnormal results flushed to zero (they are below any
-// probability that can move a float32 row sum of at least 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// hi = bf16(x), bf16(y) and lo = the rounding residuals, packed as the
-// pairs an A fragment holds (x at the lower column)
-__device__ __forceinline__ void hi_lo(float x, float y, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - hf.x, y - hf.y);
-}
-
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int S, int D, int causal,
     int window, float scale) {
   using F = Fwd<T, DMAX>;
-  constexpr int NT = BK / 8;    // key n-tiles of a score tile
   constexpr int DT = DMAX / 8;  // d n-tiles of the accumulator, at most
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const qs = reinterpret_cast<T*>(smem_raw);
@@ -168,18 +100,19 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
   const float sl2 = scale * kLog2e;
 
   int lo, hi;
-  key_tiles(q0, BQ, S, causal, window, &lo, &hi);
+  key_tiles(q0, BQ, BK, S, causal, window, &lo, &hi);
   const int q_last = min(q0 + BQ, S) - 1;
 
   const ChunkWalk walk(DP * (int)sizeof(T) / 16);
   // key tile t into buffer (t − lo) mod kStages, one commit group a tile
   auto load_kv = [&](int tile) {
     T* dst = kv((tile - lo) % F::kStages);
-    load_tile<T>(dst, k + base, tile * BK, S, D, LD, walk);
-    load_tile<T>(dst + BK * LD, v + base, tile * BK, S, D, LD, walk);
+    load_tile<T>(dst, k + base, tile * BK, BK, S, D, LD, walk);
+    load_tile<T>(dst + BK * LD, v + base, tile * BK, BK, S, D, LD,
+                walk);
     cp_async_commit();
   };
-  load_tile<T>(qs, q + base, q0, S, D, LD, walk);
+  load_tile<T>(qs, q + base, q0, BQ, S, D, LD, walk);
   load_kv(lo);
 
   float acc[DT][4];
@@ -188,20 +121,15 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  uint32_t qf[F::kQRegs ? DMAX / 16 : 1][4];
+  RowsBf16<DMAX, F::kQRegs> qa;  // the warp's q rows (bfloat16)
 
   for (int tile = lo; tile < hi; ++tile) {
     cp_async_wait<0>();
     __syncthreads();  // this tile landed; the last one is consumed
     const int buf = (tile - lo) % F::kStages;
-    if constexpr (F::kQRegs) {
-      if (tile == lo) {
-#pragma unroll
-        for (int kk = 0; kk < DMAX / 16; ++kk)
-          if (kk * 16 < DP)
-            ldmatrix_x4(qf[kk], qs + (wq + (lane & 15)) * LD + kk * 16 +
-                                    8 * (lane >> 4));
-      }
+    if constexpr (F::kBf16) {
+      if (tile == lo)
+        qa.init(reinterpret_cast<const bf16*>(qs), wq, LD, DP, lane);
     }
     if (F::kStages == 2 && tile + 1 < hi) load_kv(tile + 1);
     const T* ks = kv(buf);
@@ -210,64 +138,12 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
 
     // s = q·kᵀ for the warp's 16 rows x 64 keys
     float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     if constexpr (F::kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < DMAX / 16; ++kk) {
-        if (kk * 16 >= DP) continue;
-        uint32_t a[4];
-        if constexpr (F::kQRegs) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
-        } else {
-          ldmatrix_x4(a, qs + (wq + (lane & 15)) * LD + kk * 16 +
-                             8 * (lane >> 4));
-        }
-#pragma unroll
-        for (int jp = 0; jp < NT / 2; ++jp) {
-          uint32_t b[4];
-          ldmatrix_x4(b, ks + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * LD +
-                             kk * 16 + 8 * ((lane >> 3) & 1));
-          mma_bf16(s[2 * jp], a, b[0], b[1]);
-          mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
-        }
-      }
+      score_bf16<DMAX>(s, qa, reinterpret_cast<const bf16*>(ks), LD, DP,
+                       lane);
     } else {
-      // the tensor cores' float32 sums truncate: each chunk of 64 dims
-      // accumulates in fresh registers, added into s by float32 adds
-#pragma unroll
-      for (int kc0 = 0; kc0 < DMAX / 8; kc0 += 8) {
-        if (kc0 * 8 >= D) continue;
-        float sc[NT][4];
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll 2
-        for (int kc = kc0; kc < kc0 + 8; ++kc) {
-          if (kc * 8 >= D) continue;
-          const float* qr = reinterpret_cast<const float*>(qs) +
-                            (wq + g) * LD + kc * 8 + t;
-          const float a[4] = {qr[0], qr[8 * LD], qr[4], qr[8 * LD + 4]};
-          uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
-          split_a(a, ab, as);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const float* kr = reinterpret_cast<const float*>(ks) +
-                              (8 * j + g) * LD + kc * 8 + t;
-            split_tf32(kr[0], bb[j][0], bs[j][0]);
-            split_tf32(kr[4], bb[j][1], bs[j][1]);
-          }
-          mma_3xtf32<NT>(sc, ab, as, bb, bs);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e];
-      }
+      score_f32<DMAX, F::NG>(s, reinterpret_cast<const float*>(qs) + wq * LD,
+                             reinterpret_cast<const float*>(ks), LD, D, lane);
     }
 
     // scale to base 2, mask, online softmax (rows g and g + 8)
@@ -311,59 +187,13 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
 
     // acc += p·v
     if constexpr (F::kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t ah[4], al[4];
-        hi_lo(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
-        hi_lo(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
-        hi_lo(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
-        hi_lo(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
-#pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp) {
-          if (dp * 16 >= DP) continue;
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vs + (16 * kk + (lane & 15)) * LD + 16 * dp +
-                                   8 * (lane >> 4));
-          mma_bf16(acc[2 * dp], al, b[0], b[1]);
-          mma_bf16(acc[2 * dp + 1], al, b[2], b[3]);
-          mma_bf16(acc[2 * dp], ah, b[0], b[1]);
-          mma_bf16(acc[2 * dp + 1], ah, b[2], b[3]);
-        }
-      }
+      uint32_t ah[NT / 2][4], al[NT / 2][4];
+      pack_hi_lo(s, ah, al);
+      accum_bf16<DMAX>(acc, ah, al, reinterpret_cast<const bf16*>(vs), LD, 0,
+                       DP, lane);
     } else {
-      // k of p·v in the order key 2t (A column t), key 2t + 1 (column
-      // t + 4): the order a C fragment holds them in; V's rows follow it.
-      // d n-tiles in chunks of 8 (D is a multiple of 8, DT of 8), each
-      // summed over the tile's keys in fresh registers, then added into
-      // acc by float32 adds (the tensor cores' sums truncate)
-#pragma unroll
-      for (int dc = 0; dc < DT; dc += 8) {
-        if (dc * 8 >= D) continue;
-        float pv[8][4];
-#pragma unroll
-        for (int dn = 0; dn < 8; ++dn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) pv[dn][e] = 0.f;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float a[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-          uint32_t ab[4], as[4], bb[8][2], bs[8][2];
-          split_a(a, ab, as);
-          const float* vr = reinterpret_cast<const float*>(vs) +
-                            (8 * j + 2 * t) * LD + g + 8 * dc;
-#pragma unroll
-          for (int dn = 0; dn < 8; ++dn) {
-            const bool in = (dc + dn) * 8 < D;
-            split_tf32(in ? vr[8 * dn] : 0.f, bb[dn][0], bs[dn][0]);
-            split_tf32(in ? vr[LD + 8 * dn] : 0.f, bb[dn][1], bs[dn][1]);
-          }
-          mma_3xtf32<8>(pv, ab, as, bb, bs);
-        }
-#pragma unroll
-        for (int dn = 0; dn < 8; ++dn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[dc + dn][e] += pv[dn][e];
-      }
+      accum_f32<DMAX, F::NG>(acc, s, reinterpret_cast<const float*>(vs), LD,
+                             0, D, g, t);
     }
 
     if (F::kStages == 1 && tile + 1 < hi) {
@@ -376,7 +206,9 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + wq + g + 8 * h;
-    const float lm = fmaxf(sum4(l[h]), 1e-30f);
+    // at least 1e-30, as the twin's clamp; a NaN stays (fmaxf would drop it)
+    const float ls = sum4(l[h]);
+    const float lm = ls < 1e-30f ? 1e-30f : ls;
     if (row >= S) continue;
     T* orow = o + base + (size_t)row * D;
 #pragma unroll
@@ -405,7 +237,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (S + BQ - 1) / BQ);
-  kernel<<<grid, kFwdThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, D, causal, window,
       scale);
@@ -450,7 +282,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaErrorInvalidValue;
 }
 
-// Rows of the query and key tiles of the backward kernels (flash_bwd.cu)
-// at head dim D (0: D not taken); the bench rows report them. The
-// forward's tiles are kFwdRows (64) at every head dim.
-extern "C" int flash_tile_rows(int D) { return tile_rows(D); }
+// Rows a block of the backward kernels (flash_bwd.cu) owns at head dim D
+// in dtype (0 = float32, 1 = bfloat16): the dq kernel's query rows (dkv =
+// 0) or the dkv kernel's key rows (dkv = 1); 0 for what they do not take.
+// The bench rows report them. The tiles they sweep, and the forward's, are
+// kTileRows (64) at every head dim.
+extern "C" int flash_tile_rows(int D, int dtype, int dkv) {
+  return tile_rows(D, dtype, dkv);
+}

@@ -1,47 +1,38 @@
-// Device code shared by the flash-attention kernels (flash.cu,
-// flash_bwd.cu): the mask and the sweep ranges; for the backward kernels
-// the tile shape for a head dim, tile loads into shared memory and the
-// 16-lane reductions; for the forward the tensor-core fragments (mma.sync
-// in bfloat16 and TF32, the 3xTF32 split) and the quad reductions.
+// Device code shared by the flash-attention kernels (flash.cu: the
+// forward; flash_bwd.cu: dq and dkv): the mask and the sweep ranges, the
+// tile shapes, 64-row tile loads by cp.async, the tensor-core pieces
+// (mma.sync in bfloat16 and TF32, the 3xTF32 split, base-2 exp, the hi/lo
+// bfloat16 pair, quad reductions), and the warp's tile products built on
+// them, so that one precision rule holds in all three kernels.
 //
 // Layout: q/k/v/o (and dO, dq, dk, dv) are (B·H, S, D) contiguous, lse and
-// Δ (B·H, S) float32. A backward block has 256 threads seen as a 16 x 16
-// grid, tx = threadIdx.x % 16 (the "column" lanes of one half-warp) and
-// ty = threadIdx.x / 16. A block owns one tile of N rows (query rows in the
-// dq kernel, key rows in the dkv kernel) and sweeps tiles of
-// N rows of the other side. Thread (ty, tx) holds rows ty·R .. ty·R+R-1 of
-// its own tile and, of the swept tile, rows tx + 16·j (j < R): a score tile
-// is N x N, R x R entries a thread. Of the D columns of an accumulator it
-// holds d = tx + 16·j (j < DMAX/16).
+// Δ (B·H, S) float32. Every kernel runs blocks of four warps. A warp owns
+// 16 rows of the block's tile (query rows in the forward and dq, key rows
+// in dkv) and sweeps tiles of 64 rows of the other side; a score tile of a
+// warp is 16 x 64, eight m16n8 accumulator fragments.
 //
-// Shared memory keeps each row of a (rows, D) tile at a stride of D + 1
-// floats: D is even, so D + 1 is odd and the 16 rows tx + 16·j that a
-// half-warp reads at one column fall in 16 distinct banks.
+// Fragments of mma.sync.m16n8k{16,8} for a warp: lane = 4·g + t. The
+// float32 accumulator C of a 16 x 8 tile holds (g, 2t), (g, 2t+1) in c0, c1
+// and (g+8, 2t), (g+8, 2t+1) in c2, c3, for both shapes below.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "sandwich_common.cuh"  // to_f32 / from_f32
+#include "sandwich_common.cuh"  // cp.async, ldmatrix, pack_bf16
 
 namespace flash {
 
-using sandwich::from_f32;
-using sandwich::to_f32;
-
-constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Rows of a tile for head dims up to DMAX: 64 up to 128, 32 above (the
-// dq and dkv kernels hold four (N, D) float32 tiles; at D = 256 and N = 64
-// they would not fit in the 227 KB a block may use).
-template <int DMAX>
-struct Tile {
-  static constexpr int N = DMAX <= 128 ? 64 : 32;
-  static constexpr int R = N / 16;     // own rows (and swept rows) a thread
-  static constexpr int DJ = DMAX / 16; // accumulator columns a thread
-  static constexpr int PLD = N + 1;    // stride of an (N, N) score tile
-};
+// Four warps a block, 16 rows a warp: 64 rows of a tile, forward and
+// backward, swept and owned (the backward's blocks own 32 rows where two
+// warps share 16, see BwdSplit).
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileRows = 16 * kWarps;
 
 // The reference's mask (ref.flash_attention_ref, kernels/flash.py
 // _tile_mask), plus the ragged edge: key `col` is visible from query `row`.
@@ -51,52 +42,100 @@ __device__ __forceinline__ bool visible(int row, int col, int S, int causal,
          (window <= 0 || col > row - window);
 }
 
-// Key tiles [lo, hi) that can hold a visible key for query rows
-// [q0, q0 + N) ∩ [0, S): from the first key inside the window of the first
-// row to the diagonal of the last row (kernels/flash.py _kv_bounds, here
-// exact for this tile size and a ragged last tile).
-__device__ __forceinline__ void key_tiles(int q0, int N, int S, int causal,
-                                          int window, int* lo, int* hi) {
-  const int q_last = min(q0 + N, S) - 1;
-  *hi = causal ? q_last / N + 1 : (S + N - 1) / N;
-  *lo = window > 0 ? max(0, q0 - window + 1) / N : 0;
+// Key tiles [lo, hi) of `tile` rows that can hold a visible key for query
+// rows [q0, q0 + rows) ∩ [0, S): from the first key inside the window of
+// the first row to the diagonal of the last row (kernels/flash.py
+// _kv_bounds, here exact for these tile sizes and a ragged last tile).
+__device__ __forceinline__ void key_tiles(int q0, int rows, int tile, int S,
+                                          int causal, int window, int* lo,
+                                          int* hi) {
+  const int q_last = min(q0 + rows, S) - 1;
+  *hi = causal ? q_last / tile + 1 : (S + tile - 1) / tile;
+  *lo = window > 0 ? max(0, q0 - window + 1) / tile : 0;
 }
 
-// Query tiles [lo, hi) that can see a key of rows [k0, k0 + N) ∩ [0, S):
-// from the diagonal of the first key (causal) to the last query whose
-// window still reaches the last key (kernels/flash.py:141-147).
-__device__ __forceinline__ void query_tiles(int k0, int N, int S, int causal,
-                                            int window, int* lo, int* hi) {
-  const int k_last = min(k0 + N, S) - 1;
-  *lo = causal ? k0 / N : 0;
-  *hi = window > 0 ? min(S - 1, k_last + window - 1) / N + 1
-                   : (S + N - 1) / N;
+// Query tiles [lo, hi) of `tile` rows that can see a key of rows
+// [k0, k0 + rows) ∩ [0, S): from the diagonal of the first key (causal) to
+// the last query whose window still reaches the last key
+// (kernels/flash.py:141-147).
+__device__ __forceinline__ void query_tiles(int k0, int rows, int tile,
+                                            int S, int causal, int window,
+                                            int* lo, int* hi) {
+  const int k_last = min(k0 + rows, S) - 1;
+  *lo = causal ? k0 / tile : 0;
+  *hi = window > 0 ? min(S - 1, k_last + window - 1) / tile + 1
+                   : (S + tile - 1) / tile;
 }
 
-// Rows [r0, r0 + N) of a (S, D) matrix into dst (N rows at stride D + 1),
-// float32, times mul; rows past S are zero.
-template <typename T, int N>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int S, int D, float mul) {
-  const int LD = D + 1;
-  for (int idx = threadIdx.x; idx < N * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int row = r0 + r;
-    dst[r * LD + d] =
-        row < S ? to_f32<T>(src[(size_t)row * D + d]) * mul : 0.f;
+// Columns of a tile row in shared memory: bfloat16 rows zero-padded to a
+// multiple of 16 (the k of m16n8k16), float32 rows D wide.
+template <typename T>
+__host__ __device__ inline int padded(int D) {
+  return sizeof(T) == 2 ? (D + 15) / 16 * 16 : D;
+}
+
+// Row stride of a tile in shared memory, in elements. bfloat16: padded +
+// 8, so the 8 rows one ldmatrix reads sit 16 bytes apart modulo 128 (no
+// bank conflict). float32: D + 4, so the 8 rows of a fragment read sit 4
+// banks apart and the 4 lanes of a quad fill the gaps (and 16-byte rows of
+// an ldmatrix of float32 pairs likewise).
+template <typename T>
+__host__ __device__ inline int row_stride(int D) {
+  return sizeof(T) == 2 ? padded<T>(D) + 8 : D + 4;
+}
+
+// A thread's walk over the 16-byte chunks of a tile, cpr chunks a row:
+// chunks threadIdx.x, + kThreads, ... in row order, kept as (row, chunk)
+// and stepped by (dr, dc) without a division per chunk.
+struct ChunkWalk {
+  int cpr, r, c, dr, dc;
+  __device__ explicit ChunkWalk(int cpr_) : cpr(cpr_) {
+    r = threadIdx.x / cpr;
+    c = threadIdx.x - r * cpr;
+    dr = kThreads / cpr;
+    dc = kThreads - dr * cpr;
+  }
+};
+
+// Rows [r0, r0 + rows) of a (S, D) matrix into dst at stride LD by 16-byte
+// cp.async, columns [0, padded(D)); rows past S and columns past D zero.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
+                                          int rows, int S, int D, int LD,
+                                          const ChunkWalk& w) {
+  constexpr int E = 16 / sizeof(T);
+  int r = w.r, c = w.c;
+  while (r < rows) {
+    const int row = r0 + r, col = c * E;
+    const bool ok = row < S && col < D;
+    sandwich::cp_async16(dst + r * LD + col,
+                         ok ? src + (size_t)row * D + col : src, ok);
+    r += w.dr;
+    c += w.dc;
+    if (c >= w.cpr) {
+      c -= w.cpr;
+      ++r;
+    }
   }
 }
 
-// -- tensor-core tiles (mma.sync), used by flash.cu --------------------------
-//
-// Fragments of mma.sync.m16n8k{16,8} for a warp: lane = 4·g + t. The
-// float32 accumulator C of a 16 x 8 tile holds (g, 2t), (g, 2t+1) in c0, c1
-// and (g+8, 2t), (g+8, 2t+1) in c2, c3, for both shapes below.
+// 2^x by the SFU, subnormal results flushed to zero (they are below any
+// probability that can move a float32 row sum of at least 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// Rows of the forward's query and key tiles, at every head dim: a block of
-// four warps, each owning 16 query rows, sweeps key tiles of as many rows.
-constexpr int kFwdWarps = 4;
-constexpr int kFwdRows = 16 * kFwdWarps;
+// hi = bf16(x), bf16(y) and lo = the rounding residuals, packed as the
+// pairs an A fragment holds (x at the lower column)
+__device__ __forceinline__ void hi_lo(float x, float y, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = sandwich::pack_bf16(x - hf.x, y - hf.y);
+}
 
 // The products below are plain (not volatile) asm: they read and write
 // registers only, so the compiler may interleave independent tiles.
@@ -123,15 +162,25 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x = big + small with big = tf32(x) (round to nearest, ties away) and
-// small = tf32(x − big): the 3xTF32 split. big·big' + big·small' +
-// small·big' keeps ~21 bits of each product; the dropped small·small'
-// is below 2^-21 of it.
+// tf32(x): x rounded to 10 mantissa bits, to nearest with ties away from
+// zero, by two integer ops (half the last kept bit added to the
+// magnitude, the 13 dropped bits cleared): the bits of cvt.rna.tf32.f32
+// for finite x, at a fraction of its cost in the 3xTF32 loops (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small with big = tf32(x) and small = x − big truncated to 10
+// mantissa bits (CUTLASS's fast 3xTF32 split: round half up, then toward
+// zero): the 3xTF32 split. big·big' + big·small' + small·big' keeps ~21
+// bits of each product; the dropped small·small' is below 2^-21 of it.
+// A NaN stays in small: x − big is then the canonical NaN 0x7fffffff,
+// which truncation keeps a NaN (big may lose it: tf32_rna's add carries
+// some NaNs into the sign bit), and every product takes small once.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
 }
 
 // An A fragment of float32 values split once for every B it meets.
@@ -169,18 +218,222 @@ __device__ __forceinline__ float sum4(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Max and sum over the 16 lanes of a half-warp (one tx row of the grid).
-__device__ __forceinline__ float max16(float v) {
+// -- tile products of a warp, the same in every kernel ----------------------
+//
+// A warp's 16 own rows against a swept tile of kTileRows rows: a score
+// tile c (16 x 64, NT n-tiles) = A·Bᵀ over the head dim, and an
+// accumulator acc (16 x DW) += P·B with P a 16 x 64 score tile. One
+// precision rule for all: the tensor cores' float32 sums truncate, so
+// each 64 dims of a score and each swept tile of an accumulator sum in
+// fresh registers, added into the running sum by IEEE float32 adds.
+
+constexpr int NT = kTileRows / 8;  // n-tiles of a warp's score tile
+
+// The A fragments of a warp's 16 rows of a bfloat16 tile: ldmatrix'd once
+// into registers (kRegs), or at every use.
+template <int DMAX, bool kRegs>
+struct RowsBf16 {
+  uint32_t f[kRegs ? DMAX / 16 : 1][4];
+  const __nv_bfloat16* p;  // the lane's ldmatrix row
+  __device__ __forceinline__ void init(const __nv_bfloat16* tile, int row0,
+                                       int LD, int DP, int lane) {
+    p = tile + (row0 + (lane & 15)) * LD + 8 * (lane >> 4);
+    if constexpr (kRegs) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+      for (int kk = 0; kk < DMAX / 16; ++kk)
+        if (kk * 16 < DP) sandwich::ldmatrix_x4(f[kk], p + kk * 16);
+    }
+  }
+  __device__ __forceinline__ void get(int kk, uint32_t a[4]) const {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+    } else {
+      sandwich::ldmatrix_x4(a, p + kk * 16);
+    }
+  }
+};
+
+// c[j] = Σ_d A[r][d]·B[8j + n][d] for the warp's 16 rows r of A and the 64
+// rows of a swept bfloat16 tile b_s. The first 64 dims go straight into c,
+// n-tiles inner (independent products back to back); each later 64 dims
+// into fresh pair accumulators, added into c by float32 adds.
+template <int DMAX, bool kRegs>
+__device__ __forceinline__ void score_bf16(float (&c)[NT][4],
+                                           const RowsBf16<DMAX, kRegs>& A,
+                                           const __nv_bfloat16* b_s, int LD, int DP,
+                                           int lane) {
+  const __nv_bfloat16* bp =
+      b_s + ((lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4 && kk < DMAX / 16; ++kk) {
+    if (kk * 16 >= DP) continue;
+    uint32_t a[4];
+    A.get(kk, a);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[4];
+      sandwich::ldmatrix_x4(b, bp + 16 * jp * LD + kk * 16);
+      mma_bf16(c[2 * jp], a, b[0], b[1]);
+      mma_bf16(c[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int k0 = 4; k0 < DMAX / 16; k0 += 4) {
+    if (k0 * 16 >= DP) continue;
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      float f[2][4] = {};
+#pragma unroll
+      for (int kk = k0; kk < k0 + 4; ++kk) {
+        if (kk * 16 >= DP) continue;
+        uint32_t a[4], b[4];
+        A.get(kk, a);
+        sandwich::ldmatrix_x4(b, bp + 16 * jp * LD + kk * 16);
+        mma_bf16(f[0], a, b[0], b[1]);
+        mma_bf16(f[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[2 * jp][e] += f[0][e];
+        c[2 * jp + 1][e] += f[1][e];
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ float sum16(float v) {
+// The same product for float32 tiles in 3xTF32: a_s at the warp's first
+// row, both operands by ldmatrix (a row of 8 b16 elements is 4 floats: an
+// m8n8 b16 matrix is 8 rows x 4 floats, lane (g, t) gets float t of row
+// g). A fresh accumulator per 64 dims (the first is c itself), n-tiles in
+// groups of NG (even: one ldmatrix holds two n-tiles).
+template <int DMAX, int NG>
+__device__ __forceinline__ void score_f32(float (&c)[NT][4], const float* a_s,
+                                          const float* b_s, int LD, int D,
+                                          int lane) {
+  // A: matrices (rows 0-7 | 8-15) x (floats 0-3 | 4-7) give a0..a3
+  const float* ap =
+      a_s + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4);
+  // B: (n-tile j: floats 0-3, 4-7), (n-tile j + 1: the same) give b0, b1
+  // of two n-tiles
+  const float* bp =
+      b_s + ((lane & 7) + 8 * (lane >> 4)) * LD + 4 * ((lane >> 3) & 1);
+  static_assert(NG % 2 == 0 && NT % NG == 0, "pairs of n-tiles");
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int j0 = 0; j0 < NT; j0 += NG) {
+#pragma unroll
+    for (int kc0 = 0; kc0 < DMAX / 8; kc0 += 8) {
+      if (kc0 * 8 >= D) continue;
+      float f[NG][4] = {};
+#pragma unroll
+      for (int kc = kc0; kc < kc0 + 8; ++kc) {
+        if (kc * 8 >= D) continue;
+        uint32_t ar[4], ab[4], as[4], bb[NG][2], bs[NG][2];
+        sandwich::ldmatrix_x4(ar, ap + kc * 8);
+        const float a[4] = {__uint_as_float(ar[0]), __uint_as_float(ar[1]),
+                            __uint_as_float(ar[2]), __uint_as_float(ar[3])};
+        split_a(a, ab, as);
+#pragma unroll
+        for (int jp = 0; jp < NG / 2; ++jp) {
+          uint32_t b[4];
+          sandwich::ldmatrix_x4(b, bp + 8 * (j0 + 2 * jp) * LD + kc * 8);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(b[i]), bb[2 * jp + i / 2][i % 2],
+                       bs[2 * jp + i / 2][i % 2]);
+        }
+        mma_3xtf32<NG>(f, ab, as, bb, bs);
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          c[j0 + j][e] = kc0 == 0 ? f[j][e] : c[j0 + j][e] + f[j][e];
+    }
+  }
+}
+
+// hi/lo A fragments of a 16 x 64 C tile (k of the product = the tile's 64
+// columns, 16 a step)
+__device__ __forceinline__ void pack_hi_lo(const float (&c)[NT][4],
+                                           uint32_t (&ah)[NT / 2][4],
+                                           uint32_t (&al)[NT / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    hi_lo(c[2 * kk][0], c[2 * kk][1], ah[kk][0], al[kk][0]);
+    hi_lo(c[2 * kk][2], c[2 * kk][3], ah[kk][1], al[kk][1]);
+    hi_lo(c[2 * kk + 1][0], c[2 * kk + 1][1], ah[kk][2], al[kk][2]);
+    hi_lo(c[2 * kk + 1][2], c[2 * kk + 1][3], ah[kk][3], al[kk][3]);
+  }
+}
+
+// acc[n] += P · B[:, d0 + 8n ..] for P (16 x 64) given as hi/lo fragments
+// and B a swept bfloat16 tile (64 rows) read transposed; per pair of
+// n-tiles a fresh accumulator over the tile, added by float32 adds.
+template <int DW>
+__device__ __forceinline__ void accum_bf16(float (&acc)[DW / 8][4],
+                                           const uint32_t (&ah)[NT / 2][4],
+                                           const uint32_t (&al)[NT / 2][4],
+                                           const __nv_bfloat16* b_s, int LD,
+                                           int d0, int DP, int lane) {
+  const __nv_bfloat16* bp = b_s + (lane & 15) * LD + d0 + 8 * (lane >> 4);
+#pragma unroll
+  for (int dp = 0; dp < DW / 16; ++dp) {
+    if (d0 + dp * 16 >= DP) continue;
+    float f[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t b[4];
+      sandwich::ldmatrix_x4_trans(b, bp + 16 * kk * LD + 16 * dp);
+      mma_bf16(f[0], al[kk], b[0], b[1]);
+      mma_bf16(f[1], al[kk], b[2], b[3]);
+      mma_bf16(f[0], ah[kk], b[0], b[1]);
+      mma_bf16(f[1], ah[kk], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * dp][e] += f[0][e];
+      acc[2 * dp + 1][e] += f[1][e];
+    }
+  }
+}
+
+// The same for float32 in 3xTF32: k of the product in the order column 2t
+// (A column t), 2t + 1 (column t + 4), as a C fragment holds them; B's
+// rows follow it. d n-tiles in groups of NG, each a fresh accumulator over
+// the tile.
+template <int DW, int NG>
+__device__ __forceinline__ void accum_f32(float (&acc)[DW / 8][4],
+                                          const float (&p)[NT][4],
+                                          const float* b_s, int LD, int d0,
+                                          int D, int g, int t) {
+#pragma unroll
+  for (int dn0 = 0; dn0 < DW / 8; dn0 += NG) {
+    if (d0 + dn0 * 8 >= D) continue;
+    float f[NG][4] = {};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+      uint32_t ab[4], as[4], bb[NG][2], bs[NG][2];
+      split_a(a, ab, as);
+      const float* br = b_s + (8 * j + 2 * t) * LD + d0 + 8 * dn0 + g;
+#pragma unroll
+      for (int dn = 0; dn < NG; ++dn) {
+        const bool in = d0 + (dn0 + dn) * 8 < D;
+        split_tf32(in ? br[8 * dn] : 0.f, bb[dn][0], bs[dn][0]);
+        split_tf32(in ? br[LD + 8 * dn] : 0.f, bb[dn][1], bs[dn][1]);
+      }
+      mma_3xtf32<NG>(f, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int dn = 0; dn < NG; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn0 + dn][e] += f[dn][e];
+  }
 }
 
 // The head-dim bucket a kernel is compiled for: 64, 128 or 256 (0: none).
@@ -189,14 +442,37 @@ inline int dmax_of(int D) {
   return D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
-// Rows of the query and key tiles, forward and backward, at head dim D (0:
-// a head dim the kernels do not take).
-inline int tile_rows(int D) {
+// Warps sharing 16 rows of a backward block (kDq: the dq kernel's, else
+// dkv's) at head dims up to DMAX, each holding 1/kSplit of the
+// accumulators' columns: 2 above 128, and for dkv's float32 above 64,
+// where one warp's accumulators (dk and dv, or dq) and its operands'
+// 3xTF32 splits would not fit in registers.
+template <bool kBf16, int DMAX, bool kDq>
+struct BwdSplit {
+  static constexpr int kSplit =
+      (DMAX > 128 || (!kBf16 && !kDq && DMAX > 64)) ? 2 : 1;
+  static constexpr int kOwn = kTileRows / kSplit;  // rows a block owns
+};
+
+template <bool kBf16, bool kDq>
+inline int own_rows(int D) {
   switch (dmax_of(D)) {
-    case 64: return Tile<64>::N;
-    case 128: return Tile<128>::N;
-    case 256: return Tile<256>::N;
+    case 64: return BwdSplit<kBf16, 64, kDq>::kOwn;
+    case 128: return BwdSplit<kBf16, 128, kDq>::kOwn;
+    case 256: return BwdSplit<kBf16, 256, kDq>::kOwn;
   }
+  return 0;
+}
+
+// Rows a block of the dq kernel (dkv = 0: query rows) or of the dkv
+// kernel (dkv = 1: key rows) owns at head dim D in dtype (0 = float32, 1 =
+// bfloat16), 0 for what the kernels do not take; the tiles they sweep,
+// and the forward's, are kTileRows (64) at every head dim.
+inline int tile_rows(int D, int dtype, int dkv) {
+  if (dtype == 0)
+    return dkv ? own_rows<false, false>(D) : own_rows<false, true>(D);
+  if (dtype == 1)
+    return dkv ? own_rows<true, false>(D) : own_rows<true, true>(D);
   return 0;
 }
 

@@ -7,12 +7,16 @@ layout) and computes causal, sliding-window or full attention; the
 forward also yields the row logsumexp ``lse`` ``(B·H, S)`` float32, the
 one residual the backward needs besides the inputs and the output.
 
-Precision points, the same in the kernels and the plain twins (the
-reference kernels'): inputs read as float32, ``q`` pre-scaled by
-``D^-0.5``, every product and the softmax state in float32, ``o``, ``dq``,
-``dk``, ``dv`` rounded to the input dtype once at the end. ``Δ =
-rowsum(dO ⊙ O)`` is computed in float32 by plain PyTorch outside the
-kernels, as the reference computes it outside its ``pallas_call``\\ s. The
+Precision points of the plain twins (the reference kernels'): inputs read
+as float32, ``q`` pre-scaled by ``D^-0.5``, every product and the softmax
+state in float32, ``o``, ``dq``, ``dk``, ``dv`` rounded to the input dtype
+once at the end. The kernels differ from them only by reordering: the
+products on tensor cores (bfloat16 inputs exact, p and ds as hi/lo
+bfloat16 pairs; float32 in 3xTF32), p in base 2 with the scale applied
+after the product (``csrc/flash.cu``, ``csrc/flash_bwd.cu``;
+``tests/test_torch_flash.py`` emulates them). ``Δ = rowsum(dO ⊙ O)`` is
+computed in float32 by plain PyTorch outside the kernels, as the
+reference computes it outside its ``pallas_call``\\ s. The
 mask: key ``k`` is visible from query ``q`` when ``k <= q`` (causal) and
 ``k > q - window`` (``window > 0``; with ``causal=False`` only this lower
 bound applies).
@@ -22,8 +26,9 @@ The CUDA route: ``csrc/flash.cu`` (one launch forward) and
 of the reference do not carry over:
 
 * The reference's ``block_q``/``block_kv`` come from a TPU VMEM model
-  (``tuning.flash_blocks``). The kernels' tiles are their own:
-  :func:`tile_rows` rows a side, as the built library reports them.
+  (``tuning.flash_blocks``). The kernels' tiles are their own: 64 rows
+  swept, and the rows a backward block owns from :func:`tile_rows`, as
+  the built library reports them.
 * The reference asserts ``S % block == 0`` but its default blocks fall back
   to ``gcd(S, 8)``, so it takes any ``S``. The kernels take any
   ``S >= 1`` and mask the ragged last tile themselves, and head dims 8 to
@@ -45,12 +50,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_KERNELS = 2           # dq, then dk and dv
 
 
-def tile_rows(head_dim: int) -> int:
-    """Rows of the kernels' query and key tiles at ``head_dim``, as the
-    built library reports them (``flash_common.cuh`` ``Tile``); raises for
-    a head dim the kernels do not take."""
-    rows = _lib().flash_tile_rows(int(head_dim))
-    if rows <= 0:
+def tile_rows(head_dim: int, dtype: torch.dtype = torch.float32) -> tuple:
+    """``(block_q, block_kv)``: the rows a block of the dq kernel (query
+    rows) and of the dkv kernel (key rows) owns at ``head_dim`` in
+    ``dtype``, 64 or 32 (the tiles they sweep are 64 rows), as the built
+    library reports them (``flash_common.cuh`` ``BwdSplit``); raises for a
+    head dim or dtype the kernels do not take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+    rows = tuple(_lib().flash_tile_rows(int(head_dim), _DTYPES[dtype], dkv)
+                 for dkv in (0, 1))
+    if min(rows) <= 0:
         raise ValueError(f"flash kernels take head dims 8..256 in steps of "
                          f"8, got D={head_dim}")
     return rows
@@ -147,7 +158,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd.argtypes = [p] * 5 + [i] * 5 + [f, i, p]
     lib.flash_fwd.restype = ctypes.c_int
-    lib.flash_tile_rows.argtypes = [i]
+    lib.flash_tile_rows.argtypes = [i, i, i]
     lib.flash_tile_rows.restype = ctypes.c_int
     return lib
 
@@ -207,12 +218,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:     # the kernels copy 16-byte chunks
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
 def _fwd_cuda(q, k, v, causal, window):
     B, H, S, D = _check(q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:     # the kernel copies 16-byte chunks
-            raise ValueError(f"flash forward: {name} must be 16-byte "
-                             f"aligned")
+    _check_aligned("flash forward", q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     err = _lib().flash_fwd(
@@ -230,6 +244,7 @@ def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0):
     B, H, S, D = _check(q, k, v, do)
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
+    _check_aligned("flash_bwd_dq", q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     err = _bwd_lib().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -246,6 +261,7 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
     B, H, S, D = _check(q, k, v, do)
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
+    _check_aligned("flash_bwd_dkv", q=q, k=k, v=v, do=do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _bwd_lib().flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -333,7 +333,7 @@ def backward_rows(bench: Bench, ns: Sequence[int] = BACKWARD_NS,
     def flash_tiles():
         if not bench.on_card:     # the library that reports them is not built
             return ""
-        return "block_q={0};block_kv={0}".format(kf.tile_rows(FLASH_DIM))
+        return "block_q={};block_kv={}".format(*kf.tile_rows(FLASH_DIM))
 
     for n in ns:
         it = 20 if n <= 2048 else 5

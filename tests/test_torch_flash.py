@@ -24,6 +24,7 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash as kf
 from repro_torch.kernels import ref as tref
+from test_torch_gpu_kernels import cancel_floor
 
 SHAPES = [(2, 3, 64, 16), (1, 2, 128, 8), (2, 3, 77, 16)]
 MASKS = [(True, 0), (True, 24), (False, 0), (False, 24)]
@@ -189,14 +190,19 @@ def test_visible_mask_and_tile_rows(monkeypatch):
     asked = []
 
     class Lib:
-        def flash_tile_rows(self, d):
-            asked.append(d)
-            return 0 if d % 8 else 32
+        def flash_tile_rows(self, d, dtype, dkv):
+            asked.append((d, dtype, dkv))
+            return 0 if d % 8 else 32 * (1 + dkv)
 
     monkeypatch.setattr(kf, "_lib", Lib)
-    assert kf.tile_rows(64) == 32 and asked == [64]
+    assert kf.tile_rows(64) == (32, 64)
+    assert asked == [(64, 0, 0), (64, 0, 1)]
+    assert kf.tile_rows(64, torch.bfloat16) == (32, 64)
+    assert asked[2:] == [(64, 1, 0), (64, 1, 1)]
     with pytest.raises(ValueError, match="head dims"):
         kf.tile_rows(12)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kf.tile_rows(64, torch.float16)
 
 
 # -- the forward kernel's precision points, emulated on the CPU -------------
@@ -204,7 +210,8 @@ def test_visible_mask_and_tile_rows(monkeypatch):
 # The kernel (csrc/flash.cu) scales the scores after the product, by
 # D^-0.5·log2(e), runs the online softmax in base 2 over key tiles of 64,
 # and takes its products on tensor cores: in bfloat16 with p as a hi/lo
-# bfloat16 pair, in float32 in 3xTF32. The emulation repeats those
+# bfloat16 pair, in float32 in 3xTF32; q·kᵀ a fresh sum per 64 dims, each
+# tile's p·v a fresh sum added by float32 adds. The emulation repeats those
 # arithmetic choices in PyTorch; it must hold the kernel's tolerances
 # (chip_smoke.py): o within 1e-5 (float32) / 2e-2 (bfloat16) of max|want|,
 # in bfloat16 every row within 1e-2 of its own norm, lse within 1e-5 of
@@ -222,20 +229,51 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _split(x):
+    """The kernels' 3xTF32 split (``flash_common.cuh`` ``split_tf32``):
+    big = tf32(x), small = x − big truncated to 10 mantissa bits."""
+    big = _tf32(x)
+    rest = (x - big).contiguous().view(torch.int32)
+    return big, (rest & ~0x1FFF).view(torch.float32)
+
+
 def _mm_3xtf32(a, b):
-    """a @ b as 3xTF32: big = tf32(x), small = tf32(x − big); the two
-    small products, then big · big."""
-    ab, bb = _tf32(a), _tf32(b)
-    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    """a @ b as 3xTF32 on the split operands: the two small products, then
+    big · big."""
+    ab, a_s = _split(a)
+    bb, b_s = _split(b)
     return a_s @ bb + ab @ b_s + ab @ bb
 
 
+def _scores_by_chunks(mm, a, b):
+    """a·bᵀ over the last dim, one product per 64 dims, the chunks added
+    by float32 adds."""
+    out = None
+    for d0 in range(0, a.shape[-1], 64):
+        part = mm(a[..., d0:d0 + 64], b[..., d0:d0 + 64].transpose(-1, -2))
+        out = part if out is None else out + part
+    return out
+
+
+def _tile_product(p, b):
+    """p·b for one swept tile: p as a hi/lo bfloat16 pair where b is
+    bfloat16-exact (the bfloat16 route), else in 3xTF32."""
+    if b.dtype == torch.bfloat16:
+        b = b.float()
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        return lo @ b + hi @ b
+    return _mm_3xtf32(p, b)
+
+
 def _emulated_fwd(q, k, v, causal, window, tile=64):
-    """(o, lse) with the kernel's precision points, over key tiles."""
+    """(o, lse) with the kernel's precision points, over key tiles: q·kᵀ
+    a fresh sum per 64 dims, each tile's p·v a fresh sum added after the
+    rescale (the tile products the forward shares with the backward)."""
     B, H, S, D = q.shape
     bf16 = q.dtype == torch.bfloat16
     mm = torch.matmul if bf16 else _mm_3xtf32
-    qf, kf_, vf = q.float(), k.float(), v.float()
+    qf = q.float()
     sl2 = (torch.tensor(kf._scale(D), dtype=torch.float32)
            * torch.tensor(LOG2E, dtype=torch.float32))
     mask = kf.visible_mask(S, causal, window)
@@ -243,21 +281,15 @@ def _emulated_fwd(q, k, v, causal, window, tile=64):
     l = torch.zeros(B, H, S, 1)
     acc = torch.zeros(B, H, S, D)
     for k0 in range(0, S, tile):
-        kt, vt = kf_[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
         vis = mask[:, k0:k0 + tile]
-        s = (mm(qf, kt.transpose(-1, -2)) * sl2).masked_fill(~vis,
-                                                             kf.NEG_INF)
+        s = (_scores_by_chunks(mm, qf, kt.float()) * sl2).masked_fill(
+            ~vis, kf.NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new).masked_fill(~vis, 0.0)
         l = l * corr + p.sum(dim=-1, keepdim=True)
-        if bf16:
-            hi = p.to(torch.bfloat16).float()
-            lo = (p - hi).to(torch.bfloat16).float()
-            pv = lo @ vt + hi @ vt
-        else:
-            pv = _mm_3xtf32(p, vt)
-        acc = acc * corr + pv
+        acc = acc * corr + _tile_product(p, vt)
         m = m_new
     lm = l.clamp_min(1e-30)
     lse = ((m + torch.log2(lm)) * LN2).reshape(B * H, S)
@@ -271,6 +303,14 @@ def _close_to_max(got, want, frac, what):
                                msg=lambda m: f"{what}: {m}")
 
 
+def _rows_within(got, want, what):
+    err = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    scale = ref + 1e-3 * max(float(ref.max()), 1e-3)
+    worst = float((err / scale).max())
+    assert worst <= KERNEL_ROW_TOL, f"{what}: a row off by {worst:.3e}"
+
+
 def test_tf32_rounding_keeps_ten_bits_ties_away():
     x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11,
                       -(1.0 + 2 ** -11), 1.0 + 2 ** -12, 3.0e-3])
@@ -278,6 +318,14 @@ def test_tf32_rounding_keeps_ten_bits_ties_away():
     assert got[:5].tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
                                 -(1.0 + 2 ** -10), 1.0]
     assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+    # small is truncated: -(2^-12 + 2^-23) keeps 2^-12 (rounding, ties
+    # away, would give 2^-12 + 2^-22)
+    x = torch.tensor([1.0 + 2 ** -11 + 2 ** -13, -(1.0 + 2 ** -12 + 2 ** -23),
+                      float("nan"), float("inf")])
+    big, small = _split(x)
+    assert big[:2].tolist() == [1.0 + 2 ** -10, -1.0]
+    assert small[:2].tolist() == [-(2 ** -11 - 2 ** -13), -(2 ** -12)]
+    assert torch.isnan(small[2:]).all()      # a NaN or inf makes small NaN
     a = torch.randn(16, 64, generator=torch.Generator().manual_seed(0))
     err = (_mm_3xtf32(a, a.T) - a.double() @ a.double().T).abs().max()
     assert float(err) < 1e-5 * float((a @ a.T).abs().max())
@@ -302,8 +350,159 @@ def test_kernel_precision_points_hold_the_tolerances(shape, causal, window,
                         (torch.from_numpy(oracle.copy()), "oracle")):
             _close_to_max(got, w, KERNEL_FWD_TOL[dtype], f"o vs {name}")
             if dtype == "bfloat16":
-                err = (got.float() - w.float()).norm(dim=-1)
-                ref = w.float().norm(dim=-1)
-                scale = ref + 1e-3 * max(float(ref.max()), 1e-3)
-                assert float((err / scale).max()) <= KERNEL_ROW_TOL
+                _rows_within(got, w, f"o vs {name}")
         _close_to_max(lse, want_lse, KERNEL_LSE_TOL, "lse")
+
+
+# -- the backward kernels' precision points, emulated on the CPU ------------
+#
+# The dq and dkv kernels (csrc/flash_bwd.cu) sweep tiles of 64 rows,
+# compute s and dp with a fresh accumulator per 64 dims, p in base 2 as
+# 2^(s·D^-0.5·log2(e) − lse·log2(e)), and take ds·k, pᵀ·dO and dsᵀ·q on
+# tensor cores: in bfloat16 with p and ds as hi/lo bfloat16 pairs, in
+# float32 in 3xTF32; each swept tile's product is a fresh accumulator
+# added by float32 adds, and dq and dk are scaled by D^-0.5 at the end.
+# The emulation repeats those choices; it must hold the kernels'
+# tolerances (chip_smoke.py): dq, dk, dv within 1e-4 (float32) / 5e-2
+# (bfloat16) of max|want|, and in bfloat16 every row within 1e-2 of its
+# own norm.
+KERNEL_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _f32(x):
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _probs2(s, lse_rows, scale):
+    """p = 2^(s·scale·log2(e) − lse·log2(e)) in float32."""
+    return torch.exp2(s * (_f32(scale) * _f32(LOG2E)) - lse_rows * LOG2E)
+
+
+def _emulated_dq(q, k, v, do, lse, delta, causal, window, tile=64):
+    """dq with the dq kernel's precision points, over swept key tiles."""
+    B, H, S, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    mm = torch.matmul if bf16 else _mm_3xtf32
+    qf, dof = q.float(), do.float()
+    lse_r, dlt = lse.reshape(B, H, S, 1), delta.reshape(B, H, S, 1)
+    mask = kf.visible_mask(S, causal, window)
+    dq = torch.zeros(B, H, S, D)
+    for k0 in range(0, S, tile):
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
+        s = _scores_by_chunks(mm, qf, kt.float())
+        dp = _scores_by_chunks(mm, dof, vt.float())
+        p = _probs2(s, lse_r, kf._scale(D)).masked_fill(
+            ~mask[:, k0:k0 + tile], 0.0)
+        dq = dq + _tile_product(p * (dp - dlt), kt)
+    return (dq * kf._scale(D)).to(q.dtype)
+
+
+def _emulated_dkv(q, k, v, do, lse, delta, causal, window, tile=64):
+    """(dk, dv) with the dkv kernel's precision points, over swept query
+    tiles: sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, then pᵀ·dO and dsᵀ·q."""
+    B, H, S, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    mm = torch.matmul if bf16 else _mm_3xtf32
+    kf_, vf = k.float(), v.float()
+    lse_c = lse.reshape(B, H, 1, S)
+    dlt_c = delta.reshape(B, H, 1, S)
+    mask_t = kf.visible_mask(S, causal, window).T   # [key, query]
+    dk = torch.zeros(B, H, S, D)
+    dv = torch.zeros(B, H, S, D)
+    for q0 in range(0, S, tile):
+        cols = slice(q0, q0 + tile)
+        qt, dot = q[:, :, cols], do[:, :, cols]
+        s = _scores_by_chunks(mm, kf_, qt.float())
+        dp = _scores_by_chunks(mm, vf, dot.float())
+        p = _probs2(s, lse_c[..., cols], kf._scale(D)).masked_fill(
+            ~mask_t[:, cols], 0.0)
+        ds = p * (dp - dlt_c[..., cols])
+        dv = dv + _tile_product(p, dot)
+        dk = dk + _tile_product(ds, qt)
+    return (dk * kf._scale(D)).to(k.dtype), dv.to(v.dtype)
+
+
+def _jax_grads(arrays, causal, window):
+    """jax.grad of vdot(dO, ref.flash_attention_ref(q, k, v)) in float32."""
+    q, k, v, do = (jnp.asarray(a) for a in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(
+        q, k, v, causal=causal, window=window), q, k, v)
+    return [torch.from_numpy(np.asarray(g).copy()) for g in vjp(do)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_kernel_precision_points_hold_the_tolerances(
+        shape, causal, window, dtype):
+    """The emulated dq and dkv kernels against the plain twins and against
+    the reference's ``jax.grad`` of its oracle (in float32, on the same
+    values), within the kernels' tolerances, on swept tiles of 64 and, for
+    several tiles a row, of 16. Against the twins both get the emulated
+    forward's lse and Δ from its o, as ``flash_backward`` computes them on
+    the card. Against ``jax.grad`` the emulation gets the float32 forward's
+    lse and Δ: in bfloat16, Δ from the rounded o alone moves a dq row by
+    up to 4e-2 of its norm from the float32 gradient (the twins' rows
+    too), which is the forward's rounding, not the backward's."""
+    q, k, v, do = _torch(_inputs(shape, 4, seed=24), getattr(torch, dtype))
+    out, lse = _emulated_fwd(q, k, v, causal, window)
+    delta = kf.row_delta(out, do)
+    f32 = [t.float() for t in (q, k, v, do)]
+    out32, lse32 = kf.flash_fwd_plain(*f32[:3], causal, window)
+    delta32 = kf.row_delta(out32, f32[3])
+    twins = (kf.flash_dq_plain(q, k, v, do, lse, delta, causal, window),
+             *kf.flash_dkv_plain(q, k, v, do, lse, delta, causal, window))
+    oracle = _jax_grads([t.numpy() for t in f32], causal, window)
+
+    def emulated(lse, delta, tile):
+        return (_emulated_dq(q, k, v, do, lse, delta, causal, window, tile),
+                *_emulated_dkv(q, k, v, do, lse, delta, causal, window,
+                               tile))
+
+    for tile in (64, 16):
+        for against, wants, got in (
+                ("twin", twins, emulated(lse, delta, tile)),
+                ("jax.grad", oracle, emulated(lse32, delta32, tile))):
+            for name, g, w in zip(("dq", "dk", "dv"), got, wants):
+                what = f"{name} vs {against}, tile {tile}"
+                assert g.dtype == q.dtype and g.shape == q.shape
+                _close_to_max(g, w, KERNEL_GRAD_TOL[dtype], what)
+                if dtype == "bfloat16":
+                    _rows_within(g, w, what)
+
+
+@pytest.mark.parametrize("D", [8, 64, 256])
+def test_one_key_gradients_are_rounding_noise(D):
+    """S = 1: each row sees one key, p = 1 and dp = Δ, so the exact dq and
+    dk are 0, and the reference's ``jax.grad`` returns exactly 0. The twins
+    and the emulated kernels return float32 rounding noise of the terms
+    that cancel, within ``cancel_floor`` (the floor the card's tests hold
+    the kernels' dq and dk to) of ``jax.grad``; dv within the usual
+    tolerance. At the file's other shapes the floor stays below the usual
+    tolerance, so it holds nothing else."""
+    tol = KERNEL_GRAD_TOL["float32"]
+    q, k, v, do = _torch(_inputs((1, 2, 1, D), 4, seed=25))
+    oracle = _jax_grads([t.numpy() for t in (q, k, v, do)], True, 0)
+    assert float(oracle[0].abs().max()) == float(oracle[1].abs().max()) == 0
+    out, lse = kf.flash_fwd_plain(q, k, v)
+    delta = kf.row_delta(out, do)
+    routes = {"twin": (kf.flash_dq_plain(q, k, v, do, lse, delta),
+                       *kf.flash_dkv_plain(q, k, v, do, lse, delta)),
+              "emulated": (_emulated_dq(q, k, v, do, lse, delta, True, 0),
+                           *_emulated_dkv(q, k, v, do, lse, delta, True,
+                                          0))}
+    floors = cancel_floor(q, k, v, do, lse, delta)
+    for route, grads in routes.items():
+        for name, g, w, floor in zip(("dq", "dk", "dv"), grads, oracle,
+                                     floors):
+            atol = max(tol * max(float(w.abs().max()), 1e-3), floor)
+            torch.testing.assert_close(g, w, atol=atol, rtol=tol,
+                                       msg=lambda m: f"{name}, {route}: {m}")
+    for shape in SHAPES:
+        q, k, v, do = _torch(_inputs(shape, 4, seed=24))
+        out, lse = kf.flash_fwd_plain(q, k, v)
+        delta = kf.row_delta(out, do)
+        wants = (kf.flash_dq_plain(q, k, v, do, lse, delta),
+                 *kf.flash_dkv_plain(q, k, v, do, lse, delta))
+        for w, floor in zip(wants, cancel_floor(q, k, v, do, lse, delta)):
+            assert floor < tol * max(float(w.abs().max()), 1e-3), shape

@@ -455,10 +455,37 @@ FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 FLASH_ROW_TOL = 1e-2
 
 
-def _close_to_max(got, want, frac, what):
+# dq and dk are sums of terms p·(dp − Δ) that cancel. Where the exact
+# gradient is 0 (S = 1: one key a row, p = 1 and dp = Δ; the reference's
+# jax.grad gives exactly 0) the twin and the kernel each return float32
+# rounding noise of those terms (on the H100 at S = 1, D = 8: ~0.7 and
+# ~0.5 unit roundoffs of the largest), which no fraction of max|want| can
+# hold. So dq's and dk's absolute tolerance is at least CANCEL_ULPS unit
+# roundoffs of the largest term summed into an entry; at every other
+# shape of these tests that floor stays below FLASH_GRAD_TOL's (at most
+# 0.36 of it), so it changes nothing there.
+CANCEL_ULPS = 16
+
+
+def cancel_floor(q, k, v, do, lse, delta, causal=True, window=0):
+    """Absolute floors for (dq, dk, dv): CANCEL_ULPS float32 unit roundoffs
+    of the largest Σ p·(|dO|·|v|ᵀ + |Δ|)·|k| (dq) or its transpose against
+    |q| (dk), scaled by D^-0.5 as the gradients are; 0 for dv, a sum of
+    terms that do not cancel."""
+    B, H, S, D = q.shape
+    _, p = kf._probs(q, k, lse, causal, window)
+    mag = p * (do.float().abs() @ v.float().abs().transpose(-1, -2)
+               + delta.abs().reshape(B, H, S, 1))
+    unit = CANCEL_ULPS * 2.0 ** -24 * kf._scale(D)
+    return (unit * float((mag @ k.float().abs()).max()),
+            unit * float((mag.transpose(-1, -2) @ q.float().abs()).max()),
+            0.0)
+
+
+def _close_to_max(got, want, frac, what, floor=0.0):
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all(), what
-    atol = frac * max(float(want.abs().max()), 1e-3)
+    atol = max(frac * max(float(want.abs().max()), 1e-3), floor)
     torch.testing.assert_close(got, want, atol=atol, rtol=frac,
                                msg=lambda m: f"{what}: {m}")
 
@@ -500,10 +527,12 @@ def test_flash_kernels_match_plain(cuda, B, H, S, D, causal, window, dtype):
     _close_to_max(lse, plse, 1e-5, "lse")
     if dtype == torch.bfloat16:
         _rows_close(out, pout, "o")
-    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+    floors = cancel_floor(q, k, v, do, plse, kf.row_delta(pout, do), **kw)
+    for name, a, b, w, floor in zip(("dq", "dk", "dv"), got, again, want,
+                                    floors):
         assert torch.equal(a, b), f"{name} differs between two launches"
         assert a.dtype == dtype
-        _close_to_max(a, w, FLASH_GRAD_TOL[dtype], name)
+        _close_to_max(a, w, FLASH_GRAD_TOL[dtype], name, floor)
         if dtype == torch.bfloat16:
             _rows_close(a, w, name)
 
@@ -536,6 +565,79 @@ def test_flash_forward_tensor_cores(cuda, S, D, causal, window, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0), (False, 100)])
+@pytest.mark.parametrize("D", [8, 64, 128, 192, 256])
+@pytest.mark.parametrize("S", [17, 63, 65, 300])
+def test_flash_backward_tensor_cores(cuda, S, D, causal, window, dtype):
+    """The dq and dkv kernels (mma tiles, p and ds as hi/lo bfloat16 pairs,
+    float32 in 3xTF32; 32-row blocks above D = 128) against their plain
+    twins: S inside one tile, around one tile and ragged over several, a
+    zero-padded head dim (8) up to the widest, windows and non-causal
+    sweeps; two launches a call, bit-identical. (One key a row, S = 1, is
+    test_flash_kernels_match_plain's: there the exact dq and dk are 0 and
+    both routes return rounding noise, held to cancel_floor.)"""
+    gen = torch.Generator().manual_seed(S * D + 1)
+    q, k, v, do = (torch.randn(2, 3, S, D, generator=gen).to(cuda, dtype)
+                   for _ in range(4))
+    kw = dict(causal=causal, window=window)
+    out, lse = kf.flash_forward(q, k, v, backend="torch", **kw)
+    before = kf.flash_backward.launches
+    got = kf.flash_backward(q, k, v, out, lse, do, backend="cuda", **kw)
+    again = kf.flash_backward(q, k, v, out, lse, do, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    assert kf.flash_backward.launches == before + 2 * kf.BWD_KERNELS
+    want = kf.flash_backward(q, k, v, out, lse, do, backend="torch", **kw)
+    floors = cancel_floor(q, k, v, do, lse, kf.row_delta(out, do), **kw)
+    for name, a, b, w, floor in zip(("dq", "dk", "dv"), got, again, want,
+                                    floors):
+        assert torch.equal(a, b), f"{name} differs between two launches"
+        assert a.dtype == dtype and a.shape == q.shape
+        _close_to_max(a, w, FLASH_GRAD_TOL[dtype], name, floor)
+        if dtype == torch.bfloat16:
+            _rows_close(a, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("where", ["q", "do"])
+def test_flash_kernels_keep_nan(cuda, where, causal, dtype):
+    """A NaN planted in q or dO (float32: 0x7fffffff, the NaN the card's
+    arithmetic makes, as inf − inf) comes out of the forward (q) and the dq
+    and dkv kernels as NaN exactly where the plain twins give NaN, and the
+    rest agrees: 3xTF32's split keeps a NaN a NaN. It sits at the last
+    query row of one head, which every key block's sweep reaches (causal
+    or not), so the kernels' 0·NaN products match the twins' dense ones."""
+    gen = torch.Generator().manual_seed(31)
+    q, k, v, do = (torch.randn(2, 3, 130, 64, generator=gen).to(cuda, dtype)
+                   for _ in range(4))
+    kw = dict(causal=causal)
+    out, lse = kf.flash_forward(q, k, v, backend="torch", **kw)
+    t = q if where == "q" else do
+    if dtype == torch.float32:
+        t.view(torch.int32)[1, 2, -1, 5] = 0x7fffffff
+    else:
+        t[1, 2, -1, 5] = float("nan")
+    delta = kf.row_delta(out, do)
+    got = [kf.dq_cuda(q, k, v, do, lse, delta, **kw),
+           *kf.dkv_cuda(q, k, v, do, lse, delta, **kw)]
+    want = [kf.flash_dq_plain(q, k, v, do, lse, delta, **kw),
+            *kf.flash_dkv_plain(q, k, v, do, lse, delta, **kw)]
+    names = ["dq", "dk", "dv"]
+    if where == "q":
+        names += ["o", "lse"]
+        got += kf.flash_forward(q, k, v, backend="cuda", **kw)
+        want += kf.flash_forward(q, k, v, backend="torch", **kw)
+    torch.cuda.synchronize()
+    for name, a, w in zip(names, got, want):
+        nan = torch.isnan(w)
+        assert nan.any(), f"{name}: the twin gives no NaN"
+        assert torch.equal(torch.isnan(a), nan), f"{name}: NaN elsewhere"
+        tol = (FLASH_GRAD_TOL if name[0] == "d" else FLASH_FWD_TOL)[dtype]
+        _close_to_max(a[~nan], w[~nan], tol, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_fn_autograd_on_card(cuda, dtype):
     """Autograd through flash_attention on CUDA tensors runs one forward
     and two backward launches and gives the plain twins' gradients."""
@@ -559,11 +661,16 @@ def test_flash_fn_autograd_on_card(cuda, dtype):
             _rows_close(a, b, name)
 
 
-@pytest.mark.parametrize("D,rows", [(8, 64), (64, 64), (128, 64), (136, 32),
-                                    (256, 32)])
-def test_flash_tile_rows_from_library(cuda, D, rows):
-    """The tile rows the bench rows report come from the built library."""
-    assert kf.tile_rows(D) == rows
+@pytest.mark.parametrize("D,dtype,rows", [
+    (8, torch.float32, (64, 64)), (64, torch.float32, (64, 64)),
+    (64, torch.bfloat16, (64, 64)), (128, torch.bfloat16, (64, 64)),
+    (128, torch.float32, (64, 32)), (136, torch.float32, (32, 32)),
+    (256, torch.bfloat16, (32, 32))])
+def test_flash_tile_rows_from_library(cuda, D, dtype, rows):
+    """The tile rows the bench rows report come from the built library:
+    the rows a dq block and a dkv block own (32 where two warps share 16
+    rows: above D = 128, and in float32's dkv above 64)."""
+    assert kf.tile_rows(D, dtype) == rows
 
 
 def test_flash_kernels_reject_bad_inputs(cuda):
@@ -581,3 +688,14 @@ def test_flash_kernels_reject_bad_inputs(cuda):
     out, lse = kf.flash_forward(q, q, q, backend="cuda")
     with pytest.raises(ValueError, match="lse"):
         kf.dq_cuda(q, q, q, q, lse.double(), lse)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)                       # contiguous, 4 bytes off
+    before = (kf.flash_forward.launches, kf.flash_backward.launches)
+    for args in ((shifted, q, q), (q, q, shifted)):
+        with pytest.raises(ValueError, match="aligned"):
+            kf.flash_forward(*args, backend="cuda")
+    for args in ((shifted, q, q, q), (q, shifted, q, q), (q, q, q, shifted)):
+        for call in (kf.dq_cuda, kf.dkv_cuda):
+            with pytest.raises(ValueError, match="aligned"):
+                call(*args, lse, lse)
+    assert (kf.flash_forward.launches, kf.flash_backward.launches) == before
