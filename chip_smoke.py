@@ -94,7 +94,9 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 14. The same path through kernels and plain versions, float32: one
     gradient of B, E, D within 1e-4 and 10 phase-2 losses at rtol 1e-4.
 15. Timing of the butterfly kernels at 70,000 x 1024: kernel, plain twin,
-    bound, and for the forward a matmul by the materialized B.
+    bound, and for the forward a matmul by the materialized B, by device
+    time beside CUDA events; then both kernels by device time at every
+    shape of the butterfly checks.
 16. Flash-attention kernels (forward, dq, dkv) vs their plain twins: o and
     lse, and dq/dk/dv for one dO, at (a) the training attention of
     ``smollm-135m-butterfly`` (B 4, H 9, S 2048, D 64, bf16, causal), (b)
@@ -284,6 +286,29 @@ def phase_build() -> None:
             if any(k in line for k in ("Function properties", "registers",
                                        "spill", "smem")):
                 say(f"ptxas[{name}]: {line.strip()}")
+    for name in ("butterfly", "butterfly_bwd"):
+        say(f"ptxas[{name}] spills: {ptxas_spills(logs[name])}")
+
+
+def ptxas_spills(log: str) -> str:
+    """The kernels of one ``-Xptxas -v`` report with their spill stores:
+    how many kernels, the most registers one uses, and each that spills."""
+    import re
+    kernels, spills, regs = 0, [], 0
+    name = "?"
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, kernels = m.group(1), kernels + 1
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)):
+            spills.append(f"{name} {m.group(1)} B")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = max(regs, int(m.group(1)))
+    return (f"{kernels} kernels, at most {regs} registers, "
+            + (f"spill stores in {len(spills)}: " + "; ".join(spills)
+               if spills else "no spill stores"))
 
 
 def sandwich_site(torch, cfg, site: str, dev):
@@ -1740,41 +1765,64 @@ def butterfly_bound(rows: int, n: int, itemsize: int, backward: bool,
     return nbytes, rows * (3 * n * kb.stage_applies(p) + 4 * n * p)
 
 
-def phase_timing_butterfly(torch, dev, kernel, time_fn, launches, errs,
-                           shape) -> list:
-    """CUDA-event times at the encoder's product, float32, as the path calls
-    them (B x forward, the backward without dx): each kernel, its plain twin
-    and its bound; for the forward one ``torch.matmul`` of x by the
-    materialized B (materialized outside the timed window) as a yardstick
-    the port never calls."""
+def phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn, launches,
+                           errs, shape, shapes) -> list:
+    """Times at the encoder's product, float32, as the path calls them (B x
+    forward, the backward without dx): each kernel, its plain twin and, for
+    the forward, one ``torch.matmul`` of x by the materialized B
+    (materialized outside the timed window) as a yardstick the port never
+    calls, all by device time (``device_fn``) beside their CUDA-event
+    figures (``time_fn``); each kernel's bound. Then both kernels by device
+    time at every shape of ``shapes`` (float32, B x, without dx)."""
     from repro_torch.core import butterfly as bf
     from repro_torch.kernels import butterfly as kb
     n = 1 << (shape[0] - 1).bit_length()
     rows = shape[1]
     x, w, g = butterfly_case(torch, rows, n, "float32", dev, seed=40)
-    with torch.no_grad():
-        ms_f = time_fn(torch, lambda: kb.butterfly_forward(
-            x, w, backend=kernel), reps=20)
-        plain_f = time_fn(torch, lambda: kb.butterfly_forward(
-            x, w, backend="torch"), reps=5)
-        Bm = bf.materialize(w)
-        lib_f = time_fn(torch, lambda: torch.matmul(x, Bm.T), reps=5)
-        del Bm
-    ms_b = time_fn(torch, lambda: kb.butterfly_backward(
-        x, w, g, need_dx=False, backend=kernel), reps=10)
-    plain_b = time_fn(torch, lambda: kb.butterfly_backward(
-        x, w, g, need_dx=False, backend="torch"), reps=3)
+    Bm = bf.materialize(w)
+    calls = {
+        "fwd": (lambda: kb.butterfly_forward(x, w, backend=kernel), 20),
+        "fwd_plain": (lambda: kb.butterfly_forward(x, w, backend="torch"),
+                      5),
+        "matmul": (lambda: torch.matmul(x, Bm.T), 5),
+        "bwd": (lambda: kb.butterfly_backward(x, w, g, need_dx=False,
+                                              backend=kernel), 10),
+        "bwd_plain": (lambda: kb.butterfly_backward(
+            x, w, g, need_dx=False, backend="torch"), 3)}
+    t = {}
+    with torch.no_grad():     # the plain backward enables its own autograd
+        for name, (fn, reps) in calls.items():
+            t[name] = (device_fn(torch, fn, reps=reps),
+                       time_fn(torch, fn, reps=reps))
+    clk = clocks(dev)
+    del Bm
     fb, fo = butterfly_bound(rows, n, 4, backward=False)
     bb, bo = butterfly_bound(rows, n, 4, backward=True)
     bnd_f, by_f = bound_ms(fb, fo, PEAK_OPS["float32"])
     bnd_b, by_b = bound_ms(bb, bo, PEAK_OPS["float32"])
-    say(f"time butterfly_fwd {rows}x{n} float32: kernel {ms_f:.4f} ms, plain "
-        f"{plain_f:.4f} ms, matmul by materialized B {lib_f:.4f} ms "
-        f"({2 * rows * n * n} flop), bound {bnd_f:.5f} ms ({by_f}: {fb} B, "
-        f"{fo} ops)")
+    (ms_f, ev_f), (plain_f, plain_ev_f), (lib_f, lib_ev_f) = (
+        t["fwd"], t["fwd_plain"], t["matmul"])
+    (ms_b, ev_b), (plain_b, plain_ev_b) = t["bwd"], t["bwd_plain"]
+    say(f"time butterfly_fwd {rows}x{n} float32: kernel {ms_f:.4f} ms device "
+        f"({ev_f:.4f} ms by events), plain {plain_f:.4f} ms ({plain_ev_f:.4f}"
+        f"), matmul by materialized B {lib_f:.4f} ms ({lib_ev_f:.4f}; "
+        f"{2 * rows * n * n} flop), bound {bnd_f:.5f} ms ({by_f}: {fb} B, "
+        f"{fo} ops){clk}")
     say(f"time butterfly_bwd {rows}x{n} float32 without dx: kernel "
-        f"{ms_b:.4f} ms ({kb.BWD_KERNELS} launches), plain {plain_b:.4f} ms, "
-        f"no library call, bound {bnd_b:.5f} ms ({by_b}: {bb} B, {bo} ops)")
+        f"{ms_b:.4f} ms device ({ev_b:.4f} ms by events; {kb.BWD_KERNELS} "
+        f"launches), plain {plain_b:.4f} ms ({plain_ev_b:.4f}), no library "
+        f"call, bound {bnd_b:.5f} ms ({by_b}: {bb} B, {bo} ops){clk}")
+    del x, w, g
+    for name, srows, sn in shapes:
+        x, w, g = butterfly_case(torch, srows, sn, "float32", dev, seed=41)
+        with torch.no_grad():
+            sf = device_fn(torch, lambda: kb.butterfly_forward(
+                x, w, backend=kernel), reps=10)
+            sb = device_fn(torch, lambda: kb.butterfly_backward(
+                x, w, g, need_dx=False, backend=kernel), reps=10)
+        say(f"time butterfly {name} {srows}x{sn} float32: forward {sf:.4f} "
+            f"ms, backward without dx {sb:.4f} ms (device)")
+        del x, w, g
     per = f"launch: {rows} rows x n {n}, float32"
     return [
         {"name": "butterfly_fwd", "route": "cuda",
@@ -1783,7 +1831,8 @@ def phase_timing_butterfly(torch, dev, kernel, time_fn, launches, errs,
          "launches": launches["butterfly_fwd"],
          "max_abs_err": errs["butterfly_fwd"], "ms": ms_f,
          "plain_ms": plain_f, "bound_ms": bnd_f, "bound_by": by_f,
-         "library_ms": lib_f,
+         "library_ms": lib_f, "event_ms": ev_f,
+         "library_event_ms": lib_ev_f,
          "launches_by_path": {"encdec": launches["butterfly_fwd"]},
          "per": per},
         {"name": "butterfly_bwd", "route": "cuda",
@@ -1792,7 +1841,7 @@ def phase_timing_butterfly(torch, dev, kernel, time_fn, launches, errs,
          "launches": launches["butterfly_bwd"],
          "max_abs_err": errs["butterfly_bwd"], "ms": ms_b,
          "plain_ms": plain_b, "bound_ms": bnd_b, "bound_by": by_b,
-         "library_ms": None,
+         "library_ms": None, "event_ms": ev_b,
          "launches_by_path": {"encdec": launches["butterfly_bwd"]},
          "per": f"call of {kb.BWD_KERNELS} launches without dx: {rows} rows "
                 f"x n {n}, float32"},
@@ -2302,8 +2351,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     summary.update(encdec_summary)
     phase_encdec_vs_plain(torch, dev, kernel, *problem)
     del problem
-    kernels += phase_timing_butterfly(torch, dev, kernel, time_fn,
-                                      encdec_launches, errs, encdec_shape)
+    kernels += phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn,
+                                      encdec_launches, errs, encdec_shape,
+                                      bfly_shapes)
     bench_launches = phase_bench(torch, dev, kernel, bench or {})
     phase_flash_autograd(torch, dev, kernel, flash_shapes[0])
     for k in kernels:

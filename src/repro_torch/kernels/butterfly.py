@@ -17,7 +17,10 @@ float32, taken w.r.t. the rounded weights, and comes back from
 The backward kernel takes the reference's schedule, segmented stage
 checkpointing with ``segment = ⌈√p⌉``; :func:`stage_applies` counts its
 stage applications per row, the counterpart of the reference's
-``count_stage_applies``.
+``count_stage_applies``. It sums ``dw`` in a fixed order: each thread over
+its rows in row order, each block over its row slots (:func:`row_slots`),
+then over blocks in block order; :func:`butterfly_bwd_tiled_plain` is the
+plain twin of that order, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from repro_torch.kernels.context import resolve_backend
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 32768             # one float32 row in shared memory (128 KB)
-BWD_KERNELS = 2           # the per-row VJP, the reduction of dw over blocks
+BWD_KERNELS = 2           # the row-tile VJP, the reduction of dw over blocks
+BWD_THREADS = 512         # backward kernel: threads a block, 2 elements each
 
 
 def default_segment(stages: int) -> int:
@@ -86,6 +90,71 @@ def butterfly_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     return None, grads[0]
 
 
+def row_slots(n: int) -> int:
+    """Rows the backward kernel's block works side by side, each slot with
+    its own ``dw`` sums: ``BWD_THREADS`` threads of 2 elements a row."""
+    return max(1, 2 * BWD_THREADS // n)
+
+
+def butterfly_bwd_tiled_plain(x: torch.Tensor, w: torch.Tensor,
+                              g: torch.Tensor, *, transpose: bool = False,
+                              need_dx: bool = True, blocks: int = 1):
+    """Plain twin of the backward kernel's operations and summation order:
+    the same ``(dx, dw)`` as :func:`butterfly_bwd_plain`, with ``dw``
+    summed as the kernel sums it over ``blocks`` blocks. Each row's terms
+    are ``g ⊙ x_s`` and ``g ⊙ swap(x_s)`` (``swap(g) ⊙ x_s`` transposed)
+    for the cotangent ``g`` of stage ``s``'s output and its input ``x_s``.
+    Block ``b`` takes rows ``[b·rows/blocks, (b+1)·rows/blocks)``; its row
+    slot ``u`` (of :func:`row_slots`) the rows ``u, u + slots, ...`` of
+    them, added one by one from 0 in row order; the block adds its slots in
+    slot order, and ``dw`` is the blocks' sums added from 0 in block order.
+    On the card the kernel's ``dx`` and ``dw`` have these bits for the
+    blocks of its plan."""
+    p, _, n = w.shape
+    wf = w.detach().to(x.dtype).float().cpu()
+    t = x.detach().reshape(-1, n).float().cpu()
+    gf = g.detach().reshape(-1, n).float().cpu()
+    rows, slots = t.shape[0], row_slots(n)
+    # idx[blk, u, m]: the m-th row of slot u of block blk; past a slot's
+    # last row, an appended zero row (adding 0 leaves a sum's value)
+    bounds = [k * rows // blocks for k in range(blocks + 1)]
+    steps = max(-(-(bounds[k + 1] - bounds[k]) // slots)
+                for k in range(blocks))
+    idx = torch.full((blocks, slots, steps), rows, dtype=torch.long)
+    for blk in range(blocks):
+        for u in range(slots):
+            mine = range(bounds[blk] + u, bounds[blk + 1], slots)
+            idx[blk, u, :len(mine)] = torch.tensor(mine, dtype=torch.long)
+    order = list(range(p - 1, -1, -1) if transpose else range(p))
+    acts = []
+    for s in order:
+        acts.append(t)
+        a, b = wf[s, 0], wf[s, 1]
+        t = (a * t + bf.stage_swap(b * t, 1 << s) if transpose
+             else a * t + b * bf.stage_swap(t, 1 << s))
+    dw = torch.zeros(p, 2, n)
+    for s, t in reversed(list(zip(order, acts))):
+        a, b = wf[s, 0], wf[s, 1]
+        if transpose:
+            gs = bf.stage_swap(gf, 1 << s)
+            terms = torch.stack([gf * t, gs * t], 1)
+            gf = a * gf + b * gs
+        else:
+            terms = torch.stack([gf * t, gf * bf.stage_swap(t, 1 << s)], 1)
+            gf = a * gf + bf.stage_swap(b * gf, 1 << s)
+        terms = torch.cat([terms, terms.new_zeros(1, 2, n)])[idx]
+        acc = torch.zeros(blocks, slots, 2, n)
+        for m in range(steps):
+            acc = acc + terms[:, :, m]
+        total = acc[:, 0]
+        for u in range(1, slots):
+            total = total + acc[:, u]
+        for blk in range(blocks):
+            dw[s] = dw[s] + total[blk]
+    dx = gf.reshape(x.shape).to(x.dtype) if need_dx else None
+    return dx, dw.to(w.device)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("butterfly")
@@ -101,9 +170,25 @@ def _bwd_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.butterfly_bwd_plan.argtypes = [i, i, i, i, i, p]
     lib.butterfly_bwd_plan.restype = ctypes.c_int
-    lib.butterfly_bwd.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.butterfly_bwd.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.butterfly_bwd.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(rows: int, n: int, transpose: bool, dtype: int,
+              device: int) -> tuple:
+    """The backward's launch plan for one shape on one device, asked once:
+    (blocks, partial floats, tile-workspace floats, tile rows)."""
+    sizes = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        err = _bwd_lib().butterfly_bwd_plan(
+            rows, n, default_segment(n.bit_length() - 1), int(transpose),
+            dtype, sizes)
+    if err != 0:
+        raise RuntimeError(f"butterfly_bwd_plan failed with cudaError {err} "
+                           f"(rows={rows}, n={n})")
+    return tuple(int(v) for v in sizes)
 
 
 def _check_args(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -166,24 +251,18 @@ def _bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     dw = torch.empty(w.shape, dtype=torch.float32, device=dev)
     if rows == 0:
         return dx, dw.zero_()
-    lib = _bwd_lib()
-    seg = default_segment(w.shape[0])
-    sizes = (ctypes.c_longlong * 3)()
-    err = lib.butterfly_bwd_plan(rows, n, seg, int(transpose),
-                                 _DTYPES[x.dtype], sizes)
-    if err != 0:
-        raise RuntimeError(f"butterfly_bwd_plan failed with cudaError {err} "
-                           f"(rows={rows}, n={n})")
-    chunks = int(sizes[0])
-    partial, ckpt = (torch.empty(int(k), dtype=torch.float32, device=dev)
-                     for k in sizes[1:])
-    err = lib.butterfly_bwd(
+    blocks, n_part, n_tiles, tile = _bwd_plan(
+        rows, n, bool(transpose), _DTYPES[x.dtype], dev.index)
+    partial = torch.empty(n_part, dtype=torch.float32, device=dev)
+    tiles = (torch.empty(n_tiles, dtype=torch.float32, device=dev)
+             if n_tiles else None)
+    err = _bwd_lib().butterfly_bwd(
         x.data_ptr(), w.data_ptr(), g.data_ptr(),
         dx.data_ptr() if need_dx else None, dw.data_ptr(),
-        partial.data_ptr(), ckpt.data_ptr() if ckpt.numel() else None,
-        applied.data_ptr() if applied is not None else None, rows, n, seg,
-        chunks, int(transpose), _DTYPES[x.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        partial.data_ptr(), tiles.data_ptr() if n_tiles else None,
+        applied.data_ptr() if applied is not None else None, rows, n,
+        default_segment(w.shape[0]), blocks, tile, int(transpose),
+        _DTYPES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"butterfly_bwd launch failed with cudaError {err}"
                            f" (rows={rows}, n={n})")
@@ -214,7 +293,7 @@ def butterfly_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                        applied: Optional[torch.Tensor] = None):
     """The butterfly's VJP: ``(dx, dw)`` for the cotangent ``g`` of the
     output, ``dx`` in ``x``'s dtype or ``None`` unless ``need_dx``, ``dw``
-    float32. The CUDA route adds its two launches (the per-row VJP, the
+    float32. The CUDA route adds its two launches (the row-tile VJP, the
     reduction of ``dw``) to ``butterfly_backward.launches`` and, given
     ``applied`` (one int32 on the card), writes there the number of stage
     applications the kernel performed for the first row."""

@@ -5,8 +5,10 @@ gradients, both directions, at n in {8, 64, 256} with 1, 11 and 300 rows
 and a (2, 3, 5, n) batch. float32 within 1e-5·max|want| + 1e-5·|want|
 (dw sums over up to 300 rows in another order than the reference);
 bfloat16 within 5% of max|want|, the reference's own bf16 tolerance
-(`tests/test_kernels_grad.py:_assert_close_bf16`). Also the port of the
-reference's CI gate on the backward's stage applications."""
+(`tests/test_kernels_grad.py:_assert_close_bf16`). The twin of the backward
+kernel's summation order, `butterfly_bwd_tiled_plain`, is held the same way
+and against the plain twin. Also the port of the reference's CI gate on the
+backward's stage applications."""
 
 import jax
 import jax.numpy as jnp
@@ -66,6 +68,43 @@ def test_forward_and_grads_match_reference_kernel(n, lead, transpose,
     assert tx.grad.dtype == tdt and tw.grad.dtype == torch.float32
     _close(tx.grad, gx_w, dtype)
     _close(tw.grad, gw_w, dtype)
+
+
+# the twin of the backward kernel's summation order: the file's cases, the
+# encoder's width at 300 rows, and 37 rows over 4 blocks (no tile or block
+# divides them); (n, leading shape, blocks)
+TWIN_CASES = [(n, lead, 3) for n, lead in CASES] + [(1024, (300,), 4),
+                                                     (1024, (37,), 4)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("n,lead,blocks", TWIN_CASES)
+def test_tiled_twin_matches_plain_and_reference(n, lead, blocks, transpose,
+                                                dtype):
+    """`butterfly_bwd_tiled_plain` (the kernel's summation order) against
+    the plain autograd twin (dx bit for bit, dw at the file's tolerance)
+    and against the reference kernel's `jax.grad`."""
+    jdt, tdt = DTYPES[dtype]
+    w, x, c = _inputs(n, lead, seed=n + len(lead) + 7)
+    jx = jnp.asarray(x).astype(jdt)
+    gx_w, gw_w = jax.grad(lambda x_, w_: jnp.vdot(
+        jnp.asarray(c), butterfly_matmul(x_, w_, transpose=transpose,
+                                         interpret=True).astype(jnp.float32)),
+        argnums=(0, 1))(jx, jnp.asarray(w))
+    tx, tw = torch.from_numpy(x).to(tdt), torch.from_numpy(w)
+    g = torch.from_numpy(c).to(tdt)
+    dx, dw = kb.butterfly_bwd_tiled_plain(tx, tw, g, transpose=transpose,
+                                          blocks=blocks)
+    pdx, pdw = kb.butterfly_bwd_plain(tx, tw, g, transpose=transpose)
+    assert dx.dtype == tdt and dw.dtype == torch.float32
+    assert torch.equal(dx, pdx)
+    _close(dw, pdw, dtype)
+    _close(dx, gx_w, dtype)
+    _close(dw, gw_w, dtype)
+    none, dw2 = kb.butterfly_bwd_tiled_plain(tx, tw, g, transpose=transpose,
+                                             need_dx=False, blocks=blocks)
+    assert none is None and torch.equal(dw2, dw)
 
 
 @pytest.mark.parametrize("transpose", [False, True])

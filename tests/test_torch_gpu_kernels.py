@@ -10,7 +10,9 @@ bfloat16 5e-2 (its factor kernel's float32 1e-5), the paged kernel's
 float32 1e-5 and bfloat16 2e-2; the sandwich backward's float32 1e-5 and
 bfloat16 8% of max|want| (`tests/test_kernels_grad.py`; its factor-row VJP,
 float32 in both dtypes, 1e-5); the butterfly
-kernels' float32 1e-5 and bfloat16 5% of max|want|, forward and backward;
+kernels' float32 1e-5 and bfloat16 5% of max|want|, forward and backward,
+and at the backward's tile edges bit for bit against the twins of their
+operations and summation order;
 the flash kernels' forward 1e-5 / 2e-2 of max|want|, lse 1e-5, gradients
 1e-4 / 5e-2 (float32 sums in another order; bfloat16 rounds once at the
 output), and in bfloat16 also each row of o and dq and each key's row of
@@ -446,6 +448,82 @@ def test_butterfly_fn_autograd_on_card(cuda):
     with pytest.raises(ValueError):
         kb.butterfly_forward(torch.zeros(2, 65536, device=cuda),
                              torch.zeros(16, 2, 65536, device=cuda))
+
+
+# Row counts at the backward's tile and block edges: R rows fill every
+# block of a full grid with one whole tile of its plan (R = blocks x tile
+# rows, from the plan for many rows), R - 1 and R + 1 about it, and fewer
+# rows than the card has SMs.
+BFLY_EDGES = ("R-1", "R", "R+1", "few")
+
+
+def _edge_rows(cuda, n, edge):
+    blocks, _, _, tile = kb._bwd_plan(1 << 20, n, False, 0, cuda.index or 0)
+    r = blocks * tile
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return {"R-1": r - 1, "R": r, "R+1": r + 1, "few": sms // 2 + 1}[edge]
+
+
+@pytest.mark.parametrize("edge", BFLY_EDGES)
+@pytest.mark.parametrize("n", [1024, 2048, 32768])
+def test_butterfly_kernels_bits_at_tile_edges(cuda, n, edge):
+    """At the backward's tile and block edges, both directions and dtypes:
+    the forward and dx have the plain twins' bits (the same products and
+    sums), and dw the bits of ``butterfly_bwd_tiled_plain`` for the blocks
+    of the kernel's plan (its summation order); dw within the file's
+    tolerance of the plain autograd twin."""
+    rows = _edge_rows(cuda, n, edge)
+    for transpose in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator().manual_seed(rows + n + transpose)
+            w = bf.random_weights(gen, n).to(cuda)
+            x = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+            g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+            what = f"{rows}x{n} transpose={transpose} {dtype}"
+            got = kb.butterfly_forward(x, w, transpose=transpose,
+                                       backend="cuda")
+            dx, dw = kb.butterfly_backward(x, w, g, transpose=transpose,
+                                           backend="cuda")
+            blocks = kb._bwd_plan(rows, n, transpose, kb._DTYPES[dtype],
+                                  cuda.index or 0)[0]
+            tdx, tdw = kb.butterfly_bwd_tiled_plain(
+                x.cpu(), w.cpu(), g.cpu(), transpose=transpose,
+                blocks=blocks)
+            want = kb.butterfly_plain(x, w, transpose=transpose)
+            _, pdw = kb.butterfly_bwd_plain(x, w, g, transpose=transpose,
+                                            need_dx=False)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), what
+            assert torch.equal(dx.cpu(), tdx), what
+            assert torch.equal(dw.cpu(), tdw), what
+            frac = 1e-5 if dtype == torch.float32 else 0.05
+            torch.testing.assert_close(
+                dw, pdw, rtol=frac, atol=frac * float(pdw.abs().max()),
+                msg=lambda m: f"{what} dw: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(70000, 1024), (5, 1024), (1237, 2048),
+                                    (64, 32768)])
+def test_butterfly_backward_repeats_and_counts(cuda, rows, n, dtype):
+    """Two backward calls give the same bits, with and without dx; each
+    call adds BWD_KERNELS to the backward's count and each forward 1."""
+    gen = torch.Generator().manual_seed(rows)
+    w = bf.random_weights(gen, n).to(cuda)
+    x = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
+    y1 = kb.butterfly_forward(x, w, backend="cuda")
+    y2 = kb.butterfly_forward(x, w, backend="cuda")
+    dx1, dw1 = kb.butterfly_backward(x, w, g, backend="cuda")
+    dx2, dw2 = kb.butterfly_backward(x, w, g, backend="cuda")
+    none, dw3 = kb.butterfly_backward(x, w, g, need_dx=False, backend="cuda")
+    torch.cuda.synchronize()
+    assert (kb.butterfly_forward.launches,
+            kb.butterfly_backward.launches) == (
+        before[0] + 2, before[1] + 3 * kb.BWD_KERNELS)
+    assert torch.equal(y1, y2) and torch.equal(dx1, dx2)
+    assert torch.equal(dw1, dw2) and torch.equal(dw1, dw3) and none is None
 
 
 FLASH_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
