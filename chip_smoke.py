@@ -12,8 +12,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``smollm-135m-butterfly`` (up/gate 576->1536, down 1536->576, lm_head
    576->49152) and the widest output the kernels take (32->262144): the
    factor kernel against ``sandwich_factors_plain`` within 1e-5, and the
-   whole forward against the stage-by-stage ``sandwich_plain`` at 8, 8x16
-   and the training run's 8192 rows, float32 at 2e-4 and bfloat16 at 5e-2.
+   whole forward against the stage-by-stage ``sandwich_plain`` at 8, 8x4
+   (the verify pass of ``spec_k`` 3), 8x16 and the training run's 8192 rows, float32 at 2e-4 and bfloat16 at 5e-2.
 4. Paged decode kernels (the split over runs of 4 pages, then the
    combine) vs their plain twin: 8 slots, 3 KV heads, 3 query heads per
    group, head dim 64, pages of 16, at the serving engine's 512 positions
@@ -36,23 +36,51 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 6. Serving: a ServeEngine on full-width ``smollm-135m-butterfly``
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
-   200 tokens and 32 new tokens each. Checks: every request gets its 32
-   tokens, the kernels' launch counters rose by 2 x 91 (sandwich: factors
-   and rows) and 2 x 30 (paged: split and combine) per decode tick and
-   2 x 91 per chunk tick, no
-   NaN appears in the logits or the KV pool, and a pooled decode tick on
-   live engine state agrees with the plain versions layer by layer: each
-   of the 30 layers and the head runs under both on the same input,
-   within 5e-2 in relative norm. (The whole tick's logits through both
-   paths are printed, not held: bf16 rounding differences grow through a
-   random-init stack.)
+   200 tokens and 32 new tokens each, every decode and chunk tick the
+   replay of a CUDA graph captured once per key (the key's first tick is
+   its warm-up, run eagerly, then the capture). Checks: every request gets
+   its 32 tokens, the kernels' launch counters rose by 2 x 91 (sandwich:
+   factors and rows) and 2 x 30 (paged: split and combine) per decode tick
+   and 2 x 91 per chunk tick, every tick after a key's build is a replay
+   of it, each key's graph holds its tick's launches, no NaN
+   appears in the logits or the KV pool, and a pooled decode tick on live
+   engine state agrees with the plain versions layer by layer: each of the
+   30 layers and the head runs under both on the same input, within 5e-2
+   in relative norm; a replay of the decode graph agrees with the same
+   tick run eagerly through the kernels within 5e-2 in relative norm
+   (whether bit for bit is printed). Prints each key's captures, replays,
+   launches per replay and capture time, the graphs' shared pool (its
+   segments in the allocator's snapshot), decode tok/s over all decode
+   ticks and over the replays alone (a key's first tick, its warm-up and
+   capture, is set-up). (The whole
+   tick's logits through kernels and plain versions are printed, not
+   held: bf16 rounding differences grow through a random-init stack.)
 6a. Greedy tokens on the card: ``smollm-135m-butterfly-smoke`` in float32
    compute, weights made once from seed 0 on the CPU, served by one engine
-   on the card (the kernels) and one on the CPU (the plain versions): 4
-   prompts (5, 23, 11 and 3 tokens) into 2 slots, prefill chunks of 16 (the
-   23-token prompt chunks twice), 16 new tokens each. The tokens must be
-   equal; at a flip the request, the step and the CPU run's top-1 minus
-   top-2 logit gap there are printed and the phase fails.
+   on the card (the kernels, on graphs) and one on the CPU (the plain
+   versions): 4 prompts (5, 23, 11 and 3 tokens) into 2 slots, prefill
+   chunks of 16 (the 23-token prompt chunks twice), 16 new tokens each,
+   three times: eager admission, incremental admission on 3 usable pages
+   of 16 (at least one preemption and recompute required) and ``spec_k=3``
+   speculative decoding. The tokens must be equal; at a flip the request,
+   the step and the CPU run's top-1 minus top-2 logit gap there are
+   printed and the phase fails.
+6b. Incremental admission at full width: the 16 requests of phase 6 on a
+   pool of 40 usable pages (a fifth of the dense-equivalent 256), on
+   graphs: at least one preemption, every request finished, launch
+   counters on the per-tick formula; ticks, preemptions, recompute tokens,
+   peak pages, TTFT and decode tok/s printed, and how many bfloat16 tokens
+   agree with phase 6's eager-admission run (not held: a recomputed prefix
+   rounds otherwise than decoding did in bfloat16).
+6c. Speculative decoding at full width: ``spec_k`` 3 on a probe engine's
+   live state, the draft and verify graphs' replay against the same verify
+   pass run eagerly through the kernels, within 5e-2 in relative norm
+   (whether bit for bit is printed); then the 16 requests of phase 6 on
+   graphs: every request finished, the launch counters on the formula
+   (2 x 91 per verify and chunk tick, 2 x 3 head calls per draft, no paged
+   launch: the verify reads the pool through the plain gather), each key's
+   replays and launches per replay held; acceptance, tok/s and how many
+   bfloat16 tokens agree with phase 6's run printed (not held).
 7. Timing: each forward kernel, its plain twin, and one library call as
    a yardstick the port never calls (for the sandwich a ``torch.matmul``
    by its materialized dense matrix, at 8 rows and at the training run's
@@ -62,8 +90,12 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    back-to-back calls, which the host's enqueue can set); each kernel's
    bound from its bytes and operations (the sandwich's on the support it
    needs) over the H100's 3.35 TB/s and peak rates.
-8. Profile: ``torch.profiler`` over three pooled decode ticks — device
-   time by kernel and the device-busy share of the ticks' wall time.
+8. Profile: ``torch.profiler`` over three pooled decode ticks replayed
+   from the decode graph and three of the same ticks run eagerly through
+   the kernels — device time by kernel and the device-busy share of the
+   ticks' wall time; each sandwich and paged kernel's launches a tick in
+   the graphed ticks' device trace must equal the decode graph's launches
+   per replay.
 9. Training: ``Trainer`` on full-width ``smollm-135m-butterfly`` (bf16
    compute, remat), seq_len 2048 x batch 4, 2 warm and 5 timed steps;
    finite losses, 2 x 181 forward and 6 x 91 backward sandwich launches
@@ -152,6 +184,11 @@ WIDE = ("mistral_down", 28672, 12288)
 WIDE_ROWS = 64
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SLOTS, MAX_LEN, CHUNK, NEW_TOKENS, N_REQUESTS = 8, 512, 16, 32, 16
+SPEC_K = 3                # draft tokens per slot tick of the speculative run
+# incremental admission's pool: 40 usable pages of 16 (plus the trash page),
+# a fifth of the dense-equivalent 8 x 512 / 16 = 256
+INCR_PAGES = 41
+LAYER_TOL = 5e-2          # bf16 model checks, relative norm per layer
 # the paged kernel's shapes (cur_pos per slot, pages of 16): the serving
 # engine's (max_len 512) and a long one at the 2048-token context of
 # SmolLM-135M, the training run's seq_len (7,883 live positions)
@@ -366,13 +403,15 @@ def phase_sandwich_factors(torch, cfg, dev, kernel: str) -> float:
 
 def phase_sandwich(torch, cfg, dev, kernel: str, train_rows: int) -> float:
     """The forward kernel against its plain twin at the three full-width
-    sites: the decode and chunk ticks' rows and the training run's."""
+    sites: the decode, verify and chunk ticks' rows and the training
+    run's."""
     worst = 0.0
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for site in sites(cfg):
             spec, layer = sandwich_site(torch, cfg, site, dev)
-            for rows in sorted({SLOTS, SLOTS * CHUNK, train_rows}):
+            for rows in sorted({SLOTS, SLOTS * (SPEC_K + 1), SLOTS * CHUNK,
+                                train_rows}):
                 for dtype in ("float32", "bfloat16"):
                     x = torch.randn(rows, spec.n_in, generator=gen).to(
                         dev, getattr(torch, dtype))
@@ -471,8 +510,9 @@ def layerwise_check(torch, eng, kernel: str) -> None:
     from repro_torch.models import common as cm
     from repro_torch.models import lm
     from repro_torch.serve import steps
-    cfg, model, tol = eng.cfg, eng.model, 5e-2
-    tokens, cur_pos, active = eng.decode_inputs()
+    cfg, model, tol = eng.cfg, eng.model, LAYER_TOL
+    tokens, cur_pos, active = (torch.from_numpy(a).to(eng.device)
+                               for a in eng.decode_inputs())
     table = steps.mask_table(eng.pool.gather_args()["page_table"], active)
     caches = {t: c.clone() for t, c in eng.caches.items()}
     positions = cur_pos[:, None].contiguous()
@@ -506,6 +546,112 @@ def layerwise_check(torch, eng, kernel: str) -> None:
                                  f"difference {r:.3e} beyond {tol}")
 
 
+def replay_vs_eager(torch, eng, kernel: str) -> dict:
+    """The next pooled decode tick's logits through a replay of the engine's
+    decode graph (``replay_decode_logits``) against the same tick run
+    eagerly through the kernels (``decode_logits``), on the same state:
+    finite and within ``LAYER_TOL`` in relative norm; reports whether they
+    are bit for bit."""
+    eager = eng.decode_logits(backend=kernel)
+    graph = eng.replay_decode_logits()
+    if not bool(torch.isfinite(graph).all()):
+        raise AssertionError("replayed decode logits are not finite")
+    g, e = graph.float(), eager.float()
+    out = {"rel": float((g - e).norm() / e.norm()),
+           "max_abs": float((g - e).abs().max()),
+           "bitwise": bool(torch.equal(graph, eager))}
+    say(f"decode tick replay vs eager ({kernel}), {eng.cfg.compute_dtype}: "
+        f"relative norm of the difference {out['rel']:.3e} (tol "
+        f"{LAYER_TOL}), max|err| {out['max_abs']:.3e}, bit for bit: "
+        f"{out['bitwise']}")
+    if not out["rel"] <= LAYER_TOL:
+        raise AssertionError(f"replayed decode logits differ from the eager "
+                             f"tick by {out['rel']:.3e} in relative norm")
+    return out
+
+
+def serve_launches_want(cfg, snap, on_card: bool, spec_k: int = 0) -> dict:
+    """Kernel launches a serving run must count: the sandwich's
+    ``FWD_KERNELS`` at every site (up, gate, down per layer and the head)
+    per decode (or verify) and chunk tick, and at the head ``spec_k`` times
+    per speculative tick's draft; the paged kernels' ``PAGED_KERNELS`` per
+    layer per decode tick (a verify pass reads the pool through the plain
+    gather, as the chunk does); none off the card."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sandwich as ks
+    per_tick = 3 * cfg.n_layers + 1
+    decode = snap["decode_steps"]
+    return {"sandwich_fwd": on_card * ks.FWD_KERNELS
+            * (per_tick * (decode + snap["chunk_ticks"]) + spec_k * decode),
+            "paged_decode_attention": on_card * pa.PAGED_KERNELS
+            * cfg.n_layers * decode * (not spec_k)}
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sandwich as ks
+    return {"sandwich_fwd": ks.sandwich_forward.launches,
+            "paged_decode_attention": pa.paged_decode_attention.launches}
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sandwich as ks
+    ks.sandwich_forward.launches = 0
+    pa.paged_decode_attention.launches = 0
+
+
+def graph_report(eng, snap, on_card: bool) -> dict:
+    """Print each graph key's captures, replays, kernel launches per replay
+    and warm-up and capture seconds, and the graphs' shared pool; hold the
+    replays to the ticks (every tick after a key's build is a replay) and,
+    on the card, each key's launches per replay to the per-tick formula."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sandwich as ks
+    cfg, stats = eng.cfg, eng.graphs.stats()
+    ticks = {"decode": snap["decode_steps"], "chunk_prefill":
+             snap["chunk_ticks"], "spec_draft": snap["decode_steps"],
+             "spec_verify": snap["decode_steps"]}
+    # (sandwich, paged) launches of one replay: every site of the model, or
+    # the head alone spec_k times in the draft; the paged kernels in the
+    # decode tick only
+    sites_ = ks.FWD_KERNELS * (3 * cfg.n_layers + 1)
+    per_replay = {"decode": (sites_, pa.PAGED_KERNELS * cfg.n_layers),
+                  "chunk_prefill": (sites_, 0), "spec_verify": (sites_, 0),
+                  "spec_draft": (ks.FWD_KERNELS * eng.spec_k, 0)}
+    for key, st in stats.items():
+        say(f"graph {key}: captures {st['captures']}, replays "
+            f"{st['replays']}, launches per replay "
+            f"{st['launches_per_replay']}, warm-up {st['warmup_s']:.3f} s, "
+            f"capture {st['capture_s']:.3f} s")
+        kind = key.split(" | ")[0]
+        if st["replays"] != ticks[kind] - 1:
+            raise AssertionError(f"graph {key}: {st['replays']} replays for "
+                                 f"{ticks[kind]} ticks")
+        want = dict(zip(("sandwich_fwd", "paged_decode_attention"),
+                        per_replay[kind]))
+        if on_card and st["launches_per_replay"] != want:
+            raise AssertionError(f"graph {key}: launches per replay "
+                                 f"{st['launches_per_replay']}, expected "
+                                 f"{want}")
+    pool = eng.graphs.pool_bytes()
+    capture = sum(st["capture_s"] for st in stats.values())
+    say(f"graphs: {len(stats)} keys, capture {capture:.3f} s in all, shared "
+        f"graph pool " + ("not measured (the allocator's snapshot names no "
+                          "pools)" if pool is None else
+                          f"{pool / 2**20:.1f} MiB (its segments in the "
+                          f"allocator's snapshot)"))
+    return {"pool_bytes": pool, **{
+        key: {n: st[n] for n in ("replays", "launches_per_replay",
+                                 "capture_s")} for key, st in stats.items()}}
+
+
+def serve_prompts(np, cfg):
+    rng = np.random.default_rng(0)
+    lens = rng.permutation(np.linspace(5, 200, N_REQUESTS).astype(int))
+    return lens, [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+
+
 def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
@@ -515,9 +661,7 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     model = model_of(cfg, dev)
     say(f"init: {time.monotonic() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
-    rng = np.random.default_rng(0)
-    lens = rng.permutation(np.linspace(5, 200, N_REQUESTS).astype(int))
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    lens, prompts = serve_prompts(np, cfg)
     per_tick = 3 * cfg.n_layers + 1            # up, gate, down per layer + head
 
     # kernels vs plain on live engine state (also warms the path up)
@@ -538,6 +682,7 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
         f"{float((auto.float() - plain.float()).abs().max()):.3e}, "
         f"argmax agrees on {int((auto.argmax(-1) == plain.argmax(-1)).sum())}"
         f" of {SLOTS} slots")
+    replay = replay_vs_eager(torch, probe, kernel)
     del probe
 
     # the main path: counters from 0, 16 requests to completion
@@ -546,27 +691,22 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    ks.sandwich_forward.launches = 0
-    pa.paged_decode_attention.launches = 0
+    zero_launches()
     futs = [eng.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
             for p in prompts]
     t0 = time.monotonic()
     eng.run_until_idle()
     sync(torch, dev)
     wall = time.monotonic() - t0
-    launches = {"sandwich_fwd": ks.sandwich_forward.launches,
-                "paged_decode_attention": pa.paged_decode_attention.launches}
+    launches = read_launches()
     snap = eng.metrics.snapshot()
-    for i, f in enumerate(futs):
-        toks = f.result(timeout=0).tokens
+    tokens = [f.result(timeout=0).tokens for f in futs]
+    for i, toks in enumerate(tokens):
         if len(toks) != NEW_TOKENS:
             raise AssertionError(f"request {i}: {len(toks)} tokens, "
                                  f"expected {NEW_TOKENS}")
     on_card = dev.type == "cuda"       # on the CPU the plain versions run
-    want = {"sandwich_fwd": on_card * ks.FWD_KERNELS * per_tick
-            * (snap["decode_steps"] + snap["chunk_ticks"]),
-            "paged_decode_attention": on_card * pa.PAGED_KERNELS
-            * cfg.n_layers * snap["decode_steps"]}
+    want = serve_launches_want(cfg, snap, on_card)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     for name, pool in eng.caches.items():
@@ -576,38 +716,215 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     say(f"serve: {N_REQUESTS} requests, prompts {int(lens.min())}-"
         f"{int(lens.max())} tokens, {snap['ticks']} ticks "
         f"({snap['chunk_ticks']} chunk, {snap['decode_steps']} decode), "
-        f"wall {wall:.3f} s")
+        f"wall {wall:.3f} s, on graphs ({eng.compile_stats['compiles']} "
+        f"built)")
     say(f"serve: TTFT p50 {snap['ttft_ms']['p50']} ms, p95 "
         f"{snap['ttft_ms']['p95']} ms; TPOT p50 {snap['tpot_ms']['p50']} ms; "
-        f"decode {snap['decode_tok_per_s']:.1f} tok/s; peak memory "
+        f"decode {snap['decode_tok_per_s']:.1f} tok/s over all decode ticks, "
+        f"{snap['decode_tok_per_s_steady']:.1f} tok/s over the replays; "
+        f"{snap['build']['ticks']} ticks built a graph, "
+        f"{snap['build']['time_s']:.3f} s in all (set-up); peak memory "
         f"{peak / 2**20:.1f} MiB")
+    m = eng.metrics
+    replayed = (m.decode_time_s - m.build_decode_time_s) * 1e3 / (
+        m.decode_steps - 1)
+    say(f"serve: decode ticks, host clock: {replayed:.3f} ms a replayed "
+        f"tick on average over {m.decode_steps - 1}; the "
+        f"decode key's build tick (warm-up + capture) "
+        f"{m.build_decode_time_s * 1e3:.3f} ms")
     say(f"serve: launches {launches} = {ks.FWD_KERNELS} x {per_tick}/tick x "
         f"(decode + chunk), {pa.PAGED_KERNELS} x {cfg.n_layers}/decode tick")
+    graphs = graph_report(eng, snap, on_card)
     summary = {"ttft_p50_ms": snap["ttft_ms"]["p50"],
                "ttft_p95_ms": snap["ttft_ms"]["p95"],
                "tpot_p50_ms": snap["tpot_ms"]["p50"],
                "decode_tok_per_s": snap["decode_tok_per_s"],
+               "decode_tok_per_s_steady": snap["decode_tok_per_s_steady"],
+               "build_s": snap["build"]["time_s"],
+               "replayed_decode_tick_ms": replayed,
                "peak_mib": peak / 2**20, "wall_s": wall,
-               "ticks": snap["ticks"]}
-    return launches, summary
+               "ticks": snap["ticks"], "graphs": graphs,
+               "replay_vs_eager": replay}
+    return launches, summary, tokens
+
+
+def phase_serve_incremental(torch, np, cfg, dev, eager_tokens) -> dict:
+    """The main path's 16 requests under incremental admission on a pool of
+    ``INCR_PAGES - 1`` usable pages, a fifth of the dense-equivalent 256:
+    at least one preemption, every request finished with its tokens, the
+    launch counters on the per-tick formula. Prints how many tokens agree
+    with the eager-admission run (not held: in bfloat16 a recomputed prefix
+    rounds otherwise than decoding did)."""
+    from repro_torch.serve import Request, ServeEngine
+    _, prompts = serve_prompts(np, cfg)
+    eng = ServeEngine(cfg, model_of(cfg, dev), slots=SLOTS, max_len=MAX_LEN,
+                      prefill_chunk=CHUNK, num_pages=INCR_PAGES,
+                      admission="incremental", device=dev)
+    sync(torch, dev)
+    zero_launches()
+    futs = [eng.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
+            for p in prompts]
+    t0 = time.monotonic()
+    eng.run_until_idle()
+    sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    snap = eng.metrics.snapshot()
+    tokens = [f.result(timeout=0).tokens for f in futs]
+    if any(len(t) != NEW_TOKENS for t in tokens):
+        raise AssertionError("incremental run: a request came back short")
+    if snap["preempted"] < 1:
+        raise AssertionError(f"incremental run on {INCR_PAGES - 1} pages "
+                             f"preempted nothing")
+    want = serve_launches_want(cfg, snap, dev.type == "cuda")
+    if launches != want:
+        raise AssertionError(f"incremental run: launch counts {launches}, "
+                             f"expected {want}")
+    same = sum(a == b for x, y in zip(tokens, eager_tokens)
+               for a, b in zip(x, y))
+    whole = sum(x == y for x, y in zip(tokens, eager_tokens))
+    total = sum(map(len, tokens))
+    say(f"serve incremental: {INCR_PAGES - 1} usable pages, {snap['ticks']} "
+        f"ticks ({snap['chunk_ticks']} chunk, {snap['decode_steps']} "
+        f"decode), {snap['preempted']} preemptions, "
+        f"{snap['recompute_tokens']} recompute tokens, peak pages "
+        f"{snap['pool']['pages_hwm']}, max concurrent slots "
+        f"{snap['max_concurrent_slots']}, wall {wall:.3f} s")
+    say(f"serve incremental: TTFT p50 {snap['ttft_ms']['p50']} ms, p95 "
+        f"{snap['ttft_ms']['p95']} ms; TPOT p50 {snap['tpot_ms']['p50']} ms; "
+        f"decode {snap['decode_tok_per_s']:.1f} tok/s over all decode ticks, "
+        f"{snap['decode_tok_per_s_steady']:.1f} over the replays; launches "
+        f"{launches}")
+    say(f"serve incremental: {cfg.compute_dtype} tokens equal to the eager "
+        f"admission run at {same} of {total} positions, {whole} of "
+        f"{len(tokens)} requests whole (not held)")
+    return {"incr_ticks": snap["ticks"], "incr_preempted": snap["preempted"],
+            "incr_recompute_tokens": snap["recompute_tokens"],
+            "incr_pages_hwm": snap["pool"]["pages_hwm"],
+            "incr_decode_tok_per_s": snap["decode_tok_per_s"],
+            "incr_decode_tok_per_s_steady": snap["decode_tok_per_s_steady"],
+            "incr_ttft_p50_ms": snap["ttft_ms"]["p50"],
+            "incr_ttft_p95_ms": snap["ttft_ms"]["p95"],
+            "incr_tokens_agree": same, "incr_tokens": total}
+
+
+def verify_replay_vs_eager(torch, eng, kernel: str) -> dict:
+    """The next speculative tick's verify logits through replays of the
+    engine's draft and verify graphs (``replay_verify_logits``) against the
+    verify pass run eagerly through the kernels on the same drafts
+    (``verify_logits``), on the same state: finite and within ``LAYER_TOL``
+    in relative norm; reports whether they are bit for bit."""
+    tokens, graph = eng.replay_verify_logits()
+    eager = eng.verify_logits(tokens, backend=kernel)
+    if not bool(torch.isfinite(graph).all()):
+        raise AssertionError("replayed verify logits are not finite")
+    g, e = graph.float(), eager.float()
+    out = {"rel": float((g - e).norm() / e.norm()),
+           "max_abs": float((g - e).abs().max()),
+           "bitwise": bool(torch.equal(graph, eager))}
+    say(f"verify tick replay vs eager ({kernel}), {eng.cfg.compute_dtype}, "
+        f"{tuple(tokens.shape)} tokens: relative norm of the difference "
+        f"{out['rel']:.3e} (tol {LAYER_TOL}), max|err| "
+        f"{out['max_abs']:.3e}, bit for bit: {out['bitwise']}")
+    if not out["rel"] <= LAYER_TOL:
+        raise AssertionError(f"replayed verify logits differ from the eager "
+                             f"pass by {out['rel']:.3e} in relative norm")
+    return out
+
+
+def phase_serve_spec(torch, np, cfg, dev, kernel: str, eager_tokens) -> dict:
+    """The main path's 16 requests with ``spec_k = SPEC_K`` at full width,
+    on graphs (the draft through the butterfly head, the verify in one
+    batched pass). First, on a probe engine's live state, a replay of the
+    draft and verify graphs against the same verify pass run eagerly
+    (:func:`verify_replay_vs_eager`). Then every request finished with its
+    tokens, the launch counters on the formula and every graph key's
+    replays and launches per replay held; acceptance, tok/s and how many
+    bfloat16 tokens agree with the eager-admission run printed (not held:
+    the verify pass's products have other shapes than a decode tick's, so
+    they round otherwise)."""
+    from repro_torch.serve import Request, ServeEngine
+    model = model_of(cfg, dev)
+    _, prompts = serve_prompts(np, cfg)
+    probe = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN,
+                        prefill_chunk=CHUNK, spec_k=SPEC_K, device=dev)
+    for n in range(SLOTS):
+        probe.submit(Request(prompt=prompts[n][:5 + n],
+                             max_new_tokens=NEW_TOKENS))
+    probe.step()                     # the chunk, then the first spec tick
+    replay = verify_replay_vs_eager(torch, probe, kernel)
+    del probe
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN,
+                      prefill_chunk=CHUNK, spec_k=SPEC_K, device=dev)
+    sync(torch, dev)
+    zero_launches()
+    futs = [eng.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
+            for p in prompts]
+    t0 = time.monotonic()
+    eng.run_until_idle()
+    sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    snap = eng.metrics.snapshot()
+    tokens = [f.result(timeout=0).tokens for f in futs]
+    if any(len(t) != NEW_TOKENS for t in tokens):
+        raise AssertionError("speculative run: a request came back short")
+    want = serve_launches_want(cfg, snap, dev.type == "cuda", SPEC_K)
+    if launches != want:
+        raise AssertionError(f"speculative run: launch counts {launches}, "
+                             f"expected {want}")
+    graph_report(eng, snap, dev.type == "cuda")
+    same = sum(a == b for x, y in zip(tokens, eager_tokens)
+               for a, b in zip(x, y))
+    whole = sum(x == y for x, y in zip(tokens, eager_tokens))
+    total = sum(map(len, tokens))
+    sp = snap["spec"]
+    say(f"serve spec_k={SPEC_K}: {snap['ticks']} ticks ({snap['chunk_ticks']}"
+        f" chunk, {snap['decode_steps']} speculative), acceptance "
+        f"{sp['acceptance_rate']} ({sp['accepted_draft_tokens']} of "
+        f"{sp['draft_tokens']} drafts), {sp['tokens_per_slot_tick']} tokens "
+        f"per slot tick, wall {wall:.3f} s")
+    say(f"serve spec_k={SPEC_K}: TTFT p50 {snap['ttft_ms']['p50']} ms, p95 "
+        f"{snap['ttft_ms']['p95']} ms; TPOT p50 {snap['tpot_ms']['p50']} ms; "
+        f"decode {snap['decode_tok_per_s']:.1f} tok/s over all speculative "
+        f"ticks, {snap['decode_tok_per_s_steady']:.1f} over the replays; "
+        f"launches {launches}")
+    say(f"serve spec_k={SPEC_K}: {cfg.compute_dtype} tokens equal to the "
+        f"eager admission run at {same} of {total} positions, {whole} of "
+        f"{len(tokens)} requests whole (not held)")
+    return {"spec_ticks": snap["ticks"],
+            "spec_acceptance": sp["acceptance_rate"],
+            "spec_tokens_per_slot_tick": sp["tokens_per_slot_tick"],
+            "spec_decode_tok_per_s": snap["decode_tok_per_s"],
+            "spec_decode_tok_per_s_steady": snap["decode_tok_per_s_steady"],
+            "spec_ttft_p50_ms": snap["ttft_ms"]["p50"],
+            "spec_tokens_agree": same, "spec_tokens": total,
+            "spec_replay_vs_eager": replay}
 
 
 TOKEN_PROMPTS = (5, 23, 11, 3)   # tests/test_torch_serve.py's greedy prompts
 TOKEN_NEW = 16
+# the token runs' engines: eager admission; incremental admission on 3
+# usable pages of 16 tokens (two requests' whole budgets do not fit, so
+# decoding slots are preempted and recomputed: twice on the CPU); eager
+# with 3 drafts a tick
+TOKEN_CASES = {"eager": {},
+               "incremental": dict(admission="incremental", num_pages=4),
+               "spec": dict(spec_k=3)}
 
 
-def phase_serve_tokens(torch, np, dev) -> None:
-    """Greedy tokens through the kernels against the plain path:
-    ``smollm-135m-butterfly-smoke`` in float32 compute, weights made once
-    from seed 0 on the CPU, one engine on ``dev`` and one on the CPU, the
-    greedy test's prompts into 2 slots with prefill chunks of 16. Every
-    request's tokens must be equal; at a flip, prints the request, the step
-    and the CPU run's top-1 minus top-2 logit gap there, and raises."""
+def serve_tokens_case(torch, np, dev, mode: str) -> dict:
+    """Greedy tokens through the kernels against the plain path, one
+    engine configuration of ``TOKEN_CASES``: ``smollm-135m-butterfly-smoke``
+    in float32 compute, weights made once from seed 0 on the CPU, one
+    engine on ``dev`` and one on the CPU, the greedy test's prompts into 2
+    slots with prefill chunks of 16. Every request's tokens must be equal
+    (and the incremental case must preempt); at a flip, prints the request,
+    the step and the CPU run's top-1 minus top-2 logit gap there, and
+    raises. Returns the card engine's snapshot."""
     import copy
 
     from repro_torch.configs import registry
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import sandwich as ks
     from repro_torch.models import common as cm
     from repro_torch.models import lm
     from repro_torch.serve import Request, ServeEngine, loader
@@ -619,21 +936,30 @@ def phase_serve_tokens(torch, np, dev) -> None:
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in TOKEN_PROMPTS]
     assert max(TOKEN_PROMPTS) > 16             # one prompt chunks twice
-    before = (ks.sandwich_forward.launches,
-              pa.paged_decode_attention.launches)
-    tokens = {}
+    before = read_launches()
+    tokens, snaps = {}, {}
     for where, model in ((dev, card_model), (torch.device("cpu"),
                                              cpu_model)):
         eng = ServeEngine(cfg, model, slots=2, max_len=48, prefill_chunk=16,
-                          device=where)
+                          device=where, **TOKEN_CASES[mode])
         futs = [eng.submit(Request(prompt=p, max_new_tokens=TOKEN_NEW))
                 for p in prompts]
-        eng.run_until_idle()
+        eng.run_until_idle(max_ticks=1000)
         tokens[where.type] = [f.result(timeout=0).tokens for f in futs]
-    rose = (ks.sandwich_forward.launches - before[0],
-            pa.paged_decode_attention.launches - before[1])
-    if dev.type == "cuda" and not all(rose):
-        raise AssertionError(f"the card's engine launched no kernel: {rose}")
+        snaps[where.type] = eng.metrics.snapshot()
+    after = read_launches()
+    rose = {k: after[k] - before[k] for k in after}
+    # every kernel of the path must have launched on the card; a speculative
+    # run has no paged decode tick (verify reads the pool through the plain
+    # gather, as the chunk does)
+    need = ("sandwich_fwd",) + (("paged_decode_attention",)
+                                if mode != "spec" else ())
+    if dev.type == "cuda" and not all(rose[k] for k in need):
+        raise AssertionError(f"the card's engine ({mode}) launched "
+                             f"{rose}: none of {need} may be 0")
+    snap = snaps[dev.type]
+    if mode == "incremental" and not snap["preempted"]:
+        raise AssertionError("the incremental token run preempted nothing")
     card, cpu = tokens[dev.type], tokens["cpu"]
     for i, (a, b) in enumerate(zip(card, cpu)):
         if a == b:
@@ -647,15 +973,26 @@ def phase_serve_tokens(torch, np, dev) -> None:
             x = cm.rmsnorm(x, cpu_model.final_norm, cfg.norm_eps)
             top = cm.head_apply(cfg, cpu_model.head, x, "torch")[0, -1].float(
                 ).topk(2).values
-        say(f"serve tokens: request {i} flips at step {step}: card token "
-            f"{a[step]}, CPU token {b[step]}; the CPU run's top-1 minus "
-            f"top-2 logit gap there {float(top[0] - top[1]):.3e}")
-        raise AssertionError(f"greedy tokens differ, request {i} step {step}")
-    say(f"serve tokens: {cfg.name} float32, {len(prompts)} prompts of "
+        say(f"serve tokens {mode}: request {i} flips at step {step}: card "
+            f"token {a[step]}, CPU token {b[step]}; the CPU run's top-1 "
+            f"minus top-2 logit gap there {float(top[0] - top[1]):.3e}")
+        raise AssertionError(f"greedy tokens differ ({mode}), request {i} "
+                             f"step {step}")
+    say(f"serve tokens {mode}: {cfg.name} float32, {len(prompts)} prompts of "
         f"{TOKEN_PROMPTS} tokens into 2 slots, chunks of 16, {TOKEN_NEW} new "
         f"tokens each: kernels on {dev.type} and plain on the CPU give the "
-        f"same greedy tokens ({sum(map(len, card))} tokens; launches on the "
-        f"card: sandwich {rose[0]}, paged {rose[1]})")
+        f"same greedy tokens ({sum(map(len, card))} tokens; preempted "
+        f"{snap['preempted']}, spec ticks {snap['spec']['ticks']}; launches "
+        f"on the card: sandwich {rose['sandwich_fwd']}, paged "
+        f"{rose['paged_decode_attention']})")
+    return snap
+
+
+def phase_serve_tokens(torch, np, dev) -> None:
+    """:func:`serve_tokens_case` for every configuration of
+    ``TOKEN_CASES``."""
+    for mode in TOKEN_CASES:
+        serve_tokens_case(torch, np, dev, mode)
 
 
 def sandwich_ops(spec) -> tuple:
@@ -906,53 +1243,127 @@ def time_paged(torch, cfg, dev, kernel, time_fn, device_fn, shape) -> dict:
     return r
 
 
-def phase_profile(torch, np, cfg, dev) -> dict:
-    """Where a pooled decode tick's time goes: ``torch.profiler`` over
-    three decode ticks of 8 slots (prompts of 5 tokens), device time by
-    kernel and the device-busy share of the ticks' wall time. Returns the
-    per-tick wall and busy ms and device launches ({} where the profiler
-    saw no device time)."""
+def profile_window(torch, dev, fn, ticks: int):
+    """``torch.profiler`` over ``ticks`` calls of ``fn``: wall ms per call,
+    and the device-side events (kernels, copies) as (name, device us,
+    count); the host ops that launch them carry the same device time
+    again, so they are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        sync(torch, dev)
+        t0 = time.monotonic()
+        for _ in range(ticks):
+            fn()
+        sync(torch, dev)
+        wall_us = (time.monotonic() - t0) * 1e6
+    events = [(e.key, e.self_device_time_total, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return wall_us, events
 
+
+# the kernels a graphed decode tick must show in its device trace
+GRAPHED_KERNELS = ("sandwich_factors_kernel", "sandwich_rows_kernel",
+                   "paged_split_kernel", "paged_combine_kernel")
+
+
+def phase_profile(torch, np, cfg, dev) -> dict:
+    """Where a pooled decode tick's time goes, graphed and eager:
+    ``torch.profiler`` over three decode ticks of 8 slots (prompts of 5
+    tokens) replayed from the engine's decode graph, then over three of
+    the same ticks run eagerly through the kernels (``decode_logits``,
+    which also copies the KV pool once a call); device time by kernel and
+    the device-busy share of the ticks' wall time. Each sandwich and paged
+    kernel's launches a tick in the graphed window's device trace must
+    equal the decode graph's launches per replay. Returns the
+    per-tick wall and busy ms and device launches of both windows ({}
+    where the profiler saw no device time)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sandwich as ks
     from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.graphs import format_key
     eng = ServeEngine(cfg, model_of(cfg, dev), slots=SLOTS, max_len=MAX_LEN,
                       prefill_chunk=CHUNK, device=dev)
     rng = np.random.default_rng(4)
     for _ in range(SLOTS):
         eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 5),
                            max_new_tokens=NEW_TOKENS))
-    eng.step()                                  # prefill + first decode
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    ticks = 3
-    with profile(activities=acts) as prof:
-        sync(torch, dev)
-        t0 = time.monotonic()
-        for _ in range(ticks):
-            eng.step()
-        sync(torch, dev)
-        wall_us = (time.monotonic() - t0) * 1e6
-    # device-side events only (kernels, copies): the host ops that launch
-    # them carry the same device time again
-    events = [(e.key, e.self_device_time_total, e.count)
-              for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_us = sum(e[1] for e in events)
-    if not busy_us:
-        say("profile: device time not measured")
-        return {}
-    say(f"profile: {ticks} decode ticks, wall {wall_us / ticks / 1e3:.3f} "
-        f"ms/tick, device busy {busy_us / ticks / 1e3:.3f} ms/tick "
-        f"({100 * busy_us / wall_us:.1f}% of wall), "
-        f"{sum(e[2] for e in events) // ticks} device launches/tick")
-    for key, us, count in sorted(events, key=lambda e: -e[1])[:8]:
-        say(f"profile: {us / ticks / 1e3:8.3f} ms/tick {count // ticks:5d} "
-            f"launches/tick  {key[:90]}")
-    return {"profile_wall_ms_per_tick": wall_us / ticks / 1e3,
-            "profile_busy_ms_per_tick": busy_us / ticks / 1e3,
-            "profile_launches_per_tick": sum(e[2] for e in events) // ticks}
+    eng.step()          # prefill + first decode: both graphs built
+    eng.step()          # the first decode replay
+    ticks, out = 3, {}
+    windows = (("graphed", eng.step),
+               ("eager", lambda: eng.decode_logits(backend="cuda")))
+    for name, fn in windows:
+        if name == "eager" and dev.type != "cuda":
+            continue
+        wall_us, events = profile_window(torch, dev, fn, ticks)
+        busy_us = sum(e[1] for e in events)
+        if not busy_us:
+            say(f"profile {name}: device time not measured")
+            return {}
+        n = sum(e[2] for e in events) // ticks
+        say(f"profile {name}: {ticks} decode ticks, wall "
+            f"{wall_us / ticks / 1e3:.3f} ms/tick, device busy "
+            f"{busy_us / ticks / 1e3:.3f} ms/tick "
+            f"({100 * busy_us / wall_us:.1f}% of wall), {n} device "
+            f"launches/tick")
+        for key, us, count in sorted(events, key=lambda e: -e[1])[:8]:
+            say(f"profile {name}: {us / ticks / 1e3:8.3f} ms/tick "
+                f"{count // ticks:5d} launches/tick  {key[:90]}")
+        if name == "graphed":
+            # each kernel's launches a tick in the replayed ticks' device
+            # trace against the decode graph's launches per replay, which
+            # the counters add back at each replay: the trace shows that
+            # every replay ran them
+            lpr = eng.graphs.stats()[format_key(eng._decode_entry().key)][
+                "launches_per_replay"]
+            seen = {k: sum(e[2] for e in events if k in e[0]) / ticks
+                    for k in GRAPHED_KERNELS}
+            want = {k: lpr[c] / n for k, (c, n) in zip(GRAPHED_KERNELS, (
+                ("sandwich_fwd", ks.FWD_KERNELS),) * 2 + ((
+                    "paged_decode_attention", pa.PAGED_KERNELS),) * 2)}
+            say(f"profile graphed: launches a tick in the device trace "
+                f"{seen}, the decode graph's launches per replay {lpr}")
+            if seen != want:
+                raise AssertionError(f"the graphed decode ticks' device "
+                                     f"trace shows {seen} launches a tick, "
+                                     f"the decode graph holds {want}")
+            if dev.type == "cuda":
+                # the decode graph replayed back to back (its K/V writes at
+                # cur_pos repeat the same values): the device's span of a
+                # replay, gaps between its nodes included
+                entry = eng._decode_entry()
+                span = cuda_ms(torch, lambda: eng.graphs.run(entry), 20)
+                # one replay alone, as a tick runs it: the host's time in
+                # the launch call, then the wait until the device is done
+                launch, wait = [], []
+                for _ in range(10):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.graphs.run(entry)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    launch.append(t1 - t0)
+                    wait.append(time.perf_counter() - t1)
+                launch_ms = 1e3 * sorted(launch)[5]
+                wait_ms = 1e3 * sorted(wait)[5]
+                say(f"profile graphed: one replay of the decode graph "
+                    f"{span:.3f} ms by CUDA events over 20 back-to-back "
+                    f"replays; one replay alone (median of 10, host clock) "
+                    f"{launch_ms:.3f} ms in the launch call, then "
+                    f"{wait_ms:.3f} ms until the device is done")
+                out.update({"profile_replay_ms": span,
+                            "profile_replay_launch_ms": launch_ms,
+                            "profile_replay_wait_ms": wait_ms})
+        tag = "" if name == "graphed" else "eager_"
+        out.update({f"profile_{tag}wall_ms_per_tick": wall_us / ticks / 1e3,
+                    f"profile_{tag}busy_ms_per_tick": busy_us / ticks / 1e3,
+                    f"profile_{tag}launches_per_tick": n})
+    return out
 
 
 # -- training (slice 2) -------------------------------------------------------
@@ -2328,8 +2739,13 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
                   cfg.head_dim_, (cfg.compute_dtype,), True, 0)
     flash_shapes = (train_attn, *flash_shapes)
     flash_errs = phase_flash(torch, dev, kernel, flash_shapes)
-    launches, summary = phase_serve(torch, np, cfg, dev, kernel)
+    launches, summary, eager_tokens = phase_serve(torch, np, cfg, dev,
+                                                  kernel)
     phase_serve_tokens(torch, np, dev)
+    summary.update(phase_serve_incremental(torch, np, cfg, dev,
+                                           eager_tokens))
+    summary.update(phase_serve_spec(torch, np, cfg, dev, kernel,
+                                    eager_tokens))
     kernels = phase_timing(torch, cfg, dev, kernel, time_fn, device_fn,
                            launches, errs, train_rows)
     summary.update(phase_profile(torch, np, cfg, dev))

@@ -169,3 +169,32 @@ def prefill_chunk(model: LM, tokens: torch.Tensor,
     h = cm.rmsnorm(x_last[:, None], model.final_norm, cfg.norm_eps)
     logits = cm.head_apply(cfg, model.head, h, backend)
     return logits[:, 0], x_last
+
+
+def verify_chunk(model: LM, tokens: torch.Tensor,
+                 caches: Dict[str, torch.Tensor], cur_pos: torch.Tensor,
+                 page_table: torch.Tensor, backend: str = "auto"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-position verify forward for speculative decoding.
+
+    ``tokens`` (B, K) are each row's last committed token followed by K-1
+    draft tokens, at absolute positions ``cur_pos .. cur_pos+K-1``. One
+    pass through the chunked-prefill path (the plain gather
+    :func:`~repro_torch.kernels.paged_attention.paged_attend_ref` for
+    ``K > 1``, as the reference) gives the logits at all K positions.
+    Returns ``(logits (B, K, V), x (B, K, E))`` with ``x`` the
+    pre-final-norm states: position ``j`` is the draft anchor when the
+    commit stops after input ``j``. Rejected positions' KV writes stay in
+    place past the committed ``cur_pos``, masked out by validity until the
+    next pass overwrites them.
+    """
+    cfg = model.cfg
+    x = cm.embed(cfg, model.embed, tokens)
+    B, K, _ = x.shape
+    cur_pos = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device)
+    positions = cur_pos[:, None] + torch.arange(
+        K, dtype=torch.int32, device=x.device)[None, :]
+    x = backbone(model, x, positions=positions, caches=caches,
+                 page_table=page_table, backend=backend)
+    h = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return cm.head_apply(cfg, model.head, h, backend), x

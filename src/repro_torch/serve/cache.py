@@ -14,6 +14,11 @@ Physical **page 0 is the trash page**: never allocated, the target of every
 unallocated page-table entry, and the engine redirects inactive slots'
 whole rows to it. Stray writes land there; reads from it are masked by the
 positional validity mask.
+
+The page table lives on the host, where the allocator edits it, and in one
+persistent device buffer that :meth:`PagedCachePool.gather_args` refreshes
+in place: the engine's captured CUDA graphs read the table at that fixed
+address.
 """
 
 from __future__ import annotations
@@ -47,7 +52,14 @@ class PagedCachePool:
     default matches a dense pool of the same ``slots``/``max_len`` plus the
     trash page. The free list is a FIFO deque: pages allocate in ascending
     id order from a fresh pool and recycle in the order they were freed.
+
+    ``faults`` optionally holds a
+    :class:`repro_torch.serve.faults.FaultInjector`; the pool consults it on
+    every real allocation attempt, so a seeded schedule can force
+    exhaustion even while free pages exist.
     """
+
+    faults = None                      # Optional[FaultInjector]
 
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -74,6 +86,9 @@ class PagedCachePool:
         self._owned: List[List[int]] = [[] for _ in range(slots)]
         self._table = np.full((slots, self.pages_per_slot), TRASH_PAGE,
                               np.int32)
+        self._device_table = torch.full(self._table.shape, TRASH_PAGE,
+                                        dtype=torch.int32,
+                                        device=self.device)
         self._hwm = 0
 
     # -- allocator ------------------------------------------------------
@@ -91,6 +106,8 @@ class PagedCachePool:
         need = self.pages_for(n_tokens) - len(owned)
         if need <= 0:
             return
+        if self.faults is not None:
+            self.faults.check("pool.alloc")
         if need > len(self._free):
             raise PoolExhausted(
                 f"pool has {len(self._free)} free pages, slot {slot} "
@@ -109,9 +126,15 @@ class PagedCachePool:
 
     def gather_args(self) -> Dict[str, torch.Tensor]:
         """The page table (slots, pages_per_slot) int32 on the pool's
-        device."""
-        return {"page_table": torch.as_tensor(self._table,
-                                              device=self.device)}
+        device: the host table copied into the pool's one persistent
+        device buffer, which is returned (the same tensor on every call)."""
+        self._device_table.copy_(torch.from_numpy(self._table))
+        return {"page_table": self._device_table}
+
+    def page_row(self, slot: int) -> torch.Tensor:
+        """The slot's page-table row (pages_per_slot,) int32 on the pool's
+        device, unallocated entries on the trash page."""
+        return torch.from_numpy(self._table[slot].copy()).to(self.device)
 
     @property
     def pages_in_use(self) -> int:
@@ -124,6 +147,10 @@ class PagedCachePool:
     @property
     def total_pages(self) -> int:
         return self.num_pages
+
+    def reset_stats(self) -> None:
+        """Rebase the high-water mark to the pages in use now."""
+        self._hwm = self.pages_in_use
 
     def free_list(self) -> Tuple[int, ...]:
         return tuple(self._free)
@@ -141,3 +168,13 @@ class PagedCachePool:
                  cfg.n_kv_heads, cfg.head_dim_)
         return {t: torch.zeros(shape, dtype=cfg.cdtype(), device=self.device)
                 for t in ("k", "v")}
+
+    def reset_slot(self, caches: Dict[str, torch.Tensor], slot: int
+                   ) -> None:
+        """Zero the slot's cache state in place, through its page row, in
+        every layer: its own pages and, for the row's unallocated entries,
+        the trash page (as the reference's scatter of a fresh cache does).
+        Call before :meth:`free`, which sends the row to the trash page."""
+        row = self.page_row(slot).long()
+        for pool in caches.values():
+            pool[:, row] = 0

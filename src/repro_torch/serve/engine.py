@@ -1,29 +1,55 @@
 """Continuous-batching inference engine of the port.
 
-Counterpart of ``repro.serve.engine.ServeEngine``, reduced to its main
-path. The engine owns ``slots`` decode lanes over one paged KV pool
-(:class:`~repro_torch.serve.cache.PagedCachePool`) and runs a strict tick
-loop:
+Counterpart of ``repro.serve.engine.ServeEngine`` on the paged pool with
+chunked prefill. The engine owns ``slots`` decode lanes over one paged KV
+pool (:class:`~repro_torch.serve.cache.PagedCachePool`) and runs a strict
+tick loop:
 
+  0. **Lifecycle** — pending ``cancel(rid)`` calls and blown deadlines
+     (``deadline_ticks``/``deadline_s``) resolve their futures with
+     :class:`RequestCancelled`/:class:`DeadlineExceeded`, freeing slot and
+     pages at once.
   1. **Admit** — while a slot is free and requests are queued, pop one and
-     reserve its whole token budget (``prompt + max_new_tokens``) in pages
-     (eager admission). A pool that cannot cover it leaves the request
-     queued until finished requests free pages.
-  2. **Chunked prefill** — admitted prompts advance one fixed-size chunk
-     (``prefill_chunk`` tokens) per tick through one pool-wide call. A slot
+     reserve pages for it: under ``admission="eager"`` its whole budget
+     (``prompt + max_new_tokens``), deadlock-free with no preemption;
+     under ``admission="incremental"`` only the prompt's pages. A pool that
+     cannot cover the reservation leaves the request queued (backpressure).
+  2. **Grow / preempt** (incremental admission only) — every live slot's
+     page table grows to cover this tick's writes, oldest slot first; when
+     the pool runs out the youngest slot is preempted: its pages are freed
+     and the request goes back to the queue head with its generated tokens
+     appended to the prompt, to be recomputed through chunked prefill.
+     Greedy decoding makes the resumed output token-identical to a
+     never-preempted run (in float32; see ``PERF.md`` for bfloat16).
+  3. **Chunked prefill** — admitted prompts advance one fixed-size chunk
+     (``prefill_chunk`` tokens) per tick through one pool-wide step. A slot
      whose final chunk lands samples its first token from the chunk logits
      and joins this very tick's decode.
-  3. **Decode** — one pooled step advances every decoding slot by one token
-     (per-slot positions, page tables and active masks). Finished slots
-     resolve their futures and free their pages; the next tick's admission
-     refills them.
+  4. **Decode** — one pooled step advances every decoding slot by one token
+     (per-slot positions, page tables and active masks); or, with
+     ``spec_k > 0``, a draft step proposes ``spec_k`` tokens per slot
+     through the model's own head and one batched verify pass commits
+     each slot's accepted prefix (1 to ``spec_k + 1`` tokens). Finished
+     slots resolve their futures and free their pages; the next tick's
+     admission refills them.
 
-The port runs eagerly: there is no compile cache, and each tick is a
-sequence of kernel launches on the current CUDA stream. Sampling draws
-from one ``torch.Generator`` seeded from ``seed``.
+Every slot exit (finish, cancel, deadline, preempt, abort) goes through
+one scrub-then-free tail, which under ``scrub_freed_slots`` zeroes the
+slot's pages before they are recycled. A
+:class:`~repro_torch.serve.faults.FaultInjector` passed as ``faults=``
+forces exhaustion at ``pool.alloc`` and crashes at ``engine.tick`` on a
+seeded schedule.
 
-Threading model: ``submit()`` is thread-safe; ``step()`` /
-``run_until_idle()`` must be driven from one thread.
+The steps run through a :class:`~repro_torch.serve.graphs.GraphCache`,
+the counterpart of the reference's ``CompileCache``: on CUDA every
+decode, chunk, draft and verify tick is the replay of one CUDA graph
+captured once per key, with the host state copied into the entry's
+static inputs first; sampling runs eagerly on the replayed logits with
+one ``torch.Generator`` seeded from ``seed``. :meth:`decode_logits` runs
+the next decode tick eagerly, the check a replay is held against.
+
+Threading model: ``submit()`` and ``cancel()`` are thread-safe;
+``step()`` / ``run_until_idle()`` must be driven from one thread.
 """
 
 from __future__ import annotations
@@ -34,7 +60,7 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,23 +68,59 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
+from repro_torch.serve import cache as cache_lib
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import steps as steps_lib
 from repro_torch.serve.cache import PagedCachePool, PoolExhausted
+from repro_torch.serve.graphs import GraphCache, GraphEntry
 from repro_torch.serve.metrics import EngineMetrics, RequestMetrics
+
+
+class QueueFull(RuntimeError):
+    """The bounded admission queue shed this submit (``queue_limit``
+    queued requests already waiting): load-shedding, not a bug."""
+
+    def __init__(self, limit: int):
+        super().__init__(
+            f"admission queue full ({limit} requests waiting); retry "
+            f"later or raise queue_limit")
+        self.limit = limit
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request blew its ``deadline_ticks``/``deadline_s`` budget —
+    queued or mid-decode — and was dropped, its slot and pages freed."""
+
+    def __init__(self, rid: int, reason: str):
+        super().__init__(f"request {rid} deadline exceeded: {reason}")
+        self.rid = rid
+
+
+class RequestCancelled(RuntimeError):
+    """The request was cancelled via ``cancel(rid)`` before finishing."""
+
+    def __init__(self, rid: int):
+        super().__init__(f"request {rid} cancelled")
+        self.rid = rid
 
 
 @dataclass(frozen=True, eq=False)
 class Request:
     """One generation request. ``prompt`` is normalized to a tuple of ints.
     ``sampling=None`` means the engine-wide policy; a non-None value must
-    equal it. ``rid=None`` lets the engine assign its sequence number."""
+    equal it. ``rid=None`` lets the engine assign its sequence number.
+    Deadlines count from submission: ``deadline_ticks`` in engine ticks,
+    ``deadline_s`` in wall seconds. ``extras`` (a frontend's inputs) must
+    be ``None``: the port serves token-only archs."""
 
     prompt: Tuple[int, ...]
     max_new_tokens: int = 16
     sampling: Optional[sampling_lib.SamplingParams] = None
     stop_token: Optional[int] = None
+    extras: Optional[Mapping] = None
     rid: Optional[int] = None
+    deadline_ticks: Optional[int] = None
+    deadline_s: Optional[float] = None
 
     def __post_init__(self):
         prompt = tuple(int(t) for t in
@@ -69,6 +131,13 @@ class Request:
         if self.max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{self.max_new_tokens}")
+        if self.extras is not None:
+            raise ValueError("extras must be None: the port serves "
+                             "token-only archs (no frontends yet)")
+        for name in ("deadline_ticks", "deadline_s"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"{name} must be positive, got {v}")
 
 
 @dataclass
@@ -83,21 +152,38 @@ class GenerationResult:
 
 @dataclass
 class _Slot:
-    """Host-side state of one queued request or occupied decode lane."""
+    """Host-side state of one queued request or occupied decode lane.
+
+    ``prompt`` is the original prompt the result reports; ``prefill_seq``
+    is what the next admission prefills: ``prompt`` on first admission,
+    ``prompt + tokens so far`` after a preemption. ``tokens`` survives
+    preemption."""
 
     req: Request
     rid: int
     future: Future
     prompt: np.ndarray
+    prefill_seq: np.ndarray = None         # defaults to prompt
     tokens: List[int] = field(default_factory=list)
     cur_pos: int = 0                       # absolute cache write position
     last_token: int = -1
-    prefilled: int = -1                    # prompt tokens prefilled so far;
-    #                                        -1 = not in the chunk phase
+    prefilled: int = -1                    # prefill_seq tokens prefilled
+    #                                        so far; -1 = not in the chunk
+    #                                        phase
+    admit_seq: int = -1                    # admission order; the youngest
+    #                                        (highest) is the preemption
+    #                                        victim
+    anchor: Optional[np.ndarray] = None    # (E,) float32 pre-final-norm
+    #                                        state at the last committed
+    #                                        input: the draft's seed
+
+    def __post_init__(self):
+        if self.prefill_seq is None:
+            self.prefill_seq = self.prompt
 
     @property
     def prefilling(self) -> bool:
-        return 0 <= self.prefilled < self.prompt.size
+        return 0 <= self.prefilled < self.prefill_seq.size
 
     @property
     def decoding(self) -> bool:
@@ -113,23 +199,53 @@ class ServeEngine:
       max_len``.
     * ``page_size`` / ``num_pages`` — paged-pool geometry; ``num_pages``
       defaults to dense-equivalent capacity plus the trash page.
-    * ``prefill_chunk`` — chunked-prefill chunk size.
+    * ``prefill_chunk`` — chunked-prefill chunk size, >= 1.
     * ``sampling`` — engine-wide :class:`SamplingParams` (greedy default).
+    * ``admission`` — ``"eager"`` (whole-budget reservation) or
+      ``"incremental"`` (prompt-only reservation, per-tick growth,
+      preempt-youngest and recompute on exhaustion).
+    * ``spec_k`` — draft tokens per slot per tick (0 = off); greedy only.
+    * ``queue_limit`` — a submit finding that many requests queued raises
+      :class:`QueueFull`; ``None`` = unbounded.
+    * ``faults`` — a :class:`repro_torch.serve.faults.FaultInjector` for
+      the ``pool.alloc`` and ``engine.tick`` sites.
+    * ``scrub_freed_slots`` — zero a slot's pages when its request exits.
     * ``device`` — ``None`` means ``cuda`` and raises without a card; pass
       ``"cpu"`` to serve through the plain PyTorch versions.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int = 4,
                  max_len: int = 128, page_size: int = 16,
-                 num_pages: Optional[int] = None, prefill_chunk: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = 16,
                  sampling: sampling_lib.SamplingParams = sampling_lib.GREEDY,
-                 seed: int = 0,
+                 admission: str = "eager", spec_k: int = 0,
+                 queue_limit: Optional[int] = None, faults=None,
+                 seed: int = 0, scrub_freed_slots: bool = False,
                  device: Union[str, torch.device, None] = None):
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
-        if prefill_chunk < 1:
-            raise ValueError(f"prefill_chunk must be >= 1, got "
-                             f"{prefill_chunk}")
+        if admission not in ("eager", "incremental"):
+            raise ValueError(f"unknown admission policy {admission!r}: "
+                             f"expected 'eager' or 'incremental'")
+        if queue_limit is not None and queue_limit < 1:
+            raise ValueError(f"queue_limit must be >= 1 or None, got "
+                             f"{queue_limit}")
+        if (not prefill_chunk or prefill_chunk < 1
+                or not cache_lib.paged_supported(cfg)):
+            raise ValueError(
+                f"the port serves through the paged pool with chunked "
+                f"prefill only (admission='incremental' and spec_k > 0 "
+                f"ride that path too; the dense pool and bucketed prefill "
+                f"are not ported); got prefill_chunk={prefill_chunk!r} for "
+                f"{cfg.name}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k and not sampling.greedy:
+            raise ValueError(
+                "spec_k > 0 requires greedy sampling (temperature=0): "
+                "verification commits the model's argmax targets, which is "
+                f"only lossless under greedy — got {sampling}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -137,29 +253,95 @@ class ServeEngine:
         self.max_len = int(max_len)
         self.prefill_chunk = int(prefill_chunk)
         self.sampling = sampling
+        self.admission = admission
+        self.spec_k = int(spec_k)
+        self.queue_limit = queue_limit
+        self.faults = faults
+        self.scrub_freed_slots = scrub_freed_slots
         self.pool = PagedCachePool(cfg, slots, self.max_len,
                                    page_size=page_size, num_pages=num_pages,
                                    device=self.device)
+        self.pool.faults = faults
         self._caches = self.pool.init()
         self._slots: List[Optional[_Slot]] = [None] * slots
         self._queue: collections.deque = collections.deque()
         self._lock = threading.Lock()
         self._next_rid = 0
+        self._admit_seq = 0
+        self._cancels: set = set()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._sample_fn = functools.partial(sampling_lib.sample_logits,
                                             params=sampling)
-        self._decode_step = steps_lib.make_pool_serve_step(
-            self.model, self._sample_fn)
-        self._chunk_step = steps_lib.make_chunk_prefill_step(self.model)
-        self.metrics = EngineMetrics(slots=slots, pool_kind="paged",
-                                     admission="eager",
-                                     total_pages=self.pool.total_pages)
+        self.graphs = GraphCache(self.device)
+        self.metrics = self._fresh_metrics()
+
+    def _fresh_metrics(self, history: int = 1024) -> EngineMetrics:
+        return EngineMetrics(slots=self.slots, max_request_history=history,
+                             pool_kind="paged", admission=self.admission,
+                             total_pages=self.pool.total_pages,
+                             spec_k=self.spec_k)
+
+    # -- the graph cache's entries --------------------------------------
+
+    def _static(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _decode_entry(self) -> GraphEntry:
+        key = ("decode", self.cfg.name, self.slots, self.sampling)
+        S, i32 = self.slots, torch.int32
+        return self.graphs.entry(key, lambda: (
+            steps_lib.make_pool_decode_step(self.model, self._caches),
+            {"tokens": self._static((S,), i32),
+             "cur_pos": self._static((S,), i32),
+             "active": self._static((S,), torch.bool),
+             "page_table": self.pool.gather_args()["page_table"]}))
+
+    def _chunk_entry(self) -> GraphEntry:
+        key = ("chunk_prefill", self.cfg.name, self.slots,
+               self.prefill_chunk)
+        S, C, i32 = self.slots, self.prefill_chunk, torch.int32
+        return self.graphs.entry(key, lambda: (
+            steps_lib.make_chunk_prefill_step(self.model, self._caches),
+            {"tokens": self._static((S, C), i32),
+             "start_pos": self._static((S,), i32),
+             "last_idx": self._static((S,), i32),
+             "active": self._static((S,), torch.bool),
+             "page_table": self.pool.gather_args()["page_table"]}))
+
+    def _verify_entry(self) -> GraphEntry:
+        key = ("spec_verify", self.cfg.name, self.slots, self.spec_k)
+        S, K1, i32 = self.slots, self.spec_k + 1, torch.int32
+        return self.graphs.entry(key, lambda: (
+            steps_lib.make_spec_decode_step(self.model, self._caches,
+                                            self.spec_k),
+            {"tokens": self._static((S, K1), i32),
+             "cur_pos": self._static((S,), i32),
+             "active": self._static((S,), torch.bool),
+             "page_table": self.pool.gather_args()["page_table"]}))
+
+    def _draft_entry(self) -> GraphEntry:
+        key = ("spec_draft", self.cfg.name, self.slots, self.spec_k)
+        S = self.slots
+        return self.graphs.entry(key, lambda: (
+            steps_lib.make_draft_step(self.model, self.spec_k),
+            {"anchor": self._static((S, self.cfg.d_model), torch.float32),
+             "last_token": self._static((S,), torch.int32)}))
+
+    def _run(self, entry: GraphEntry, **host: np.ndarray
+             ) -> Tuple[torch.Tensor, ...]:
+        """Copy ``host`` arrays and the page table into the entry's static
+        inputs, then build or replay it."""
+        entry.load(**host)
+        if "page_table" in entry.inputs:
+            self.pool.gather_args()          # refresh the device table
+        return self.graphs.run(entry)
 
     # -- client surface ------------------------------------------------
 
     def submit(self, request: Request) -> Future:
         """Queue a :class:`Request`; returns a future resolving to a
-        :class:`GenerationResult`. Thread-safe."""
+        :class:`GenerationResult`. Thread-safe. Raises :class:`QueueFull`
+        when ``queue_limit`` requests already wait."""
         if not isinstance(request, Request):
             raise TypeError(f"submit() takes a Request, got "
                             f"{type(request).__name__}")
@@ -180,6 +362,10 @@ class ServeEngine:
                 f"request needs {need} pages but the pool only has "
                 f"{self.pool.total_pages - 1} usable pages")
         with self._lock:
+            if (self.queue_limit is not None
+                    and len(self._queue) >= self.queue_limit):
+                self.metrics.on_queue_full()
+                raise QueueFull(self.queue_limit)
             if request.rid is None:
                 rid = self._next_rid
             else:
@@ -205,6 +391,10 @@ class ServeEngine:
         with self._lock:
             return len(self._queue)
 
+    def outstanding(self) -> int:
+        """Queued + in-flight requests (thread-safe)."""
+        return self.queued() + self.occupied_slots()
+
     def active_requests(self) -> List[int]:
         return [s.rid for s in self._slots if s is not None]
 
@@ -213,14 +403,126 @@ class ServeEngine:
         """The live KV pool ``{"k", "v"}``, written in place every tick."""
         return self._caches
 
+    @property
+    def compile_stats(self) -> Dict:
+        """``{"compiles": entries built, "traces": {key: builds},
+        "replays": {key: runs after the build}}``; per-key launches and
+        capture costs are in ``self.graphs.stats()``."""
+        return {"compiles": self.graphs.compiles,
+                "traces": dict(self.graphs.traces),
+                "replays": dict(self.graphs.replays)}
+
+    def drain_queued(self) -> List[Tuple[_Slot, object]]:
+        """Pop every not-yet-admitted request off the queue, returning
+        ``(slot, record)`` pairs for :meth:`adopt` on another engine. The
+        slot travels whole (a preempted request keeps its generated
+        tokens). Tick thread only."""
+        with self._lock:
+            stolen = list(self._queue)
+            self._queue.clear()
+        return [(s, self.metrics.evict(s.rid)) for s in stolen]
+
+    def adopt(self, slot: _Slot, record=None, *, front: bool = False
+              ) -> None:
+        """Enqueue a slot drained from another engine: same request, same
+        future, same generated tokens. ``queue_limit`` does not apply (the
+        request was already accepted). Thread-safe."""
+        budget = int(slot.prompt.size) + slot.req.max_new_tokens
+        if budget > self.max_len:
+            raise ValueError(
+                f"adopted request {slot.rid} needs {budget} tokens but "
+                f"this engine's max_len is {self.max_len}")
+        with self._lock:
+            if (self.metrics.request(slot.rid) is not None
+                    or any(s.rid == slot.rid for s in self._queue)):
+                raise ValueError(f"rid {slot.rid} is already live on "
+                                 f"this engine")
+            self._next_rid = max(self._next_rid, slot.rid + 1)
+            if record is not None:
+                self.metrics.adopt(record)
+            else:
+                self.metrics.on_submit(slot.rid, int(slot.prompt.size))
+            if front:
+                self._queue.appendleft(slot)
+            else:
+                self._queue.append(slot)
+
+    def set_params(self, params: Union[LM, Mapping[str, torch.Tensor]]
+                   ) -> None:
+        """Swap in new weights, an :class:`LM` or its state dict, by
+        copying them into the live parameters in place: the captured graphs
+        read the parameters at their addresses, so rebinding them would
+        leave the graphs on the old weights. Refuses under live requests (a
+        swap mid-flight would splice two checkpoints into one output)."""
+        if self.has_work():
+            raise RuntimeError("set_params with requests queued or in "
+                               "flight — drain this engine first")
+        state = (params.state_dict() if isinstance(params, torch.nn.Module)
+                 else params)
+        with torch.no_grad():
+            self.model.load_state_dict(state, strict=True)
+
+    def abort_all(self, exc: BaseException) -> None:
+        """Fail every queued and in-flight request with ``exc`` (the crash
+        path for whoever drives the loop). The pool is left empty; the
+        engine stays usable."""
+        with self._lock:
+            dead = list(self._queue)
+            self._queue.clear()
+            self._cancels.clear()
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                self._slots[i] = None
+                self._release_slot(i)
+                dead.append(s)
+        self.metrics.sync_pool(self.pool)
+        for s in dead:
+            self.metrics.evict(s.rid)
+            if not s.future.done():
+                s.future.set_exception(exc)
+
+    def cancel(self, rid: int) -> bool:
+        """Ask to cancel a queued or in-flight request; ``True`` when
+        ``rid`` is live. Processed at the next tick boundary: the future
+        resolves with :class:`RequestCancelled`, slot and pages free."""
+        with self._lock:
+            known = any(s.rid == rid for s in self._queue)
+        known = known or any(s is not None and s.rid == rid
+                             for s in self._slots)
+        if not known:
+            return False
+        with self._lock:
+            self._cancels.add(rid)
+        return True
+
+    def reset_metrics(self) -> None:
+        """Fresh metrics (tick clock included) and a rebased page
+        high-water mark, keeping the graphs and the pool's allocations.
+        Only with no request in flight."""
+        if self.has_work():
+            raise RuntimeError("reset_metrics with requests in flight")
+        self.pool.reset_stats()
+        self.metrics = self._fresh_metrics(
+            history=self.metrics.max_request_history)
+        self.metrics.sync_pool(self.pool)
+
     # -- the tick loop -------------------------------------------------
 
     def step(self) -> int:
-        """One engine tick: admit into free slots, advance chunked prefills
-        by one chunk, then one pooled decode. Returns the number of slots
-        still active after the tick."""
+        """One engine tick: cancels, deadlines, admission, the
+        ``engine.tick`` fault site, page growth (incremental admission),
+        one prefill chunk, then one pooled decode. Returns the number of
+        slots still active after the tick."""
+        self._process_cancels()
+        self._expire_deadlines()
         self._admit()
         self.metrics.on_occupancy(self.occupied_slots())
+        if self.faults is not None:
+            # admissions landed, compute has not run: where a device error
+            # would strand futures if the loop's abort path were broken
+            self.faults.check("engine.tick")
+        if self.admission == "incremental":
+            self._grow_pages()
         self._chunk_tick()
         if any(s is not None and s.decoding for s in self._slots):
             self._decode_tick()
@@ -238,26 +540,107 @@ class ServeEngine:
                     f"(active={self.active_requests()})")
         return self.metrics.ticks - start
 
+    def decode_inputs(self) -> Tuple[np.ndarray, ...]:
+        """``(tokens, cur_pos, active)``, each ``(slots,)`` on the host, of
+        the pooled decode tick the engine would run next."""
+        tokens = np.zeros((self.slots,), np.int32)
+        cur_pos = np.zeros((self.slots,), np.int32)
+        active = np.zeros((self.slots,), bool)
+        for i, s in enumerate(self._slots):
+            if s is None or s.prefilling:
+                continue
+            tokens[i] = s.last_token
+            cur_pos[i] = s.cur_pos
+            active[i] = True
+        return tokens, cur_pos, active
+
     def decode_logits(self, backend: str = "auto") -> torch.Tensor:
         """Logits (slots, V) of the pooled decode tick the engine would run
-        next, under ``backend`` (:mod:`repro_torch.kernels.context`), on a
-        copy of the KV pool: the engine's caches and host state are
-        untouched. For holding one backend against another on live engine
-        state."""
+        next, run eagerly under ``backend``
+        (:mod:`repro_torch.kernels.context`) on a copy of the KV pool: the
+        engine's caches and host state are untouched."""
         if not any(s is not None and s.decoding for s in self._slots):
             raise RuntimeError("no slot is decoding")
         caches = {t: c.clone() for t, c in self._caches.items()}
+        step = steps_lib.make_pool_decode_step(self.model, caches)
+        tokens, cur_pos, active = (torch.from_numpy(a).to(self.device)
+                                   for a in self.decode_inputs())
+        return step(tokens, cur_pos, active,
+                    self.pool.gather_args()["page_table"],
+                    backend=backend)[0]
+
+    def replay_decode_logits(self) -> torch.Tensor:
+        """Logits (slots, V) of the next pooled decode tick through the
+        graph cache's decode entry (a replay once the entry is built), on
+        the live KV pool, returned as a copy. The entry writes each active
+        slot's K/V at ``cur_pos``, which the next decode tick writes again
+        before any read, so engine state is unchanged."""
+        if not any(s is not None and s.decoding for s in self._slots):
+            raise RuntimeError("no slot is decoding")
         tokens, cur_pos, active = self.decode_inputs()
-        _, logits = self._decode_step(
-            tokens, caches, cur_pos, active,
-            self.pool.gather_args()["page_table"], self._gen,
-            backend=backend)
-        return logits
+        return self._run(self._decode_entry(), tokens=tokens,
+                         cur_pos=cur_pos, active=active)[0].clone()
+
+    def _spec_inputs(self) -> Tuple[np.ndarray, ...]:
+        """``(last_token, cur_pos, active, anchor)`` on the host of the
+        speculative tick the engine would run next: each ``(slots,)``,
+        ``anchor (slots, d_model)`` float32."""
+        last = np.zeros((self.slots,), np.int32)
+        cur_pos = np.zeros((self.slots,), np.int32)
+        active = np.zeros((self.slots,), bool)
+        anchor = np.zeros((self.slots, self.cfg.d_model), np.float32)
+        for i, s in enumerate(self._slots):
+            if s is None or s.prefilling:
+                continue
+            last[i] = s.last_token
+            cur_pos[i] = s.cur_pos
+            active[i] = True
+            anchor[i] = s.anchor
+        return last, cur_pos, active, anchor
+
+    def replay_verify_logits(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(tokens (slots, spec_k+1), logits (slots, spec_k+1, V))`` of
+        the next speculative tick through the draft and verify entries
+        (replays once built), on the live KV pool, returned as copies. The
+        verify entry writes each active slot's K/V at ``cur_pos ..
+        cur_pos+spec_k`` from the same drafts the next tick makes, so engine
+        state is unchanged."""
+        if not self.spec_k:
+            raise RuntimeError("the engine does not speculate (spec_k=0)")
+        if not any(s is not None and s.decoding for s in self._slots):
+            raise RuntimeError("no slot is decoding")
+        *_, logits = self._run_spec()
+        return (self._verify_entry().inputs["tokens"].clone(),
+                logits.clone())
+
+    def verify_logits(self, tokens: torch.Tensor, backend: str = "auto"
+                      ) -> torch.Tensor:
+        """Logits (slots, spec_k+1, V) of the next speculative tick's
+        verify pass on ``tokens`` (slots, spec_k+1), run eagerly under
+        ``backend`` on a copy of the KV pool: the check a verify replay is
+        held against."""
+        _, cur_pos, active, _ = self._spec_inputs()
+        caches = {t: c.clone() for t, c in self._caches.items()}
+        step = steps_lib.make_spec_decode_step(self.model, caches,
+                                               self.spec_k)
+        return step(tokens.to(self.device),
+                    torch.from_numpy(cur_pos).to(self.device),
+                    torch.from_numpy(active).to(self.device),
+                    self.pool.gather_args()["page_table"],
+                    backend=backend)[3]
 
     # -- internals -----------------------------------------------------
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    def _run_spec(self) -> Tuple[torch.Tensor, ...]:
+        """The draft entry, then the verify entry on its drafts: the
+        verify's ``(targets, accepted, anchor, logits)``."""
+        last, cur_pos, active, anchor = self._spec_inputs()
+        (drafts,) = self._run(self._draft_entry(), anchor=anchor,
+                              last_token=last)
+        verify = self._verify_entry()
+        verify.inputs["tokens"][:, 1:].copy_(drafts)
+        verify.inputs["tokens"][:, 0].copy_(torch.from_numpy(last))
+        return self._run(verify, cur_pos=cur_pos, active=active)
 
     def _admit(self) -> None:
         while True:
@@ -269,9 +652,11 @@ class ServeEngine:
                 if not self._queue:
                     return
                 slot = self._queue[0]
+            budget = int(slot.prefill_seq.size)
+            if self.admission == "eager":
+                budget += slot.req.max_new_tokens
             try:
-                self.pool.alloc_pages(
-                    idx, int(slot.prompt.size) + slot.req.max_new_tokens)
+                self.pool.alloc_pages(idx, budget)
             except PoolExhausted:
                 # keep FIFO order: the head request waits for pages
                 self.metrics.on_pool_exhausted()
@@ -280,12 +665,144 @@ class ServeEngine:
                 self._queue.popleft()
             self.metrics.sync_pool(self.pool)
             self.metrics.on_admit(slot.rid)
+            slot.admit_seq = self._admit_seq
+            self._admit_seq += 1
             slot.prefilled = 0
             self._slots[idx] = slot
 
+    # -- lifecycle: cancel / deadline / preempt -------------------------
+
+    def _resolve_dead(self, dead: List[Tuple[_Slot, BaseException]],
+                      on_record: Callable[[int], None]) -> None:
+        for s, exc in dead:
+            on_record(s.rid)
+            if not s.future.done():
+                s.future.set_exception(exc)
+
+    def _process_cancels(self) -> None:
+        with self._lock:
+            if not self._cancels:
+                return
+            rids, self._cancels = self._cancels, set()
+            hit = [s for s in self._queue if s.rid in rids]
+            for s in hit:
+                self._queue.remove(s)
+        for i, s in enumerate(self._slots):
+            if s is not None and s.rid in rids:
+                self._slots[i] = None
+                self._release_slot(i)
+                hit.append(s)
+        if hit:
+            self.metrics.sync_pool(self.pool)
+        self._resolve_dead([(s, RequestCancelled(s.rid)) for s in hit],
+                           self.metrics.on_cancel)
+
+    def _deadline_reason(self, slot: _Slot) -> Optional[str]:
+        req = slot.req
+        if req.deadline_ticks is None and req.deadline_s is None:
+            return None
+        rm = self.metrics.request(slot.rid)
+        if rm is None:
+            return None
+        if req.deadline_ticks is not None:
+            waited = self.metrics.ticks - rm.submit_tick
+            if waited >= req.deadline_ticks:
+                return (f"{waited} ticks since submit >= deadline_ticks="
+                        f"{req.deadline_ticks}")
+        if req.deadline_s is not None:
+            waited_s = self.metrics.clock() - rm.submit_t
+            if waited_s >= req.deadline_s:
+                return (f"{waited_s:.3f}s since submit >= deadline_s="
+                        f"{req.deadline_s}")
+        return None
+
+    def _expire_deadlines(self) -> None:
+        with self._lock:
+            expired = [(s, self._deadline_reason(s)) for s in self._queue]
+            expired = [(s, r) for s, r in expired if r is not None]
+            for s, _ in expired:
+                self._queue.remove(s)
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            r = self._deadline_reason(s)
+            if r is not None:
+                self._slots[i] = None
+                self._release_slot(i)
+                expired.append((s, r))
+        if expired:
+            self.metrics.sync_pool(self.pool)
+        self._resolve_dead(
+            [(s, DeadlineExceeded(s.rid, r)) for s, r in expired],
+            self.metrics.on_deadline)
+
+    def _preempt(self, idx: int) -> None:
+        """Kick slot ``idx`` for pages: free them and requeue the request
+        at the queue head with its generated tokens appended to the
+        prompt; re-admission recomputes the prefix through chunked
+        prefill."""
+        s = self._slots[idx]
+        self._slots[idx] = None
+        self._release_slot(idx)
+        computed = (s.prefilled if s.prefilling
+                    else int(s.prompt.size) + len(s.tokens))
+        if s.tokens:
+            s.prefill_seq = np.concatenate(
+                [s.prompt, np.asarray(s.tokens, np.int32)])
+        else:
+            s.prefill_seq = s.prompt
+        s.prefilled = -1
+        s.cur_pos = 0
+        s.last_token = -1
+        s.anchor = None              # the recompute's final chunk re-derives
+        self.metrics.on_preempt(s.rid, computed)
+        with self._lock:
+            self._queue.appendleft(s)
+
+    def _grow_pages(self) -> None:
+        """Incremental admission: grow every live slot's pages to cover
+        this tick's writes, oldest slot first; on :class:`PoolExhausted`
+        preempt the youngest slot and retry (the growing slot may preempt
+        itself). Terminates: every preemption frees pages, and ``submit``
+        rejected any request whose budget could never fit."""
+        C = self.prefill_chunk
+        order = sorted(
+            (i for i, s in enumerate(self._slots) if s is not None),
+            key=lambda i: self._slots[i].admit_seq)
+        for i in order:
+            s = self._slots[i]
+            if s is None:                  # preempted as a younger victim
+                continue
+            # a speculative tick writes spec_k draft positions past the
+            # committed one; never grow past the request's own budget
+            # (writes beyond it go to the trash page)
+            budget = int(s.prompt.size) + s.req.max_new_tokens
+            if s.prefilling:
+                end = min(s.prefilled + C, int(s.prefill_seq.size))
+                need = end
+                if end == s.prefill_seq.size:
+                    # the final chunk lands: this tick's decode writes too
+                    need = min(need + 1 + self.spec_k, budget)
+            else:
+                need = min(s.cur_pos + 1 + self.spec_k, budget)
+            while True:
+                try:
+                    self.pool.alloc_pages(i, need)
+                    break
+                except PoolExhausted:
+                    self.metrics.on_pool_exhausted()
+                    victim = max(
+                        (j for j, v in enumerate(self._slots)
+                         if v is not None),
+                        key=lambda j: self._slots[j].admit_seq)
+                    self._preempt(victim)
+                    if victim == i:
+                        break              # kicked ourselves
+        self.metrics.sync_pool(self.pool)
+
     def _chunk_tick(self) -> None:
-        """Advance every prefilling slot by one prompt chunk (one pooled
-        call); slots whose final chunk lands sample their first token."""
+        """Advance every prefilling slot by one chunk (one pooled step);
+        slots whose final chunk lands sample their next token."""
         live = [(i, s) for i, s in enumerate(self._slots)
                 if s is not None and s.prefilling]
         if not live:
@@ -298,69 +815,67 @@ class ServeEngine:
         spans = {}
         for i, s in live:
             lo = s.prefilled
-            hi = min(lo + C, int(s.prompt.size))
-            tokens[i, :hi - lo] = s.prompt[lo:hi]
+            hi = min(lo + C, int(s.prefill_seq.size))
+            tokens[i, :hi - lo] = s.prefill_seq[lo:hi]
             start[i] = lo
             last[i] = hi - lo - 1
             active[i] = True
             spans[i] = (lo, hi)
+        entry = self._chunk_entry()
+        build = not self.graphs.built(entry)
         t0 = time.monotonic()
-        logits, _ = self._chunk_step(
-            self._tensor(tokens), self._caches, self._tensor(start),
-            self._tensor(last), self._tensor(active),
-            self.pool.gather_args()["page_table"])
-        if self.device.type == "cuda":
+        logits, h_last = self._run(entry, tokens=tokens, start_pos=start,
+                                   last_idx=last, active=active)
+        done = [i for i, s in live if spans[i][1] == s.prefill_seq.size]
+        first, anchors = {}, None
+        if done:
+            rows = torch.tensor(done, device=self.device)
+            toks = self._sample_fn(logits[rows], self._gen)
+            first = dict(zip(done, toks.cpu().tolist()))
+            if self.spec_k:
+                anchors = h_last.float().cpu().numpy()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.metrics.on_prefill_work(
-            sum(hi - lo for lo, hi in spans.values()), time.monotonic() - t0)
-        done = [i for i, s in live if spans[i][1] == s.prompt.size]
-        first = {}
-        if done:
-            rows = self._tensor(np.asarray(done, np.int64))
-            with torch.no_grad():
-                toks = self._sample_fn(logits[rows], self._gen)
-            first = dict(zip(done, toks.cpu().tolist()))
+            sum(hi - lo for lo, hi in spans.values()), time.monotonic() - t0,
+            build=build)
         finishers = []
         for i, s in live:
             s.prefilled = spans[i][1]
             if i not in first:
                 continue
-            self.metrics.on_prefill_done()
-            self.metrics.on_first_token(s.rid)
+            if s.tokens:
+                # resumed after preemption: the recomputed prefix ends in
+                # generated tokens, so this is the NEXT token, and the
+                # request's one real prefill was already counted
+                self.metrics.on_token(s.rid)
+            else:
+                self.metrics.on_prefill_done()
+                self.metrics.on_first_token(s.rid)
             s.tokens.append(int(first[i]))
             s.last_token = int(first[i])
-            s.cur_pos = int(s.prompt.size)
+            s.cur_pos = int(s.prefill_seq.size)
             s.prefilled = -1                # decode phase
+            if anchors is not None:
+                s.anchor = anchors[i]
             if self._finished(s):
                 finishers.append(i)
         for i in finishers:
             self._finish(i)
 
-    def decode_inputs(self) -> Tuple[torch.Tensor, ...]:
-        """``(tokens, cur_pos, active)``, each ``(slots,)``, of the pooled
-        decode tick the engine would run next."""
-        tokens = np.zeros((self.slots,), np.int32)
-        cur_pos = np.zeros((self.slots,), np.int32)
-        active = np.zeros((self.slots,), bool)
-        for i, s in enumerate(self._slots):
-            if s is None or s.prefilling:
-                continue
-            tokens[i] = s.last_token
-            cur_pos[i] = s.cur_pos
-            active[i] = True
-        return self._tensor(tokens), self._tensor(cur_pos), \
-            self._tensor(active)
-
     def _decode_tick(self) -> None:
+        if self.spec_k:
+            return self._spec_decode_tick()
         tokens, cur_pos, active = self.decode_inputs()
+        entry = self._decode_entry()
+        build = not self.graphs.built(entry)
         t0 = time.monotonic()
-        nxt, _ = self._decode_step(tokens, self._caches, cur_pos, active,
-                                   self.pool.gather_args()["page_table"],
-                                   self._gen)
-        nxt = nxt.cpu().tolist()
-        n_active = sum(s is not None and s.decoding for s in self._slots)
+        (logits,) = self._run(entry, tokens=tokens, cur_pos=cur_pos,
+                              active=active)
+        nxt = self._sample_fn(logits, self._gen).cpu().tolist()
+        n_active = int(active.sum())
         self.metrics.on_decode_tick(n_active, n_active,
-                                    time.monotonic() - t0)
+                                    time.monotonic() - t0, build=build)
         for i, s in enumerate(self._slots):
             if s is None or s.prefilling:
                 continue
@@ -371,17 +886,69 @@ class ServeEngine:
             if self._finished(s):
                 self._finish(i)
 
+    def _spec_decode_tick(self) -> None:
+        """Draft-k-verify-1: the draft entry proposes ``spec_k`` tokens per
+        slot from each slot's anchor, the verify entry checks every
+        position in one batched pass, and each slot commits its accepted
+        prefix. The committed tokens are the verify pass's own greedy
+        targets, so acceptance decides how many land per tick, never which.
+        A commit cut short (budget or stop token) finishes the slot, so the
+        verify anchor, valid only for full commits, is never used stale."""
+        live = [(i, s) for i, s in enumerate(self._slots)
+                if s is not None and s.decoding]
+        if not live:
+            return
+        build = not (self.graphs.built(self._draft_entry())
+                     and self.graphs.built(self._verify_entry()))
+        t0 = time.monotonic()
+        targets, accepted, anchor_out, _ = self._run_spec()
+        targets = targets.cpu().numpy()
+        accepted = accepted.cpu().numpy()
+        anchor_out = anchor_out.float().cpu().numpy()
+        committed_total = 0
+        for i, s in live:
+            m = min(int(accepted[i]) + 1,
+                    s.req.max_new_tokens - len(s.tokens))
+            toks = [int(t) for t in targets[i, :m]]
+            stop = s.req.stop_token
+            if stop is not None and stop in toks:
+                toks = toks[:toks.index(stop) + 1]
+            s.tokens.extend(toks)
+            s.last_token = toks[-1]
+            s.cur_pos += len(toks)
+            s.anchor = anchor_out[i]
+            committed_total += len(toks)
+            self.metrics.on_token(s.rid, len(toks))
+        self.metrics.on_spec_tick(
+            drafted=len(live) * self.spec_k,
+            accepted=int(accepted[[i for i, _ in live]].sum()))
+        self.metrics.on_decode_tick(len(live), committed_total,
+                                    time.monotonic() - t0, build=build)
+        for i, s in live:
+            if self._finished(s):
+                self._finish(i)
+
     def _finished(self, slot: _Slot) -> bool:
         if len(slot.tokens) >= slot.req.max_new_tokens:
             return True
         stop = slot.req.stop_token
         return stop is not None and slot.last_token == stop
 
+    def _release_slot(self, idx: int) -> None:
+        """The one scrub-then-free tail of every slot exit (finish, cancel,
+        deadline, preempt, abort): under ``scrub_freed_slots`` the slot's
+        pages are zeroed BEFORE ``pool.free()``, which sends its table row
+        to the trash page (a later scrub would zero the trash page and
+        leave the request's KV in recycled pages)."""
+        if self.scrub_freed_slots:
+            self.pool.reset_slot(self._caches, idx)
+        self.pool.free(idx)
+
     def _finish(self, idx: int) -> None:
         slot = self._slots[idx]
         self._slots[idx] = None
         rm = self.metrics.on_finish(slot.rid)
-        self.pool.free(idx)
+        self._release_slot(idx)
         self.metrics.sync_pool(self.pool)
         slot.future.set_result(GenerationResult(
             rid=slot.rid, prompt=slot.prompt, tokens=list(slot.tokens),

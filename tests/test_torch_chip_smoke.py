@@ -1,6 +1,9 @@
 """Rehearsal of `chip_smoke.py` on the CPU: every phase after the build
-(the sandwich factor and forward checks, serving and its greedy-token
-check, the sandwich backward and factor-VJP checks, the wide-width checks at
+(the sandwich factor and forward checks, serving on the graph cache's
+eager CPU entries and its greedy-token checks under eager and incremental
+admission and speculative decoding, the full-width-shaped incremental and
+speculative runs,
+the sandwich backward and factor-VJP checks, the wide-width checks at
 100 -> 36, training and its gradient check, the butterfly kernels' checks,
 the encoder-decoder at 64 x 256, the flash kernels' checks at small shapes
 and the benches at n = 64) runs on the
@@ -57,8 +60,23 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
                         bench=dict(ns=(64,), batch=4, iters=1),
                         wide=("wide", 100, 36))
     out = capsys.readouterr().out
-    assert "serve: 16 requests" in out
-    assert "give the same greedy tokens (64 tokens" in out
+    assert "serve: 16 requests" in out and "on graphs (2 built)" in out
+    assert "decode tick replay vs eager (torch)" in out
+    assert "graph decode | smollm-135m-butterfly-smoke | 8 | " in out
+    assert "graph chunk_prefill | smollm-135m-butterfly-smoke | 8 | 16: " \
+        "captures 1, replays 31" in out
+    for mode in ("eager", "incremental", "spec"):
+        assert f"serve tokens {mode}: " in out
+    assert out.count("give the same greedy tokens (64 tokens") == 3
+    assert "tokens; preempted 2, spec ticks 0;" in out
+    assert "serve incremental: 40 usable pages" in out
+    assert "tokens equal to the eager admission run" in out
+    assert "verify tick replay vs eager (torch), bfloat16, (8, 4) tokens" \
+        in out
+    assert "graph spec_draft | smollm-135m-butterfly-smoke | 8 | 3: " \
+        "captures 1, replays" in out
+    assert "serve spec_k=3: " in out and "acceptance " in out
+    assert out.count("tokens equal to the eager admission run") == 2
     assert "sandwich_bwd wide 100->36 (n1 128, n2 64, k 7/5) rows=64 " \
         "bfloat16" in out
     assert "sandwich factors vjp lm_head  max|err|" in out

@@ -6,9 +6,12 @@ Greedy outputs of the port's `ServeEngine` must equal the JAX unsharded
 `slots=2` with 4 requests makes slots refill, and one prompt is longer
 than the 16-token prefill chunk. On the card (marked ``gpu``), the same
 prompts through the kernels must give the CPU plain path's tokens, which
-closes the chain from the card to the reference. The reference is imported
-inside the tests that use it, so the card's machine, which has no JAX, runs
-the ``gpu`` test from the repo root with
+closes the chain from the card to the reference; on the card the engine
+replays CUDA graphs of its ticks, and the ``gpu`` tests also hold the
+decode and verify replays against the same passes run eagerly and the
+launch counters against the per-tick formula. The reference is imported
+inside the tests that use it, so the card's machine, which has no JAX,
+runs the ``gpu`` tests from the repo root with
 
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_serve.py
 """
@@ -169,7 +172,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.runtime.fault_tolerance, repro_torch.core.encdec, "
             "repro_torch.kernels.butterfly, repro_torch.launch.encdec, "
             "repro_torch.data.synthetic, repro_torch.kernels.flash, "
-            "repro_torch.launch.speed; "
+            "repro_torch.launch.speed, repro_torch.serve.faults, "
+            "repro_torch.serve.graphs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'benchmarks')]; "
             "assert not bad, bad")
@@ -178,14 +182,8 @@ def test_port_imports_neither_jax_nor_reference():
                    timeout=120)
 
 
-@pytest.mark.gpu
-def test_greedy_tokens_on_card_match_cpu_plain_path():
-    """``chip_smoke.py``'s token phase: ``smollm-135m-butterfly-smoke`` in
-    float32, weights made once on the CPU, served through the kernels on
-    the card and through the plain versions on the CPU with the prompts of
-    the test above (slots 2, chunks of 16, 16 new tokens): every token
-    equal, or the phase prints the request, step and logit gap and
-    raises."""
+def _smoke_script():
+    """``chip_smoke.py`` as a module (its phases are the card checks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run `pytest -m gpu` on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,4 +191,114 @@ def test_greedy_tokens_on_card_match_cpu_plain_path():
         "chip_smoke", os.path.join(SRC, "..", "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    smoke.phase_serve_tokens(torch, np, torch.device("cuda"))
+    return smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["eager", "incremental", "spec"])
+def test_greedy_tokens_on_card_match_cpu_plain_path(mode):
+    """``chip_smoke.py``'s token phase: ``smollm-135m-butterfly-smoke`` in
+    float32, weights made once on the CPU, served through the kernels on
+    graphs on the card and through the plain versions on the CPU with the
+    prompts of the test above (slots 2, chunks of 16, 16 new tokens), under
+    eager admission, incremental admission with a preemption, and
+    ``spec_k=3``: every token equal, or the phase prints the request, step
+    and logit gap and raises."""
+    smoke = _smoke_script()
+    smoke.serve_tokens_case(torch, np, torch.device("cuda"), mode)
+
+
+@pytest.mark.gpu
+def test_graph_replay_matches_eager_tick_at_full_width():
+    """Full-width ``smollm-135m-butterfly`` in bfloat16, 8 slots: a replay of
+    the decode graph gives the logits of the same tick run eagerly through
+    the kernels (``decode_logits(backend="cuda")``) within the bfloat16
+    layer tolerance; whether bit for bit is printed."""
+    smoke = _smoke_script()
+    from repro_torch.configs import registry
+    cfg = registry.get("smollm-135m-butterfly")
+    dev = torch.device("cuda")
+    eng = ServeEngine(cfg, loader.init_params(cfg, seed=0, device=dev),
+                      slots=8, max_len=512, device=dev)
+    rng = np.random.default_rng(4)
+    for n in range(8):
+        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 5 + n),
+                           max_new_tokens=8))
+    eng.step()
+    eng.step()
+    out = smoke.replay_vs_eager(torch, eng, "cuda")
+    assert out["rel"] <= smoke.LAYER_TOL
+    print(f"replay vs eager: bit for bit {out['bitwise']}, relative norm "
+          f"{out['rel']:.3e}")
+
+
+@pytest.mark.gpu
+def test_verify_replay_matches_eager_pass_at_full_width():
+    """Full-width ``smollm-135m-butterfly`` in bfloat16, 8 slots, ``spec_k``
+    3: replays of the draft and verify graphs give the verify logits of the
+    same pass run eagerly through the kernels on the same drafts within the
+    bfloat16 layer tolerance; whether bit for bit is printed."""
+    smoke = _smoke_script()
+    from repro_torch.configs import registry
+    cfg = registry.get("smollm-135m-butterfly")
+    dev = torch.device("cuda")
+    eng = ServeEngine(cfg, loader.init_params(cfg, seed=0, device=dev),
+                      slots=8, max_len=512, spec_k=3, device=dev)
+    rng = np.random.default_rng(4)
+    for n in range(8):
+        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 5 + n),
+                           max_new_tokens=16))
+    eng.step()
+    out = smoke.verify_replay_vs_eager(torch, eng, "cuda")
+    assert out["rel"] <= smoke.LAYER_TOL
+    print(f"verify replay vs eager: bit for bit {out['bitwise']}, relative "
+          f"norm {out['rel']:.3e}")
+
+
+@pytest.mark.gpu
+def test_graph_launch_counters_follow_eager_formula():
+    """After a run on graphs the launch counters equal the eager per-tick
+    formula (replays add what their capture recorded), and every tick after
+    a key's build is a replay of it."""
+    smoke = _smoke_script()
+    cfg = treg.get("smollm-135m-butterfly-smoke").with_(
+        compute_dtype="float32")
+    dev = torch.device("cuda")
+    eng = ServeEngine(cfg, loader.init_params(cfg, seed=0, device=dev),
+                      slots=2, max_len=48, device=dev)
+    rng = np.random.default_rng(3)
+    smoke.zero_launches()
+    futs = [eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                               max_new_tokens=16)) for n in (5, 23, 11, 3)]
+    eng.run_until_idle(max_ticks=1000)
+    assert all(len(f.result(0).tokens) == 16 for f in futs)
+    snap = eng.metrics.snapshot()
+    assert smoke.read_launches() == smoke.serve_launches_want(cfg, snap, True)
+    smoke.graph_report(eng, snap, True)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_naming_the_key():
+    """A step that fails while its graph is captured: the key's first run
+    (the eager warm-up) computes, then the capture raises naming the key,
+    nothing carries on eagerly, and the launch counters keep what the
+    warm-up launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run `pytest -m gpu` on the card)")
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.serve.graphs import GraphCache
+
+    def step(x):
+        ks.sandwich_forward.launches += 1        # as a kernel wrapper does
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("not capturable")
+        return (x * 2,)
+
+    cache = GraphCache(torch.device("cuda"))
+    entry = cache.entry(("bad", 1), lambda: (
+        step, {"x": torch.ones(4, device="cuda")}))
+    before = ks.sandwich_forward.launches
+    with pytest.raises(RuntimeError, match=r"capture of bad \| 1 failed"):
+        cache.run(entry)
+    assert ks.sandwich_forward.launches == before + 1
+    assert cache.compiles == 0 and entry.graph is None
