@@ -62,9 +62,14 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    chunks of 16 (the 23-token prompt chunks twice), 16 new tokens each,
    three times: eager admission, incremental admission on 3 usable pages
    of 16 (at least one preemption and recompute required) and ``spec_k=3``
-   speculative decoding. The tokens must be equal; at a flip the request,
-   the step and the CPU run's top-1 minus top-2 logit gap there are
-   printed and the phase fails.
+   speculative decoding; and a fourth time on the card through two
+   replicas behind a ``Router`` on its driver thread, replica 0 swapping
+   in mid-run a port-written checkpoint of the same weights whose newest
+   step is torn (the swap must restore the older step), then the prompts
+   again (some on the swapped replica). The tokens must be equal; at a
+   flip the request, the step and the CPU run's top-1 minus top-2 logit
+   gap there are printed and the phase fails; the card's sandwich and
+   paged launch counters must rise.
 6b. Incremental admission at full width: the 16 requests of phase 6 on a
    pool of 40 usable pages (a fifth of the dense-equivalent 256), on
    graphs: at least one preemption, every request finished, launch
@@ -81,6 +86,19 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    launch: the verify reads the pool through the plain gather), each key's
    replays and launches per replay held; acceptance, tok/s and how many
    bfloat16 tokens agree with phase 6's run printed (not held).
+6d. The serving tier at full width through the CLI,
+   ``launch.serve.main`` in process: ``smollm-135m-butterfly`` in
+   bfloat16, 2 replicas x 8 slots, max_len 512, 32 requests of 5-200
+   uniform prompt tokens and 32 new tokens, open loop at 10 req/s, four
+   times in turns: without a live ``Tracer``, with one (``--trace-out``),
+   with one, without. Held: every request finished, no replica dead, each
+   Chrome trace valid under ``repro_torch.obs.validate`` with one
+   ``finish`` per request, and each run's launch counters (summed over
+   both replicas: the counters are process-wide) equal to the per-tick
+   formula summed over both engines' ticks. Printed per run: the router
+   snapshot's TTFT and latency p50/p95 and dispatch, decode tok/s and the
+   mean tick; then both means with and without the tracer, and the
+   phase's seconds.
 7. Timing: each forward kernel, its plain twin, and one library call as
    a yardstick the port never calls (for the sandwich a ``torch.matmul``
    by its materialized dense matrix, at 8 rows and at the training run's
@@ -910,15 +928,70 @@ TOKEN_NEW = 16
 # with 3 drafts a tick
 TOKEN_CASES = {"eager": {},
                "incremental": dict(admission="incremental", num_pages=4),
-               "spec": dict(spec_k=3)}
+               "spec": dict(spec_k=3),
+               "router": {}}
+# the router case's driver watchdog: above a first-use nvcc build
+TICK_TIMEOUT = 120.0
+
+
+def serve_router_tokens(cfg, dev, model, prompts) -> tuple:
+    """The router token case on ``dev``: two replicas (each its own copy of
+    ``model``'s weights) behind a ``Router`` on its driver thread. The
+    prompts are submitted; replica 0 then swaps in a checkpoint written
+    by the port's ``CheckpointManager`` in the trainer's layout from the
+    same weights, steps 1 and 2 with step 2 torn, so the swap must restore
+    step 1; then the prompts again, some dispatched to the swapped
+    replica. Returns ``(first round's tokens, second round's tokens, the
+    router's snapshot)``; raises unless the swap restored step 1, no
+    replica died and the swapped replica served in the second round."""
+    import copy
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.checkpoint.checkpointing import CheckpointManager
+    from repro_torch.serve import Request, Router, ServeEngine
+    from repro_torch.serve import tear_checkpoint
+    engines = [ServeEngine(cfg, copy.deepcopy(model), slots=2, max_len=48,
+                           prefill_chunk=16, device=dev, replica=i)
+               for i in range(2)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        mgr = CheckpointManager(ckpt)
+        tree = {"params": convert.to_jax_params(
+            dict(model.named_parameters()))}
+        mgr.save(1, tree)
+        mgr.save(2, tree)
+        tear_checkpoint(ckpt)
+        with Router(engines, tick_timeout=TICK_TIMEOUT) as router:
+            first = [router.submit(Request(prompt=p,
+                                           max_new_tokens=TOKEN_NEW))
+                     for p in prompts]
+            step = router.swap_checkpoint(0, ckpt, timeout=600)
+            before = router.replicas[0].dispatched
+            second = [router.submit(Request(prompt=p,
+                                            max_new_tokens=TOKEN_NEW))
+                      for p in prompts]
+            rounds = [[f.result(timeout=600).tokens for f in futs]
+                      for futs in (first, second)]
+        snap = router.snapshot()
+    dead = [p["dead"] for p in snap["per_replica"] if p["dead"]]
+    if step != 1 or snap["swaps"] != 1 or dead:
+        raise AssertionError(f"router token case: swap restored step "
+                             f"{step}, {snap['swaps']} swaps, dead {dead}")
+    if router.replicas[0].dispatched == before:
+        raise AssertionError("router token case: the swapped replica served "
+                             "nothing after the swap")
+    return rounds[0], rounds[1], snap
 
 
 def serve_tokens_case(torch, np, dev, mode: str) -> dict:
     """Greedy tokens through the kernels against the plain path, one
     engine configuration of ``TOKEN_CASES``: ``smollm-135m-butterfly-smoke``
     in float32 compute, weights made once from seed 0 on the CPU, one
-    engine on ``dev`` and one on the CPU, the greedy test's prompts into 2
-    slots with prefill chunks of 16. Every request's tokens must be equal
+    engine on ``dev`` (in the router case two replicas behind a
+    ``Router``, :func:`serve_router_tokens`) and one on the CPU, the greedy
+    test's prompts into 2 slots with prefill chunks of 16. Every request's
+    tokens must be equal
     (and the incremental case must preempt); at a flip, prints the request,
     the step and the CPU run's top-1 minus top-2 logit gap there, and
     raises. Returns the card engine's snapshot."""
@@ -937,16 +1010,25 @@ def serve_tokens_case(torch, np, dev, mode: str) -> dict:
                for n in TOKEN_PROMPTS]
     assert max(TOKEN_PROMPTS) > 16             # one prompt chunks twice
     before = read_launches()
-    tokens, snaps = {}, {}
+    runs, snaps = [], []                    # the card's run, then the CPU's
     for where, model in ((dev, card_model), (torch.device("cpu"),
                                              cpu_model)):
+        if mode == "router" and not runs:
+            first, second, rsnap = serve_router_tokens(cfg, dev, model,
+                                                       prompts)
+            runs.append(first + second)
+            snaps.append(rsnap["per_replica"][0]["engine"])
+            continue
         eng = ServeEngine(cfg, model, slots=2, max_len=48, prefill_chunk=16,
                           device=where, **TOKEN_CASES[mode])
         futs = [eng.submit(Request(prompt=p, max_new_tokens=TOKEN_NEW))
                 for p in prompts]
         eng.run_until_idle(max_ticks=1000)
-        tokens[where.type] = [f.result(timeout=0).tokens for f in futs]
-        snaps[where.type] = eng.metrics.snapshot()
+        runs.append([f.result(timeout=0).tokens for f in futs])
+        snaps.append(eng.metrics.snapshot())
+    card, cpu = runs
+    if mode == "router":                    # both rounds against the CPU's
+        cpu, prompts = cpu * 2, prompts * 2
     after = read_launches()
     rose = {k: after[k] - before[k] for k in after}
     # every kernel of the path must have launched on the card; a speculative
@@ -957,10 +1039,9 @@ def serve_tokens_case(torch, np, dev, mode: str) -> dict:
     if dev.type == "cuda" and not all(rose[k] for k in need):
         raise AssertionError(f"the card's engine ({mode}) launched "
                              f"{rose}: none of {need} may be 0")
-    snap = snaps[dev.type]
+    snap = snaps[0]
     if mode == "incremental" and not snap["preempted"]:
         raise AssertionError("the incremental token run preempted nothing")
-    card, cpu = tokens[dev.type], tokens["cpu"]
     for i, (a, b) in enumerate(zip(card, cpu)):
         if a == b:
             continue
@@ -978,14 +1059,142 @@ def serve_tokens_case(torch, np, dev, mode: str) -> dict:
             f"minus top-2 logit gap there {float(top[0] - top[1]):.3e}")
         raise AssertionError(f"greedy tokens differ ({mode}), request {i} "
                              f"step {step}")
+    tier = (" (two replicas behind a Router, a torn-checkpoint swap on "
+            "replica 0 mid-run, the prompts twice)" if mode == "router"
+            else "")
     say(f"serve tokens {mode}: {cfg.name} float32, {len(prompts)} prompts of "
-        f"{TOKEN_PROMPTS} tokens into 2 slots, chunks of 16, {TOKEN_NEW} new "
+        f"{TOKEN_PROMPTS} tokens into 2 slots{tier}, chunks of 16, "
+        f"{TOKEN_NEW} new "
         f"tokens each: kernels on {dev.type} and plain on the CPU give the "
         f"same greedy tokens ({sum(map(len, card))} tokens; preempted "
         f"{snap['preempted']}, spec ticks {snap['spec']['ticks']}; launches "
         f"on the card: sandwich {rose['sandwich_fwd']}, paged "
         f"{rose['paged_decode_attention']})")
     return snap
+
+
+# the serving tier's full-width run through the CLI (phase 6d)
+CLI_SERVE = dict(replicas=2, slots=SLOTS, max_len=MAX_LEN, requests=32,
+                 min_prompt=5, max_prompt=200, max_new=NEW_TOKENS, rate=10.0)
+
+
+def _tier_rates(doc) -> dict:
+    """Decode tok/s of both replicas together (their decode tokens over their
+    decode seconds, build ticks inside) and the mean engine tick (the
+    ``serve_tick_seconds`` histogram) of one CLI run's telemetry
+    document."""
+    per = [p["engine"] for p in doc["summary"]["per_replica"]]
+    toks = sum(e["decode_tokens"] for e in per)
+    secs = sum(e["decode_tokens"] / e["decode_tok_per_s"] for e in per
+               if e["decode_tok_per_s"])
+    ticks = doc["metrics"]["metrics"]["serve_tick_seconds"]["samples"]
+    n = sum(s["value"]["count"] for s in ticks)
+    return {"tok_s": toks / secs if secs else 0.0,
+            "tick_ms": sum(s["value"]["sum"] for s in ticks) * 1e3 / max(1, n),
+            "ticks": n}
+
+
+def phase_serve_cli(torch, cfg, dev, sizes=CLI_SERVE) -> tuple:
+    """Phase 6d: ``launch.serve.main`` in process over ``sizes``' tier, four
+    times in turns: without a tracer, with one, with one, without (so the
+    comparison does not ride on the order). Returns the launches summed
+    over the runs and a summary."""
+    import contextlib
+    import gc
+    import io
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs.validate import validate_chrome_trace
+    out = ROOT / "build" / "serve_cli"
+    out.mkdir(parents=True, exist_ok=True)
+    argv = ["--arch", cfg.name, "--device", dev.type, "--seed", "0",
+            "--mix", "uniform"]
+    for key in ("replicas", "slots", "requests", "min_prompt", "max_prompt",
+                "rate"):
+        argv += [f"--{key.replace('_', '-')}", str(sizes[key])]
+    argv += ["--max-len", str(sizes["max_len"]), "--max-new",
+             str(sizes["max_new"])]
+    t_phase = time.monotonic()
+    total, runs = {}, []
+    for n, label in enumerate(("null", "tracer", "tracer", "null")):
+        trace = out / f"trace_{n}.json"
+        extra = ["--trace-out", str(trace)] if label == "tracer" else []
+        gc.collect()          # the last run's garbage, not inside this one
+        sync(torch, dev)
+        zero_launches()
+        text = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(text):
+            doc = serve_cli.main(argv + extra + [
+                "--metrics-json", str(out / f"metrics_{n}.json")])
+        sync(torch, dev)
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        for line_ in text.getvalue().splitlines():
+            if line_.startswith(("[serve] router", "  replica[")):
+                say(f"serve cli run {n} ({label}): {line_.strip()}")
+        snap = doc["summary"]
+        dead = [p["dead"] for p in snap["per_replica"] if p["dead"]]
+        if snap["requests_finished"] != sizes["requests"] or dead:
+            raise AssertionError(f"serve cli run {n}: "
+                                 f"{snap['requests_finished']} of "
+                                 f"{sizes['requests']} requests finished, "
+                                 f"dead replicas {dead}")
+        want = {}
+        for p in snap["per_replica"]:
+            for k, v in serve_launches_want(cfg, p["engine"],
+                                            dev.type == "cuda").items():
+                want[k] = want.get(k, 0) + v
+        if launches != want:
+            raise AssertionError(f"serve cli run {n}: launches {launches}, "
+                                 f"expected {want} (both replicas' ticks)")
+        if extra:
+            with open(trace) as f:
+                events = validate_chrome_trace(json.load(f))
+            finishes = sum(e["name"] == "finish" for e in events)
+            if finishes != sizes["requests"]:
+                raise AssertionError(f"serve cli run {n}: {finishes} finish "
+                                     f"events for {sizes['requests']} "
+                                     f"requests")
+            say(f"serve cli run {n} ({label}): trace {len(events)} events, "
+                f"valid")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        runs.append((label, snap, {**_tier_rates(doc), "wall_s": wall}))
+    say(f"serve cli: {cfg.name} {cfg.compute_dtype}, {sizes['replicas']} "
+        f"replicas x {sizes['slots']} slots, {sizes['requests']} requests "
+        f"of {sizes['min_prompt']}-{sizes['max_prompt']} prompt tokens and "
+        f"{sizes['max_new']} new, open loop at {sizes['rate']} req/s, "
+        f"runs without, with, with, without a tracer:")
+    for n, (label, snap, r) in enumerate(runs):
+        say(f"serve cli run {n} ({label}): TTFT p50 "
+            f"{snap['ttft_ms']['p50']} ms, p95 {snap['ttft_ms']['p95']} ms; "
+            f"latency p50 {snap['latency_ms']['p50']} ms, p95 "
+            f"{snap['latency_ms']['p95']} ms; dispatched "
+            f"{[p['dispatched'] for p in snap['per_replica']]}; decode "
+            f"tok/s of both replicas {r['tok_s']:.1f} (build ticks inside); "
+            f"mean tick {r['tick_ms']:.3f} ms over {r['ticks']} ticks; wall "
+            f"{r['wall_s']:.3f} s")
+
+    def mean(label, key):
+        vals = [r[key] for lab, _, r in runs if lab == label]
+        return sum(vals) / len(vals)
+    say(f"serve cli: decode tok/s with a tracer {mean('tracer', 'tok_s'):.1f}"
+        f", without {mean('null', 'tok_s'):.1f}; mean tick "
+        f"{mean('tracer', 'tick_ms'):.3f} ms with, "
+        f"{mean('null', 'tick_ms'):.3f} ms without (means of two runs each, "
+        f"not held); launches {total}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    out_summary = {"cli_phase_s": time.monotonic() - t_phase,
+                   "cli_tok_s_tracer": mean("tracer", "tok_s"),
+                   "cli_tok_s_null": mean("null", "tok_s"),
+                   "cli_tick_ms_tracer": mean("tracer", "tick_ms"),
+                   "cli_tick_ms_null": mean("null", "tick_ms")}
+    for n, (label, snap, _) in enumerate(runs):
+        out_summary[f"cli_run{n}_{label}"] = {
+            "ttft_ms": snap["ttft_ms"], "latency_ms": snap["latency_ms"],
+            "dispatched": [p["dispatched"] for p in snap["per_replica"]]}
+    return total, out_summary
 
 
 def phase_serve_tokens(torch, np, dev) -> None:
@@ -2707,7 +2916,7 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         train_shape=(2048, 4), encdec_shape=MNIST,
         encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES,
         flash_shapes=FLASH_SHAPES, flash_timed=FLASH_TIMED,
-        bench=None, wide=WIDE) -> list:
+        bench=None, wide=WIDE, cli=CLI_SERVE) -> list:
     """Phases 3 to 19 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
@@ -2717,8 +2926,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     (``train_shape``, ``cfg``'s heads), ``flash_timed`` the names of those
     timed besides it (the first is the one the kernels line reports),
     ``bench`` the keyword arguments of ``launch.speed.run`` (none: the
-    reference's sizes) and ``wide`` the sandwich widths of
-    :func:`phase_wide`.
+    reference's sizes), ``wide`` the sandwich widths of
+    :func:`phase_wide` and ``cli`` the serving tier's sizes of
+    :func:`phase_serve_cli`.
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     device_fn = device_fn or time_fn
@@ -2746,8 +2956,15 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
                                            eager_tokens))
     summary.update(phase_serve_spec(torch, np, cfg, dev, kernel,
                                     eager_tokens))
+    router_launches, cli_summary = phase_serve_cli(torch, cfg, dev, cli)
+    summary.update(cli_summary)
     kernels = phase_timing(torch, cfg, dev, kernel, time_fn, device_fn,
                            launches, errs, train_rows)
+    paged = kernels[1]
+    paged["launches_by_path"] = {
+        "serve": paged["launches"],
+        "router": router_launches["paged_decode_attention"]}
+    paged["launches"] += router_launches["paged_decode_attention"]
     summary.update(phase_profile(torch, np, cfg, dev))
     train_launches, train_summary = phase_train(torch, np, cfg, dev,
                                                 *train_shape)
@@ -2759,8 +2976,10 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         errs["sandwich_bwd"], train_rows))
     fwd = kernels[0]
     fwd["launches_by_path"] = {"serve": fwd["launches"],
+                               "router": router_launches["sandwich_fwd"],
                                "train": train_launches["sandwich_fwd"]}
-    fwd["launches"] += train_launches["sandwich_fwd"]
+    fwd["launches"] += (train_launches["sandwich_fwd"]
+                        + router_launches["sandwich_fwd"])
     kernels[-1]["launches_by_path"] = {"train": kernels[-1]["launches"]}
     encdec_launches, encdec_summary, problem = phase_encdec(
         torch, dev, encdec_shape, encdec_steps)

@@ -28,7 +28,8 @@ from repro_torch.core.layers import ButterflySpec
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
 
-_INDEX_BUFFERS = ("idx_in", "idx_out")
+#: the truncation-index buffers: checkpoints and swaps carry weights only
+INDEX_BUFFERS = ("idx_in", "idx_out")
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -63,7 +64,7 @@ def load_jax_params(model: LM, params_np: Mapping) -> LM:
     for name, t in model.state_dict(keep_vars=True).items():
         if name in flat:
             t.copy_(torch.as_tensor(np.array(flat.pop(name))))
-        elif not name.endswith(_INDEX_BUFFERS):
+        elif not name.endswith(INDEX_BUFFERS):
             raise KeyError(f"no reference weight for {name}")
     if flat:
         raise KeyError(f"reference weights without a port module: "
@@ -121,7 +122,7 @@ def names_by_reference_key(names) -> Dict[str, List[str]]:
     order of the reference's stacked leading axis."""
     out: Dict[str, List[str]] = {}
     for name in names:
-        if not name.endswith(_INDEX_BUFFERS):
+        if not name.endswith(INDEX_BUFFERS):
             out.setdefault(_reference_key(name), []).append(name)
     for key, group in out.items():
         if key.startswith("unit[0]."):

@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import butterfly as bf
 from repro_torch.kernels import build
 from repro_torch.kernels.context import resolve_backend
+from repro_torch.obs.profiling import annotate
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 32768             # one float32 row in shared memory (128 KB)
@@ -278,10 +279,11 @@ def butterfly_forward(x: torch.Tensor, w: torch.Tensor, *,
     CUDA route takes contiguous float32 or bfloat16 ``x``, float32 ``w`` on
     its device, ``2 <= n <= MAX_N`` (32,768), and counts each launch in
     ``butterfly_forward.launches``."""
-    if resolve_backend(backend, x) == "torch":
-        with torch.no_grad():     # no autograd on either route
-            return butterfly_plain(x, w, transpose=transpose)
-    return _fwd_cuda(x, w, transpose)
+    with annotate("butterfly_matmul"):
+        if resolve_backend(backend, x) == "torch":
+            with torch.no_grad():     # no autograd on either route
+                return butterfly_plain(x, w, transpose=transpose)
+        return _fwd_cuda(x, w, transpose)
 
 
 butterfly_forward.launches = 0

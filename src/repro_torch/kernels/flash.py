@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.context import resolve_backend
+from repro_torch.obs.profiling import annotate
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -342,5 +343,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     three through :class:`FlashFn`. ``backend`` follows
     :mod:`repro_torch.kernels.context`: the kernels for a CUDA tensor, the
     plain twins for a CPU tensor, no fallback from one to the other."""
-    return FlashFn.apply(q, k, v, causal, int(window),
-                         resolve_backend(backend, q))
+    with annotate("flash_attention"):
+        return FlashFn.apply(q, k, v, causal, int(window),
+                             resolve_backend(backend, q))

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.context import resolve_backend
+from repro_torch.obs.profiling import annotate
 
 NEG_INF = -1e30
 
@@ -199,10 +200,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     positions. The CUDA route (two launches: the split over runs of pages,
     then the combine) counts its launches in
     ``paged_decode_attention.launches``."""
-    if resolve_backend(backend, q) == "torch":
-        return paged_attend_ref(q[:, None], k_pool, v_pool, page_table,
-                                cur_pos[:, None])[:, 0]
-    return _paged_decode_cuda(q, k_pool, v_pool, page_table, cur_pos)
+    with annotate("paged_attention"):
+        if resolve_backend(backend, q) == "torch":
+            return paged_attend_ref(q[:, None], k_pool, v_pool, page_table,
+                                    cur_pos[:, None])[:, 0]
+        return _paged_decode_cuda(q, k_pool, v_pool, page_table, cur_pos)
 
 
 paged_decode_attention.launches = 0

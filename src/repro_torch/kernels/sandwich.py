@@ -74,6 +74,7 @@ import torch.nn.functional as F
 from repro_torch.core import butterfly as bf
 from repro_torch.kernels import build
 from repro_torch.kernels.context import resolve_backend
+from repro_torch.obs.profiling import annotate
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -577,18 +578,19 @@ def sandwich_forward(x: torch.Tensor, b_in: torch.Tensor, core: torch.Tensor,
     launches in ``sandwich_forward.launches``.
     """
     route = resolve_backend(backend, x)
-    if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in (x, b_in, core, b_out))):
-        # nothing to differentiate (serving, no_grad): skip autograd's
-        # bookkeeping, the host's share of a decode tick
-        if route == "torch":
-            return sandwich_plain(x, b_in, core, b_out, idx_in, idx_out,
-                                  scale_in=scale_in, scale_out=scale_out,
-                                  n_out=n_out)
-        return _sandwich_cuda(x, b_in, core, b_out, idx_in, idx_out,
-                              scale_in, scale_out, n_out)
-    return SandwichFn.apply(x, b_in, core, b_out, idx_in, idx_out, scale_in,
-                            scale_out, n_out, route)
+    with annotate("sandwich_matmul"):
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (x, b_in, core, b_out))):
+            # nothing to differentiate (serving, no_grad): skip autograd's
+            # bookkeeping, the host's share of a decode tick
+            if route == "torch":
+                return sandwich_plain(x, b_in, core, b_out, idx_in, idx_out,
+                                      scale_in=scale_in, scale_out=scale_out,
+                                      n_out=n_out)
+            return _sandwich_cuda(x, b_in, core, b_out, idx_in, idx_out,
+                                  scale_in, scale_out, n_out)
+        return SandwichFn.apply(x, b_in, core, b_out, idx_in, idx_out,
+                                scale_in, scale_out, n_out, route)
 
 
 sandwich_forward.launches = 0

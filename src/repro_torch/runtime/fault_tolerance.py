@@ -1,17 +1,82 @@
-"""Straggler accounting for the trainer.
+"""Failure detection and straggler accounting.
 
-A copy of ``StragglerMonitor`` and ``MitigationAction`` from
-``repro.runtime.fault_tolerance``: EMA step-time tracking per worker and
-the rebalance/evict policy. The rest of that module (heartbeats, elastic
-meshes) is not ported.
+Copies of ``HeartbeatMonitor``, ``StragglerMonitor`` and
+``MitigationAction`` from ``repro.runtime.fault_tolerance``: a heartbeat
+watchdog (the serving client's wedge detector) and EMA step-time tracking
+per worker with the rebalance/evict policy. The rest of that module
+(elastic meshes) is not ported.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+
+
+class HeartbeatMonitor:
+    """Failure detection: workers ``ping``; a watchdog thread marks a
+    worker dead after ``timeout`` seconds of silence and calls
+    ``on_failure(worker)`` once. The serving client registers its driver
+    thread as a worker, so a wedged tick is detected
+    (:class:`repro_torch.serve.client.TickDriver`)."""
+
+    def __init__(self, workers: Sequence[str], timeout: float = 1.0,
+                 on_failure: Optional[Callable[[str], None]] = None,
+                 poll: float = 0.05):
+        self.timeout = timeout
+        self.on_failure = on_failure
+        self.poll = poll
+        now = time.monotonic()
+        self._last: Dict[str, float] = {w: now for w in workers}
+        self._dead: set = set()
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def ping(self, worker: str) -> None:
+        with self._lock:
+            if worker not in self._dead:
+                self._last[worker] = time.monotonic()
+
+    def _watch(self) -> None:
+        while not self._stop.is_set():
+            now = time.monotonic()
+            newly_dead = []
+            with self._lock:
+                for w, t in self._last.items():
+                    if w not in self._dead and now - t > self.timeout:
+                        self._dead.add(w)
+                        newly_dead.append(w)
+            for w in newly_dead:
+                if self.on_failure:
+                    self.on_failure(w)
+            time.sleep(self.poll)
+
+    @property
+    def dead(self) -> List[str]:
+        with self._lock:
+            return sorted(self._dead)
+
+    @property
+    def alive(self) -> List[str]:
+        with self._lock:
+            return sorted(set(self._last) - self._dead)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2)
+
+    def __enter__(self) -> "HeartbeatMonitor":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
 
 
 @dataclass

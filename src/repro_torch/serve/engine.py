@@ -48,8 +48,22 @@ static inputs first; sampling runs eagerly on the replayed logits with
 one ``torch.Generator`` seeded from ``seed``. :meth:`decode_logits` runs
 the next decode tick eagerly, the check a replay is held against.
 
+Observability, as the reference's engine: a ``tracer``
+(:class:`repro_torch.obs.Tracer`; the no-op ``NULL_TRACER`` by default)
+records the request lifecycle on per-request lanes (``tid = rid + 1``) and
+the engine's ticks, chunks, decodes, page growth and graph builds
+(``compile``) on the engine lane (``tid = 0``) of process row ``pid =
+replica``; a ``registry`` (:class:`repro_torch.obs.MetricsRegistry`)
+receives the reference's metric families as callbacks labelled
+``{"replica": str(replica)}``, plus the ``serve_tick_seconds`` histogram;
+:meth:`ServeEngine.telemetry` is the one document of both. Which spans
+include device time is set out in :mod:`repro_torch.obs.tracing`.
+
 Threading model: ``submit()`` and ``cancel()`` are thread-safe;
-``step()`` / ``run_until_idle()`` must be driven from one thread.
+``step()`` / ``run_until_idle()`` must be driven from one thread
+(:class:`repro_torch.serve.client.TickDriver` owns it). ``set_params()``
+may come from another thread: it takes the lock ``step()`` holds, so
+weights are never copied while a tick runs.
 """
 
 from __future__ import annotations
@@ -65,13 +79,17 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
+from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
 from repro_torch.serve import cache as cache_lib
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import steps as steps_lib
 from repro_torch.serve.cache import PagedCachePool, PoolExhausted
+from repro_torch.serve.faults import SITES as FAULT_SITES
 from repro_torch.serve.graphs import GraphCache, GraphEntry
 from repro_torch.serve.metrics import EngineMetrics, RequestMetrics
 
@@ -176,6 +194,9 @@ class _Slot:
     anchor: Optional[np.ndarray] = None    # (E,) float32 pre-final-norm
     #                                        state at the last committed
     #                                        input: the draft's seed
+    trace_t0: float = 0.0                  # tracer time of the last queue
+    #                                        entry (submit, preempt, adopt):
+    #                                        the next "queue" span's start
 
     def __post_init__(self):
         if self.prefill_seq is None:
@@ -212,6 +233,13 @@ class ServeEngine:
     * ``scrub_freed_slots`` — zero a slot's pages when its request exits.
     * ``device`` — ``None`` means ``cuda`` and raises without a card; pass
       ``"cpu"`` to serve through the plain PyTorch versions.
+    * ``tracer`` — a :class:`repro_torch.obs.Tracer` for the span timeline;
+      the no-op ``NULL_TRACER`` by default.
+    * ``registry`` — a :class:`repro_torch.obs.MetricsRegistry` this engine
+      registers its collectors into (share one across replicas); a private
+      one by default (``engine.obs``).
+    * ``replica`` — replica id: the trace ``pid`` and the ``replica``
+      metric label.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int = 4,
@@ -222,7 +250,9 @@ class ServeEngine:
                  admission: str = "eager", spec_k: int = 0,
                  queue_limit: Optional[int] = None, faults=None,
                  seed: int = 0, scrub_freed_slots: bool = False,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 tracer=None, registry: Optional[MetricsRegistry] = None,
+                 replica: int = 0):
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         if admission not in ("eager", "incremental"):
@@ -266,20 +296,152 @@ class ServeEngine:
         self._slots: List[Optional[_Slot]] = [None] * slots
         self._queue: collections.deque = collections.deque()
         self._lock = threading.Lock()
+        self._step_lock = threading.Lock()     # a tick vs a weight copy
         self._next_rid = 0
         self._admit_seq = 0
         self._cancels: set = set()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._sample_fn = functools.partial(sampling_lib.sample_logits,
                                             params=sampling)
-        self.graphs = GraphCache(self.device)
+        self.replica = int(replica)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.obs = registry if registry is not None else MetricsRegistry()
+        self._name_tracks()
+        self.graphs = GraphCache(self.device, tracer=self.tracer,
+                                 pid=self.replica)
         self.metrics = self._fresh_metrics()
+        self._tick_hist = self.obs.histogram(
+            "serve_tick_seconds", "wall time per engine tick",
+            labels={"replica": str(self.replica)})
+        self._register_obs()
 
     def _fresh_metrics(self, history: int = 1024) -> EngineMetrics:
         return EngineMetrics(slots=self.slots, max_request_history=history,
                              pool_kind="paged", admission=self.admission,
                              total_pages=self.pool.total_pages,
                              spec_k=self.spec_k)
+
+    # -- observability ------------------------------------------------
+
+    def _name_tracks(self) -> None:
+        self.tracer.name_process(
+            self.replica, f"replica {self.replica} · {self.cfg.name}")
+        self.tracer.name_track(self.replica, TRACK_ENGINE, "engine")
+
+    def _register_obs(self) -> None:
+        """Register the reference's metric families into ``self.obs``, each
+        a callback reading through ``self`` (so ``reset_metrics``'s swap of
+        the metrics object shows, and recording costs the tick nothing).
+        Re-registering replaces, so rebuilding an engine against a shared
+        registry never errors."""
+        reg = self.obs
+        labels = {"replica": str(self.replica)}
+
+        def counter(name, fn, help):
+            reg.register_callback(name, fn, mtype="counter", help=help,
+                                  labels=labels)
+
+        def gauge(name, fn, help):
+            reg.register_callback(name, fn, mtype="gauge", help=help,
+                                  labels=labels)
+
+        counter("serve_ticks_total", lambda: self.metrics.ticks,
+                "engine ticks (the deterministic clock)")
+        counter("serve_requests_finished_total",
+                lambda: self.metrics.requests_finished,
+                "requests finished (lifetime)")
+        counter("serve_finished_tokens_total",
+                lambda: self.metrics.finished_tokens,
+                "tokens over finished requests (lifetime)")
+        counter("serve_decode_steps_total",
+                lambda: self.metrics.decode_steps,
+                "pooled decode tick invocations")
+        counter("serve_decode_tokens_total",
+                lambda: self.metrics.decode_tokens,
+                "tokens emitted by pooled decode ticks")
+        counter("serve_prefills_total", lambda: self.metrics.prefills,
+                "prompts prefilled")
+        counter("serve_prefill_tokens_total",
+                lambda: self.metrics.prefill_tokens,
+                "prompt tokens processed (pre-padding)")
+        counter("serve_chunk_ticks_total",
+                lambda: self.metrics.chunk_ticks,
+                "chunked-prefill pool invocations")
+        counter("serve_preempted_total", lambda: self.metrics.preempted,
+                "slots kicked mid-flight for pages")
+        counter("serve_recompute_tokens_total",
+                lambda: self.metrics.recompute_tokens,
+                "already-computed tokens re-prefilled after preemption")
+        counter("serve_cancelled_total", lambda: self.metrics.cancelled,
+                "requests cancelled by the client")
+        counter("serve_deadline_expired_total",
+                lambda: self.metrics.deadline_expired,
+                "requests failed on their deadline")
+        counter("serve_rejected_queue_full_total",
+                lambda: self.metrics.rejected_queue_full,
+                "submits shed by the bounded queue")
+        counter("serve_pool_exhausted_total",
+                lambda: self.metrics.pool_exhausted_events,
+                "admissions/growth deferred or kicked on PoolExhausted")
+        counter("serve_spec_ticks_total", lambda: self.metrics.spec_ticks,
+                "speculative decode pool invocations")
+        counter("serve_spec_draft_tokens_total",
+                lambda: self.metrics.draft_tokens,
+                "draft proposals into the verify pass")
+        counter("serve_spec_accepted_draft_tokens_total",
+                lambda: self.metrics.accepted_draft_tokens,
+                "draft proposals that survived verification")
+        counter("serve_decode_time_seconds_total",
+                lambda: self.metrics.decode_time_s,
+                "wall seconds inside pooled decode calls")
+        counter("serve_prefill_time_seconds_total",
+                lambda: self.metrics.prefill_time_s,
+                "wall seconds inside prefill calls")
+        counter("serve_compiles_total", lambda: self.graphs.compiles,
+                "graph builds through the GraphCache (warm-up + CUDA graph "
+                "capture on a card, an eager call on the CPU), one per key")
+        counter("serve_compile_traces_total",
+                lambda: sum(self.graphs.traces.values()),
+                "graph builds summed over every key (1 per key, ever)")
+        counter("serve_trace_dropped_total", lambda: self.tracer.dropped,
+                "trace events evicted from the bounded ring")
+        gauge("serve_slots", lambda: self.slots, "decode lanes")
+        gauge("serve_occupied_slots", lambda: self.occupied_slots(),
+              "lanes currently holding an admitted request")
+        gauge("serve_queue_depth", lambda: self.queued(),
+              "requests waiting for admission")
+        gauge("serve_max_concurrent_slots",
+              lambda: self.metrics.max_concurrent_slots,
+              "high-water mark of occupied slots")
+        gauge("serve_spec_k", lambda: self.spec_k,
+              "draft tokens proposed per slot tick (0 = off)")
+        gauge("serve_pages_total", lambda: self.pool.total_pages,
+              "physical pages incl. the trash page")
+        gauge("serve_pages_in_use", lambda: self.pool.pages_in_use,
+              "pages currently allocated to slots")
+        gauge("serve_pages_hwm", lambda: self.pool.pages_hwm,
+              "allocator high-water mark (rebased by reset_metrics)")
+        gauge("serve_trace_events", lambda: len(self.tracer),
+              "events currently buffered in the trace ring")
+        if self.faults is not None:
+            for site in FAULT_SITES:
+                reg.register_callback(
+                    "serve_fault_calls_total",
+                    (lambda s=site: self.faults.calls.get(s, 0)),
+                    mtype="counter", help="instrumented fault-site checks",
+                    labels={**labels, "site": site})
+                reg.register_callback(
+                    "serve_fault_fired_total",
+                    (lambda s=site: self.faults.fired.get(s, 0)),
+                    mtype="counter", help="fault-site checks that fired",
+                    labels={**labels, "site": site})
+
+    def telemetry(self) -> Dict:
+        """The registry snapshot and the metrics summary in one document
+        (schema ``repro.serve/telemetry-1``)."""
+        return {"schema": "repro.serve/telemetry-1",
+                "summary": self.metrics.snapshot(),
+                "metrics": self.obs.snapshot()}
 
     # -- the graph cache's entries --------------------------------------
 
@@ -365,6 +527,9 @@ class ServeEngine:
             if (self.queue_limit is not None
                     and len(self._queue) >= self.queue_limit):
                 self.metrics.on_queue_full()
+                self.tracer.instant("shed", pid=self.replica,
+                                    tid=TRACK_ENGINE, reason="queue_full",
+                                    prompt_len=plen)
                 raise QueueFull(self.queue_limit)
             if request.rid is None:
                 rid = self._next_rid
@@ -375,6 +540,7 @@ class ServeEngine:
             self._next_rid = max(self._next_rid, rid) + 1
             slot = _Slot(req=request, rid=rid, future=Future(),
                          prompt=np.asarray(request.prompt, np.int32))
+            slot.trace_t0 = self.tracer.now()
             self.metrics.on_submit(rid, slot.prompt.size)
             self._queue.append(slot)
         return slot.future
@@ -438,6 +604,8 @@ class ServeEngine:
                 raise ValueError(f"rid {slot.rid} is already live on "
                                  f"this engine")
             self._next_rid = max(self._next_rid, slot.rid + 1)
+            # the queue span restarts on this engine's tracer timeline
+            slot.trace_t0 = self.tracer.now()
             if record is not None:
                 self.metrics.adopt(record)
             else:
@@ -447,20 +615,43 @@ class ServeEngine:
             else:
                 self._queue.append(slot)
 
-    def set_params(self, params: Union[LM, Mapping[str, torch.Tensor]]
-                   ) -> None:
-        """Swap in new weights, an :class:`LM` or its state dict, by
-        copying them into the live parameters in place: the captured graphs
-        read the parameters at their addresses, so rebinding them would
-        leave the graphs on the old weights. Refuses under live requests (a
-        swap mid-flight would splice two checkpoints into one output)."""
-        if self.has_work():
-            raise RuntimeError("set_params with requests queued or in "
-                               "flight — drain this engine first")
-        state = (params.state_dict() if isinstance(params, torch.nn.Module)
-                 else params)
-        with torch.no_grad():
-            self.model.load_state_dict(state, strict=True)
+    def set_params(self, params: Union[LM, Mapping]) -> None:
+        """Swap in new weights by copying them into the live parameters in
+        place: the captured graphs read the parameters at their addresses,
+        so rebinding them would leave the graphs on the old weights.
+
+        ``params`` is a param tree in the reference's layout (what
+        :func:`repro_torch.serve.loader.restore_params` returns), an
+        :class:`LM` or its state dict. Weights only: the engine keeps its
+        truncation-index buffers (checkpoints carry none), and an LM or
+        state dict whose index buffers differ is refused, since its weights
+        belong to another function. Refuses under live requests (a swap
+        mid-flight would splice two checkpoints into one output). Safe from
+        another thread: it holds the lock a tick holds."""
+        if isinstance(params, torch.nn.Module):
+            params = params.state_dict()
+        with self._step_lock:
+            if self.has_work():
+                raise RuntimeError("set_params with requests queued or in "
+                                   "flight — drain this engine first")
+            with torch.no_grad():
+                if "unit" in params:           # the reference's layout
+                    convert.load_jax_params(self.model, params)
+                else:
+                    self._copy_weights(params)
+
+    def _copy_weights(self, state: Mapping[str, torch.Tensor]) -> None:
+        own = self.model.state_dict(keep_vars=True)
+        if set(state) != set(own):
+            raise KeyError(f"state dict names differ from the model's: "
+                           f"{sorted(set(state) ^ set(own))}")
+        for name, t in own.items():
+            if not name.endswith(convert.INDEX_BUFFERS):
+                t.copy_(state[name])
+            elif not torch.equal(t.cpu(), state[name].cpu()):
+                raise ValueError(f"{name}: the new weights' truncation "
+                                 f"indices differ from the engine's; a swap "
+                                 f"copies weights only")
 
     def abort_all(self, exc: BaseException) -> None:
         """Fail every queued and in-flight request with ``exc`` (the crash
@@ -476,6 +667,10 @@ class ServeEngine:
                 self._release_slot(i)
                 dead.append(s)
         self.metrics.sync_pool(self.pool)
+        if dead:
+            self.tracer.instant("abort", pid=self.replica,
+                                tid=TRACK_ENGINE, count=len(dead),
+                                error=repr(exc))
         for s in dead:
             self.metrics.evict(s.rid)
             if not s.future.done():
@@ -496,12 +691,15 @@ class ServeEngine:
         return True
 
     def reset_metrics(self) -> None:
-        """Fresh metrics (tick clock included) and a rebased page
-        high-water mark, keeping the graphs and the pool's allocations.
-        Only with no request in flight."""
+        """Fresh metrics (tick clock included), a rebased page high-water
+        mark and an empty trace ring (its tracks named again), keeping the
+        graphs and the pool's allocations. Only with no request in
+        flight."""
         if self.has_work():
             raise RuntimeError("reset_metrics with requests in flight")
         self.pool.reset_stats()
+        self.tracer.clear()
+        self._name_tracks()          # clear() drops the track names
         self.metrics = self._fresh_metrics(
             history=self.metrics.max_request_history)
         self.metrics.sync_pool(self.pool)
@@ -513,21 +711,31 @@ class ServeEngine:
         ``engine.tick`` fault site, page growth (incremental admission),
         one prefill chunk, then one pooled decode. Returns the number of
         slots still active after the tick."""
-        self._process_cancels()
-        self._expire_deadlines()
-        self._admit()
-        self.metrics.on_occupancy(self.occupied_slots())
-        if self.faults is not None:
-            # admissions landed, compute has not run: where a device error
-            # would strand futures if the loop's abort path were broken
-            self.faults.check("engine.tick")
-        if self.admission == "incremental":
-            self._grow_pages()
-        self._chunk_tick()
-        if any(s is not None and s.decoding for s in self._slots):
-            self._decode_tick()
-        self.metrics.on_tick()
-        return self.occupied_slots()
+        with self._step_lock:
+            tick = self.metrics.ticks
+            t_wall = time.monotonic()
+            tt0 = self.tracer.now()
+            self._process_cancels()
+            self._expire_deadlines()
+            self._admit()
+            self.metrics.on_occupancy(self.occupied_slots())
+            if self.faults is not None:
+                # admissions landed, compute has not run: where a device
+                # error would strand futures if the loop's abort path were
+                # broken
+                self.faults.check("engine.tick")
+            if self.admission == "incremental":
+                self._grow_pages()
+            self._chunk_tick()
+            if any(s is not None and s.decoding for s in self._slots):
+                self._decode_tick()
+            self.metrics.on_tick()
+            active = self.occupied_slots()
+            self.tracer.complete("tick", tt0, self.tracer.now(),
+                                 pid=self.replica, tid=TRACK_ENGINE,
+                                 tick=tick, active=active)
+            self._tick_hist.observe(time.monotonic() - t_wall)
+            return active
 
     def run_until_idle(self, max_ticks: int = 100_000) -> int:
         """Drive ticks until queue and pool drain; returns ticks spent."""
@@ -609,7 +817,7 @@ class ServeEngine:
             raise RuntimeError("the engine does not speculate (spec_k=0)")
         if not any(s is not None and s.decoding for s in self._slots):
             raise RuntimeError("no slot is decoding")
-        *_, logits = self._run_spec()
+        (*_, logits), _ = self._run_spec()
         return (self._verify_entry().inputs["tokens"].clone(),
                 logits.clone())
 
@@ -631,16 +839,18 @@ class ServeEngine:
 
     # -- internals -----------------------------------------------------
 
-    def _run_spec(self) -> Tuple[torch.Tensor, ...]:
+    def _run_spec(self) -> Tuple[Tuple[torch.Tensor, ...], float]:
         """The draft entry, then the verify entry on its drafts: the
-        verify's ``(targets, accepted, anchor, logits)``."""
+        verify's ``(targets, accepted, anchor, logits)``, and the tracer's
+        time between the two launches."""
         last, cur_pos, active, anchor = self._spec_inputs()
         (drafts,) = self._run(self._draft_entry(), anchor=anchor,
                               last_token=last)
+        ttd = self.tracer.now()
         verify = self._verify_entry()
         verify.inputs["tokens"][:, 1:].copy_(drafts)
         verify.inputs["tokens"][:, 0].copy_(torch.from_numpy(last))
-        return self._run(verify, cur_pos=cur_pos, active=active)
+        return self._run(verify, cur_pos=cur_pos, active=active), ttd
 
     def _admit(self) -> None:
         while True:
@@ -665,6 +875,14 @@ class ServeEngine:
                 self._queue.popleft()
             self.metrics.sync_pool(self.pool)
             self.metrics.on_admit(slot.rid)
+            tid, tnow = slot.rid + 1, self.tracer.now()
+            self.tracer.name_track(self.replica, tid, f"req {slot.rid}")
+            self.tracer.complete("queue", slot.trace_t0, tnow,
+                                 pid=self.replica, tid=tid, rid=slot.rid,
+                                 resume=bool(slot.tokens))
+            self.tracer.instant("admit", pid=self.replica, tid=tid, ts=tnow,
+                                rid=slot.rid, slot=idx,
+                                tick=self.metrics.ticks)
             slot.admit_seq = self._admit_seq
             self._admit_seq += 1
             slot.prefilled = 0
@@ -694,6 +912,9 @@ class ServeEngine:
                 hit.append(s)
         if hit:
             self.metrics.sync_pool(self.pool)
+        for s in hit:
+            self.tracer.instant("cancel", pid=self.replica, tid=s.rid + 1,
+                                rid=s.rid, tick=self.metrics.ticks)
         self._resolve_dead([(s, RequestCancelled(s.rid)) for s in hit],
                            self.metrics.on_cancel)
 
@@ -732,6 +953,9 @@ class ServeEngine:
                 expired.append((s, r))
         if expired:
             self.metrics.sync_pool(self.pool)
+        for s, r in expired:
+            self.tracer.instant("deadline", pid=self.replica, tid=s.rid + 1,
+                                rid=s.rid, reason=r, tick=self.metrics.ticks)
         self._resolve_dead(
             [(s, DeadlineExceeded(s.rid, r)) for s, r in expired],
             self.metrics.on_deadline)
@@ -756,6 +980,10 @@ class ServeEngine:
         s.last_token = -1
         s.anchor = None              # the recompute's final chunk re-derives
         self.metrics.on_preempt(s.rid, computed)
+        self.tracer.instant("preempt", pid=self.replica, tid=s.rid + 1,
+                            rid=s.rid, computed=computed,
+                            tick=self.metrics.ticks)
+        s.trace_t0 = self.tracer.now()   # back in the queue: a new span
         with self._lock:
             self._queue.appendleft(s)
 
@@ -769,6 +997,7 @@ class ServeEngine:
         order = sorted(
             (i for i, s in enumerate(self._slots) if s is not None),
             key=lambda i: self._slots[i].admit_seq)
+        tt0 = self.tracer.now()
         for i in order:
             s = self._slots[i]
             if s is None:                  # preempted as a younger victim
@@ -799,6 +1028,11 @@ class ServeEngine:
                     if victim == i:
                         break              # kicked ourselves
         self.metrics.sync_pool(self.pool)
+        if order:
+            self.tracer.complete("grow_pages", tt0, self.tracer.now(),
+                                 pid=self.replica, tid=TRACK_ENGINE,
+                                 tick=self.metrics.ticks,
+                                 pages_in_use=self.pool.pages_in_use)
 
     def _chunk_tick(self) -> None:
         """Advance every prefilling slot by one chunk (one pooled step);
@@ -824,8 +1058,19 @@ class ServeEngine:
         entry = self._chunk_entry()
         build = not self.graphs.built(entry)
         t0 = time.monotonic()
+        tt0 = self.tracer.now()
         logits, h_last = self._run(entry, tokens=tokens, start_pos=start,
                                    last_idx=last, active=active)
+        tt1 = self.tracer.now()
+        real = sum(hi - lo for lo, hi in spans.values())
+        self.tracer.complete("prefill_chunk", tt0, tt1, pid=self.replica,
+                             tid=TRACK_ENGINE, slots=len(live), tokens=real,
+                             tick=self.metrics.ticks)
+        for i, s in live:
+            lo, hi = spans[i]
+            self.tracer.complete(f"prefill_chunk[{lo // C}]", tt0, tt1,
+                                 pid=self.replica, tid=s.rid + 1, rid=s.rid,
+                                 lo=lo, hi=hi, recompute=bool(s.tokens))
         done = [i for i, s in live if spans[i][1] == s.prefill_seq.size]
         first, anchors = {}, None
         if done:
@@ -836,9 +1081,8 @@ class ServeEngine:
                 anchors = h_last.float().cpu().numpy()
         elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.metrics.on_prefill_work(
-            sum(hi - lo for lo, hi in spans.values()), time.monotonic() - t0,
-            build=build)
+        self.metrics.on_prefill_work(real, time.monotonic() - t0,
+                                     build=build)
         finishers = []
         for i, s in live:
             s.prefilled = spans[i][1]
@@ -852,6 +1096,9 @@ class ServeEngine:
             else:
                 self.metrics.on_prefill_done()
                 self.metrics.on_first_token(s.rid)
+                self.tracer.instant("first_token", pid=self.replica,
+                                    tid=s.rid + 1, rid=s.rid,
+                                    tick=self.metrics.ticks)
             s.tokens.append(int(first[i]))
             s.last_token = int(first[i])
             s.cur_pos = int(s.prefill_seq.size)
@@ -870,12 +1117,17 @@ class ServeEngine:
         entry = self._decode_entry()
         build = not self.graphs.built(entry)
         t0 = time.monotonic()
+        tt0 = self.tracer.now()
         (logits,) = self._run(entry, tokens=tokens, cur_pos=cur_pos,
                               active=active)
         nxt = self._sample_fn(logits, self._gen).cpu().tolist()
+        tt1 = self.tracer.now()       # after the read: device time inside
         n_active = int(active.sum())
         self.metrics.on_decode_tick(n_active, n_active,
                                     time.monotonic() - t0, build=build)
+        self.tracer.complete("decode", tt0, tt1, pid=self.replica,
+                             tid=TRACK_ENGINE, active=n_active,
+                             tick=self.metrics.ticks)
         for i, s in enumerate(self._slots):
             if s is None or s.prefilling:
                 continue
@@ -883,6 +1135,9 @@ class ServeEngine:
             s.last_token = int(nxt[i])
             s.cur_pos += 1
             self.metrics.on_token(s.rid)
+            self.tracer.complete("decode", tt0, tt1, pid=self.replica,
+                                 tid=s.rid + 1, rid=s.rid, token=int(nxt[i]),
+                                 pos=s.cur_pos)
             if self._finished(s):
                 self._finish(i)
 
@@ -901,7 +1156,15 @@ class ServeEngine:
         build = not (self.graphs.built(self._draft_entry())
                      and self.graphs.built(self._verify_entry()))
         t0 = time.monotonic()
-        targets, accepted, anchor_out, _ = self._run_spec()
+        tt0 = self.tracer.now()
+        (targets, accepted, anchor_out, _), ttd = self._run_spec()
+        tt1 = self.tracer.now()       # before the reads, as the reference
+        self.tracer.complete("spec_draft", tt0, ttd, pid=self.replica,
+                             tid=TRACK_ENGINE, slots=len(live),
+                             tick=self.metrics.ticks)
+        self.tracer.complete("spec_verify", ttd, tt1, pid=self.replica,
+                             tid=TRACK_ENGINE, slots=len(live),
+                             tick=self.metrics.ticks)
         targets = targets.cpu().numpy()
         accepted = accepted.cpu().numpy()
         anchor_out = anchor_out.float().cpu().numpy()
@@ -919,6 +1182,11 @@ class ServeEngine:
             s.anchor = anchor_out[i]
             committed_total += len(toks)
             self.metrics.on_token(s.rid, len(toks))
+            self.tracer.complete("spec", tt0, tt1, pid=self.replica,
+                                 tid=s.rid + 1, rid=s.rid,
+                                 drafted=self.spec_k,
+                                 accepted=int(accepted[i]),
+                                 committed=len(toks))
         self.metrics.on_spec_tick(
             drafted=len(live) * self.spec_k,
             accepted=int(accepted[[i for i, _ in live]].sum()))
@@ -950,6 +1218,9 @@ class ServeEngine:
         rm = self.metrics.on_finish(slot.rid)
         self._release_slot(idx)
         self.metrics.sync_pool(self.pool)
+        self.tracer.instant("finish", pid=self.replica, tid=slot.rid + 1,
+                            rid=slot.rid, new_tokens=len(slot.tokens),
+                            tick=self.metrics.ticks)
         slot.future.set_result(GenerationResult(
             rid=slot.rid, prompt=slot.prompt, tokens=list(slot.tokens),
             metrics=rm))

@@ -23,6 +23,17 @@ state into them, runs the entry, and reads its outputs.
 * **On the CPU** a build and a replay are eager calls of the step, and the
   same counters are kept, so tests can hold "one build per key".
 
+Every build is a structured event, as the reference's cold compiles are:
+it appends ``{"key": format_key(key), "seconds": …}`` to
+:attr:`GraphCache.events` (warm-up + capture on CUDA, the eager call on
+the CPU) and emits one ``compile`` complete-span on the engine lane of the
+``tracer`` the engine passes in (``pid`` = its replica).
+
+Captures run with ``capture_error_mode="thread_local"``: another thread's
+CUDA work (a router's caller copying a checkpoint in while one replica
+captures) does not invalidate the capture. The engine serialises its own
+weight copies against its ticks with a lock (``ServeEngine.set_params``).
+
 The kernel wrappers count launches in Python, which runs when a graph is
 captured and not when it is replayed. So a capture records the growth of
 each counter in :data:`COUNTED`, takes it back (a capture launches
@@ -34,13 +45,14 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sandwich as ks
+from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
 
 #: the launch counters a replay advances, by the name chip_smoke.py prints
 COUNTED = (("sandwich_fwd", ks.sandwich_forward),
@@ -69,13 +81,17 @@ class GraphEntry:
 
 class GraphCache:
     """Entries by key, with ``traces`` (builds per key: 1, ever) and
-    ``replays`` (runs after the build) counters."""
+    ``replays`` (runs after the build) counters, and ``events`` (one
+    ``{"key", "seconds"}`` per build)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, tracer=None, pid: int = 0):
         self.device = torch.device(device)
         self._entries: Dict[Tuple, GraphEntry] = {}
         self.traces: Dict[Tuple, int] = {}
         self.replays: Dict[Tuple, int] = {}
+        self.events: List[Dict] = []
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        self._pid = int(pid)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
@@ -98,9 +114,16 @@ class GraphCache:
         """Run ``e`` on its static inputs: build it (the first time) or
         replay it. Returns its outputs."""
         if e.key not in self.traces:
+            t0 = time.monotonic()
+            tt0 = self._tracer.now()
             out = self._capture(e) if self._cuda else e.fn(**e.inputs)
             self.traces[e.key] = 1
             self.replays[e.key] = 0
+            key, dt = format_key(e.key), round(time.monotonic() - t0, 6)
+            self.events.append({"key": key, "seconds": dt})
+            self._tracer.complete("compile", tt0, self._tracer.now(),
+                                  pid=self._pid, tid=TRACK_ENGINE,
+                                  cat="compile", key=key, seconds=dt)
             return out
         self.replays[e.key] += 1
         if not self._cuda:
@@ -122,7 +145,8 @@ class GraphCache:
         before = {name: c.launches for name, c in COUNTED}
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=s):
+            with torch.cuda.graph(graph, pool=self._pool, stream=s,
+                                  capture_error_mode="thread_local"):
                 outputs = e.fn(**e.inputs)
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture of {format_key(e.key)} "

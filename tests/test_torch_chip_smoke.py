@@ -1,8 +1,9 @@
 """Rehearsal of `chip_smoke.py` on the CPU: every phase after the build
 (the sandwich factor and forward checks, serving on the graph cache's
 eager CPU entries and its greedy-token checks under eager and incremental
-admission and speculative decoding, the full-width-shaped incremental and
-speculative runs,
+admission, speculative decoding and two replicas behind the router with a
+torn-checkpoint swap, the full-width-shaped incremental and speculative
+runs, the serving CLI's two-replica tier with and without a tracer,
 the sandwich backward and factor-VJP checks, the wide-width checks at
 100 -> 36, training and its gradient check, the butterfly kernels' checks,
 the encoder-decoder at 64 x 256, the flash kernels' checks at small shapes
@@ -58,16 +59,31 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
                         flash_shapes=flash_shapes,
                         flash_timed=("window",),
                         bench=dict(ns=(64,), batch=4, iters=1),
-                        wide=("wide", 100, 36))
+                        wide=("wide", 100, 36),
+                        cli=dict(replicas=2, slots=2, max_len=64,
+                                 requests=4, min_prompt=5, max_prompt=20,
+                                 max_new=4, rate=50.0))
     out = capsys.readouterr().out
     assert "serve: 16 requests" in out and "on graphs (2 built)" in out
     assert "decode tick replay vs eager (torch)" in out
     assert "graph decode | smollm-135m-butterfly-smoke | 8 | " in out
     assert "graph chunk_prefill | smollm-135m-butterfly-smoke | 8 | 16: " \
         "captures 1, replays 31" in out
-    for mode in ("eager", "incremental", "spec"):
+    for mode in ("eager", "incremental", "spec", "router"):
         assert f"serve tokens {mode}: " in out
     assert out.count("give the same greedy tokens (64 tokens") == 3
+    assert ("into 2 slots (two replicas behind a Router, a torn-checkpoint "
+            "swap on replica 0 mid-run, the prompts twice), chunks of 16, "
+            "16 new tokens each: kernels on cpu and plain on the CPU give "
+            "the same greedy tokens (128 tokens") in out
+    for n, label in enumerate(("null", "tracer", "tracer", "null")):
+        assert (f"serve cli run {n} ({label}): [serve] router: 4 requests "
+                f"over 2 replicas") in out
+        assert f"serve cli run {n} ({label}): TTFT p50 " in out
+    assert "serve cli run 2 (tracer): trace " in out
+    assert ("serve cli: smollm-135m-butterfly-smoke bfloat16, 2 replicas x 2 "
+            "slots, 4 requests of 5-20 prompt tokens") in out
+    assert "serve cli: decode tok/s with a tracer " in out
     assert "tokens; preempted 2, spec ticks 0;" in out
     assert "serve incremental: 40 usable pages" in out
     assert "tokens equal to the eager admission run" in out
@@ -113,7 +129,9 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         "flash_bwd_dkv"]
     assert kernels[0]["library_ms"] == 0.0
     assert kernels[0]["train_bound_ms"] > kernels[0]["bound_ms"] > 0
-    assert {"serve", "train"} <= kernels[0]["launches_by_path"].keys()
+    assert {"serve", "router", "train"} <= \
+        kernels[0]["launches_by_path"].keys()
+    assert set(kernels[1]["launches_by_path"]) == {"serve", "router"}
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
     # sdpa's backward stands once, on dq, for the dq/dkv pair
     assert [k["library_ms"] for k in kernels[5:]] == [0.0, 0.0, None]

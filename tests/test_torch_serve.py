@@ -173,7 +173,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.butterfly, repro_torch.launch.encdec, "
             "repro_torch.data.synthetic, repro_torch.kernels.flash, "
             "repro_torch.launch.speed, repro_torch.serve.faults, "
-            "repro_torch.serve.graphs; "
+            "repro_torch.serve.graphs, repro_torch.obs, "
+            "repro_torch.obs.tracing, repro_torch.obs.registry, "
+            "repro_torch.obs.validate, repro_torch.obs.profiling, "
+            "repro_torch.serve.client, repro_torch.serve.trace, "
+            "repro_torch.serve.router, repro_torch.serve.loader, "
+            "repro_torch.launch.serve, repro_torch.launch.bench_serving; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'benchmarks')]; "
             "assert not bad, bad")
@@ -195,15 +200,16 @@ def _smoke_script():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["eager", "incremental", "spec"])
+@pytest.mark.parametrize("mode", ["eager", "incremental", "spec", "router"])
 def test_greedy_tokens_on_card_match_cpu_plain_path(mode):
     """``chip_smoke.py``'s token phase: ``smollm-135m-butterfly-smoke`` in
     float32, weights made once on the CPU, served through the kernels on
     graphs on the card and through the plain versions on the CPU with the
     prompts of the test above (slots 2, chunks of 16, 16 new tokens), under
-    eager admission, incremental admission with a preemption, and
-    ``spec_k=3``: every token equal, or the phase prints the request, step
-    and logit gap and raises."""
+    eager admission, incremental admission with a preemption, ``spec_k=3``,
+    and two replicas behind a ``Router`` on its driver thread with a
+    checkpoint swapped into replica 0 mid-run: every token equal, or the
+    phase prints the request, step and logit gap and raises."""
     smoke = _smoke_script()
     smoke.serve_tokens_case(torch, np, torch.device("cuda"), mode)
 
@@ -302,3 +308,56 @@ def test_failed_capture_raises_naming_the_key():
         cache.run(entry)
     assert ks.sandwich_forward.launches == before + 1
     assert cache.compiles == 0 and entry.graph is None
+
+
+@pytest.mark.gpu
+def test_capture_survives_host_copies_from_another_thread():
+    """A graph build (warm-up + capture) while another thread copies host
+    tensors to the card in a loop, as a router's caller does when it swaps
+    a checkpoint into one replica while another captures its first graph:
+    the capture succeeds and its replay computes the step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run `pytest -m gpu` on the card)")
+    import threading
+
+    from repro_torch.serve.graphs import GraphCache
+
+    dev = torch.device("cuda")
+    stop, copies, errors = threading.Event(), [0], []
+    dst = torch.empty(1 << 20, device=dev)
+    src = torch.randn(1 << 20)
+
+    def copier():
+        try:
+            while not stop.is_set():
+                dst.copy_(src)
+                copies[0] += 1
+        except Exception as e:                 # reported below
+            errors.append(e)
+
+    w = torch.randn(256, 256, device=dev)
+
+    def step(x):
+        y = x
+        for _ in range(50):
+            y = torch.tanh(y @ w)
+        return (y,)
+
+    cache = GraphCache(dev)
+    t = threading.Thread(target=copier, daemon=True)
+    t.start()
+    try:
+        outs = []
+        for i in range(5):
+            entry = cache.entry(("concurrent", i), lambda: (
+                step, {"x": torch.randn(64, 256, device=dev)}))
+            first = cache.run(entry)[0].clone()
+            outs.append((entry, first))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    assert copies[0] > 0 and cache.compiles == 5
+    for entry, first in outs:
+        torch.testing.assert_close(cache.run(entry)[0], first)
+    print(f"5 captures beside {copies[0]} host-to-device copies")
