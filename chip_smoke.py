@@ -169,6 +169,39 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     CUDA-event figures, the float32 kernels' bounds at the 3xTF32 rate
     (495/3 TFLOP/s) beside the CUDA-core ones.
 
+20. The layer API (paper §3.2, Proposition 3.1): ``ButterflyLinear.
+    from_dense`` of a seeded dense W at ``smollm-135m-butterfly``'s MLP up
+    site (576 -> 1536, k = log2 n, with a bias) and the quickstart's 512 x
+    512 at k = 64, the kernels' forward against ``to_dense() @ x`` (+ bias)
+    within 2e-4 of max|want|; the quickstart's fit (X 1024 x 512, 300 Adam
+    steps through ``SandwichFn``): its first step's forward and backward
+    (k 64) through the kernels against the plain versions (2e-4; 1e-5 of
+    max|want|, two backward launches bit-identical), the final loss below
+    the first, 2 forward and 6 backward sandwich launches a step;
+    Proposition 3.1's error at init, the parameter counts and the fit's
+    step time printed.
+21. The learned butterfly sketch (§6) at IVY19's HS-SOD matrix shape, 1024
+    x 768, on the bench's synthetic ``hyper_like`` data: 24 train and 8
+    test matrices, ell 20, k 10, batch 6, lr 3e-3, 120 steps, and the four
+    baselines of ``sketch/*``. Held: every loss finite; the learned
+    butterfly's test error below the same spec's untrained FJLT
+    butterfly's and the Gaussian sketch's; the first step's loss and dw
+    through the kernels against the plain twins within 1e-4 of max|want|;
+    1 forward and 2 backward butterfly launches a step and a forward per
+    test matrix. Printed: the errors, step time p50, peak memory, and one
+    step under ``torch.profiler`` split into the butterfly kernels, the
+    SVDs and the rest.
+22. The gated butterfly (§7) on the card against the CPU (float32, 1e-5
+    of max|want|) at 512 x 64 and 768 x 1024; the ``nonlinear/*`` rows
+    (300 steps; the linear arm's first step, loss and dw at 512 x 64,
+    through the kernels against the plain twins within 1e-5 of max|want|,
+    and its butterfly launches held) and ``lm_butterfly/final_loss`` (60
+    steps; the Trainer's first step on ``smollm-135m-butterfly-smoke``
+    through the kernels against the plain versions, layer by layer and in
+    float32, as in phase 10; finite losses, the sandwich launches of the
+    butterfly variant's steps and the reference's parameter counts
+    139,584 and 83,314 held). Each phase's seconds printed.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without the last line; so does a machine without a CUDA
@@ -1870,23 +1903,26 @@ def profile_train_step(torch, trainer, model, opt_state, dev) -> dict:
             "train_profile_sandwich_fwd_ms": fwd_us / 1e3}
 
 
-def phase_train_gradcheck(torch, np, cfg, dev, kernel: str) -> None:
-    """One train step's gradients layer by layer (global_batch 1, seq_len
-    256): a plain forward and backward gives each layer's input and the
-    cotangent of its output; each layer, and the final norm, head and loss,
-    then runs under ``kernel`` and under the plain versions on that input
-    and cotangent. Every butterfly leaf (b_in, core, b_out of each site)
-    must be finite and within LEAF_TOL of the plain gradient in relative
-    norm of the difference, for the serving check's reason: rounding
-    differences of a correct kernel compound through the stack after it.
-    The whole step's loss and leaf gradients through both paths are
-    printed, not held."""
+def phase_train_gradcheck(torch, np, cfg, dev, kernel: str,
+                          seq_len: int = 256, global_batch: int = 1,
+                          seed: int = 1) -> None:
+    """One train step's gradients layer by layer (the model and the data's
+    batch 0 from ``seed``): a plain forward and backward gives each layer's
+    input and the cotangent of its output; each layer, and the final norm,
+    head and loss, then runs under ``kernel`` and under the plain versions
+    on that input and cotangent. Every butterfly leaf (b_in, core, b_out of
+    each site) must be finite and within LEAF_TOL of the plain gradient in
+    relative norm of the difference, for the serving check's reason:
+    rounding differences of a correct kernel compound through the stack
+    after it. The whole step's loss and leaf gradients through both paths
+    are printed, not held."""
     from repro_torch.data.pipeline import for_model
     from repro_torch.models import common as cm
     from repro_torch.models import lm
     from repro_torch.train import steps
-    model = lm.LM(cfg, generator=torch.Generator().manual_seed(1)).to(dev)
-    raw = for_model(cfg, 256, 1, seed=1).batch(0)
+    model = lm.LM(cfg, generator=torch.Generator().manual_seed(seed)).to(
+        dev)
+    raw = for_model(cfg, seq_len, global_batch, seed=seed).batch(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
     S = batch["tokens"].shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None]
@@ -1967,20 +2003,22 @@ def phase_train_gradcheck(torch, np, cfg, dev, kernel: str) -> None:
                              f"{LEAF_TOL}: {dict(list(bad.items())[:5])}")
 
 
-def phase_train_step_f32(torch, cfg, dev, kernel: str) -> None:
-    """The gradient check's whole train step (same weights and batch) in
-    float32 compute, through ``kernel`` and through the plain versions.
-    Without bfloat16's rounding points the differences of a correct kernel
-    stay near float32 rounding through all the layers, so each butterfly
-    leaf must be finite and within STEP_F32_TOL of the plain gradient in
-    relative norm; a fault that shows only on the kernel path's own
-    activations would not stay there. The other leaves are printed."""
+def phase_train_step_f32(torch, cfg, dev, kernel: str, seq_len: int = 256,
+                         global_batch: int = 1, seed: int = 1) -> None:
+    """The gradient check's whole train step (same weights and batch, from
+    ``seed``) in float32 compute, through ``kernel`` and through the plain
+    versions. Without bfloat16's rounding points the differences of a
+    correct kernel stay near float32 rounding through all the layers, so
+    each butterfly leaf must be finite and within STEP_F32_TOL of the plain
+    gradient in relative norm; a fault that shows only on the kernel path's
+    own activations would not stay there. The other leaves are printed."""
     from repro_torch.data.pipeline import for_model
     from repro_torch.models import lm
     from repro_torch.train import steps
     cfg32 = cfg.with_(compute_dtype="float32")
-    model = lm.LM(cfg32, generator=torch.Generator().manual_seed(1)).to(dev)
-    raw = for_model(cfg32, 256, 1, seed=1).batch(0)
+    model = lm.LM(cfg32, generator=torch.Generator().manual_seed(seed)).to(
+        dev)
+    raw = for_model(cfg32, seq_len, global_batch, seed=seed).batch(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
     (lk, gk), (lp, gp) = (steps.loss_and_grads(model, batch, backend=b)
                           for b in (kernel, "torch"))
@@ -2911,13 +2949,433 @@ def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
         entries.append(e)
     return entries
 
+# -- the layer API and the paper's remaining experiments (slice 12) ----------
+
+# from_dense layers held against their dense equivalent: (name, n_in, n_out,
+# k_in, k_out, rows, bias); k None is the paper's log2(n). The MLP up site
+# of smollm-135m-butterfly and the quickstart's layer
+LAYER_API_LAYERS = (("mlp_up", 576, 1536, None, None, 64, True),
+                    ("quickstart", 512, 512, 64, 64, 64, False))
+QUICKSTART_FIT = (512, 64, 1024, 300)     # n, k, rows of X, Adam steps
+# SANDWICH_TOL's float32 2e-4, as a fraction of max|want|: the sandwich
+# against a product by its dense matrix sums other terms in another order,
+# and at k = log2 n the outputs run to hundreds (Proposition 3.1's error at
+# init is ~100 ||W|| there), so a float32 error follows the size of the
+# terms, not of an output near 0
+LAYER_API_TOL = SANDWICH_TOL["float32"]
+# the learned sketch at the shape of IVY19's HS-SOD matrices (1024 x 768),
+# on the bench's synthetic hyper_like data: n, d, ell, k, train and test
+# matrices, steps (the bench's lr and batch, launch.paper's SKETCH_LR and
+# SKETCH_BATCH)
+SKETCH_RUN = (1024, 768, 20, 10, 24, 8, 120)
+SKETCH_TOL = 1e-4           # fraction of max|want|: loss and dw, float32
+GATED_TOL = 1e-5            # the gated butterfly, card against the CPU
+GATED_SHAPES = ((512, 64), (768, 1024))   # rows, n: the bench's and wider
+NONLINEAR_STEPS = 300       # bench_nonlinear.py's default
+LM_STEPS = 60               # bench_lm_butterfly.py's default
+# the parameter counts the reference prints (BENCH_quick.json,
+# lm_butterfly/final_loss); they depend on no draw
+LM_PARAMS = {"smollm-135m-smoke": 139584,
+             "smollm-135m-butterfly-smoke": 83314}
+# the kernels each path of phases 20-22 drives
+PAPER_PATHS = {"layer_api": ("sandwich_fwd", "sandwich_bwd"),
+               "sketch": ("butterfly_fwd", "butterfly_bwd"),
+               "nonlinear": ("butterfly_fwd", "butterfly_bwd"),
+               "lm_butterfly": ("sandwich_fwd", "sandwich_bwd")}
+
+
+def paper_counts() -> dict:
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import sandwich as ks
+    return {"sandwich_fwd": ks.sandwich_forward.launches,
+            "sandwich_bwd": ks.sandwich_backward.launches,
+            "butterfly_fwd": kb.butterfly_forward.launches,
+            "butterfly_bwd": kb.butterfly_backward.launches}
+
+
+def zero_paper_counts() -> None:
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import sandwich as ks
+    ks.sandwich_forward.launches = ks.sandwich_backward.launches = 0
+    kb.butterfly_forward.launches = kb.butterfly_backward.launches = 0
+
+
+def hold_counts(what: str, got: dict, want: dict) -> None:
+    """Raises unless every counter in ``got`` is ``want``'s (0 where
+    ``want`` has none)."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, want {full}")
+
+
+def _gen(torch, seed: int):
+    return torch.Generator().manual_seed(seed)
+
+
+def phase_layer_api(torch, np, dev, kernel: str, layers=LAYER_API_LAYERS,
+                    fit=QUICKSTART_FIT) -> tuple:
+    """Phase 20: ``ButterflyLinear.from_dense`` layers' forward through the
+    kernels against ``to_dense() @ x`` (+ bias); then the quickstart's fit
+    through ``SandwichFn`` with its launches held. Returns (launches of the
+    fit, summary)."""
+    from repro_torch import nn
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import sandwich as ks
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    tol = LAYER_API_TOL
+    for name, n_in, n_out, k_in, k_out, rows, with_bias in layers:
+        rng = np.random.default_rng(n_in + n_out)
+        W = (rng.normal(size=(n_out, n_in)) / math.sqrt(n_in)).astype(
+            np.float32)
+        b = rng.normal(size=(n_out,)).astype(np.float32) if with_bias \
+            else None
+        layer = nn.ButterflyLinear.from_dense(
+            _gen(torch, 0), W, bias=b, k_in=k_in, k_out=k_out, device=dev)
+        x = torch.randn(rows, n_in, generator=_gen(torch, 1)).to(dev)
+        with torch.no_grad():
+            got = layer(x, backend=kernel)
+            want = x @ layer.to_dense().T + (layer.bias if with_bias else 0)
+        sync(torch, dev)
+        err, share = close_to_max_or_raise(torch, f"layer api {name}", got,
+                                           want, tol)
+        e31 = quickstart.init_error(layer, torch.from_numpy(W).to(dev),
+                                    x[0] / x[0].norm())
+        say(f"layer api {name} {n_in}->{n_out} (k {layer.spec.k_in}/"
+            f"{layer.spec.k_out}) rows={rows}: from_dense forward "
+            f"({kernel}) vs to_dense() @ x{' + bias' if with_bias else ''} "
+            f"max|err| {err:.3e} ({share:.1e} of max|want| "
+            f"{float(want.abs().max()):.1f}; tol {tol}); Proposition 3.1 "
+            f"error at init {e31:.3f} ||W||; params "
+            f"{layer.param_count():,} vs dense {layer.dense_param_count():,}")
+    n, k, rows, steps = fit
+    W = np.random.default_rng(0).normal(size=(n, n)).astype(np.float32)
+    W /= np.sqrt(n)
+    layer = nn.ButterflyLinear.from_dense(_gen(torch, 0), W, k_in=k,
+                                          k_out=k, device=dev)
+    Wt = torch.from_numpy(W).to(dev)
+    X = torch.randn(rows, n, generator=_gen(torch, 2)).to(dev)
+    Y = X @ Wt.T
+    # the fit's first step through the kernels against the plain versions
+    with torch.no_grad():
+        got = layer(X, backend=kernel)
+        want = layer(X, backend="torch")
+    sync(torch, dev)
+    err = allclose_or_raise(torch, "quickstart fit forward", got, want,
+                            SANDWICH_TOL["float32"])
+    say(f"layer api quickstart fit forward {rows}x{n} k {k} float32 "
+        f"({kernel}) vs plain: max|err| {err:.3e} (tol "
+        f"{SANDWICH_TOL['float32']})")
+    g = torch.randn(rows, n, generator=_gen(torch, 3)).to(dev)
+    check_sandwich_bwd(torch, dev, f"layer api quickstart fit backward "
+                       f"{rows}x{n} k {k} float32", layer.spec, layer, X, g,
+                       kernel, "float32")
+    del got, want, g
+    zero_paper_counts()
+    losses, times = quickstart.fit(layer, X, Y, steps)
+    launches = paper_counts()
+    hold_counts("quickstart fit", launches, {
+        "sandwich_fwd": on_card * ks.FWD_KERNELS * steps,
+        "sandwich_bwd": on_card * ks.BWD_KERNELS * steps})
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"quickstart fit: losses {losses[0]} -> "
+                             f"{losses[-1]}")
+    p50 = float(np.median(times[1:] or times)) * 1e3
+    wall = time.monotonic() - t_phase
+    say(f"layer api quickstart fit {n}x{n} k {k}, X {rows}x{n}, {steps} "
+        f"Adam steps through SandwichFn: loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; step ms p50 {p50:.3f} (each step ends in a wait "
+        f"for the device); launches {launches} ({ks.FWD_KERNELS} forward + "
+        f"{ks.BWD_KERNELS} backward a step); phase {wall:.1f} s")
+    return launches, {"layer_api_fit_step_ms_p50": p50,
+                      "layer_api_phase_s": wall}
+
+
+def profile_sketch_step(torch, dev, spec, w, train) -> dict:
+    """One training step of the learned sketch under ``torch.profiler``:
+    wall, device busy, and device time in the butterfly kernels, in the
+    SVDs (``aten::linalg_svd`` and its backward, children included) and
+    in the rest; {} off the card or without device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import sketch
+    from repro_torch.launch import paper
+    if dev.type != "cuda":
+        say("profile sketch: not measured (no card)")
+        return {}
+
+    def step():
+        sketch.train_butterfly_sketch(spec, None, train, 1,
+                                      lr=paper.SKETCH_LR,
+                                      batch=paper.SKETCH_BATCH, w0=w,
+                                      device=dev)
+
+    step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync(torch, dev)
+        t0 = time.monotonic()
+        step()
+        sync(torch, dev)
+        wall_us = (time.monotonic() - t0) * 1e6
+    avg = prof.key_averages()
+    kern = [(e.key, e.self_device_time_total, e.count) for e in avg
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e[1] for e in kern)
+    if not busy:
+        say("profile sketch: device time not measured")
+        return {}
+    bfly = sum(us for key, us, _ in kern if "butterfly" in key)
+    svd_ops = ("aten::linalg_svd",
+               "autograd::engine::evaluate_function: LinalgSvdBackward0")
+    svd = sum(getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0) for e in avg
+              if e.key in svd_ops and e.device_type == DeviceType.CPU)
+    rest = busy - bfly - svd
+    say(f"profile sketch: one step, wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+        f"{sum(e[2] for e in kern)} device launches; butterfly kernels "
+        f"{bfly / 1e3:.3f} ms ({100 * bfly / busy:.1f}% of busy), SVDs "
+        f"{svd / 1e3:.3f} ms ({100 * svd / busy:.1f}%), the rest "
+        f"{rest / 1e3:.3f} ms")
+    for key, us, count in sorted(kern, key=lambda e: -e[1])[:8]:
+        say(f"profile sketch: {us / 1e3:8.3f} ms {count:5d} launches  "
+            f"{key[:90]}")
+    return {"sketch_profile_wall_ms": wall_us / 1e3,
+            "sketch_profile_busy_ms": busy / 1e3,
+            "sketch_profile_butterfly_ms": bfly / 1e3,
+            "sketch_profile_svd_ms": svd / 1e3}
+
+
+def phase_sketch(torch, np, dev, kernel: str, run_=SKETCH_RUN) -> tuple:
+    """Phase 21: the learned butterfly sketch (§6) and its four baselines
+    on ``hyper_like`` at ``run_``'s shape; the first step's loss and dw
+    through the kernels against the plain twins; the butterfly launches
+    held; the learned sketch's test error below the untrained FJLT
+    butterfly's and the Gaussian's. Returns (launches, summary)."""
+    from repro_torch.core import butterfly as bf
+    from repro_torch.core import sketch
+    from repro_torch.data.synthetic import sketch_datasets
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.launch import paper
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    n, d, ell, k, t_train, t_test, steps = run_
+    batch = paper.SKETCH_BATCH
+    data, _ = sketch_datasets(n, d, t_train, t_test)
+    X = torch.from_numpy(np.stack(data["hyper_like"])).to(dev)
+    del data
+    train, test = X[:t_train], X[t_train:]
+    # the first step's batch (the trainer's draw) through both routes
+    spec = sketch.make_spec(_gen(torch, 0), n=n, ell=ell, k=k)
+    w0 = bf.fjlt_weights(_gen(torch, 1), spec.pad_n).to(dev)
+    idx = np.random.default_rng(0).choice(t_train, size=min(batch, t_train),
+                                          replace=False)
+    Xb = train[torch.as_tensor(idx, device=dev)]
+    first = {}
+    for backend in dict.fromkeys((kernel, "torch")):
+        w = w0.clone().requires_grad_()
+        loss = sketch.reconstruction_loss(
+            Xb, sketch.butterfly_sketch(spec, w, Xb, backend=backend),
+            k).mean()
+        first[backend] = (loss.detach(), torch.autograd.grad(loss, [w])[0])
+    e_loss = close_to_max_or_raise(torch, "sketch first step loss",
+                                   first[kernel][0], first["torch"][0],
+                                   SKETCH_TOL)
+    e_dw = close_to_max_or_raise(torch, "sketch first step dw",
+                                 first[kernel][1], first["torch"][1],
+                                 SKETCH_TOL)
+    say(f"sketch first step ({batch} x {n}x{d}, ell {ell}, k {k}) through "
+        f"{kernel} vs the plain twins: loss {float(first['torch'][0]):.4f} "
+        f"max|err| {e_loss[0]:.3e} ({e_loss[1]:.1e} of it), dw max|err| "
+        f"{e_dw[0]:.3e} ({e_dw[1]:.1e} of max|want|); tol {SKETCH_TOL}")
+    del first, Xb
+    base = 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) / 2**20
+    zero_paper_counts()
+    times = []
+    t0 = time.monotonic()
+    e = paper.sketch_errors(train, test, ell, k, steps, log_every=1,
+                            step_times=times)
+    sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = paper_counts()
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**20 - base
+            if on_card else 0.0)
+    hold_counts("sketch", launches, {
+        "butterfly_fwd": on_card * (steps + t_test),
+        "butterfly_bwd": on_card * kb.BWD_KERNELS * steps})
+    untrained = sketch.test_error(
+        lambda Xi: sketch.butterfly_sketch(e["spec"], e["w0"], Xi), test, k)
+    errs = {key: e[key] for key in ("butterfly_learned", "sparse_learned",
+                                    "cw_random", "gaussian",
+                                    "dense_learned")}
+    errs["butterfly_untrained"] = untrained
+    bad = [key for key, v in errs.items() if not math.isfinite(v)]
+    if bad or not all(math.isfinite(v) for v in e["history"]):
+        raise AssertionError(f"sketch: non-finite {bad or 'losses'}")
+    if not (errs["butterfly_learned"] < untrained
+            and errs["butterfly_learned"] < errs["gaussian"]):
+        raise AssertionError(f"sketch: the learned butterfly's test error "
+                             f"{errs['butterfly_learned']:.4f} is not below "
+                             f"the untrained FJLT's {untrained:.4f} and the "
+                             f"Gaussian's {errs['gaussian']:.4f}")
+    p50 = float(np.median(times)) * 1e3
+    say(f"sketch hyper_like {n}x{d} x {t_train}+{t_test}, ell {ell}, k {k}, "
+        f"batch {batch}, {steps} steps: test error "
+        + ";".join(f"{key}={v:.4f}" for key, v in errs.items())
+        + f"; loss {e['history'][0]:.4f} -> {e['history'][-1]:.4f}")
+    say(f"sketch: butterfly step ms p50 {p50:.3f} (kernel call over "
+        f"{batch * d} x {spec.pad_n}, two batched SVDs, Adam); all five "
+        f"sketches {wall:.2f} s; peak {peak:.1f} MiB above the {base:.1f} "
+        f"MiB held before (the data and earlier phases'); launches "
+        f"{launches}")
+    summary = {"sketch_step_ms_p50": p50, "sketch_peak_mib": peak,
+               "sketch_base_mib": base, "sketch_errors": errs}
+    summary.update(profile_sketch_step(torch, dev, e["spec"], e["w"],
+                                       train))
+    summary["sketch_phase_s"] = time.monotonic() - t_phase
+    say(f"sketch: phase {summary['sketch_phase_s']:.1f} s")
+    return launches, summary
+
+
+def phase_paper_rows(torch, np, dev, kernel: str, shapes=GATED_SHAPES,
+                     nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS
+                     ) -> tuple:
+    """Phase 22: the gated butterfly on the card against the CPU; the
+    ``nonlinear/*`` rows with the linear arm's butterfly launches held; the
+    ``lm_butterfly/final_loss`` row with its sandwich launches and the
+    reference's parameter counts held. Returns ({path: launches},
+    summary)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import butterfly as bf
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.launch import paper
+    from repro_torch.launch.speed import line
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    for rows, n in shapes:
+        gen = _gen(torch, rows + n)
+        w = bf.random_weights(gen, n)
+        x = torch.randn(rows, n, generator=gen)
+        want = bf.butterfly_apply_nonlinear(w, x)
+        got = bf.butterfly_apply_nonlinear(w.to(dev), x.to(dev))
+        sync(torch, dev)
+        err = close_to_max_or_raise(torch, f"gated butterfly {rows}x{n}",
+                                    got.cpu(), want, GATED_TOL)
+        say(f"gated butterfly {rows}x{n} float32 (tanh GELU) on {dev.type} "
+            f"vs the CPU: max|err| {err[0]:.3e} ({err[1]:.1e} of max|want|; "
+            f"tol {GATED_TOL})")
+    # the linear arm's first step through the kernels against the plain
+    # versions, on the bench's inputs
+    X, targets, w0 = paper.nonlinear_problem(dev)
+    for name, Y in targets.items():
+        first = {}
+        for backend in dict.fromkeys((kernel, "torch")):
+            w = w0.clone().requires_grad_()
+            loss = paper.mse(lambda w, X: paper.linear_arm(w, X, backend), w,
+                             X, Y)
+            first[backend] = (loss.detach(),
+                              torch.autograd.grad(loss, [w])[0])
+        sync(torch, dev)
+        tol = BFLY_TOL["float32"]
+        e_loss, e_dw = (close_to_max_or_raise(
+            torch, f"nonlinear {name} first step {what}", first[kernel][i],
+            first["torch"][i], tol) for i, what in enumerate(("loss", "dw")))
+        say(f"nonlinear {name} linear arm first step ({X.shape[0]} x "
+            f"{X.shape[1]}, float32) through {kernel} vs the plain twins: "
+            f"loss {float(first['torch'][0]):.4f} max|err| {e_loss[0]:.3e}, "
+            f"dw max|err| {e_dw[0]:.3e} ({e_dw[1]:.1e} of max|want|); tol "
+            f"{tol}")
+    del X, targets, w0, first
+    # lm_butterfly's first step (the Trainer's model and batch 0, both from
+    # its seed) through the kernels against the plain versions
+    lm_cfg = registry.get(paper.LM_VARIANTS[1])
+    seed = TrainConfig().seed
+    say(f"lm_butterfly first step, {lm_cfg.name} seq_len {paper.LM_SEQ_LEN} "
+        f"x batch {paper.LM_BATCH}, seed {seed}:")
+    phase_train_gradcheck(torch, np, lm_cfg, dev, kernel, paper.LM_SEQ_LEN,
+                          paper.LM_BATCH, seed)
+    phase_train_step_f32(torch, lm_cfg, dev, kernel, paper.LM_SEQ_LEN,
+                         paper.LM_BATCH, seed)
+    out = {}
+    zero_paper_counts()
+    t0 = time.monotonic()
+    rows = paper.nonlinear_rows(dev, nonlinear_steps)
+    sync(torch, dev)
+    t_nl = time.monotonic() - t0
+    out["nonlinear"] = paper_counts()
+    hold_counts("nonlinear", out["nonlinear"], {
+        "butterfly_fwd": on_card * 2 * (nonlinear_steps + 1),
+        "butterfly_bwd": on_card * 2 * kb.BWD_KERNELS * nonlinear_steps})
+    for r in rows:
+        if not all(math.isfinite(r[key]) for key in (
+                "linear_butterfly", "gated_butterfly", "target_var")):
+            raise AssertionError(f"{r['name']}: not finite: {r['derived']}")
+        say("paper: " + line(r))
+    zero_paper_counts()
+    t0 = time.monotonic()
+    lm = paper.lm_butterfly_row(dev, lm_steps)
+    t_lm = time.monotonic() - t0
+    out["lm_butterfly"] = paper_counts()
+    fwd, bwd = train_counts(lm_cfg)
+    hold_counts("lm_butterfly", out["lm_butterfly"], {
+        "sandwich_fwd": on_card * fwd * lm_steps,
+        "sandwich_bwd": on_card * bwd * lm_steps})
+    losses = lm["dense_losses"] + lm["butterfly_losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("lm_butterfly: non-finite losses")
+    got = {paper.LM_VARIANTS[0]: lm["dense_params"],
+           paper.LM_VARIANTS[1]: lm["butterfly_params"]}
+    if got != LM_PARAMS:
+        raise AssertionError(f"lm_butterfly: parameters {got}, the "
+                             f"reference's {LM_PARAMS}")
+    say("paper: " + line(lm))
+    say(f"lm_butterfly {lm_steps} steps: dense losses "
+        f"{lm['dense_losses'][0]:.4f} -> {lm['dense_losses'][-1]:.4f}, "
+        f"butterfly {lm['butterfly_losses'][0]:.4f} -> "
+        f"{lm['butterfly_losses'][-1]:.4f}; launches {out}")
+    wall = time.monotonic() - t_phase
+    say(f"paper rows: phase {wall:.1f} s (nonlinear rows {t_nl:.1f} s, "
+        f"{4 * nonlinear_steps} Adam steps; lm_butterfly {t_lm:.1f} s, "
+        f"{2 * lm_steps} train steps)")
+    return out, {"paper_rows_phase_s": wall, "nonlinear_s": t_nl,
+                 "lm_butterfly_s": t_lm}
+
+
+def phase_paper(torch, np, dev, kernel: str, kernels: list, layers,
+                fit, sketch_run, gated, nonlinear_steps, lm_steps) -> dict:
+    """Phases 20 to 22; each path's launches join its kernels' entries in
+    ``kernels``. Returns the summary."""
+    launches, summary = phase_layer_api(torch, np, dev, kernel, layers, fit)
+    paths = {"layer_api": launches}
+    paths["sketch"], sk = phase_sketch(torch, np, dev, kernel, sketch_run)
+    summary.update(sk)
+    rows, rs = phase_paper_rows(torch, np, dev, kernel, gated,
+                                nonlinear_steps, lm_steps)
+    paths.update(rows)
+    summary.update(rs)
+    for path, counters in PAPER_PATHS.items():
+        for k in kernels:
+            counter = k.get("counter", k["name"])
+            if counter in counters:
+                k["launches_by_path"][path] = paths[path][counter]
+                k["launches"] += paths[path][counter]
+    return summary
+
 
 def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         train_shape=(2048, 4), encdec_shape=MNIST,
         encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES,
         flash_shapes=FLASH_SHAPES, flash_timed=FLASH_TIMED,
-        bench=None, wide=WIDE, cli=CLI_SERVE) -> list:
-    """Phases 3 to 19 on ``cfg`` and ``dev``; ``kernel`` is the backend
+        bench=None, wide=WIDE, cli=CLI_SERVE, layers=LAYER_API_LAYERS,
+        fit=QUICKSTART_FIT, sketch_run=SKETCH_RUN, gated=GATED_SHAPES,
+        nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS) -> list:
+    """Phases 3 to 22 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
     ``encdec_shape`` the encoder-decoder's (n, d, k), ``encdec_steps`` its
@@ -2928,7 +3386,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     ``bench`` the keyword arguments of ``launch.speed.run`` (none: the
     reference's sizes), ``wide`` the sandwich widths of
     :func:`phase_wide` and ``cli`` the serving tier's sizes of
-    :func:`phase_serve_cli`.
+    :func:`phase_serve_cli`; ``layers``, ``fit``, ``sketch_run``,
+    ``gated``, ``nonlinear_steps`` and ``lm_steps`` size phases 20 to 22.
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     device_fn = device_fn or time_fn
@@ -3000,6 +3459,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         torch, dev, kernel, time_fn, device_fn, bench_launches, flash_errs,
         [train_attn] + [s for s in flash_shapes if s[0] in flash_timed],
         flash_timed[0], cfg.n_kv_heads)
+    summary.update(phase_paper(torch, np, dev, kernel, kernels, layers, fit,
+                               sketch_run, gated, nonlinear_steps, lm_steps))
     say("summary: " + json.dumps(summary))
     return kernels
 

@@ -12,7 +12,10 @@ checkpoints store their params in the reference's layout, layers stacked
 as ``unit``), and :func:`names_by_reference_key` names the port parameters
 behind each reference leaf, so gradients compare leaf by leaf.
 :func:`encdec_from_jax` does the same for the encoder–decoder network: the
-reference's ``B``, ``E``, ``D`` and its spec, truncation indices included.
+reference's ``B``, ``E``, ``D`` and its spec, truncation indices included;
+:func:`sketch_from_jax` for a learned sketch's spec and stage weights, and
+:func:`sandwich_from_jax` for one sandwich layer (``repro.nn``'s spec and
+params) as a :class:`~repro_torch.nn.ButterflyLinear`.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.encdec import EncDecSpec
 from repro_torch.core.layers import ButterflySpec
+from repro_torch.core.sketch import SketchSpec
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
+from repro_torch.nn.linear import ButterflyLinear
 
 #: the truncation-index buffers: checkpoints and swaps carry weights only
 INDEX_BUFFERS = ("idx_in", "idx_out")
@@ -72,6 +77,16 @@ def load_jax_params(model: LM, params_np: Mapping) -> LM:
     return model
 
 
+def butterfly_spec_from_jax(s: Any) -> ButterflySpec:
+    """The port's spec for a reference sandwich spec (any object with the
+    :class:`ButterflySpec` fields), truncation indices included."""
+    return ButterflySpec(n_in=s.n_in, n_out=s.n_out, k_in=s.k_in,
+                         k_out=s.k_out,
+                         idx_in=tuple(int(i) for i in s.idx_in),
+                         idx_out=tuple(int(i) for i in s.idx_out),
+                         use_bias=s.use_bias, jl_scale=s.jl_scale)
+
+
 def from_jax_params(cfg: ModelConfig, params_np: Mapping,
                     site_specs: Mapping[str, Any], *,
                     device: Union[str, torch.device, None] = None) -> LM:
@@ -83,12 +98,8 @@ def from_jax_params(cfg: ModelConfig, params_np: Mapping,
     are split per layer.
     """
     dev = resolve_device(device)
-    specs = {key: ButterflySpec(
-        n_in=s.n_in, n_out=s.n_out, k_in=s.k_in, k_out=s.k_out,
-        idx_in=tuple(int(i) for i in s.idx_in),
-        idx_out=tuple(int(i) for i in s.idx_out),
-        use_bias=s.use_bias, jl_scale=s.jl_scale)
-        for key, s in site_specs.items()}
+    specs = {key: butterfly_spec_from_jax(s)
+             for key, s in site_specs.items()}
     model = load_jax_params(LM(cfg, site_specs=specs), params_np)
     return model.to(dev)
 
@@ -105,6 +116,32 @@ def encdec_from_jax(spec: Any, params_np: Mapping, *,
     params = {k: torch.as_tensor(np.array(params_np[k], np.float32),
                                  device=dev) for k in ("B", "E", "D")}
     return port_spec, params
+
+
+def sketch_from_jax(spec: Any, w_np, *,
+                    device: Union[str, torch.device, None] = None):
+    """The reference's sketch ``spec`` (any object with the
+    :class:`SketchSpec` fields) and stage weights ``w`` (numpy) as the
+    port's ``(SketchSpec, float32 tensor on device)``."""
+    dev = resolve_device(device)
+    port_spec = SketchSpec(n=spec.n, ell=spec.ell, k=spec.k,
+                           trunc_idx=tuple(int(i) for i in spec.trunc_idx),
+                           jl_scale=spec.jl_scale)
+    return port_spec, torch.as_tensor(np.array(w_np, np.float32),
+                                      device=dev)
+
+
+def sandwich_from_jax(spec: Any, params_np: Mapping, *,
+                      device: Union[str, torch.device, None] = None
+                      ) -> ButterflyLinear:
+    """A reference sandwich layer (its spec and its params ``b_in``,
+    ``b_out``, ``core``, ``bias`` as numpy) as a :class:`ButterflyLinear`
+    on ``device`` holding the same weights and index sets."""
+    dev = resolve_device(device)
+    port_spec = butterfly_spec_from_jax(spec)
+    names = ("b_in", "b_out", "core") + (("bias",) if spec.use_bias else ())
+    params = {k: torch.as_tensor(np.array(params_np[k])) for k in names}
+    return ButterflyLinear(port_spec, params=params).to(dev)
 
 
 def _reference_key(name: str) -> str:

@@ -15,16 +15,18 @@ reference's for the same seed (tests hand both the same numpy inputs).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "num_stages",
     "padded_dim",
     "stage_swap",
     "butterfly_apply",
+    "butterfly_apply_nonlinear",
     "butterfly_transpose_apply",
     "fjlt_weights",
     "identity_weights",
@@ -79,6 +81,29 @@ def butterfly_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x last dim {x.shape[-1]} != butterfly dim {n}")
     for s in range(p):
         x = w[s, 0] * x + w[s, 1] * stage_swap(x, 1 << s)
+    return x
+
+
+def tanh_gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, the default of ``jax.nn.gelu`` (the exact
+    erf form differs by up to ~4e-4)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def butterfly_apply_nonlinear(w: torch.Tensor, x: torch.Tensor,
+                              act: Callable[[torch.Tensor], torch.Tensor]
+                              = tanh_gelu) -> torch.Tensor:
+    """Butterfly with non-linear gates between stages (paper §7):
+    ``x <- act(B_s x)`` after every stage but the last. Same parameters as
+    the linear butterfly, in plain PyTorch (the reference computes it
+    outside its kernels too)."""
+    p, n = _check_weights(w)
+    if x.shape[-1] != n:
+        raise ValueError(f"x last dim {x.shape[-1]} != butterfly dim {n}")
+    for s in range(p):
+        x = w[s, 0] * x + w[s, 1] * stage_swap(x, 1 << s)
+        if s < p - 1:
+            x = act(x)
     return x
 
 

@@ -155,11 +155,12 @@ def pca_loss(X: torch.Tensor, Y: torch.Tensor, k: int) -> torch.Tensor:
 
 def sketch_rank_k(Xt: torch.Tensor, X: torch.Tensor, k: int) -> torch.Tensor:
     """Best rank-k approximation of ``X`` from the rows of ``Xt`` (Sarlós):
-    ``[X Π]_k`` with Π the projection onto rowspace(Xt)."""
+    ``[X Π]_k`` with Π the projection onto rowspace(Xt). Leading axes are a
+    batch: one batched SVD each for ``(..., ℓ, d)`` and ``(..., n, ℓ)``."""
     _, _, Vt = torch.linalg.svd(Xt, full_matrices=False)     # (ℓ, d)
-    XV = X @ Vt.T                                           # (n, ℓ)
+    XV = X @ Vt.mT                                          # (n, ℓ)
     U2, S2, V2t = torch.linalg.svd(XV, full_matrices=False)
-    XVk = (U2[:, :k] * S2[:k]) @ V2t[:k]
+    XVk = (U2[..., :k] * S2[..., None, :k]) @ V2t[..., :k, :]
     return XVk @ Vt
 
 
@@ -195,19 +196,9 @@ def train(spec: EncDecSpec, params: Params, X: torch.Tensor, Y: torch.Tensor,
     """
     params = {k: v.detach().clone() for k, v in params.items()}
     names = ("B", "E", "D") if train_B else ("E", "D")
-    trainable = {k: params[k].requires_grad_() for k in names}
-    tx = opt.adamw(lr)
-    state = tx.init(trainable)
-    history = []
-    for i in range(steps):
-        loss = loss_fn(spec, params, X, Y, backend=backend)
-        grads = torch.autograd.grad(loss, list(trainable.values()))
-        with torch.no_grad():
-            updates, state = tx.update(dict(zip(names, grads)), state,
-                                       trainable)
-            opt.apply_updates(trainable, updates)
-        if log_every and (i % log_every == 0 or i == steps - 1):
-            history.append(float(loss.detach()))
+    history = opt.fit(lambda: loss_fn(spec, params, X, Y, backend=backend),
+                      {k: params[k] for k in names}, steps, lr,
+                      log_every=log_every)
     return {k: v.detach() for k, v in params.items()}, history
 
 

@@ -1,9 +1,12 @@
-"""Data matrices of the paper's §5.2 experiments, made with numpy from a
-seed: copies of the reference benchmarks' generators
-(``benchmarks/common.py``) that return the same float32 arrays bit for bit.
+"""Data matrices of the paper's §5.2 and §6 experiments, made with numpy
+from a seed: copies of the reference benchmarks' generators
+(``benchmarks/common.py``, ``benchmarks/bench_sketch.py``) that return the
+same float32 arrays bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -36,3 +39,21 @@ def synthetic_image_matrix(n: int, d: int, seed: int = 0) -> np.ndarray:
     M = np.stack(imgs, axis=1)
     perm = rng.permutation(n)
     return M[perm].astype(np.float32)
+
+
+def sketch_datasets(n: int = 64, d: int = 48, t_train: int = 24,
+                    t_test: int = 8
+                    ) -> Tuple[Dict[str, List[np.ndarray]], int]:
+    """The §6 sketch benches' matrices, ``t_train + t_test`` of ``(n, d)``
+    each: ``hyper_like`` (HS-SOD-like: a smooth decaying spectrum plus
+    noise) and ``cifar_like`` (rank 8 plus noise), from one
+    ``default_rng(0)`` in that order. Returns ``(datasets, t_train)``."""
+    rng = np.random.default_rng(0)
+    t = t_train + t_test
+    base = rng.normal(size=(n, d)) @ np.diag(np.linspace(1, 0.02, d))
+    hyper = [(base + 0.05 * rng.normal(size=(n, d))).astype(np.float32)
+             for _ in range(t)]
+    base2 = rng.normal(size=(n, 8)) @ rng.normal(size=(8, d))
+    cifar = [(base2 + 0.2 * rng.normal(size=(n, d))).astype(np.float32)
+             for _ in range(t)]
+    return {"hyper_like": hyper, "cifar_like": cifar}, t_train

@@ -1,5 +1,5 @@
 """Module-style layers of the port."""
 
-from repro_torch.nn.linear import ButterflyLinear, DenseLinear
+from repro_torch.nn.linear import ButterflyLinear, DenseLinear, SandwichLinear
 
-__all__ = ["ButterflyLinear", "DenseLinear"]
+__all__ = ["ButterflyLinear", "SandwichLinear", "DenseLinear"]

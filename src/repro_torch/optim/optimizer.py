@@ -16,7 +16,8 @@ memory for nothing.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -236,3 +237,35 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
         if u is not None and _is_trainable(p):
             p.add_(u.to(p.dtype))
     return params
+
+
+def fit(loss_fn: Callable[[], torch.Tensor], params: Tree, steps: int,
+        lr: float, *, log_every: int = 0,
+        step_times: Optional[list] = None) -> List[float]:
+    """``steps`` of Adam (:func:`adamw`, no decay) on the scalar
+    ``loss_fn()`` over the leaves of ``params``, updated in place (they are
+    made to require gradients). Returns the loss before each logged step:
+    the first, every ``log_every``-th and the last (none at 0). Given a
+    ``step_times`` list, waits for the device at each step's end and
+    appends the step's seconds."""
+    names = list(params)
+    for p in params.values():
+        p.requires_grad_()
+    tx = adamw(lr)
+    state = tx.init(params)
+    history = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        with torch.no_grad():
+            updates, state = tx.update(dict(zip(names, grads)), state,
+                                       params)
+            apply_updates(params, updates)
+        if step_times is not None:
+            if loss.is_cuda:
+                torch.cuda.synchronize(loss.device)
+            step_times.append(time.perf_counter() - t0)
+        if log_every and (i % log_every == 0 or i == steps - 1):
+            history.append(float(loss.detach()))
+    return history

@@ -6,8 +6,9 @@ torn-checkpoint swap, the full-width-shaped incremental and speculative
 runs, the serving CLI's two-replica tier with and without a tracer,
 the sandwich backward and factor-VJP checks, the wide-width checks at
 100 -> 36, training and its gradient check, the butterfly kernels' checks,
-the encoder-decoder at 64 x 256, the flash kernels' checks at small shapes
-and the benches at n = 64) runs on the
+the encoder-decoder at 64 x 256, the flash kernels' checks at small shapes,
+the benches at n = 64, the layer API at 64 -> 96 and 64 x 64, the learned
+sketch at 64 x 48 and the paper's rows at 2 steps) runs on the
 smoke-sized butterfly config with the plain PyTorch versions in place of
 the kernels, so wrong paths, shapes and control flow show up before the
 script reaches a card. Also the script's refusals: no result
@@ -62,7 +63,12 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
                         wide=("wide", 100, 36),
                         cli=dict(replicas=2, slots=2, max_len=64,
                                  requests=4, min_prompt=5, max_prompt=20,
-                                 max_new=4, rate=50.0))
+                                 max_new=4, rate=50.0),
+                        layers=(("up", 64, 96, None, None, 8, True),
+                                ("quick", 64, 64, 8, 8, 8, False)),
+                        fit=(64, 8, 32, 5),
+                        sketch_run=(64, 48, 16, 8, 24, 8, 20),
+                        gated=((16, 64),), nonlinear_steps=2, lm_steps=2)
     out = capsys.readouterr().out
     assert "serve: 16 requests" in out and "on graphs (2 built)" in out
     assert "decode tick replay vs eager (torch)" in out
@@ -122,6 +128,31 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         assert f"bench {row} kernels vs plain, float32" in out
     assert "flash train B=2 H=4 S=64 D=16 bfloat16 causal=True" in out
     assert "time attention train B=2 S=64 4 heads (2 KV)" in out
+    assert ("layer api up 64->96 (k 6/7) rows=8: from_dense forward (torch) "
+            "vs to_dense() @ x + bias max|err|") in out
+    assert "layer api quickstart fit 64x64 k 8, X 32x64, 5 Adam steps" in out
+    assert "layer api quickstart fit forward 32x64 k 8 float32 (torch)" in out
+    assert "layer api quickstart fit backward 32x64 k 8 float32 max|err|" \
+        in out
+    assert "sketch first step (6 x 64x48, ell 16, k 8) through torch" in out
+    assert "sketch hyper_like 64x48 x 24+8, ell 16, k 8, batch 6, 20 steps" \
+        in out
+    assert "profile sketch: not measured (no card)" in out
+    assert "gated butterfly 16x64 float32 (tanh GELU) on cpu" in out
+    for name in ("linear_target", "mlp_target"):
+        assert (f"nonlinear {name} linear arm first step (512 x 64, float32) "
+                f"through torch vs the plain twins") in out
+    assert ("lm_butterfly first step, smollm-135m-butterfly-smoke seq_len 64 "
+            "x batch 8, seed 0:") in out
+    assert out.count("train step float32, whole step through all 2 layers") \
+        == 2
+    for row in ("nonlinear/linear_target", "nonlinear/mlp_target",
+                "lm_butterfly/final_loss"):
+        assert f"paper: {row},0.00," in out
+    assert "dense_params=139584;butterfly_params=83314" in out
+    for what in ("layer api quickstart fit", "sketch: phase", "paper rows: "
+                 "phase"):
+        assert what in out
     assert [k["name"] for k in kernels] == [
         "sandwich_fwd (sandwich_factors + sandwich_rows)",
         "paged_decode_attention", "sandwich_bwd",
@@ -129,14 +160,17 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         "flash_bwd_dkv"]
     assert kernels[0]["library_ms"] == 0.0
     assert kernels[0]["train_bound_ms"] > kernels[0]["bound_ms"] > 0
-    assert {"serve", "router", "train"} <= \
+    assert {"serve", "router", "train", "layer_api", "lm_butterfly"} <= \
         kernels[0]["launches_by_path"].keys()
+    assert {"train", "layer_api", "lm_butterfly"} == \
+        kernels[2]["launches_by_path"].keys()
     assert set(kernels[1]["launches_by_path"]) == {"serve", "router"}
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
     # sdpa's backward stands once, on dq, for the dq/dkv pair
     assert [k["library_ms"] for k in kernels[5:]] == [0.0, 0.0, None]
     assert {k["name"]: set(k["launches_by_path"]) for k in kernels[3:]} == {
-        "butterfly_fwd": {"encdec"}, "butterfly_bwd": {"encdec"},
+        "butterfly_fwd": {"encdec", "sketch", "nonlinear"},
+        "butterfly_bwd": {"encdec", "sketch", "nonlinear"},
         "flash_fwd": {"bench"}, "flash_bwd_dq": {"bench"},
         "flash_bwd_dkv": {"bench"}}
     assert [k["replaces"] for k in kernels[5:]] == [

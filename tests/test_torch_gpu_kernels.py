@@ -10,9 +10,10 @@ bfloat16 5e-2 (its factor kernel's float32 1e-5), the paged kernel's
 float32 1e-5 and bfloat16 2e-2; the sandwich backward's float32 1e-5 and
 bfloat16 8% of max|want| (`tests/test_kernels_grad.py`; its factor-row VJP,
 float32 in both dtypes, 1e-5); the butterfly
-kernels' float32 1e-5 and bfloat16 5% of max|want|, forward and backward,
-and at the backward's tile edges bit for bit against the twins of their
-operations and summation order;
+kernels' float32 1e-5 and bfloat16 5% of max|want|, forward and backward
+(the learned sketch's training: losses rtol 1e-4), and at the
+backward's tile edges bit for bit against the twins of their operations
+and summation order;
 the flash kernels' forward 1e-5 / 2e-2 of max|want|, lse 1e-5, gradients
 1e-4 / 5e-2 (float32 sums in another order; bfloat16 rounds once at the
 output), and in bfloat16 also each row of o and dq and each key's row of
@@ -397,7 +398,10 @@ def test_kernels_reject_bad_inputs(cuda):
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("rows,n", [(1, 2), (11, 64), (300, 256),
                                     (1237, 1024), (400, 4096), (7, 8192),
-                                    (3, 16384), (64, 32768)])
+                                    (3, 16384), (64, 32768),
+                                    # the learned sketch's step: 6 matrices
+                                    # of 768 columns, n 1024
+                                    (4608, 1024)])
 def test_butterfly_kernels_match_plain(cuda, rows, n, dtype, transpose):
     gen = torch.Generator().manual_seed(rows + n)
     w = bf.random_weights(gen, n).to(cuda)
@@ -448,6 +452,47 @@ def test_butterfly_fn_autograd_on_card(cuda):
     with pytest.raises(ValueError):
         kb.butterfly_forward(torch.zeros(2, 65536, device=cuda),
                              torch.zeros(16, 2, 65536, device=cuda))
+
+
+def test_sketch_training_on_card(cuda):
+    """The learned sketch trains through ``ButterflyFn``: one forward and
+    one backward call (no dx) a step; its losses, and the loss its learned
+    weights give, within rtol 1e-4 of the plain route's on the same
+    batches (Adam turns a gradient at the rounding floor into a full step,
+    so weights are compared through their loss)."""
+    from repro_torch.core import sketch
+    gen = torch.Generator().manual_seed(5)
+    spec = sketch.make_spec(gen, 100, 12, 4)
+    w0 = bf.fjlt_weights(gen, spec.pad_n)
+    Xs = torch.randn(8, 100, 40, generator=gen)
+    before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
+    got, hist = sketch.train_butterfly_sketch(spec, None, Xs.to(cuda), 3,
+                                              batch=3, log_every=1, w0=w0,
+                                              device=cuda)
+    assert (kb.butterfly_forward.launches,
+            kb.butterfly_backward.launches) == (before[0] + 3,
+                                                before[1] + 3 * kb.BWD_KERNELS)
+    want, want_h = sketch.train_butterfly_sketch(
+        spec, None, Xs.to(cuda), 3, batch=3, log_every=1, w0=w0,
+        device=cuda, backend="torch")
+    torch.testing.assert_close(torch.tensor(hist), torch.tensor(want_h),
+                               rtol=1e-4, atol=0)
+    X = Xs[:1].to(cuda)
+    losses = [float(sketch.reconstruction_loss(X, sketch.butterfly_sketch(
+        spec, v, X, backend="torch"), 4)) for v in (got, want)]
+    assert math.isclose(*losses, rel_tol=1e-4), losses
+
+
+def test_sketch_loss_of_a_non_finite_sketch_is_nan_on_card(cuda):
+    """A sketch with a non-finite entry gives a NaN loss for its matrix on
+    the card, as the reference's SVD does (the CPU's SVD raises instead,
+    and ``reconstruction_loss`` turns that into NaN)."""
+    from repro_torch.core import sketch
+    gen = torch.Generator().manual_seed(6)
+    X = torch.randn(2, 20, 12, generator=gen).to(cuda)
+    Xt = torch.randn(2, 4, 12, generator=gen).to(cuda)
+    Xt[1, 0, 0] = float("nan")
+    assert torch.isnan(sketch.reconstruction_loss(X, Xt, 2)[1])
 
 
 # Row counts at the backward's tile and block edges: R rows fill every

@@ -178,7 +178,14 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.obs.validate, repro_torch.obs.profiling, "
             "repro_torch.serve.client, repro_torch.serve.trace, "
             "repro_torch.serve.router, repro_torch.serve.loader, "
-            "repro_torch.launch.serve, repro_torch.launch.bench_serving; "
+            "repro_torch.launch.serve, repro_torch.launch.bench_serving, "
+            "repro_torch.core.sketch, repro_torch.core.layers, "
+            "repro_torch.nn, repro_torch.runtime.pytree, "
+            "repro_torch.launch.paper, repro_torch.examples, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.learned_sketch, "
+            "repro_torch.examples.butterfly_autoencoder, "
+            "repro_torch.examples.train_lm, repro_torch.examples.serve_lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'benchmarks')]; "
             "assert not bad, bad")
