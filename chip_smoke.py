@@ -202,7 +202,26 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     butterfly variant's steps and the reference's parameter counts
     139,584 and 83,314 held). Each phase's seconds printed.
 
-Prints a ``{"kernels": [...]}`` line, then as its last line
+23. The training entry point and the execution context at full width:
+    ``launch.train.main`` (seq_len 2048 x batch 4, bfloat16) 4 steps with a
+    checkpoint every 2; a second run resumed from its step 2 in another
+    directory ("resumed from step 2"), its two losses within 1e-6 relative
+    of the first run's last two; 2 steps each with ``--grad-compression
+    topk`` and ``int8`` (finite losses; one step's raw and wire bytes by
+    ``compression_stats`` printed); the sandwich launches of every run on
+    the per-step formula. Then the first step of ``Trainer.run`` for one
+    built normally against one built inside ``use_execution("torch")``, at
+    phase 10's float32 shape and seed: the second records ``torch`` and
+    launches nothing; the loss and every butterfly leaf of Adam's first
+    moment (the step's gradient, unclipped) within 1e-3; seed 0 is read.
+    Then the butterfly backward at 70,000 x 1024 float32 under
+    ``ExecutionContext(segment=4)``: dx and dw bit-identical to the unset
+    field's; segments 1 and 10 refused, naming ROADMAP item 7, before any
+    launch.
+
+The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
+but ``auto`` or ``cuda``: the plain versions would stand in for the
+kernels. Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without the last line; so does a machine without a CUDA
 device or a directory without ``src/repro_torch``.
@@ -416,7 +435,7 @@ def sandwich_call(torch, spec, layer, x, backend):
     return ks.sandwich_forward(
         x, layer.b_in, layer.core, layer.b_out, layer.idx_in, layer.idx_out,
         scale_in=spec.scale_in, scale_out=spec.scale_out, n_out=spec.n_out,
-        backend=backend)
+        context=backend)
 
 
 def phase_sandwich_factors(torch, cfg, dev, kernel: str) -> float:
@@ -438,7 +457,7 @@ def phase_sandwich_factors(torch, cfg, dev, kernel: str) -> float:
             got, want = (ks.sandwich_factors(
                 layer.b_in.detach(), layer.b_out.detach(), layer.idx_in,
                 layer.idx_out, n_in=spec.n_in, n_out=spec.n_out,
-                dtype=getattr(torch, dtype), backend=b)
+                dtype=getattr(torch, dtype), context=b)
                 for b in (kernel, "torch"))
             sync(torch, dev)
             errs = [allclose_or_raise(
@@ -518,9 +537,9 @@ def phase_paged(torch, cfg, dev, kernel: str) -> float:
             for dtype in ("float32", "bfloat16"):
                 args = paged_inputs(torch, cfg, getattr(torch, dtype), dev,
                                     shape=shape)
-                got = pa.paged_decode_attention(*args, backend=kernel)
-                again = pa.paged_decode_attention(*args, backend=kernel)
-                want = pa.paged_decode_attention(*args, backend="torch")
+                got = pa.paged_decode_attention(*args, context=kernel)
+                again = pa.paged_decode_attention(*args, context=kernel)
+                want = pa.paged_decode_attention(*args, context="torch")
                 sync(torch, dev)
                 if not torch.equal(got, again):
                     raise AssertionError(f"paged {shape[0]} {dtype}: two "
@@ -574,7 +593,7 @@ def layerwise_check(torch, eng, kernel: str) -> None:
             cache = (caches["k"][i], caches["v"][i])
             got, want = (lm.layer_apply(cfg, layer, x, positions=positions,
                                         cache=cache, page_table=table,
-                                        backend=b) for b in (kernel, "torch"))
+                                        context=b) for b in (kernel, "torch"))
             pairs.append((f"layer {i}", got.float(), want.float()))
             x = want
         h = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
@@ -603,7 +622,7 @@ def replay_vs_eager(torch, eng, kernel: str) -> dict:
     eagerly through the kernels (``decode_logits``), on the same state:
     finite and within ``LAYER_TOL`` in relative norm; reports whether they
     are bit for bit."""
-    eager = eng.decode_logits(backend=kernel)
+    eager = eng.decode_logits(context=kernel)
     graph = eng.replay_decode_logits()
     if not bool(torch.isfinite(graph).all()):
         raise AssertionError("replayed decode logits are not finite")
@@ -725,8 +744,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     layerwise_check(torch, probe, kernel)
     # the whole tick through both paths, for the record only: rounding
     # differences of bf16 compound over the random-init layer stack
-    auto = probe.decode_logits(backend=kernel)
-    plain = probe.decode_logits(backend="torch")
+    auto = probe.decode_logits(context=kernel)
+    plain = probe.decode_logits(context="torch")
     sync(torch, dev)
     say(f"decode-tick logits through all {cfg.n_layers} layers, kernels vs "
         f"plain (not held): max|err|="
@@ -866,7 +885,7 @@ def verify_replay_vs_eager(torch, eng, kernel: str) -> dict:
     (``verify_logits``), on the same state: finite and within ``LAYER_TOL``
     in relative norm; reports whether they are bit for bit."""
     tokens, graph = eng.replay_verify_logits()
-    eager = eng.verify_logits(tokens, backend=kernel)
+    eager = eng.verify_logits(tokens, context=kernel)
     if not bool(torch.isfinite(graph).all()):
         raise AssertionError("replayed verify logits are not finite")
     g, e = graph.float(), eager.float()
@@ -1083,7 +1102,7 @@ def serve_tokens_case(torch, np, dev, mode: str) -> dict:
         with torch.no_grad():
             x = cm.embed(cfg, cpu_model.embed, ctx)
             pos = torch.arange(ctx.shape[1], dtype=torch.int32)[None]
-            x = lm.backbone(cpu_model, x, positions=pos, backend="torch")
+            x = lm.backbone(cpu_model, x, positions=pos, context="torch")
             x = cm.rmsnorm(x, cpu_model.final_norm, cfg.norm_eps)
             top = cm.head_apply(cfg, cpu_model.head, x, "torch")[0, -1].float(
                 ).topk(2).values
@@ -1347,7 +1366,7 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, device_fn, launches,
             fac = time_fn(torch, lambda: ks.sandwich_factors(
                 layer.b_in, layer.b_out, layer.idx_in, layer.idx_out,
                 n_in=spec.n_in, n_out=spec.n_out, dtype=x.dtype,
-                backend=kernel), reps=200)
+                context=kernel), reps=200)
             plain = time_fn(torch, lambda: sandwich_call(
                 torch, spec, layer, x, "torch"), reps=20)
             eye = torch.eye(spec.n_in, device=dev)
@@ -1447,12 +1466,12 @@ def time_paged(torch, cfg, dev, kernel, time_fn, device_fn, shape) -> dict:
 
     def call():
         return pa.paged_decode_attention(q, k_pool, v_pool, ids, cur,
-                                         backend=kernel)
+                                         context=kernel)
 
     r = {"ms": device_fn(torch, call, reps=200),
          "event_ms": time_fn(torch, call, reps=500),
          "plain_ms": time_fn(torch, lambda: pa.paged_decode_attention(
-             q, k_pool, v_pool, ids, cur, backend="torch"), reps=20)}
+             q, k_pool, v_pool, ids, cur, context="torch"), reps=20)}
     B, KV, G, D = q.shape
     L = ids.shape[1] * k_pool.shape[1]
 
@@ -1538,7 +1557,7 @@ def phase_profile(torch, np, cfg, dev) -> dict:
     eng.step()          # the first decode replay
     ticks, out = 3, {}
     windows = (("graphed", eng.step),
-               ("eager", lambda: eng.decode_logits(backend="cuda")))
+               ("eager", lambda: eng.decode_logits(context="cuda")))
     for name, fn in windows:
         if name == "eager" and dev.type != "cuda":
             continue
@@ -1644,7 +1663,7 @@ def sandwich_bwd_call(torch, spec, layer, x, g, backend):
     return ks.sandwich_backward(
         x, layer.b_in, layer.core, layer.b_out, layer.idx_in, layer.idx_out,
         g, scale_in=spec.scale_in, scale_out=spec.scale_out,
-        n_out=spec.n_out, backend=backend)
+        n_out=spec.n_out, context=backend)
 
 
 def check_sandwich_bwd(torch, dev, what, spec, layer, x, g, kernel: str,
@@ -1683,7 +1702,7 @@ def check_factors_vjp(torch, dev, what, spec, layer, kernel: str, gen
     for dtype in (torch.float32, torch.bfloat16):
         got, again, want = (ks.sandwich_factors_vjp(
             layer.b_in.detach(), layer.b_out.detach(), layer.idx_in,
-            layer.idx_out, d_f_in, d_f_out, dtype=dtype, backend=b)
+            layer.idx_out, d_f_in, d_f_out, dtype=dtype, context=b)
             for b in (kernel, kernel, "torch"))
         sync(torch, dev)
         for name, a, b, w in zip(("d b_in", "d b_out"), got, again, want):
@@ -1940,7 +1959,7 @@ def phase_train_gradcheck(torch, np, cfg, dev, kernel: str,
     for layer in model.layers:
         ins.append(xs[-1].detach().requires_grad_())
         outs.append(lm.layer_apply(cfg, layer, ins[-1], positions=positions,
-                                   backend="torch"))
+                                   context="torch"))
         xs.append(outs[-1].detach())
     last = xs[-1].detach().requires_grad_()
     (cot,) = torch.autograd.grad(head_loss(last, "torch"), last)
@@ -1960,7 +1979,7 @@ def phase_train_gradcheck(torch, np, cfg, dev, kernel: str,
         grads = []
         for backend in (kernel, "torch"):
             out = lm.layer_apply(cfg, layer, xs[i], positions=positions,
-                                 backend=backend)
+                                 context=backend)
             grads.append(torch.autograd.grad(out, list(ps.values()),
                                              grad_outputs=cots[i]))
         for name, gk, gp in zip(ps, *grads):
@@ -1982,7 +2001,7 @@ def phase_train_gradcheck(torch, np, cfg, dev, kernel: str,
         f"difference max {rel[worst]:.3e} ({worst}), median "
         f"{sorted(rel.values())[len(rel) // 2]:.3e}; tol {LEAF_TOL}")
     # the whole step through both paths, for the record only
-    (lk, gwk), (lp, gwp) = (steps.loss_and_grads(model, batch, backend=b)
+    (lk, gwk), (lp, gwp) = (steps.loss_and_grads(model, batch, context=b)
                             for b in (kernel, "torch"))
     whole = [float((gwk[n] - gwp[n]).norm() / gwp[n].norm()) for n in rel]
     # the layer-by-layer plain gradients are the whole plain step's
@@ -2020,7 +2039,7 @@ def phase_train_step_f32(torch, cfg, dev, kernel: str, seq_len: int = 256,
         dev)
     raw = for_model(cfg32, seq_len, global_batch, seed=seed).batch(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
-    (lk, gk), (lp, gp) = (steps.loss_and_grads(model, batch, backend=b)
+    (lk, gk), (lp, gp) = (steps.loss_and_grads(model, batch, context=b)
                           for b in (kernel, "torch"))
     rel = {n: float((gk[n] - gp[n]).norm()
                     / gp[n].norm().clamp_min(1e-30)) for n in gp}
@@ -2041,6 +2060,236 @@ def phase_train_step_f32(torch, cfg, dev, kernel: str, seq_len: int = 256,
     if bad:
         raise AssertionError(f"train step float32: {len(bad)} leaves beyond "
                              f"{STEP_F32_TOL}: {dict(list(bad.items())[:5])}")
+
+
+CLI_STEPS = (4, 2)          # continuous run, then resumed from its step 2
+RESUME_RTOL = 1e-6          # resumed losses against the continuous run
+COMPRESSION_STEPS = 2       # each of topk and int8
+TRAINER_SEEDS = (1, 0)      # the Trainer check: phase 10's seed held, then
+                            # one read
+
+
+def _train_cli(torch, dev, argv: list) -> tuple:
+    """``launch.train.main(argv)`` in process with the sandwich counts set
+    to 0 just before and read just after; returns (result, launches, its
+    printed lines)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.launch import train as train_cli
+    ks.sandwich_forward.launches = 0
+    ks.sandwich_backward.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train_cli.main(argv + ["--device", dev.type])
+    sync(torch, dev)
+    return res, {"sandwich_fwd": ks.sandwich_forward.launches,
+                 "sandwich_bwd": ks.sandwich_backward.launches}, \
+        buf.getvalue().splitlines()
+
+
+def _checkpoint_shapes(np, ckdir: Path) -> dict:
+    """The params' shapes of the newest checkpoint in ``ckdir``, from its
+    manifest."""
+    newest = sorted(ckdir.glob("step_*"))[-1]
+    paths = json.loads((newest / "manifest.json").read_text())["paths"]
+    return {k: tuple(v["shape"]) for k, v in paths.items()
+            if k.startswith("params.")}
+
+
+def phase_train_cli(torch, np, cfg, dev, kernel: str, seq_len: int,
+                    batch: int, bfly_shape) -> dict:
+    """Phase 23, the training entry point and the execution context:
+    ``launch.train.main`` at ``cfg``'s width, continuous (CLI_STEPS[0]
+    steps, a checkpoint every 2), resumed from its step 2 in another
+    directory (its losses within RESUME_RTOL of the continuous run's last
+    two), and COMPRESSION_STEPS steps each with ``--grad-compression topk``
+    and ``int8``; then the first float32 step of ``Trainer.run`` for one
+    built normally against one built inside ``use_execution("torch")``
+    (the record says ``torch`` and no kernel launches; at phase 10's seed
+    the loss and each butterfly leaf of Adam's first moment within
+    STEP_F32_TOL, at TRAINER_SEEDS' others read), and the
+    butterfly backward at ``bfly_shape`` under ``ExecutionContext(segment=
+    ⌈√p⌉)``, bit-identical to the unset field, with 1 and p refused.
+    Returns the launches of the CLI runs and a summary."""
+    import shutil
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.kernels.context import ExecutionContext, use_execution
+    from repro_torch.optim.compression import compression_stats
+    from repro_torch.train.trainer import Trainer
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    fwd, bwd = train_counts(cfg)
+    out = ROOT / "build" / "train_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    whole_dir, rest_dir = out / "continuous", out / "resumed"
+    argv = ["--arch", cfg.name, "--seq-len", str(seq_len), "--global-batch",
+            str(batch), "--warmup-steps", "2", "--seed", "0"]
+    total, part = CLI_STEPS
+    launches = {"sandwich_fwd": 0, "sandwich_bwd": 0}
+
+    def held(what, res, got, steps_run, lines):
+        want = {"sandwich_fwd": on_card * fwd * steps_run,
+                "sandwich_bwd": on_card * bwd * steps_run}
+        if got != want:
+            raise AssertionError(f"train cli {what}: launches {got}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"train cli {what}: non-finite loss "
+                                 f"{res.losses}")
+        if res.execution.backend != kernel.replace("auto", "cuda"):
+            raise AssertionError(f"train cli {what}: ran under "
+                                 f"{res.execution.describe()}")
+        for k in launches:
+            launches[k] += got[k]
+        for line in lines:
+            say(f"train cli {what}: {line}")
+        say(f"train cli {what}: step ms "
+            + " ".join(f"{1e3 * t:.1f}" for t in res.step_times))
+
+    res, got, lines = _train_cli(torch, dev, argv + [
+        "--steps", str(total), "--checkpoint-every", "2",
+        "--checkpoint-dir", str(whole_dir)])
+    held("continuous", res, got, total, lines)
+    whole = res.losses
+    ms = sorted(1e3 * t for t in res.step_times[1:])
+    p50 = ms[len(ms) // 2]
+    rest_dir.mkdir(parents=True)
+    shutil.copytree(whole_dir / "step_000000002",
+                    rest_dir / "step_000000002")
+    res, got, lines = _train_cli(torch, dev, argv + [
+        "--steps", str(part), "--checkpoint-every", "2",
+        "--checkpoint-dir", str(rest_dir)])
+    held("resumed", res, got, part, lines)
+    if res.resumed_from != 2 or "resumed from step 2" not in lines[-1]:
+        raise AssertionError(f"train cli: the second run did not resume "
+                             f"from step 2: {lines[-1]}")
+    diff = max(abs(a - b) / abs(b) for a, b in zip(res.losses,
+                                                   whole[total - part:]))
+    say(f"train cli resume: losses {res.losses} against the continuous "
+        f"run's {whole[total - part:]}, largest relative difference "
+        f"{diff:.3e} (tol {RESUME_RTOL})")
+    if not diff <= RESUME_RTOL:
+        raise AssertionError(f"train cli resume: relative difference "
+                             f"{diff:.3e} beyond {RESUME_RTOL}")
+    shapes = _checkpoint_shapes(np, whole_dir)
+    wire = {}
+    for kind in ("topk", "int8"):
+        res, got, lines = _train_cli(torch, dev, argv + [
+            "--steps", str(COMPRESSION_STEPS), "--grad-compression", kind])
+        held(kind, res, got, COMPRESSION_STEPS, lines)
+        raw = sent = 0
+        for shape in shapes.values():
+            r, w = compression_stats(kind, torch.empty(
+                shape, dtype=torch.float32, device="meta"))
+            raw, sent = raw + r, sent + w
+        wire[kind] = (raw, sent, 1e3 * res.step_times[-1])
+        say(f"train cli {kind}: losses {res.losses}; last step "
+            f"{1e3 * res.step_times[-1]:.1f} ms (the continuous run's p50 "
+            f"{p50:.1f}); one step's gradients {raw} raw bytes, {sent} on "
+            f"the wire ({sent / raw:.4f})")
+
+    # the same first step through each Trainer's own loop: the kernels,
+    # and built inside use_execution("torch"). Without clipping Adam's
+    # first moment after one step is (1 - b1) * g, so it holds each leaf's
+    # gradient as the Trainer's step_fn took it. Seed 1 is phase 10's
+    # model and batch, held at its tolerance; seed 0 is read, not held
+    # (its whole float32 step differs by ~1.2e-3 on dense and butterfly
+    # leaves alike, through the Trainer and in phase 10's own check)
+    cfg32 = cfg.with_(compute_dtype="float32")
+    for seed in TRAINER_SEEDS:
+        tc = TrainConfig(warmup_steps=2, max_grad_norm=0.0,
+                         checkpoint_every=0, seed=seed)
+        normal = Trainer(cfg32, tc, seq_len=256, global_batch=1, device=dev)
+        with use_execution("torch"):
+            plain = Trainer(cfg32, tc, seq_len=256, global_batch=1,
+                            device=dev)
+        if plain.exec_ctx.backend != "torch":
+            raise AssertionError(f"a Trainer built inside use_execution("
+                                 f"'torch') resolved "
+                                 f"{plain.exec_ctx.describe()}")
+        first = {}
+        for name, tr in (("kernels", normal), ("plain", plain)):
+            ks.sandwich_forward.launches = 0
+            ks.sandwich_backward.launches = 0
+            res = tr.run(1)
+            sync(torch, dev)
+            n = ks.sandwich_forward.launches + ks.sandwich_backward.launches
+            if (n > 0) != (name == "kernels" and on_card):
+                raise AssertionError(f"trainer {name} "
+                                     f"({tr.exec_ctx.describe()}): {n} "
+                                     f"sandwich launches")
+            (adam,) = [s for s in tr.opt_state if hasattr(s, "mu")]
+            first[name] = (res.losses[0], {k: v for k, v in adam.mu.items()
+                                           if v is not None})
+            del tr.model, tr.opt_state
+        (lk, gk), (lp, gp) = first["kernels"], first["plain"]
+        rel = {n: float((gk[n] - gp[n]).norm()
+                        / gp[n].norm().clamp_min(1e-30)) for n in gp}
+        leaves = [n for n in rel if n.endswith(("b_in", "core", "b_out"))]
+        worst = max(leaves, key=rel.get)
+        loss_rel = abs(lk - lp) / abs(lp)
+        held_here = seed == TRAINER_SEEDS[0]
+        say(f"train context seed {seed}: Trainer records "
+            f"{normal.kernel_backend} and, built inside use_execution("
+            f"'torch'), {plain.kernel_backend}; first float32 step of each "
+            f"Trainer's run (seq_len 256 x 1): loss {lk:.6f} vs {lp:.6f} "
+            f"(relative difference {loss_rel:.3e}); {len(leaves)} butterfly "
+            f"leaves of Adam's first moment, max relative difference "
+            f"{rel[worst]:.3e} ({worst}), median "
+            f"{sorted(rel[n] for n in leaves)[len(leaves) // 2]:.3e}; other "
+            f"leaves max {max(v for n, v in rel.items() if n not in leaves):.3e}"
+            f"; " + (f"tol {STEP_F32_TOL}" if held_here else "not held"))
+        bad = {n: rel[n] for n in leaves if not rel[n] <= STEP_F32_TOL}
+        if not loss_rel <= STEP_F32_TOL:
+            bad["loss"] = loss_rel
+        if held_here and (bad or not all(torch.isfinite(gk[n]).all()
+                                         for n in leaves)):
+            raise AssertionError(f"train context: kernels against "
+                                 f"use_execution('torch'): {bad}")
+        del first, gk, gp, normal, plain
+
+    # the butterfly backward takes one segment: ⌈√p⌉ named explicitly
+    # gives the unset field's bits, others are refused before any launch
+    name, rows, n = bfly_shape
+    p = int(math.log2(n))
+    x, w, g = butterfly_case(torch, rows, n, "float32", dev, seed=7)
+    seg = kb.default_segment(p)
+    base = kb.butterfly_backward(x, w, g, context=kernel)
+    dx, dw = kb.butterfly_backward(
+        x, w, g, context=ExecutionContext(backend=kernel, segment=seg))
+    sync(torch, dev)
+    if not (torch.equal(dx, base[0]) and torch.equal(dw, base[1])):
+        raise AssertionError(f"butterfly backward {name}: segment {seg} "
+                             f"named differs from the unset field")
+    before = kb.butterfly_backward.launches
+    for s in (1, p):
+        try:
+            kb.butterfly_backward(
+                x, w, g, context=ExecutionContext(backend=kernel, segment=s))
+        except ValueError as e:
+            if "item 7" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"butterfly backward {name}: segment {s} "
+                                 f"was not refused")
+    if kb.butterfly_backward.launches != before:
+        raise AssertionError(f"butterfly backward {name}: a refused segment "
+                             f"launched")
+    say(f"segments: butterfly backward {name} {rows}x{n} float32: segment "
+        f"{seg} named gives the unset field's bits; 1 and {p} refused "
+        f"(ROADMAP item 7)")
+    del x, w, g, base, dx, dw
+    shutil.rmtree(out, ignore_errors=True)
+    say(f"train cli: step ms p50 {p50:.1f} over the continuous run's steps "
+        f"2-{total}; phase {time.monotonic() - t_phase:.1f} s")
+    return launches, {"train_cli_step_ms_p50": p50,
+                      "train_cli_resume_max_rel_diff": diff,
+                      "train_cli_compression_bytes": wire}
 
 
 def sandwich_bwd_bound(spec, rows: int, dtype: str):
@@ -2220,24 +2469,24 @@ def phase_butterfly(torch, dev, kernel: str, shapes) -> dict:
                 x, w, g = butterfly_case(torch, rows, n, dtype, dev, seed)
                 with torch.no_grad():
                     got = kb.butterfly_forward(x, w, transpose=transpose,
-                                               backend=kernel)
+                                               context=kernel)
                     want = kb.butterfly_forward(x, w, transpose=transpose,
-                                                backend="torch")
+                                                context="torch")
                 sync(torch, dev)
                 e_fwd = close_to_max_or_raise(torch, what, got, want, frac)
                 del got, want
                 applied = torch.zeros(1, dtype=torch.int32, device=dev)
                 dx, dw = kb.butterfly_backward(x, w, g, transpose=transpose,
-                                               backend=kernel,
+                                               context=kernel,
                                                applied=applied)
                 dx2, dw2 = kb.butterfly_backward(x, w, g,
                                                  transpose=transpose,
-                                                 backend=kernel)
+                                                 context=kernel)
                 none, dw3 = kb.butterfly_backward(
                     x, w, g, transpose=transpose, need_dx=False,
-                    backend=kernel)
+                    context=kernel)
                 pdx, pdw = kb.butterfly_backward(
-                    x, w, g, transpose=transpose, backend="torch")
+                    x, w, g, transpose=transpose, context="torch")
                 sync(torch, dev)
                 if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
                     raise AssertionError(f"{what}: two backward launches "
@@ -2388,13 +2637,13 @@ def phase_encdec_vs_plain(torch, dev, kernel, spec, params, X) -> None:
     grads = {}
     for backend in (kernel, "torch"):
         leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-        loss = ed.loss_fn(spec, leaves, X, X, backend=backend)
+        loss = ed.loss_fn(spec, leaves, X, X, context=backend)
         grads[backend] = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
     rel = {k: float((grads[kernel][k] - grads["torch"][k]).norm()
                     / grads["torch"][k].norm()) for k in params}
     hist = {b: ed.train(spec, params, X, X, steps=10, lr=1e-3, train_B=True,
-                        log_every=1, backend=b)[1] for b in (kernel, "torch")}
+                        log_every=1, context=b)[1] for b in (kernel, "torch")}
     worst = max(abs(a - b) / abs(b) for a, b in zip(hist[kernel],
                                                     hist["torch"]))
     say(f"encdec kernels vs plain: gradient relative norm of the difference "
@@ -2439,14 +2688,14 @@ def phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn, launches,
     x, w, g = butterfly_case(torch, rows, n, "float32", dev, seed=40)
     Bm = bf.materialize(w)
     calls = {
-        "fwd": (lambda: kb.butterfly_forward(x, w, backend=kernel), 20),
-        "fwd_plain": (lambda: kb.butterfly_forward(x, w, backend="torch"),
+        "fwd": (lambda: kb.butterfly_forward(x, w, context=kernel), 20),
+        "fwd_plain": (lambda: kb.butterfly_forward(x, w, context="torch"),
                       5),
         "matmul": (lambda: torch.matmul(x, Bm.T), 5),
         "bwd": (lambda: kb.butterfly_backward(x, w, g, need_dx=False,
-                                              backend=kernel), 10),
+                                              context=kernel), 10),
         "bwd_plain": (lambda: kb.butterfly_backward(
-            x, w, g, need_dx=False, backend="torch"), 3)}
+            x, w, g, need_dx=False, context="torch"), 3)}
     t = {}
     with torch.no_grad():     # the plain backward enables its own autograd
         for name, (fn, reps) in calls.items():
@@ -2475,9 +2724,9 @@ def phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn, launches,
         x, w, g = butterfly_case(torch, srows, sn, "float32", dev, seed=41)
         with torch.no_grad():
             sf = device_fn(torch, lambda: kb.butterfly_forward(
-                x, w, backend=kernel), reps=10)
+                x, w, context=kernel), reps=10)
             sb = device_fn(torch, lambda: kb.butterfly_backward(
-                x, w, g, need_dx=False, backend=kernel), reps=10)
+                x, w, g, need_dx=False, context=kernel), reps=10)
         say(f"time butterfly {name} {srows}x{sn} float32: forward {sf:.4f} "
             f"ms, backward without dx {sb:.4f} ms (device)")
         del x, w, g
@@ -2583,8 +2832,8 @@ def phase_flash(torch, dev, kernel: str, shapes) -> dict:
             kw = dict(causal=causal, window=window)
             what = (f"flash {name} B={B} H={H} S={S} D={D} {dtype} "
                     f"causal={causal} window={window}")
-            out, lse = kf.flash_forward(q, k, v, backend=kernel, **kw)
-            pout, plse = kf.flash_forward(q, k, v, backend="torch", **kw)
+            out, lse = kf.flash_forward(q, k, v, context=kernel, **kw)
+            pout, plse = kf.flash_forward(q, k, v, context="torch", **kw)
             sync(torch, dev)
             errs = {"o": close_to_max_or_raise(torch, f"{what} o", out, pout,
                                                FLASH_FWD_TOL[dtype]),
@@ -2595,12 +2844,12 @@ def phase_flash(torch, dev, kernel: str, shapes) -> dict:
                 by_row["o"] = rows_close_or_raise(torch, f"{what} o", out,
                                                   pout, FLASH_ROW_TOL)
             del out, lse
-            got = kf.flash_backward(q, k, v, pout, plse, do, backend=kernel,
+            got = kf.flash_backward(q, k, v, pout, plse, do, context=kernel,
                                     **kw)
             again = kf.flash_backward(q, k, v, pout, plse, do,
-                                      backend=kernel, **kw)
+                                      context=kernel, **kw)
             want = kf.flash_backward(q, k, v, pout, plse, do,
-                                     backend="torch", **kw)
+                                     context="torch", **kw)
             sync(torch, dev)
             for g, a, w, n in zip(got, again, want, ("dq", "dk", "dv")):
                 if not torch.equal(g, a):
@@ -2645,7 +2894,7 @@ def phase_flash_autograd(torch, dev, kernel: str, shape) -> None:
         f0, b0 = kf.flash_forward.launches, kf.flash_backward.launches
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = kf.flash_attention(*leaves, causal=causal, window=window,
-                                 backend=backend)
+                                 context=backend)
         grads[backend] = torch.autograd.grad((c.float() * out.float()).sum(),
                                              leaves)
         sync(torch, dev)
@@ -2829,17 +3078,17 @@ def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
         q, k, v, do = flash_inputs(torch, shape, dtype, dev, seed=90)
         kw = dict(causal=causal, window=window)
         with torch.no_grad():
-            out, lse = kf.flash_forward(q, k, v, backend=kernel, **kw)
+            out, lse = kf.flash_forward(q, k, v, context=kernel, **kw)
             delta = kf.row_delta(out, do)
         reps = 10 if S >= 4096 else 20
 
         calls = {
-            "flash_fwd": lambda: kf.flash_forward(q, k, v, backend=kernel,
+            "flash_fwd": lambda: kf.flash_forward(q, k, v, context=kernel,
                                                   **kw),
             "flash_bwd_dq": lambda: dq_k(q, k, v, do, lse, delta, **kw),
             "flash_bwd_dkv": lambda: dkv_k(q, k, v, do, lse, delta, **kw)}
         plains = {
-            "flash_fwd": lambda: kf.flash_forward(q, k, v, backend="torch",
+            "flash_fwd": lambda: kf.flash_forward(q, k, v, context="torch",
                                                   **kw),
             "flash_bwd_dq": lambda: kf.flash_dq_plain(q, k, v, do, lse,
                                                       delta, **kw),
@@ -3034,7 +3283,7 @@ def phase_layer_api(torch, np, dev, kernel: str, layers=LAYER_API_LAYERS,
             _gen(torch, 0), W, bias=b, k_in=k_in, k_out=k_out, device=dev)
         x = torch.randn(rows, n_in, generator=_gen(torch, 1)).to(dev)
         with torch.no_grad():
-            got = layer(x, backend=kernel)
+            got = layer(x, context=kernel)
             want = x @ layer.to_dense().T + (layer.bias if with_bias else 0)
         sync(torch, dev)
         err, share = close_to_max_or_raise(torch, f"layer api {name}", got,
@@ -3058,8 +3307,8 @@ def phase_layer_api(torch, np, dev, kernel: str, layers=LAYER_API_LAYERS,
     Y = X @ Wt.T
     # the fit's first step through the kernels against the plain versions
     with torch.no_grad():
-        got = layer(X, backend=kernel)
-        want = layer(X, backend="torch")
+        got = layer(X, context=kernel)
+        want = layer(X, context="torch")
     sync(torch, dev)
     err = allclose_or_raise(torch, "quickstart fit forward", got, want,
                             SANDWICH_TOL["float32"])
@@ -3177,7 +3426,7 @@ def phase_sketch(torch, np, dev, kernel: str, run_=SKETCH_RUN) -> tuple:
     for backend in dict.fromkeys((kernel, "torch")):
         w = w0.clone().requires_grad_()
         loss = sketch.reconstruction_loss(
-            Xb, sketch.butterfly_sketch(spec, w, Xb, backend=backend),
+            Xb, sketch.butterfly_sketch(spec, w, Xb, context=backend),
             k).mean()
         first[backend] = (loss.detach(), torch.autograd.grad(loss, [w])[0])
     e_loss = close_to_max_or_raise(torch, "sketch first step loss",
@@ -3430,16 +3679,24 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     summary.update(train_summary)
     phase_train_gradcheck(torch, np, cfg, dev, kernel)
     phase_train_step_f32(torch, cfg, dev, kernel)
+    cli_launches, cli_summary = phase_train_cli(
+        torch, np, cfg, dev, kernel, *train_shape, bfly_shapes[0])
+    summary.update(cli_summary)
     kernels.append(phase_timing_bwd(
         torch, cfg, dev, kernel, time_fn, train_launches["sandwich_bwd"],
         errs["sandwich_bwd"], train_rows))
     fwd = kernels[0]
     fwd["launches_by_path"] = {"serve": fwd["launches"],
                                "router": router_launches["sandwich_fwd"],
-                               "train": train_launches["sandwich_fwd"]}
+                               "train": train_launches["sandwich_fwd"],
+                               "train_cli": cli_launches["sandwich_fwd"]}
     fwd["launches"] += (train_launches["sandwich_fwd"]
-                        + router_launches["sandwich_fwd"])
-    kernels[-1]["launches_by_path"] = {"train": kernels[-1]["launches"]}
+                        + router_launches["sandwich_fwd"]
+                        + cli_launches["sandwich_fwd"])
+    kernels[-1]["launches_by_path"] = {
+        "train": kernels[-1]["launches"],
+        "train_cli": cli_launches["sandwich_bwd"]}
+    kernels[-1]["launches"] += cli_launches["sandwich_bwd"]
     encdec_launches, encdec_summary, problem = phase_encdec(
         torch, dev, encdec_shape, encdec_steps)
     summary.update(encdec_summary)
@@ -3466,7 +3723,16 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
 
 
 def main() -> int:
+    import os
+
     import torch
+    routed = os.environ.get("REPRO_KERNEL_BACKEND", "").strip().lower()
+    if routed not in ("", "auto", "cuda"):
+        # the plain versions would stand in for every kernel of the run
+        sys.stderr.write(f"chip_smoke: REPRO_KERNEL_BACKEND={routed!r} "
+                         f"routes the kernels to the plain versions; unset "
+                         f"it (or set auto or cuda)\n")
+        return 2
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device; nothing was run\n")
         return 2

@@ -17,8 +17,10 @@ llama-style LM, and the paged continuous-batching engine drives it.
 Two kernels are written by hand in CUDA C++ for ``sm_90a``
 (``csrc/sandwich.cu``, ``csrc/paged_attention.cu``). Each has a plain
 PyTorch twin in the same module; a wrapper takes the twin only for a tensor
-on the CPU (or when the caller asks for ``backend="torch"``), never as a
-fallback for a CUDA tensor. Entry points run on ``cuda`` unless the caller
+on the CPU (or when the caller's execution context asks for ``"torch"``:
+``context="torch"``, or ``with use_execution("torch"):``; see
+:mod:`repro_torch.kernels.context`), never as a fallback for a CUDA
+tensor. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"`` and raise when no card is present.
 
 The package imports ``torch`` and numpy only — never ``jax`` and never the

@@ -22,12 +22,27 @@ class ButterflyConfig:
     paper's ``k = log2(n)`` core size. ``seed`` feeds the per-site
     truncation-index derivation (:func:`repro_torch.models.common.
     site_butterfly_spec`).
+
+    The execution fields (``backend``, ``block_b``, ``segment``,
+    ``mesh_shape``) are the config layer of the
+    :class:`~repro_torch.kernels.context.ExecutionContext` resolution
+    order, lifted by ``ExecutionContext.from_butterfly_config``: an
+    explicit per-call context or an ambient ``use_execution`` block
+    overrides them field by field. ``backend`` is ``"auto" | "torch" |
+    "cuda"``; ``segment`` the butterfly backward's checkpoint interval
+    (``None``: ⌈√p⌉). ``block_b`` and ``mesh_shape`` construct, so that the
+    reference's configs do, but a context that sets them is refused at
+    resolution (ROADMAP items 7 and 6).
     """
 
     sites: Tuple[str, ...] = ("lm_head",)
     k_factor: float = 1.0
     seed: int = 0
     use_bias: bool = False
+    backend: str = "auto"
+    block_b: Optional[int] = None
+    segment: Optional[int] = None
+    mesh_shape: Optional[Tuple[int, ...]] = None
 
 
 @dataclass(frozen=True)
@@ -71,8 +86,10 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The reference's training knobs. Gradient compression is not ported:
-    ``grad_compression`` must stay ``""``."""
+    """The reference's training knobs. ``grad_compression`` is ``""``,
+    ``"topk"`` (keeping the ``grad_compression_ratio`` largest fraction)
+    or ``"int8"``, with error feedback
+    (:mod:`repro_torch.optim.compression`)."""
 
     learning_rate: float = 3e-4
     warmup_steps: int = 100
@@ -84,4 +101,6 @@ class TrainConfig:
     checkpoint_every: int = 200
     checkpoint_dir: str = ""
     keep_checkpoints: int = 3
-    grad_compression: str = ""     # "" only in the port
+    grad_compression: str = ""     # "" | "topk" | "int8"
+    grad_compression_ratio: float = 0.01
+    log_every: int = 10

@@ -11,6 +11,9 @@ weights. :func:`load_jax_params` loads such a tree into an existing model
 checkpoints store their params in the reference's layout, layers stacked
 as ``unit``), and :func:`names_by_reference_key` names the port parameters
 behind each reference leaf, so gradients compare leaf by leaf.
+:func:`opt_state_to_jax` and :func:`load_jax_opt_state` do the same for the
+optimizer state, so a checkpoint either package's ``Trainer`` wrote resumes
+in the other.
 :func:`encdec_from_jax` does the same for the encoder–decoder network: the
 reference's ``B``, ``E``, ``D`` and its spec, truncation indices included;
 :func:`sketch_from_jax` for a learned sketch's spec and stage weights, and
@@ -144,7 +147,7 @@ def sandwich_from_jax(spec: Any, params_np: Mapping, *,
     return ButterflyLinear(port_spec, params=params).to(dev)
 
 
-def _reference_key(name: str) -> str:
+def reference_key(name: str) -> str:
     """The checkpoint key of the reference leaf holding port parameter
     ``name`` (``layers.3.ffn.up.b_in`` -> ``unit[0].ffn.up.b_in``)."""
     parts = name.split(".")
@@ -160,7 +163,7 @@ def names_by_reference_key(names) -> Dict[str, List[str]]:
     out: Dict[str, List[str]] = {}
     for name in names:
         if not name.endswith(INDEX_BUFFERS):
-            out.setdefault(_reference_key(name), []).append(name)
+            out.setdefault(reference_key(name), []).append(name)
     for key, group in out.items():
         if key.startswith("unit[0]."):
             group.sort(key=lambda n: int(n.split(".")[1]))
@@ -187,3 +190,45 @@ def to_jax_params(named: Mapping[str, torch.Tensor]) -> Dict:
         else:
             _insert(tree, key.split("."), arrays[0])
     return tree
+
+
+def opt_state_to_jax(state: Any) -> Any:
+    """The port's optimizer state in the reference's layout, as host numpy:
+    the chain's tuple and its states (``NamedTuple``s, the empty
+    ``ClipState()`` slots included) as they are, every ``{name: tensor}``
+    tree (Adam's ``mu`` and ``nu``, the compression's error buffers)
+    through :func:`to_jax_params`, counts as int32 scalars. The tuple's
+    order is the chain's, so it follows the run's own ``TrainConfig`` (a
+    compression slot shifts every later index)."""
+    if isinstance(state, Mapping):
+        return to_jax_params(state)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*[opt_state_to_jax(v) for v in state])
+    if isinstance(state, (list, tuple)):
+        return type(state)(opt_state_to_jax(v) for v in state)
+    if state is None:
+        return None
+    return state.detach().cpu().numpy()
+
+
+def load_jax_opt_state(cfg: ModelConfig, template: Any, tree: Any) -> Any:
+    """The inverse of :func:`opt_state_to_jax`: ``tree`` (the reference's
+    layout, numpy, as a checkpoint restores it against
+    ``opt_state_to_jax(template)``) as a port optimizer state shaped like
+    ``template``, each tensor on its template's device and dtype; stacked
+    ``unit`` leaves are split per layer as :func:`load_jax_params` splits
+    the params."""
+    if isinstance(template, Mapping):
+        flat = _port_flat(cfg, tree)
+        return {k: torch.as_tensor(np.array(flat[k])).to(t.device, t.dtype)
+                for k, t in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*[load_jax_opt_state(cfg, t, h)
+                                for t, h in zip(template, tree)])
+    if isinstance(template, (list, tuple)):
+        return type(template)(load_jax_opt_state(cfg, t, h)
+                              for t, h in zip(template, tree))
+    if template is None:
+        return None
+    return torch.as_tensor(np.array(tree)).to(template.device,
+                                              template.dtype)

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import butterfly as bf
 from repro_torch.kernels import butterfly as kb
-from repro_torch.kernels.context import resolve_device
+from repro_torch.kernels.context import ContextLike, resolve_device
 from repro_torch.optim import optimizer as opt
 
 Params = Dict[str, torch.Tensor]
@@ -75,7 +75,7 @@ def init_params(generator: Optional[torch.Generator], spec: EncDecSpec, *,
 
 
 def apply_B(spec: EncDecSpec, w: torch.Tensor, X: torch.Tensor, *,
-            backend: str = "auto") -> torch.Tensor:
+            context: ContextLike = None) -> torch.Tensor:
     """``B X`` for column data ``X (n × d)`` -> (ℓ × d).
 
     The butterfly runs over the rows of the transposed data: one copy pads
@@ -84,20 +84,20 @@ def apply_B(spec: EncDecSpec, w: torch.Tensor, X: torch.Tensor, *,
     kernel's output is truncated to the ℓ kept coordinates.
     """
     Xp = F.pad(X.T, (0, spec.pad_n - spec.n)).contiguous()   # (d, pad_n)
-    H = kb.butterfly_apply(Xp, w, backend=backend)
+    H = kb.butterfly_apply(Xp, w, context=context)
     Ht = bf.truncate(H, spec.trunc_idx, spec.pad_n, spec.jl_scale)
     return Ht.T                                              # (ℓ, d)
 
 
 def forward(spec: EncDecSpec, params: Params, X: torch.Tensor, *,
-            backend: str = "auto") -> torch.Tensor:
-    Xt = apply_B(spec, params["B"], X, backend=backend)
+            context: ContextLike = None) -> torch.Tensor:
+    Xt = apply_B(spec, params["B"], X, context=context)
     return params["D"] @ (params["E"] @ Xt)
 
 
 def loss_fn(spec: EncDecSpec, params: Params, X: torch.Tensor,
-            Y: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
-    Yb = forward(spec, params, X, backend=backend)
+            Y: torch.Tensor, *, context: ContextLike = None) -> torch.Tensor:
+    Yb = forward(spec, params, X, context=context)
     return torch.sum(torch.square(Yb - Y))
 
 
@@ -183,7 +183,7 @@ def fjlt_pca_loss(generator: Optional[torch.Generator], X: torch.Tensor,
 
 def train(spec: EncDecSpec, params: Params, X: torch.Tensor, Y: torch.Tensor,
           steps: int, lr: float = 1e-3, train_B: bool = True,
-          log_every: int = 0, backend: str = "auto"
+          log_every: int = 0, context: ContextLike = None
           ) -> Tuple[Params, list]:
     """Full-batch Adam on the reconstruction loss; returns (params, loss
     history), the history holding the loss before each logged step.
@@ -196,7 +196,7 @@ def train(spec: EncDecSpec, params: Params, X: torch.Tensor, Y: torch.Tensor,
     """
     params = {k: v.detach().clone() for k, v in params.items()}
     names = ("B", "E", "D") if train_B else ("E", "D")
-    history = opt.fit(lambda: loss_fn(spec, params, X, Y, backend=backend),
+    history = opt.fit(lambda: loss_fn(spec, params, X, Y, context=context),
                       {k: params[k] for k in names}, steps, lr,
                       log_every=log_every)
     return {k: v.detach() for k, v in params.items()}, history
@@ -205,11 +205,11 @@ def train(spec: EncDecSpec, params: Params, X: torch.Tensor, Y: torch.Tensor,
 def train_two_phase(spec: EncDecSpec, params: Params, X: torch.Tensor,
                     Y: torch.Tensor, steps1: int, steps2: int,
                     lr: float = 1e-3, log_every: int = 0,
-                    backend: str = "auto") -> Tuple[Params, list, list]:
+                    context: ContextLike = None) -> Tuple[Params, list, list]:
     """§5.3: phase 1 trains (D, E) with B frozen at its FJLT init (Theorem 1
     makes local = global there); phase 2 fine-tunes all three."""
     params, h1 = train(spec, params, X, Y, steps1, lr=lr, train_B=False,
-                       log_every=log_every, backend=backend)
+                       log_every=log_every, context=context)
     params, h2 = train(spec, params, X, Y, steps2, lr=lr, train_B=True,
-                       log_every=log_every, backend=backend)
+                       log_every=log_every, context=context)
     return params, h1, h2

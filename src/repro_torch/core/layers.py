@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import butterfly as bf
 from repro_torch.kernels import sandwich as ks
+from repro_torch.kernels.context import ContextLike
 
 __all__ = ["ButterflySpec", "default_k", "make_spec",
            "init_butterfly_linear", "init_from_dense", "dense_core",
@@ -142,7 +143,7 @@ def init_from_dense(generator: Optional[torch.Generator],
 def butterfly_linear_apply(spec: ButterflySpec,
                            params: Mapping[str, torch.Tensor],
                            x: torch.Tensor, *,
-                           backend: str = "auto") -> torch.Tensor:
+                           context: ContextLike = None) -> torch.Tensor:
     """The sandwich along the last axis: (..., n_in) -> (..., n_out).
 
     ``params`` holds ``b_in``, ``core``, ``b_out``, optionally ``bias``, and
@@ -160,7 +161,7 @@ def butterfly_linear_apply(spec: ButterflySpec,
     z = ks.sandwich_forward(
         x.contiguous(), params["b_in"], params["core"], params["b_out"],
         idx["idx_in"], idx["idx_out"], scale_in=spec.scale_in,
-        scale_out=spec.scale_out, n_out=spec.n_out, backend=backend)
+        scale_out=spec.scale_out, n_out=spec.n_out, context=context)
     if spec.use_bias and "bias" in params:
         z = z + params["bias"].to(x.dtype)
     return z

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from repro_torch.core import butterfly as bf
 from repro_torch.core.encdec import sketch_rank_k
 from repro_torch.kernels import butterfly as kb
-from repro_torch.kernels.context import resolve_device
+from repro_torch.kernels.context import ContextLike, resolve_device
 from repro_torch.optim import optimizer as opt
 
 Device = Union[str, torch.device, None]
@@ -67,11 +67,11 @@ def make_spec(generator: Optional[torch.Generator], n: int, ell: int,
 # ---------------------------------------------------------------------------
 
 def butterfly_sketch(spec: SketchSpec, w: torch.Tensor, X: torch.Tensor, *,
-                     backend: str = "auto") -> torch.Tensor:
+                     context: ContextLike = None) -> torch.Tensor:
     """``B X``: (..., n, d) -> (..., ℓ, d) through the truncated butterfly,
     one kernel call over every matrix's columns."""
     Xp = F.pad(X.mT, (0, spec.pad_n - spec.n)).contiguous()  # (.., d, pad_n)
-    H = kb.butterfly_apply(Xp, w, backend=backend)
+    H = kb.butterfly_apply(Xp, w, context=context)
     return bf.truncate(H, spec.trunc_idx, spec.pad_n, spec.jl_scale).mT
 
 
@@ -180,7 +180,7 @@ def train_butterfly_sketch(spec: SketchSpec,
                            Xs: Matrices, steps: int, lr: float = 1e-3,
                            batch: int = 1, log_every: int = 0, *,
                            w0: Optional[torch.Tensor] = None,
-                           backend: str = "auto", device: Device = None,
+                           context: ContextLike = None, device: Device = None,
                            step_times: Optional[list] = None
                            ) -> Tuple[torch.Tensor, list]:
     """Learn the butterfly's stage weights on the empirical sketch loss.
@@ -194,7 +194,7 @@ def train_butterfly_sketch(spec: SketchSpec,
          else bf.fjlt_weights(generator, spec.pad_n)).to(dev, torch.float32)
 
     def loss_of(w, Xb):
-        Xt = butterfly_sketch(spec, w, Xb, backend=backend)
+        Xt = butterfly_sketch(spec, w, Xb, context=context)
         return reconstruction_loss(Xb, Xt, spec.k)
 
     return _fit(loss_of, w, data, steps, lr, batch, log_every, step_times)

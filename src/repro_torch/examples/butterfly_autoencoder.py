@@ -48,8 +48,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"FJLT+PCA (Prop. 4.1)    : {fjlt:.5f}")
     print(f"Theorem 1 prediction    : {pred:.5f}  (optimal loss, B frozen)")
 
-    # the backend is per call: backend="torch" runs both phases through the
-    # plain versions, the default "auto" through the kernels on the card
+    # the execution context is per call: context="torch" runs both phases
+    # through the plain versions, the default through the kernels on the
+    # card
     log = max(min(args.steps1, args.steps2) // 3, 1)
     print("\n-- phase 1: train (D,E), B frozen at FJLT init --")
     p1, hist1 = encdec.train(spec, params, X, X, steps=args.steps1, lr=3e-3,

@@ -6,8 +6,9 @@ Shows, through :class:`repro_torch.nn.ButterflyLinear`, (1) the parameter
 reduction, (2) Proposition 3.1's approximation at init (``from_dense``),
 (3) trainability: the sandwich learns a random linear map through the
 sandwich kernels (``SandwichFn``, forward and backward), and (4) the
-per-call ``backend=`` that runs the same layer through the plain PyTorch
-version.
+execution context: a per-call ``context="torch"``, or an ambient ``with
+use_execution("torch"):`` block, runs the same layer through the plain
+PyTorch version.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import nn
-from repro_torch.kernels.context import resolve_device
+from repro_torch.kernels.context import resolve_device, use_execution
 from repro_torch.optim import optimizer as opt
 
 
@@ -87,11 +88,14 @@ def main(argv: Optional[List[str]] = None) -> int:
           "loss before training: (no steps)")
     print(f"loss after {args.steps} steps: {final:.5f}")
 
-    # --- the execution backend is a per-call argument ---
+    # --- the execution context: per call, or ambient for a block ---
     with torch.no_grad():
-        plain = layer(xt[None], backend="torch")
-        same = torch.allclose(plain, layer(xt[None]), atol=2e-4, rtol=2e-4)
-    print(f"backend='torch' (the plain version) matches the default "
+        plain = layer(xt[None], context="torch")
+        with use_execution("torch"):
+            ambient = layer(xt[None])
+        same = (torch.allclose(plain, layer(xt[None]), atol=2e-4, rtol=2e-4)
+                and torch.equal(plain, ambient))
+    print(f"context='torch' (the plain version) matches the default "
           f"route: {bool(same)}")
     return 0
 

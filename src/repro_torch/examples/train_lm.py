@@ -6,7 +6,9 @@ Run: ``python -m repro_torch.examples.train_lm --arch smollm-135m-smoke
 Config registry -> synthetic data stream with prefetch -> microbatched
 AdamW training -> async checkpoints -> resume. ``--butterfly`` swaps the LM
 head and MLP for the paper's sandwich (§3.2/§5.1), trained through the
-sandwich kernels on the card.
+sandwich kernels on the card. A thin caller of the training entry point,
+:mod:`repro_torch.launch.train`, with the example's sizes and a loss
+curve.
 """
 
 from __future__ import annotations
@@ -17,9 +19,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from repro_torch.configs import registry
-from repro_torch.configs.base import TrainConfig
-from repro_torch.train.trainer import Trainer
+from repro_torch.launch import train as train_cli
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -42,22 +42,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         smoke = name.endswith("-smoke")
         base = name[:-6] if smoke else name
         name = base + "-butterfly" + ("-smoke" if smoke else "")
-    try:
-        cfg = registry.get(name)
-    except KeyError as e:
-        raise SystemExit(f"{e.args[0]} (ROADMAP queue 1, item 5, brings the "
-                         f"rest of the zoo)")
     ckpt = args.checkpoint_dir or tempfile.mkdtemp(prefix="repro_ckpt_")
-    tc = TrainConfig(learning_rate=args.lr, warmup_steps=20,
-                     total_steps=args.steps, microbatches=args.microbatches,
-                     checkpoint_every=max(args.steps // 4, 1),
-                     checkpoint_dir=ckpt)
-    print(f"training {cfg.name}: {args.steps} steps, "
+    print(f"training {name}: {args.steps} steps, "
           f"seq={args.seq_len}, batch={args.global_batch} "
           f"(checkpoints → {ckpt})")
-    tr = Trainer(cfg, tc, seq_len=args.seq_len,
-                 global_batch=args.global_batch, device=args.device)
-    res = tr.run(args.steps)
+    cli = ["--arch", name, "--steps", str(args.steps),
+           "--seq-len", str(args.seq_len),
+           "--global-batch", str(args.global_batch),
+           "--microbatches", str(args.microbatches), "--lr", str(args.lr),
+           "--warmup-steps", "20",
+           "--checkpoint-every", str(max(args.steps // 4, 1)),
+           "--checkpoint-dir", ckpt]
+    if args.device:
+        cli += ["--device", args.device]
+    res = train_cli.main(cli)
     w = max(len(res.losses) // 10, 1)
     for i in range(0, len(res.losses), w):
         print(f"  step {i:4d}: loss {np.mean(res.losses[i:i + w]):.4f}")

@@ -14,13 +14,18 @@ the port's sandwich kernels made the same choice). The backward's ``dw`` is
 float32, taken w.r.t. the rounded weights, and comes back from
 :class:`ButterflyFn` in the weights' dtype.
 
-The backward kernel takes the reference's schedule, segmented stage
-checkpointing with ``segment = ⌈√p⌉``; :func:`stage_applies` counts its
-stage applications per row, the counterpart of the reference's
-``count_stage_applies``. It sums ``dw`` in a fixed order: each thread over
-its rows in row order, each block over its row slots (:func:`row_slots`),
-then over blocks in block order; :func:`butterfly_bwd_tiled_plain` is the
-plain twin of that order, bit for bit.
+The backward kernel takes the reference's default schedule, segmented
+stage checkpointing with ``segment = ⌈√p⌉``; :func:`stage_applies` counts
+its stage applications per row, the counterpart of the reference's
+``count_stage_applies``. Its register schedule fixes that segment: an
+execution context that names another is refused with ``ValueError``
+(:func:`check_segment`; a choice of segment comes with the tuner, ROADMAP
+queue 1, item 7). A segment changes which stage inputs are kept and
+which recomputed, never a value. It sums ``dw`` in a fixed order: each
+thread over its rows in row order, each block over its row slots
+(:func:`row_slots`), then over blocks in block order;
+:func:`butterfly_bwd_tiled_plain` is the plain twin of that order, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 
 from repro_torch.core import butterfly as bf
 from repro_torch.kernels import build
-from repro_torch.kernels.context import resolve_backend
+from repro_torch.kernels.context import (ContextLike, resolve_execution,
+                                         tensor_route)
 from repro_torch.obs.profiling import annotate
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +54,17 @@ def default_segment(stages: int) -> int:
     if stages <= 1:
         return 1
     return math.isqrt(stages - 1) + 1
+
+
+def check_segment(p: int, segment: Optional[int]) -> None:
+    """Refuse a context's ``segment`` other than ⌈√p⌉ for a ``p``-stage
+    butterfly: the backward kernel's register schedule takes that one
+    alone, and the plain route follows it."""
+    if segment is not None and segment != default_segment(p):
+        raise ValueError(
+            f"segment={segment}: the butterfly backward runs segment "
+            f"⌈√p⌉ = {default_segment(p)} for p = {p}; a choice of segment "
+            f"comes with the tuner, ROADMAP queue 1, item 7")
 
 
 def stage_applies(p: int, segment: Optional[int] = None) -> int:
@@ -273,14 +290,15 @@ def _bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 def butterfly_forward(x: torch.Tensor, w: torch.Tensor, *,
                       transpose: bool = False,
-                      backend: str = "auto") -> torch.Tensor:
+                      context: ContextLike = None) -> torch.Tensor:
     """``B x`` (or ``Bᵀ x``) over the last axis of ``x`` (..., n), without
-    autograd. ``backend`` follows :mod:`repro_torch.kernels.context`; the
+    autograd. ``context`` follows :mod:`repro_torch.kernels.context`; the
     CUDA route takes contiguous float32 or bfloat16 ``x``, float32 ``w`` on
     its device, ``2 <= n <= MAX_N`` (32,768), and counts each launch in
     ``butterfly_forward.launches``."""
-    with annotate("butterfly_matmul"):
-        if resolve_backend(backend, x) == "torch":
+    ctx = resolve_execution(context)
+    with annotate("butterfly_matmul", ctx):
+        if tensor_route(ctx.backend, x) == "torch":
             with torch.no_grad():     # no autograd on either route
                 return butterfly_plain(x, w, transpose=transpose)
         return _fwd_cuda(x, w, transpose)
@@ -291,15 +309,18 @@ butterfly_forward.launches = 0
 
 def butterfly_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                        transpose: bool = False, need_dx: bool = True,
-                       backend: str = "auto",
+                       context: ContextLike = None,
                        applied: Optional[torch.Tensor] = None):
     """The butterfly's VJP: ``(dx, dw)`` for the cotangent ``g`` of the
     output, ``dx`` in ``x``'s dtype or ``None`` unless ``need_dx``, ``dw``
-    float32. The CUDA route adds its two launches (the row-tile VJP, the
-    reduction of ``dw``) to ``butterfly_backward.launches`` and, given
-    ``applied`` (one int32 on the card), writes there the number of stage
-    applications the kernel performed for the first row."""
-    if resolve_backend(backend, x) == "torch":
+    float32. A context's ``segment`` other than ⌈√p⌉ is refused
+    (:func:`check_segment`). The CUDA route adds its two launches (the
+    row-tile VJP, the reduction of ``dw``) to ``butterfly_backward.launches``
+    and, given ``applied`` (one int32 on the card), writes there the number
+    of stage applications the kernel performed for the first row."""
+    ctx = resolve_execution(context)
+    check_segment(w.shape[0], ctx.segment)
+    if tensor_route(ctx.backend, x) == "torch":
         return butterfly_bwd_plain(x, w, g, transpose=transpose,
                                    need_dx=need_dx)
     return _bwd_cuda(x, w, g, transpose, need_dx, applied)
@@ -310,29 +331,35 @@ butterfly_backward.launches = 0
 
 class ButterflyFn(torch.autograd.Function):
     """The butterfly as one differentiable op: the forward kernel forward
-    and the backward kernel backward (``route="cuda"``), or both plain twins
-    (``route="torch"``). ``dx`` is computed only when ``x`` needs a
-    gradient (the encoder's data does not)."""
+    and the backward kernel backward (on CUDA tensors), or both plain twins
+    (on CPU tensors, or under a ``torch`` context), under the finalized
+    ``context`` of the forward, which the backward reuses (it runs on
+    autograd's thread, not the caller's). ``dx`` is computed only when
+    ``x`` needs a gradient (the encoder's data does not)."""
 
     @staticmethod
-    def forward(ctx, x, w, transpose, route):
+    def forward(ctx, x, w, transpose, context):
         ctx.save_for_backward(x, w)
-        ctx.transpose, ctx.route = transpose, route
-        return butterfly_forward(x, w, transpose=transpose, backend=route)
+        ctx.transpose, ctx.context = transpose, context
+        return butterfly_forward(x, w, transpose=transpose, context=context)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = butterfly_backward(
             x, w, g.to(x.dtype).contiguous(), transpose=ctx.transpose,
-            need_dx=ctx.needs_input_grad[0], backend=ctx.route)
+            need_dx=ctx.needs_input_grad[0], context=ctx.context)
         return dx, dw.to(w.dtype), None, None
 
 
 def butterfly_apply(x: torch.Tensor, w: torch.Tensor, *,
                     transpose: bool = False,
-                    backend: str = "auto") -> torch.Tensor:
+                    context: ContextLike = None) -> torch.Tensor:
     """Fused butterfly product over the last axis of ``x`` (..., n),
     differentiable in ``x`` and ``w`` through :class:`ButterflyFn`;
-    ``backend`` follows :mod:`repro_torch.kernels.context`."""
-    return ButterflyFn.apply(x, w, transpose, resolve_backend(backend, x))
+    ``context`` follows :mod:`repro_torch.kernels.context`; a ``segment``
+    other than ⌈√p⌉ is refused here, before the forward
+    (:func:`check_segment`)."""
+    ctx = resolve_execution(context)
+    check_segment(w.shape[0], ctx.segment)
+    return ButterflyFn.apply(x, w, transpose, ctx)

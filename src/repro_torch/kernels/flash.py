@@ -43,7 +43,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.context import resolve_backend
+from repro_torch.kernels.context import (ContextLike, resolve_execution,
+                                         route_context, tensor_route)
 from repro_torch.obs.profiling import annotate
 
 NEG_INF = -1e30
@@ -276,13 +277,13 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  backend: str = "auto"):
-    """``(out, lse)`` without autograd. ``backend`` follows
+                  context: ContextLike = None):
+    """``(out, lse)`` without autograd. ``context`` follows
     :mod:`repro_torch.kernels.context`; the CUDA route takes contiguous
     float32 or bfloat16 q/k/v of one shape (B, H, S, D) with ``D`` in
     8..256 (a multiple of 8), and counts its launch in
     ``flash_forward.launches``."""
-    if resolve_backend(backend, q) == "torch":
+    if tensor_route(resolve_execution(context).backend, q) == "torch":
         with torch.no_grad():
             return flash_fwd_plain(q, k, v, causal, window)
     return _fwd_cuda(q, k, v, causal, window)
@@ -294,12 +295,12 @@ flash_forward.launches = 0
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
-                   backend: str = "auto"):
+                   context: ContextLike = None):
     """``(dq, dk, dv)`` for the cotangent ``do`` of the forward's ``out``
     (``lse`` its logsumexp). The CUDA route computes Δ in plain PyTorch and
     launches the dq and the dkv kernel, adding 2 to
     ``flash_backward.launches``."""
-    if resolve_backend(backend, q) == "torch":
+    if tensor_route(resolve_execution(context).backend, q) == "torch":
         with torch.no_grad():
             return flash_bwd_plain(q, k, v, out, lse, do, causal, window)
     _check(q, k, v, out, do)
@@ -322,7 +323,7 @@ class FlashFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, route):
         out, lse = flash_forward(q, k, v, causal=causal, window=window,
-                                 backend=route)
+                                 context=route_context(route))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.route = causal, window, route
         return out
@@ -332,17 +333,18 @@ class FlashFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(
             q, k, v, out, lse, g.to(q.dtype).contiguous(), causal=ctx.causal,
-            window=ctx.window, backend=ctx.route)
+            window=ctx.window, context=route_context(ctx.route))
         return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    backend: str = "auto") -> torch.Tensor:
+                    context: ContextLike = None) -> torch.Tensor:
     """q/k/v (B, H, S, D), KV heads already expanded; differentiable in all
-    three through :class:`FlashFn`. ``backend`` follows
+    three through :class:`FlashFn`. ``context`` follows
     :mod:`repro_torch.kernels.context`: the kernels for a CUDA tensor, the
     plain twins for a CPU tensor, no fallback from one to the other."""
-    with annotate("flash_attention"):
+    ctx = resolve_execution(context)
+    with annotate("flash_attention", ctx):
         return FlashFn.apply(q, k, v, causal, int(window),
-                             resolve_backend(backend, q))
+                             tensor_route(ctx.backend, q))

@@ -26,7 +26,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.context import resolve_backend
+from repro_torch.kernels.context import (ContextLike, resolve_execution,
+                                         tensor_route)
 from repro_torch.obs.profiling import annotate
 
 NEG_INF = -1e30
@@ -194,14 +195,17 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_table, cur_pos):
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            cur_pos: torch.Tensor, *,
-                           backend: str = "auto") -> torch.Tensor:
+                           context: ContextLike = None) -> torch.Tensor:
     """Single-query paged decode attention. q (B, KV, G, D); pools
     (N, ps, KV, D); page_table (B, P) int32; cur_pos (B,) int32 absolute
-    positions. The CUDA route (two launches: the split over runs of pages,
+    positions. ``context=None`` resolves from this thread's ambient
+    :class:`~repro_torch.kernels.context.ExecutionContext`, as every entry
+    point does. The CUDA route (two launches: the split over runs of pages,
     then the combine) counts its launches in
     ``paged_decode_attention.launches``."""
-    with annotate("paged_attention"):
-        if resolve_backend(backend, q) == "torch":
+    ctx = resolve_execution(context)
+    with annotate("paged_attention", ctx):
+        if tensor_route(ctx.backend, q) == "torch":
             return paged_attend_ref(q[:, None], k_pool, v_pool, page_table,
                                     cur_pos[:, None])[:, 0]
         return _paged_decode_cuda(q, k_pool, v_pool, page_table, cur_pos)

@@ -73,7 +73,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import butterfly as bf
 from repro_torch.kernels import build
-from repro_torch.kernels.context import resolve_backend
+from repro_torch.kernels.context import (ContextLike, resolve_execution,
+                                         route_context, tensor_route)
 from repro_torch.obs.profiling import annotate
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -219,11 +220,11 @@ def _factors_cuda(b_in, b_out, idx_in, idx_out, n_in, n_out, dtype):
 def sandwich_factors(b_in: torch.Tensor, b_out: torch.Tensor,
                      idx_in: torch.Tensor, idx_out: torch.Tensor, *,
                      n_in: int, n_out: int, dtype: torch.dtype,
-                     backend: str = "auto") -> tuple:
+                     context: ContextLike = None) -> tuple:
     """``(F_in, F_out)`` of the sandwich, float32 (k1, n_in) and (k2,
     n_out). The CUDA route launches the factor kernel (one count in
     ``sandwich_forward.launches``) and returns views into its workspace."""
-    if resolve_backend(backend, b_in) == "torch":
+    if tensor_route(resolve_execution(context).backend, b_in) == "torch":
         return sandwich_factors_plain(b_in, b_out, idx_in, idx_out, n_in,
                                       n_out, dtype)
     if dtype not in _DTYPES:
@@ -467,12 +468,13 @@ def _sandwich_bwd_cuda(x, b_in, core, b_out, idx_in, idx_out, g, scale_in,
 def sandwich_factors_vjp(b_in: torch.Tensor, b_out: torch.Tensor,
                          idx_in: torch.Tensor, idx_out: torch.Tensor,
                          d_f_in: torch.Tensor, d_f_out: torch.Tensor, *,
-                         dtype: torch.dtype, backend: str = "auto") -> tuple:
+                         dtype: torch.dtype,
+                         context: ContextLike = None) -> tuple:
     """``(d b_in, d b_out)``: the VJP of :func:`sandwich_factors` at the
     cotangents ``d_f_in`` (k1, n_in) and ``d_f_out`` (k2, n_out), float32.
     The CUDA route launches the backward's factor-row VJP and reduction
     alone (two counts in ``sandwich_backward.launches``)."""
-    if resolve_backend(backend, b_in) == "torch":
+    if tensor_route(resolve_execution(context).backend, b_in) == "torch":
         return sandwich_factors_vjp_plain(b_in, b_out, idx_in, idx_out,
                                           d_f_in, d_f_out, dtype)
     if dtype not in _DTYPES:
@@ -518,13 +520,13 @@ def sandwich_backward(x: torch.Tensor, b_in: torch.Tensor,
                       core: torch.Tensor, b_out: torch.Tensor,
                       idx_in: torch.Tensor, idx_out: torch.Tensor,
                       g: torch.Tensor, *, scale_in: float, scale_out: float,
-                      n_out: int, backend: str = "auto"):
+                      n_out: int, context: ContextLike = None):
     """The sandwich's VJP: ``(dx, d b_in, d core, d b_out)`` for the output
-    cotangent ``g`` (..., n_out). ``backend`` follows
+    cotangent ``g`` (..., n_out). ``context`` follows
     :mod:`repro_torch.kernels.context`; the CUDA route adds its
     ``BWD_KERNELS`` launches (factors, rows, columns, their sum, factor-row
     VJP, reduction) to ``sandwich_backward.launches``."""
-    if resolve_backend(backend, x) == "torch":
+    if tensor_route(resolve_execution(context).backend, x) == "torch":
         return sandwich_bwd_plain(x, b_in, core, b_out, idx_in, idx_out, g,
                                   scale_in=scale_in, scale_out=scale_out,
                                   n_out=n_out)
@@ -558,7 +560,8 @@ class SandwichFn(torch.autograd.Function):
         x, b_in, core, b_out, idx_in, idx_out = ctx.saved_tensors
         dx, d_in, d_core, d_out = sandwich_backward(
             x, b_in, core, b_out, idx_in, idx_out,
-            g.to(x.dtype).contiguous(), backend=ctx.route, **ctx.meta)
+            g.to(x.dtype).contiguous(), context=route_context(ctx.route),
+            **ctx.meta)
         return (dx, d_in.to(b_in.dtype), d_core.to(core.dtype),
                 d_out.to(b_out.dtype), None, None, None, None, None, None)
 
@@ -567,18 +570,22 @@ def sandwich_forward(x: torch.Tensor, b_in: torch.Tensor, core: torch.Tensor,
                      b_out: torch.Tensor, idx_in: torch.Tensor,
                      idx_out: torch.Tensor, *, scale_in: float,
                      scale_out: float, n_out: int,
-                     backend: str = "auto") -> torch.Tensor:
+                     context: ContextLike = None) -> torch.Tensor:
     """The sandwich over the last axis: (..., n_in) -> (..., n_out),
     differentiable in ``x``, ``b_in``, ``core`` and ``b_out`` through
     :class:`SandwichFn`.
 
-    ``backend`` follows :mod:`repro_torch.kernels.context`. The CUDA route
+    ``context`` (an :class:`~repro_torch.kernels.context.ExecutionContext`,
+    a backend string or ``None``) follows :mod:`repro_torch.kernels.
+    context`; its ``segment`` has no meaning here (the backward takes
+    products with the factors, without a stage schedule). The CUDA route
     takes float32 or bfloat16 ``x`` and float32 weights, all contiguous on
     ``x``'s device, launches the factor and the row kernel and counts both
     launches in ``sandwich_forward.launches``.
     """
-    route = resolve_backend(backend, x)
-    with annotate("sandwich_matmul"):
+    ctx = resolve_execution(context)
+    route = tensor_route(ctx.backend, x)
+    with annotate("sandwich_matmul", ctx):
         if not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in (x, b_in, core, b_out))):
             # nothing to differentiate (serving, no_grad): skip autograd's

@@ -50,7 +50,7 @@ from repro_torch.core import layers as bl
 from repro_torch.core import sketch
 from repro_torch.data.synthetic import sketch_datasets
 from repro_torch.kernels import butterfly as kb
-from repro_torch.kernels.context import resolve_device
+from repro_torch.kernels.context import ContextLike, resolve_device
 from repro_torch.launch.encdec import full_float32
 from repro_torch.launch.speed import line
 from repro_torch.optim import optimizer as opt
@@ -109,10 +109,10 @@ def param_rows() -> List[Dict]:
 
 # -- the gated butterfly (paper §7) ------------------------------------------
 
-def linear_arm(w: torch.Tensor, X: torch.Tensor, backend: str = "auto"
+def linear_arm(w: torch.Tensor, X: torch.Tensor, context: ContextLike = None
                ) -> torch.Tensor:
     """The linear butterfly through the butterfly kernels."""
-    return kb.butterfly_apply(X, w, backend=backend)
+    return kb.butterfly_apply(X, w, context=context)
 
 
 def mse(apply_fn, w: torch.Tensor, X: torch.Tensor, Y: torch.Tensor

@@ -59,7 +59,7 @@ from repro_torch.core import layers as blayers
 from repro_torch.kernels import butterfly as kb
 from repro_torch.kernels import flash as kf
 from repro_torch.kernels import sandwich as ks
-from repro_torch.kernels.context import resolve_device
+from repro_torch.kernels.context import ContextLike, resolve_device
 from repro_torch.launch.encdec import full_float32
 from repro_torch.nn import ButterflyLinear
 
@@ -126,7 +126,7 @@ def line(r: Dict) -> str:
 class Bench:
     """Timing on one device: ``iters`` overrides every bench's own. With a
     ``checks`` list, each timed kernel row appends ``(name, op, make)``:
-    ``make(backend)`` gives a call on that row's inputs that returns its
+    ``make(context)`` gives a call on that row's inputs that returns its
     output and, for a step, its gradients, so that the kernels can be held
     against the plain versions after the timed run."""
 
@@ -173,7 +173,7 @@ class Bench:
         else:
             rows.append(skipped(jnp_name, CPU_GUARD, derived))
         self.check(fused_name, op,
-                   lambda backend: step(backend, with_out=True))
+                   lambda context: step(context, with_out=True))
         if not self.on_card:
             rows.append(skipped(fused_name, NO_CUDA, tiles()))
             return rows
@@ -185,9 +185,9 @@ class Bench:
 
 # -- bench_kernels ------------------------------------------------------------
 
-def butterfly_forward(x, w, backend: str) -> Callable:
-    """``B x`` through ``backend``."""
-    return lambda: kb.butterfly_forward(x, w, backend=backend)
+def butterfly_forward(x, w, context: ContextLike) -> Callable:
+    """``B x`` through ``context``."""
+    return lambda: kb.butterfly_forward(x, w, context=context)
 
 
 def kernel_rows(bench: Bench, ns: Sequence[int] = KERNEL_NS,
@@ -216,27 +216,27 @@ def kernel_rows(bench: Bench, ns: Sequence[int] = KERNEL_NS,
 
 # -- bench_speed --------------------------------------------------------------
 
-def layer_forward(layer, x, backend: str) -> Callable:
-    """The butterfly layer's forward through ``backend``."""
-    return lambda: layer(x, backend=backend)
+def layer_forward(layer, x, context: ContextLike) -> Callable:
+    """The butterfly layer's forward through ``context``."""
+    return lambda: layer(x, context=context)
 
 
-def layer_grads(layer, x, y, backend: str) -> Callable:
+def layer_grads(layer, x, y, context: ContextLike) -> Callable:
     """The layer's output and the gradients of the squared error to ``y``
-    w.r.t. its weights, through ``backend``."""
+    w.r.t. its weights, through ``context``."""
     params = list(layer.parameters())
 
     def grads():
-        out = layer(x, backend=backend)
+        out = layer(x, context=context)
         return (out.detach(),
                 *torch.autograd.grad(((out - y) ** 2).mean(), params))
     return grads
 
 
-def layer_step(layer, x, y, backend: str) -> Callable:
+def layer_step(layer, x, y, context: ContextLike) -> Callable:
     """One SGD step (lr 0.1) of the layer on the squared error to ``y``."""
     params, grads = list(layer.parameters()), layer_grads(layer, x, y,
-                                                          backend)
+                                                          context)
 
     def step():
         _, *g = grads()
@@ -295,17 +295,17 @@ def _grads(c, fn, inputs, with_out: bool):
     return (out.detach(), *grads) if with_out else grads
 
 
-def butterfly_step(x, w, c, backend: str, with_out: bool = False
+def butterfly_step(x, w, c, context: ContextLike, with_out: bool = False
                    ) -> Callable:
     """``grad`` of ``vdot(c, butterfly_apply(x, w))`` w.r.t. (x, w), after
     the output when ``with_out``."""
     return lambda: _grads(
-        c, lambda xg, wg: kb.butterfly_apply(xg, wg, backend=backend),
+        c, lambda xg, wg: kb.butterfly_apply(xg, wg, context=context),
         (x, w), with_out)
 
 
 def sandwich_step(x, b_in, core, b_out, idx_in, idx_out, c, scale: float,
-                  backend: str, with_out: bool = False) -> Callable:
+                  context: ContextLike, with_out: bool = False) -> Callable:
     """``grad`` of ``vdot(c, sandwich(x))`` w.r.t. (x, b_in, core, b_out),
     the bench's square n -> n sandwich with ``scale_in = scale_out =
     scale``, after the output when ``with_out``."""
@@ -313,16 +313,16 @@ def sandwich_step(x, b_in, core, b_out, idx_in, idx_out, c, scale: float,
     return lambda: _grads(
         c, lambda *leaves: ks.sandwich_forward(
             *leaves, idx_in, idx_out, scale_in=scale, scale_out=scale,
-            n_out=n, backend=backend), (x, b_in, core, b_out), with_out)
+            n_out=n, context=context), (x, b_in, core, b_out), with_out)
 
 
-def flash_step(q, k, v, c, backend: str, with_out: bool = False,
+def flash_step(q, k, v, c, context: ContextLike, with_out: bool = False,
                causal: bool = True) -> Callable:
     """``grad`` of ``vdot(c, flash_attention(q, k, v))`` w.r.t. q, k, v,
     after the output when ``with_out``."""
     return lambda: _grads(
         c, lambda *leaves: kf.flash_attention(*leaves, causal=causal,
-                                              backend=backend),
+                                              context=context),
         (q, k, v), with_out)
 
 

@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels.context import ContextLike
 from repro_torch.models import common as cm
 from repro_torch.nn.linear import scaled_normal
 
@@ -101,7 +102,7 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
               positions: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               page_table: Optional[torch.Tensor] = None,
-              backend: str = "auto") -> torch.Tensor:
+              context: ContextLike = None) -> torch.Tensor:
     """x (B, Sq, E); positions (B, Sq) int32 absolute positions.
 
     With ``cache`` (this layer's ``(k_pool, v_pool)``, each (N, ps, KV, D),
@@ -135,7 +136,7 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
     if Sq == 1:
         att = pa.paged_decode_attention(
             q[:, 0].contiguous(), k_pool, v_pool, page_table,
-            positions[:, 0].contiguous(), backend=backend)[:, None]
+            positions[:, 0].contiguous(), context=context)[:, None]
     else:
         att = pa.paged_attend_ref(q, k_pool, v_pool, page_table, positions)
     return _proj_out(cfg, attn, att)

@@ -7,7 +7,11 @@ paper's butterfly sandwich (§3.2). The static :class:`ButterflySpec` of a
 site is derived from (seed, site key, dims) through a seeded
 ``torch.Generator``; it cannot reproduce the reference's ``jax.random``
 derivation, so weights carried over from the reference bring their own
-specs (:func:`repro_torch.convert.from_jax_params`).
+specs (:func:`repro_torch.convert.from_jax_params`). A butterfly site's
+module carries its config's execution fields as its default context
+(:meth:`ExecutionContext.from_butterfly_config`, the config layer of the
+resolution order), so an explicit ``context=`` or an ambient
+``use_execution`` block still wins.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as blayers
+from repro_torch.kernels.context import ContextLike, ExecutionContext
 from repro_torch.nn.linear import ButterflyLinear, DenseLinear, scaled_normal
 
 SiteSpecs = Optional[Mapping[str, blayers.ButterflySpec]]
@@ -58,14 +63,15 @@ def linear_module(cfg: ModelConfig, n_in: int, n_out: int, *,
         spec = (site_specs[key] if site_specs and key in site_specs else
                 site_butterfly_spec(bc.seed, key, n_in, n_out, bc.k_factor,
                                     bc.use_bias))
-        return ButterflyLinear(spec, generator=generator,
-                               dtype=cfg.pdtype())
+        return ButterflyLinear(
+            spec, generator=generator, dtype=cfg.pdtype(),
+            context=ExecutionContext.from_butterfly_config(bc))
     return DenseLinear(n_in, n_out, generator=generator, dtype=cfg.pdtype())
 
 
 def linear_apply(module: nn.Module, x: torch.Tensor,
-                 backend: str = "auto") -> torch.Tensor:
-    return module(x, backend=backend)
+                 context: ContextLike = None) -> torch.Tensor:
+    return module(x, context=context)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -124,8 +130,8 @@ def head_module(cfg: ModelConfig, *,
 
 
 def head_apply(cfg: ModelConfig, head: nn.Module, x: torch.Tensor,
-               backend: str = "auto") -> torch.Tensor:
-    logits = linear_apply(head, x, backend)
+               context: ContextLike = None) -> torch.Tensor:
+    logits = linear_apply(head, x, context)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -21,6 +21,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.context import ContextLike
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlpm
@@ -68,21 +69,21 @@ def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
                 positions: torch.Tensor,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 page_table: Optional[torch.Tensor] = None,
-                backend: str = "auto") -> torch.Tensor:
+                context: ContextLike = None) -> torch.Tensor:
     """One layer; without ``cache`` the attention runs over the whole
     sequence (training)."""
     h = cm.rmsnorm(x, layer.norm1, cfg.norm_eps)
     x = x + attn.attention(cfg, layer.attn, h, positions=positions,
                            cache=cache, page_table=page_table,
-                           backend=backend)
+                           context=context)
     h = cm.rmsnorm(x, layer.norm2, cfg.norm_eps)
-    return x + mlpm.mlp_apply(cfg, layer.ffn, h, backend)
+    return x + mlpm.mlp_apply(cfg, layer.ffn, h, context)
 
 
 def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
              caches: Optional[Dict[str, torch.Tensor]] = None,
              page_table: Optional[torch.Tensor] = None,
-             backend: str = "auto") -> torch.Tensor:
+             context: ContextLike = None) -> torch.Tensor:
     """Run the layer stack. Serving: ``caches`` is ``{"k", "v"}`` of
     ``(n_layers, N, ps, KV, D)`` pools, written in place. Training
     (``caches=None``): with ``cfg.remat`` and gradients on, each layer is
@@ -93,15 +94,15 @@ def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
         cache = None if caches is None else (caches["k"][i], caches["v"][i])
         if remat:
             x = checkpoint(layer_apply, cfg, layer, x, positions=positions,
-                           backend=backend, use_reentrant=False)
+                           context=context, use_reentrant=False)
         else:
             x = layer_apply(cfg, layer, x, positions=positions, cache=cache,
-                            page_table=page_table, backend=backend)
+                            page_table=page_table, context=context)
     return x
 
 
 def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
-            backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
+            context: ContextLike = None) -> Tuple[torch.Tensor, Dict]:
     """Training loss, the mean next-token CE over ``batch`` ``tokens``
     (B, S), ``targets`` (B, S) and optional ``mask`` (B, S), plus metrics
     ``{"ce", "aux"}`` (``aux`` is 0: the port has no MoE)."""
@@ -111,9 +112,9 @@ def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    x = backbone(model, x, positions=positions, backend=backend)
+    x = backbone(model, x, positions=positions, context=context)
     x = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
-    logits = cm.head_apply(cfg, model.head, x, backend)
+    logits = cm.head_apply(cfg, model.head, x, context)
     mask = batch.get("mask")
     ce = cm.cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
                           None if mask is None else mask[:, 1:])
@@ -123,7 +124,7 @@ def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
 
 def decode_step(model: LM, token: torch.Tensor,
                 caches: Dict[str, torch.Tensor], cur_pos: torch.Tensor,
-                page_table: torch.Tensor, backend: str = "auto"
+                page_table: torch.Tensor, context: ContextLike = None
                 ) -> torch.Tensor:
     """One decode step: ``token`` (B,) at absolute positions ``cur_pos``
     (B,) (or a scalar for the whole batch). Returns logits (B, V)."""
@@ -134,15 +135,15 @@ def decode_step(model: LM, token: torch.Tensor,
     positions = cur_pos.expand(B)[:, None] if cur_pos.ndim == 0 \
         else cur_pos[:, None]
     x = backbone(model, x, positions=positions.contiguous(), caches=caches,
-                 page_table=page_table, backend=backend)
+                 page_table=page_table, context=context)
     x = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return cm.head_apply(cfg, model.head, x, backend)[:, 0]
+    return cm.head_apply(cfg, model.head, x, context)[:, 0]
 
 
 def prefill_chunk(model: LM, tokens: torch.Tensor,
                   caches: Dict[str, torch.Tensor], start_pos: torch.Tensor,
                   last_idx: torch.Tensor, page_table: torch.Tensor,
-                  backend: str = "auto"
+                  context: ContextLike = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fixed-size prompt chunk through the paged decode path.
 
@@ -163,17 +164,17 @@ def prefill_chunk(model: LM, tokens: torch.Tensor,
     positions = start_pos[:, None] + torch.arange(
         C, dtype=torch.int32, device=x.device)[None, :]
     x = backbone(model, x, positions=positions, caches=caches,
-                 page_table=page_table, backend=backend)
+                 page_table=page_table, context=context)
     rows = torch.arange(B, device=x.device)
     x_last = x[rows, torch.as_tensor(last_idx, device=x.device).long()]
     h = cm.rmsnorm(x_last[:, None], model.final_norm, cfg.norm_eps)
-    logits = cm.head_apply(cfg, model.head, h, backend)
+    logits = cm.head_apply(cfg, model.head, h, context)
     return logits[:, 0], x_last
 
 
 def verify_chunk(model: LM, tokens: torch.Tensor,
                  caches: Dict[str, torch.Tensor], cur_pos: torch.Tensor,
-                 page_table: torch.Tensor, backend: str = "auto"
+                 page_table: torch.Tensor, context: ContextLike = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-position verify forward for speculative decoding.
 
@@ -195,6 +196,6 @@ def verify_chunk(model: LM, tokens: torch.Tensor,
     positions = cur_pos[:, None] + torch.arange(
         K, dtype=torch.int32, device=x.device)[None, :]
     x = backbone(model, x, positions=positions, caches=caches,
-                 page_table=page_table, backend=backend)
+                 page_table=page_table, context=context)
     h = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return cm.head_apply(cfg, model.head, h, backend), x
+    return cm.head_apply(cfg, model.head, h, context), x

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.context import ContextLike
 from repro_torch.models import common as cm
 
 
@@ -29,11 +30,11 @@ class MLP(nn.Module):
 
 
 def mlp_apply(cfg: ModelConfig, mlp: MLP, x: torch.Tensor,
-              backend: str = "auto") -> torch.Tensor:
+              context: ContextLike = None) -> torch.Tensor:
     act = cm.act_fn(cfg.mlp_variant)
-    up = cm.linear_apply(mlp.up, x, backend)
+    up = cm.linear_apply(mlp.up, x, context)
     if hasattr(mlp, "gate"):
-        h = act(cm.linear_apply(mlp.gate, x, backend)) * up
+        h = act(cm.linear_apply(mlp.gate, x, context)) * up
     else:
         h = act(up)
-    return cm.linear_apply(mlp.down, h, backend)
+    return cm.linear_apply(mlp.down, h, context)

@@ -2,11 +2,14 @@
 (:class:`ButterflyLinear` and :class:`SandwichLinear`, counterparts of
 ``repro.nn.ButterflyLinear``/``SandwichLinear``) and the plain dense matmul
 (:class:`DenseLinear`). Each module owns its parameters, drawn from a
-``torch.Generator``, and takes the execution backend per call (the
-reference's per-call ``context=``)::
+``torch.Generator``. A :class:`ButterflyLinear` carries a default
+execution context (``context=`` of ``create``/``from_dense``/the
+constructor; the model sites' is their config's), and a per-call
+``context=`` overrides it field by field, as the reference's does::
 
     layer = ButterflyLinear.create(gen, 300, 100)          # on the card
     y = layer(x)
+    y_plain = layer(x, context="torch")                    # plain twins
     layer = ButterflyLinear.from_dense(gen, W, k_in=64, k_out=64)
     W_approx = layer.to_dense()                            # Prop. 3.1
 
@@ -26,7 +29,8 @@ from torch import nn
 
 from repro_torch.core import butterfly as bf
 from repro_torch.core import layers as blayers
-from repro_torch.kernels.context import resolve_device
+from repro_torch.kernels.context import (ContextLike, ExecutionContext,
+                                         resolve_device, resolve_execution)
 
 __all__ = ["ButterflyLinear", "SandwichLinear", "DenseLinear"]
 
@@ -50,15 +54,19 @@ class ButterflyLinear(nn.Module):
     ``core`` (k_out, k_in), ``bias`` (n_out,) when the spec has one. The
     truncation indices ride as int32 buffers, so they follow ``.to()``.
     ``params`` (``b_in``, ``b_out``, ``core``, optionally ``bias``) takes
-    the weights as given and draws nothing.
+    the weights as given and draws nothing. ``context`` is the layer's
+    default execution context (the config layer of the resolution order).
     """
 
     def __init__(self, spec: blayers.ButterflySpec, *,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32, scale: float = 1.0,
-                 params: Optional[Mapping[str, torch.Tensor]] = None):
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 context: ContextLike = None):
         super().__init__()
         self.spec = spec
+        self.context: Optional[ExecutionContext] = \
+            ExecutionContext.coerce(context)
         if params is None:
             params = {
                 "b_in": bf.fjlt_weights(generator, spec.pad_in, dtype=dtype),
@@ -85,30 +93,34 @@ class ButterflyLinear(nn.Module):
                n_out: int, *, k_in: Optional[int] = None,
                k_out: Optional[int] = None, k_factor: float = 1.0,
                use_bias: bool = True, dtype: torch.dtype = torch.float32,
-               device: Device = None) -> "ButterflyLinear":
+               device: Device = None,
+               context: ContextLike = None) -> "ButterflyLinear":
         """A new layer on ``device`` (``None``: the card): truncation
         indices, FJLT butterflies and a kaiming-uniform core drawn from
         ``generator``. ``k_in``/``k_out`` default to the paper's ``k =
-        log2(n)`` scaled by ``k_factor``."""
+        log2(n)`` scaled by ``k_factor``; ``context`` is the layer's
+        default execution context."""
         dev = resolve_device(device)
         spec = blayers.make_spec(generator, n_in, n_out, k_in=k_in,
                                  k_out=k_out, k_factor=k_factor,
                                  use_bias=use_bias)
         params = blayers.init_butterfly_linear(generator, spec, dtype=dtype)
-        return cls(spec, params=params).to(dev)
+        return cls(spec, params=params, context=context).to(dev)
 
     @classmethod
     def from_dense(cls, generator: Optional[torch.Generator], W, *,
                    bias=None, k_in: Optional[int] = None,
                    k_out: Optional[int] = None, k_factor: float = 1.0,
                    dtype: torch.dtype = torch.float32,
-                   device: Device = None) -> "ButterflyLinear":
+                   device: Device = None,
+                   context: ContextLike = None) -> "ButterflyLinear":
         """Distil a dense ``W`` (n_out x n_in; a tensor or an array) into a
         sandwich on ``device`` (``None``: the card): Proposition 3.1's FJLT
         butterflies and core ``W' = J2 W J1ᵀ``, the replacement path for a
         pretrained layer. The core is computed on ``W``'s device, in
         float32. ``bias`` (n_out,) becomes the layer's bias; without one the
-        layer has none."""
+        layer has none. ``context`` is the layer's default execution
+        context."""
         dev = resolve_device(device)
         W = torch.as_tensor(W)
         n_out, n_in = W.shape
@@ -118,7 +130,7 @@ class ButterflyLinear(nn.Module):
         params = blayers.init_from_dense(generator, spec, W, dtype=dtype)
         if bias is not None:
             params["bias"] = torch.as_tensor(bias).to(W.device, dtype)
-        return cls(spec, params=params).to(dev)
+        return cls(spec, params=params, context=context).to(dev)
 
     @property
     def n_in(self) -> int:
@@ -148,11 +160,15 @@ class ButterflyLinear(nn.Module):
         """The dense (n_out x n_in) equivalent, without the bias."""
         return blayers.butterfly_linear_materialize(self.spec, self.params())
 
-    def forward(self, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                context: ContextLike = None) -> torch.Tensor:
+        """The sandwich on ``x``; ``context`` overrides the layer's default
+        per call."""
         params = dict(self.params(), idx_in=self.idx_in,
                       idx_out=self.idx_out)
-        return blayers.butterfly_linear_apply(self.spec, params, x,
-                                              backend=backend)
+        return blayers.butterfly_linear_apply(
+            self.spec, params, x,
+            context=resolve_execution(context, default=self.context))
 
 
 class SandwichLinear(ButterflyLinear):
@@ -165,14 +181,16 @@ class SandwichLinear(ButterflyLinear):
                n_out: int, k_in: Optional[int] = None,
                k_out: Optional[int] = None, *, k_factor: float = 1.0,
                use_bias: bool = True, dtype: torch.dtype = torch.float32,
-               device: Device = None) -> "SandwichLinear":
+               device: Device = None,
+               context: ContextLike = None) -> "SandwichLinear":
         if k_in is None or k_out is None:
             raise TypeError("SandwichLinear.create requires explicit k_in "
                             "and k_out (use ButterflyLinear for the paper's "
                             "log2(n) default)")
         return super().create(generator, n_in, n_out, k_in=int(k_in),
                               k_out=int(k_out), k_factor=k_factor,
-                              use_bias=use_bias, dtype=dtype, device=device)
+                              use_bias=use_bias, dtype=dtype, device=device,
+                              context=context)
 
 
 class DenseLinear(nn.Module):
@@ -186,5 +204,6 @@ class DenseLinear(nn.Module):
         self.w = nn.Parameter(
             scaled_normal(generator, (n_in, n_out), n_in, scale).to(dtype))
 
-    def forward(self, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                context: ContextLike = None) -> torch.Tensor:
         return x @ self.w.to(x.dtype)

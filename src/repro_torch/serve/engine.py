@@ -48,6 +48,16 @@ static inputs first; sampling runs eagerly on the replayed logits with
 one ``torch.Generator`` seeded from ``seed``. :meth:`decode_logits` runs
 the next decode tick eagerly, the check a replay is held against.
 
+Execution policy: the engine resolves one
+:class:`~repro_torch.kernels.context.ExecutionContext` at construction —
+the explicit ``context=``, then this thread's ambient ``use_execution``
+block, then the arch's ``ButterflyConfig`` — with ``"auto"`` turned into
+its device's route, and every tick passes it to every kernel call. A
+replay runs no Python, so no tick reads an ambient block: every tick runs
+under ``frozen_execution`` of the engine's context, so a block entered
+after construction changes nothing, eager or replayed, and the graph keys
+need not carry the context.
+
 Observability, as the reference's engine: a ``tracer``
 (:class:`repro_torch.obs.Tracer`; the no-op ``NULL_TRACER`` by default)
 records the request lifecycle on per-request lanes (``tid = rid + 1``) and
@@ -81,6 +91,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import context as exctx
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.obs.registry import MetricsRegistry
@@ -240,6 +251,9 @@ class ServeEngine:
       one by default (``engine.obs``).
     * ``replica`` — replica id: the trace ``pid`` and the ``replica``
       metric label.
+    * ``context`` — the execution context (an ``ExecutionContext``, a
+      backend string or ``None``), resolved once here and frozen
+      (``engine.context``; module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int = 4,
@@ -252,7 +266,7 @@ class ServeEngine:
                  seed: int = 0, scrub_freed_slots: bool = False,
                  device: Union[str, torch.device, None] = None,
                  tracer=None, registry: Optional[MetricsRegistry] = None,
-                 replica: int = 0):
+                 replica: int = 0, context: exctx.ContextLike = None):
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         if admission not in ("eager", "incremental"):
@@ -278,6 +292,10 @@ class ServeEngine:
                 f"only lossless under greedy — got {sampling}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.context = exctx.resolve_for_device(
+            context, self.device,
+            default=exctx.ExecutionContext.from_butterfly_config(
+                cfg.butterfly))
         self.model = model.to(self.device)
         self.slots = slots
         self.max_len = int(max_len)
@@ -452,7 +470,8 @@ class ServeEngine:
         key = ("decode", self.cfg.name, self.slots, self.sampling)
         S, i32 = self.slots, torch.int32
         return self.graphs.entry(key, lambda: (
-            steps_lib.make_pool_decode_step(self.model, self._caches),
+            steps_lib.make_pool_decode_step(self.model, self._caches,
+                                            self.context),
             {"tokens": self._static((S,), i32),
              "cur_pos": self._static((S,), i32),
              "active": self._static((S,), torch.bool),
@@ -463,7 +482,8 @@ class ServeEngine:
                self.prefill_chunk)
         S, C, i32 = self.slots, self.prefill_chunk, torch.int32
         return self.graphs.entry(key, lambda: (
-            steps_lib.make_chunk_prefill_step(self.model, self._caches),
+            steps_lib.make_chunk_prefill_step(self.model, self._caches,
+                                              self.context),
             {"tokens": self._static((S, C), i32),
              "start_pos": self._static((S,), i32),
              "last_idx": self._static((S,), i32),
@@ -475,7 +495,7 @@ class ServeEngine:
         S, K1, i32 = self.slots, self.spec_k + 1, torch.int32
         return self.graphs.entry(key, lambda: (
             steps_lib.make_spec_decode_step(self.model, self._caches,
-                                            self.spec_k),
+                                            self.spec_k, self.context),
             {"tokens": self._static((S, K1), i32),
              "cur_pos": self._static((S,), i32),
              "active": self._static((S,), torch.bool),
@@ -485,7 +505,8 @@ class ServeEngine:
         key = ("spec_draft", self.cfg.name, self.slots, self.spec_k)
         S = self.slots
         return self.graphs.entry(key, lambda: (
-            steps_lib.make_draft_step(self.model, self.spec_k),
+            steps_lib.make_draft_step(self.model, self.spec_k,
+                                      self.context),
             {"anchor": self._static((S, self.cfg.d_model), torch.float32),
              "last_token": self._static((S,), torch.int32)}))
 
@@ -711,7 +732,7 @@ class ServeEngine:
         ``engine.tick`` fault site, page growth (incremental admission),
         one prefill chunk, then one pooled decode. Returns the number of
         slots still active after the tick."""
-        with self._step_lock:
+        with self._step_lock, exctx.frozen_execution(self.context):
             tick = self.metrics.ticks
             t_wall = time.monotonic()
             tt0 = self.tracer.now()
@@ -762,20 +783,22 @@ class ServeEngine:
             active[i] = True
         return tokens, cur_pos, active
 
-    def decode_logits(self, backend: str = "auto") -> torch.Tensor:
+    def decode_logits(self, context: exctx.ContextLike = None
+                      ) -> torch.Tensor:
         """Logits (slots, V) of the pooled decode tick the engine would run
-        next, run eagerly under ``backend``
-        (:mod:`repro_torch.kernels.context`) on a copy of the KV pool: the
-        engine's caches and host state are untouched."""
+        next, run eagerly under ``context`` (the engine's own when
+        ``None``; :mod:`repro_torch.kernels.context`) on a copy of the KV
+        pool: the engine's caches and host state are untouched."""
         if not any(s is not None and s.decoding for s in self._slots):
             raise RuntimeError("no slot is decoding")
         caches = {t: c.clone() for t, c in self._caches.items()}
-        step = steps_lib.make_pool_decode_step(self.model, caches)
+        step = steps_lib.make_pool_decode_step(self.model, caches,
+                                               self.context)
         tokens, cur_pos, active = (torch.from_numpy(a).to(self.device)
                                    for a in self.decode_inputs())
         return step(tokens, cur_pos, active,
                     self.pool.gather_args()["page_table"],
-                    backend=backend)[0]
+                    context=context or self.context)[0]
 
     def replay_decode_logits(self) -> torch.Tensor:
         """Logits (slots, V) of the next pooled decode tick through the
@@ -821,21 +844,21 @@ class ServeEngine:
         return (self._verify_entry().inputs["tokens"].clone(),
                 logits.clone())
 
-    def verify_logits(self, tokens: torch.Tensor, backend: str = "auto"
-                      ) -> torch.Tensor:
+    def verify_logits(self, tokens: torch.Tensor,
+                      context: exctx.ContextLike = None) -> torch.Tensor:
         """Logits (slots, spec_k+1, V) of the next speculative tick's
         verify pass on ``tokens`` (slots, spec_k+1), run eagerly under
-        ``backend`` on a copy of the KV pool: the check a verify replay is
-        held against."""
+        ``context`` (the engine's own when ``None``) on a copy of the KV
+        pool: the check a verify replay is held against."""
         _, cur_pos, active, _ = self._spec_inputs()
         caches = {t: c.clone() for t, c in self._caches.items()}
         step = steps_lib.make_spec_decode_step(self.model, caches,
-                                               self.spec_k)
+                                               self.spec_k, self.context)
         return step(tokens.to(self.device),
                     torch.from_numpy(cur_pos).to(self.device),
                     torch.from_numpy(active).to(self.device),
                     self.pool.gather_args()["page_table"],
-                    backend=backend)[3]
+                    context=context or self.context)[3]
 
     # -- internals -----------------------------------------------------
 

@@ -10,6 +10,12 @@ can capture it once per shape as a CUDA graph
 the steps: the engine samples from the replayed logits eagerly, with its
 own ``torch.Generator``.
 
+Every builder takes the engine's finalized execution context
+(``context=``) and every kernel call of its step gets it explicitly: a
+replayed graph runs no Python, so a step must never read an ambient
+``use_execution`` block. A step's own ``context=``, where it has one, is
+for holding the kernels against the plain versions on the same state.
+
 Pages are shared physical state and the pool is written in place, so an
 inactive lane writing through a stale table row would corrupt a page a
 later owner still needs: every step redirects inactive rows of the page
@@ -22,6 +28,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels.context import ContextLike
 from repro_torch.kernels.paged_attention import TRASH_PAGE
 from repro_torch.models import common as cm
 from repro_torch.models import lm
@@ -35,21 +42,24 @@ def mask_table(page_table: torch.Tensor, active: torch.Tensor
                        torch.full_like(page_table, TRASH_PAGE))
 
 
-def make_pool_decode_step(model: lm.LM, caches) -> Callable:
+def make_pool_decode_step(model: lm.LM, caches,
+                          context: ContextLike = None) -> Callable:
     """``step(tokens, cur_pos, active, page_table) -> (logits,)`` over the
     whole slot pool: ``tokens (S,)`` each slot's previous token, ``cur_pos
     (S,)`` its write position, ``active (S,)`` bool; ``logits (S, V)``.
-    ``backend`` (:mod:`repro_torch.kernels.context`) is for holding the
-    kernels against the plain versions on the same state."""
-    def step(tokens, cur_pos, active, page_table, backend="auto"):
+    The step's ``context=`` (:mod:`repro_torch.kernels.context`) overrides
+    the builder's, to hold the kernels against the plain versions on the
+    same state."""
+    def step(tokens, cur_pos, active, page_table, context=context):
         with torch.no_grad():
             return (lm.decode_step(model, tokens, caches, cur_pos,
                                    mask_table(page_table, active),
-                                   backend=backend),)
+                                   context=context),)
     return step
 
 
-def make_chunk_prefill_step(model: lm.LM, caches) -> Callable:
+def make_chunk_prefill_step(model: lm.LM, caches,
+                            context: ContextLike = None) -> Callable:
     """``step(tokens, start_pos, last_idx, active, page_table) -> (logits,
     h_last)``: one fixed-size prompt chunk per slot (zeros for slots with
     nothing to prefill this tick); ``h_last`` is the pre-final-norm state at
@@ -57,11 +67,13 @@ def make_chunk_prefill_step(model: lm.LM, caches) -> Callable:
     def step(tokens, start_pos, last_idx, active, page_table):
         with torch.no_grad():
             return lm.prefill_chunk(model, tokens, caches, start_pos,
-                                    last_idx, mask_table(page_table, active))
+                                    last_idx, mask_table(page_table, active),
+                                    context=context)
     return step
 
 
-def make_draft_step(model: lm.LM, k: int) -> Callable:
+def make_draft_step(model: lm.LM, k: int,
+                    context: ContextLike = None) -> Callable:
     """Draft proposer of draft-k-verify-1 speculative decoding.
 
     ``draft(anchor, last_token) -> (drafts (S, k),)``: from each slot's
@@ -83,14 +95,15 @@ def make_draft_step(model: lm.LM, k: int) -> Callable:
             for _ in range(k):
                 g = g + cm.embed(cfg, model.embed, tok[:, None])[:, 0]
                 h = cm.rmsnorm(g[:, None], model.final_norm, cfg.norm_eps)
-                logits = cm.head_apply(cfg, model.head, h)
+                logits = cm.head_apply(cfg, model.head, h, context)
                 tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
                 out.append(tok)
             return (torch.stack(out, dim=1),)
     return draft
 
 
-def make_spec_decode_step(model: lm.LM, caches, k: int) -> Callable:
+def make_spec_decode_step(model: lm.LM, caches, k: int,
+                          context: ContextLike = None) -> Callable:
     """One speculative verify tick over the slot pool.
 
     ``step(tokens, cur_pos, active, page_table) -> (targets, accepted,
@@ -102,16 +115,16 @@ def make_spec_decode_step(model: lm.LM, caches, k: int) -> Callable:
     ``targets[:, :accepted+1]``; ``anchor (S, E)`` is the pre-final-norm
     state at the last committed input position; ``logits (S, k+1, V)``
     those of the pass, for holding a replay against the eager tick
-    (``backend``, as in :func:`make_pool_decode_step`). Inactive lanes are
+    (``context``, as in :func:`make_pool_decode_step`). Inactive lanes are
     sent to the trash page and keep their input tokens."""
     if k < 1:
         raise ValueError(f"speculative decode needs k >= 1 drafts, got {k}")
 
-    def step(tokens, cur_pos, active, page_table, backend="auto"):
+    def step(tokens, cur_pos, active, page_table, context=context):
         with torch.no_grad():
             logits, x = lm.verify_chunk(model, tokens, caches, cur_pos,
                                         mask_table(page_table, active),
-                                        backend=backend)
+                                        context=context)
             targets = torch.argmax(logits, dim=-1).to(torch.int32)
             # draft j+1 survives iff it equals the target at position j and
             # every earlier draft survived: the leading-match prefix

@@ -13,23 +13,30 @@ from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.kernels.context import ContextLike
 from repro_torch.models import lm
 from repro_torch.optim import optimizer as opt
+from repro_torch.optim.compression import compress_gradients
 
 
 def make_optimizer(tc: TrainConfig) -> opt.GradientTransformation:
-    """Clip, Adam, decoupled weight decay and the warmup-cosine schedule,
-    as the reference builds them. Gradient compression is not ported."""
-    if tc.grad_compression:
-        raise NotImplementedError(
-            f"grad_compression={tc.grad_compression!r}: gradient compression "
-            f"is not ported; use ''")
+    """Clip, gradient compression, Adam, decoupled weight decay and the
+    warmup-cosine schedule, chained in the reference's order (each only
+    where the config asks for it), so the optimizer state is a tuple in the
+    reference's order too."""
     schedule = opt.warmup_cosine_schedule(tc.learning_rate, tc.warmup_steps,
                                           tc.total_steps)
     parts = []
     if tc.max_grad_norm:
         parts.append(opt.clip_by_global_norm(tc.max_grad_norm))
+    if tc.grad_compression:
+        # a layer's leaves share the statistics of the reference's stacked
+        # unit leaf
+        parts.append(compress_gradients(tc.grad_compression,
+                                        tc.grad_compression_ratio,
+                                        group=convert.reference_key))
     parts.append(opt.scale_by_adam())
     if tc.weight_decay:
         parts.append(opt.add_decayed_weights(tc.weight_decay))
@@ -44,7 +51,7 @@ def trainable(model: lm.LM) -> Dict[str, torch.Tensor]:
 
 
 def loss_and_grads(model: lm.LM, batch: Mapping[str, torch.Tensor],
-                   microbatches: int = 1, backend: str = "auto"
+                   microbatches: int = 1, context: ContextLike = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean loss and gradients of ``lm.loss_fn`` over ``batch``. With
     ``microbatches > 1`` the batch is split along its first axis and the
@@ -54,7 +61,7 @@ def loss_and_grads(model: lm.LM, batch: Mapping[str, torch.Tensor],
     params = trainable(model)
     names = list(params)
     if microbatches == 1:
-        loss, _ = lm.loss_fn(model, batch, backend)
+        loss, _ = lm.loss_fn(model, batch, context)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         return loss.detach(), dict(zip(names, grads))
     B = batch["tokens"].shape[0]
@@ -68,7 +75,7 @@ def loss_and_grads(model: lm.LM, batch: Mapping[str, torch.Tensor],
                        device=batch["tokens"].device)
     for i in range(microbatches):
         mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-        loss, _ = lm.loss_fn(model, mb, backend)
+        loss, _ = lm.loss_fn(model, mb, context)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         for n, g in zip(names, grads):
             gsum[n] += g.float()
@@ -78,13 +85,16 @@ def loss_and_grads(model: lm.LM, batch: Mapping[str, torch.Tensor],
 
 
 def make_train_step(cfg: ModelConfig, tx: opt.GradientTransformation,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1,
+                    context: ContextLike = None) -> Callable:
     """Returns ``step(model, opt_state, batch) -> (opt_state, metrics)``,
     metrics ``{"loss", "grad_norm"}`` as 0-d tensors; the model's
-    parameters are updated in place."""
+    parameters are updated in place. ``context`` is every kernel call's
+    explicit execution context (the ``Trainer`` passes its finalized
+    one)."""
 
     def step(model: lm.LM, opt_state, batch):
-        loss, grads = loss_and_grads(model, batch, microbatches)
+        loss, grads = loss_and_grads(model, batch, microbatches, context)
         grad_norm = opt.global_norm(grads)
         params = trainable(model)
         updates, opt_state = tx.update(grads, opt_state, params)

@@ -4,14 +4,29 @@ Counterpart of ``repro.train.trainer``. The loop runs eagerly on the card
 (``device=None`` means ``cuda``; without a card it raises unless the
 caller asks for ``"cpu"``). Every butterfly site goes through
 :class:`repro_torch.kernels.sandwich.SandwichFn`: the forward and backward
-kernels on the card, their plain twins on the CPU. Checkpoints use the
-reference's layout (:mod:`repro_torch.checkpoint.checkpointing`), params
-under the reference's keys; the optimizer state round-trips between port
-runs only.
+kernels on the card, their plain twins on the CPU or under a ``torch``
+execution context.
+
+The ``Trainer`` resolves one
+:class:`~repro_torch.kernels.context.ExecutionContext` at construction
+(this thread's ambient ``use_execution`` block over the arch's
+``ButterflyConfig``), turns ``"auto"`` into its device's route
+(``"cuda"`` or ``"torch"``) and freezes it: every step runs inside
+``use_execution`` of it and passes it to every kernel call, and
+:attr:`TrainResult.execution` reports it. A model without butterfly sites
+records ``"dense"``.
+
+Checkpoints use the reference's layout
+(:mod:`repro_torch.checkpoint.checkpointing`): params and the optimizer
+state under the reference's keys, layers stacked as ``unit``
+(:func:`repro_torch.convert.opt_state_to_jax`), so a run resumes from a
+checkpoint that the reference's ``Trainer`` wrote, and the reference from
+one of the port's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
@@ -23,10 +38,34 @@ from repro_torch import convert
 from repro_torch.checkpoint.checkpointing import CheckpointManager
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM, for_model
+from repro_torch.kernels import context as exctx
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
 from repro_torch.train import steps as steps_lib
+
+
+@dataclass(frozen=True)
+class ExecutionRecord:
+    """How the butterfly sites of a run executed.
+
+    * ``context`` — the finalized :class:`ExecutionContext` the steps ran
+      under (``None`` when the model has no butterfly sites).
+    * ``backend`` — its backend, ``"cuda"`` or ``"torch"`` (``"dense"``
+      without butterfly sites).
+    * ``tuning`` — the tile choices of the run: ``""`` until ROADMAP queue
+      1, item 7, brings a tuner for the port's kernels.
+    * ``mesh_layout`` — ``""``: the port runs on one device.
+    """
+
+    backend: str = "dense"
+    tuning: str = ""
+    mesh_layout: str = ""
+    context: Optional[exctx.ExecutionContext] = None
+
+    def describe(self) -> str:
+        return (self.context.describe() if self.context is not None
+                else "dense")
 
 
 @dataclass
@@ -37,21 +76,24 @@ class TrainResult:
     step_times: List[float] = field(default_factory=list)
     # the straggler monitor's step-time EMA (seconds) after the last step
     step_time_ema: float = 0.0
+    # the resolved execution policy of the run
+    execution: ExecutionRecord = field(default_factory=ExecutionRecord)
 
+    @property
+    def kernel_backend(self) -> str:
+        """Alias for ``execution.backend`` (the reference's older name)."""
+        return self.execution.backend
 
-def _like(template, host):
-    """``host`` (numpy, the template's structure) as tensors shaped like
-    ``template``'s leaves, on their devices."""
-    if isinstance(template, dict):
-        return {k: _like(template[k], host[k]) for k in template}
-    if isinstance(template, tuple) and hasattr(template, "_fields"):
-        return type(template)(*[_like(t, h) for t, h in zip(template, host)])
-    if isinstance(template, (list, tuple)):
-        return type(template)(_like(t, h) for t, h in zip(template, host))
-    if template is None:
-        return None
-    return torch.as_tensor(np.asarray(host)).to(template.device,
-                                                template.dtype)
+    @property
+    def kernel_tuning(self) -> str:
+        """Alias for ``execution.tuning`` (the reference's older name)."""
+        return self.execution.tuning
+
+    @property
+    def mesh_layout(self) -> str:
+        """Alias for ``execution.mesh_layout`` (the reference's older
+        name)."""
+        return self.execution.mesh_layout
 
 
 class Trainer:
@@ -67,8 +109,17 @@ class Trainer:
         self.data = data or for_model(model_cfg, seq_len, global_batch,
                                       seed=train_cfg.seed)
         self.tx = steps_lib.make_optimizer(train_cfg)
-        self.step_fn = steps_lib.make_train_step(model_cfg, self.tx,
-                                                 train_cfg.microbatches)
+        bc = model_cfg.butterfly
+        if bc is not None:
+            self.exec_ctx = exctx.resolve_for_device(
+                None, self.device,
+                default=exctx.ExecutionContext.from_butterfly_config(bc))
+            self.kernel_backend = self.exec_ctx.backend
+        else:
+            self.exec_ctx = None
+            self.kernel_backend = "dense"
+        self.step_fn = steps_lib.make_train_step(
+            model_cfg, self.tx, train_cfg.microbatches, self.exec_ctx)
         self.ckpt = (CheckpointManager(train_cfg.checkpoint_dir,
                                        keep=train_cfg.keep_checkpoints)
                      if train_cfg.checkpoint_dir else None)
@@ -87,12 +138,21 @@ class Trainer:
 
     def _restore(self, model, opt_state):
         params = steps_lib.trainable(model)
-        tmpl = {"params": convert.to_jax_params(params), "opt": opt_state}
+        tmpl = {"params": convert.to_jax_params(params),
+                "opt": convert.opt_state_to_jax(opt_state)}
         step, tree, _ = self.ckpt.restore(tmpl)
         if step is None:
             return None, opt_state
         convert.load_jax_params(model, tree["params"])
-        return step, _like(opt_state, tree["opt"])
+        return step, convert.load_jax_opt_state(self.cfg, opt_state,
+                                                tree["opt"])
+
+    def _scope(self):
+        """The run's frozen context as the ambient one (no-op for dense
+        models)."""
+        if self.exec_ctx is None:
+            return contextlib.nullcontext()
+        return exctx.use_execution(self.exec_ctx)
 
     def run(self, steps: int, model: Optional[LM] = None, opt_state=None,
             resume: bool = True) -> TrainResult:
@@ -119,7 +179,9 @@ class Trainer:
                 _, raw = next(prefetch)
                 batch = self._batch(raw)
                 t0 = time.monotonic()
-                opt_state, metrics = self.step_fn(model, opt_state, batch)
+                with self._scope():
+                    opt_state, metrics = self.step_fn(model, opt_state,
+                                                      batch)
                 loss = float(metrics["loss"])      # waits for the device
                 dt = time.monotonic() - t0
                 self.straggler.record({"host0": dt})
@@ -130,8 +192,8 @@ class Trainer:
                     params = steps_lib.trainable(model)
                     self.ckpt.save(i + 1, {
                         "params": convert.to_jax_params(params),
-                        "opt": opt_state}, extra={"loss": loss},
-                        async_=True)
+                        "opt": convert.opt_state_to_jax(opt_state)},
+                        extra={"loss": loss}, async_=True)
         finally:
             prefetch.close()
             if self.ckpt is not None:
@@ -140,4 +202,7 @@ class Trainer:
         self.opt_state = opt_state
         return TrainResult(steps_run=steps, losses=losses,
                            resumed_from=resumed_from, step_times=step_times,
-                           step_time_ema=self.straggler.ema["host0"])
+                           step_time_ema=self.straggler.ema["host0"],
+                           execution=ExecutionRecord(
+                               backend=self.kernel_backend,
+                               context=self.exec_ctx))

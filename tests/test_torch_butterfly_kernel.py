@@ -1,6 +1,6 @@
 """`repro_torch.kernels.butterfly` on the CPU against the reference's fused
 butterfly kernel `butterfly_matmul(..., interpret=True)`: the plain twin and
-`butterfly_apply(..., backend="torch")` (through `ButterflyFn`), forward and
+`butterfly_apply(..., context="torch")` (through `ButterflyFn`), forward and
 gradients, both directions, at n in {8, 64, 256} with 1, 11 and 300 rows
 and a (2, 3, 5, n) batch. float32 within 1e-5·max|want| + 1e-5·|want|
 (dw sums over up to 300 rows in another order than the reference);
@@ -61,7 +61,7 @@ def test_forward_and_grads_match_reference_kernel(n, lead, transpose,
     tx = torch.from_numpy(x).to(tdt).requires_grad_()
     tw = torch.from_numpy(w).requires_grad_()
     _close(kb.butterfly_plain(tx, tw, transpose=transpose), want, dtype)
-    got = kb.butterfly_apply(tx, tw, transpose=transpose, backend="torch")
+    got = kb.butterfly_apply(tx, tw, transpose=transpose, context="torch")
     assert got.shape == tx.shape and got.dtype == tdt
     _close(got, want, dtype)
     (got.float() * torch.from_numpy(c)).sum().backward()
@@ -114,9 +114,9 @@ def test_backward_without_dx(transpose):
     w, x, c = _inputs(64, (9,), seed=3)
     tw, tx, g = (torch.from_numpy(a) for a in (w, x, c))
     dx, dw = kb.butterfly_backward(tx, tw, g, transpose=transpose,
-                                   backend="torch")
+                                   context="torch")
     none, dw2 = kb.butterfly_backward(tx, tw, g, transpose=transpose,
-                                      need_dx=False, backend="torch")
+                                      need_dx=False, context="torch")
     assert none is None and dx.shape == tx.shape
     torch.testing.assert_close(dw2, dw, rtol=0, atol=0)
     tw.requires_grad_()
@@ -132,7 +132,7 @@ def test_plain_route_launches_nothing():
     assert (kb.butterfly_forward.launches,
             kb.butterfly_backward.launches) == before
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        kb.butterfly_apply(torch.from_numpy(x), tw, backend="cuda")
+        kb.butterfly_apply(torch.from_numpy(x), tw, context="cuda")
 
 
 def test_stage_applies_match_reference_count():

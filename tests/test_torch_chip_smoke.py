@@ -8,7 +8,9 @@ the sandwich backward and factor-VJP checks, the wide-width checks at
 100 -> 36, training and its gradient check, the butterfly kernels' checks,
 the encoder-decoder at 64 x 256, the flash kernels' checks at small shapes,
 the benches at n = 64, the layer API at 64 -> 96 and 64 x 64, the learned
-sketch at 64 x 48 and the paper's rows at 2 steps) runs on the
+sketch at 64 x 48, the paper's rows at 2 steps, and the training CLI's
+continuous, resumed and compressed runs with the execution context's
+checks) runs on the
 smoke-sized butterfly config with the plain PyTorch versions in place of
 the kernels, so wrong paths, shapes and control flow show up before the
 script reaches a card. Also the script's refusals: no result
@@ -162,8 +164,19 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     assert kernels[0]["train_bound_ms"] > kernels[0]["bound_ms"] > 0
     assert {"serve", "router", "train", "layer_api", "lm_butterfly"} <= \
         kernels[0]["launches_by_path"].keys()
-    assert {"train", "layer_api", "lm_butterfly"} == \
+    assert {"train", "train_cli", "layer_api", "lm_butterfly"} == \
         kernels[2]["launches_by_path"].keys()
+    assert "train_cli" in kernels[0]["launches_by_path"]
+    for run in ("continuous", "resumed", "topk", "int8"):
+        assert f"train cli {run}: [train] done: loss " in out
+    assert "; exec [backend=torch]; resumed from step 2" in out
+    assert "train cli resume: losses" in out
+    assert "largest relative difference 0.000e+00" in out
+    assert "train cli topk: losses" in out and "on the wire" in out
+    assert ("train context seed 1: Trainer records torch and, built inside "
+            "use_execution('torch'), torch") in out
+    assert ("segments: butterfly backward small 5x64 float32: segment 3 "
+            "named gives the unset field's bits; 1 and 6 refused") in out
     assert set(kernels[1]["launches_by_path"]) == {"serve", "router"}
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
     # sdpa's backward stands once, on dq, for the dq/dkv pair
@@ -252,6 +265,16 @@ def test_bench_launch_counts_follow_the_timed_calls():
         "butterfly_fwd": 46, "butterfly_bwd": 46, "sandwich_fwd": 154,
         "sandwich_bwd": 324, "flash_fwd": 8, "flash_bwd": 16}
     assert set(smoke.bench_want(rows, on_card=False).values()) == {0}
+
+
+def test_script_refuses_a_plain_route(tmp_path):
+    """REPRO_KERNEL_BACKEND=torch would send every kernel of the run
+    through the plain versions: the script refuses to start."""
+    proc = subprocess.run([sys.executable, SCRIPT], capture_output=True,
+                          text=True, timeout=300, cwd=tmp_path,
+                          env=dict(os.environ, REPRO_KERNEL_BACKEND="torch"))
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    assert "REPRO_KERNEL_BACKEND='torch'" in proc.stderr
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -178,7 +178,7 @@ def test_kernel_route_rejects_what_the_kernels_do_not_take(case):
             kf._check(q, torch.zeros(1, 2, 8, 64))
     else:
         with pytest.raises(ValueError, match="needs CUDA tensors"):
-            kf.flash_attention(q, q, q, backend="cuda")
+            kf.flash_attention(q, q, q, context="cuda")
 
 
 def test_visible_mask_and_tile_rows(monkeypatch):

@@ -74,8 +74,8 @@ def _sandwich_case(n_in, n_out, rows, dtype, dev, seed=0, k=None):
 def test_sandwich_kernel_matches_plain(cuda, n_in, n_out, rows, dtype):
     args, kw = _sandwich_case(n_in, n_out, rows, dtype, cuda)
     before = ks.sandwich_forward.launches
-    got = ks.sandwich_forward(**args, **kw, backend="cuda")
-    want = ks.sandwich_forward(**args, **kw, backend="torch")
+    got = ks.sandwich_forward(**args, **kw, context="cuda")
+    want = ks.sandwich_forward(**args, **kw, context="torch")
     torch.cuda.synchronize()
     assert ks.sandwich_forward.launches == before + ks.FWD_KERNELS
     assert got.shape == (rows, n_out) and got.dtype == dtype
@@ -122,9 +122,9 @@ def test_sandwich_kernel_rows_and_repeats(cuda, case, n_in, n_out, rows,
     make = _layer_case if case == "layer" else _sandwich_case
     args, kw = make(n_in, n_out, rows, dtype, cuda)
     before = ks.sandwich_forward.launches
-    got = ks.sandwich_forward(**args, **kw, backend="cuda")
-    again = ks.sandwich_forward(**args, **kw, backend="cuda")
-    want = ks.sandwich_forward(**args, **kw, backend="torch")
+    got = ks.sandwich_forward(**args, **kw, context="cuda")
+    again = ks.sandwich_forward(**args, **kw, context="cuda")
+    want = ks.sandwich_forward(**args, **kw, context="torch")
     torch.cuda.synchronize()
     assert ks.sandwich_forward.launches == before + 2 * ks.FWD_KERNELS
     assert torch.equal(got, again), "two launches differ"
@@ -156,7 +156,7 @@ def test_sandwich_factor_kernel_matches_plain(cuda, n_in, n_out, k, dtype):
     want = ks.sandwich_factors_plain(w_in, w_out, idx_in, idx_out, n_in,
                                      n_out, dtype)
     views = ks.sandwich_factors(w_in, w_out, idx_in, idx_out, n_in=n_in,
-                                n_out=n_out, dtype=dtype, backend="cuda")
+                                n_out=n_out, dtype=dtype, context="cuda")
     torch.cuda.synchronize()
     assert ks.sandwich_forward.launches == before + 2
     for f, w, v, (kk, n) in ((f_in, want[0], views[0], (spec.k_in, n_in)),
@@ -207,9 +207,9 @@ def test_sandwich_bwd_kernel_matches_plain(cuda, n_in, n_out, rows, k,
     gen = torch.Generator().manual_seed(5)
     g = torch.randn(rows, n_out, generator=gen).to(cuda, dtype)
     before = ks.sandwich_backward.launches
-    got = ks.sandwich_backward(**args, g=g, **kw, backend="cuda")
-    again = ks.sandwich_backward(**args, g=g, **kw, backend="cuda")
-    want = ks.sandwich_backward(**args, g=g, **kw, backend="torch")
+    got = ks.sandwich_backward(**args, g=g, **kw, context="cuda")
+    again = ks.sandwich_backward(**args, g=g, **kw, context="cuda")
+    want = ks.sandwich_backward(**args, g=g, **kw, context="torch")
     torch.cuda.synchronize()
     assert ks.sandwich_backward.launches == before + 2 * ks.BWD_KERNELS
     assert got[0].shape == (rows, n_in) and got[0].dtype == dtype
@@ -240,9 +240,9 @@ def test_sandwich_factors_vjp_kernel_matches_plain(cuda, n_in, n_out, k,
     w = (layer.b_in.detach(), layer.b_out.detach(), layer.idx_in,
          layer.idx_out, d_f_in, d_f_out)
     before = ks.sandwich_backward.launches
-    got = ks.sandwich_factors_vjp(*w, dtype=dtype, backend="cuda")
-    again = ks.sandwich_factors_vjp(*w, dtype=dtype, backend="cuda")
-    want = ks.sandwich_factors_vjp(*w, dtype=dtype, backend="torch")
+    got = ks.sandwich_factors_vjp(*w, dtype=dtype, context="cuda")
+    again = ks.sandwich_factors_vjp(*w, dtype=dtype, context="cuda")
+    want = ks.sandwich_factors_vjp(*w, dtype=dtype, context="torch")
     torch.cuda.synchronize()
     assert ks.sandwich_backward.launches == before + 4
     for name, a, b, ww in zip(("d b_in", "d b_out"), got, again, want):
@@ -311,9 +311,9 @@ def test_paged_kernel_matches_plain(cuda, dtype, case):
     cur, P = PAGED_CURS[case]
     args = _paged_case(dtype, cuda, P=P, cur=cur)
     before = pa.paged_decode_attention.launches
-    got = pa.paged_decode_attention(*args, backend="cuda")
-    again = pa.paged_decode_attention(*args, backend="cuda")
-    want = pa.paged_decode_attention(*args, backend="torch")
+    got = pa.paged_decode_attention(*args, context="cuda")
+    again = pa.paged_decode_attention(*args, context="cuda")
+    want = pa.paged_decode_attention(*args, context="torch")
     split = pa.paged_decode_split_plain(*args, pa.pages_per_split(16, P))
     torch.cuda.synchronize()
     assert pa.paged_decode_attention.launches == before + 2 * pa.PAGED_KERNELS
@@ -334,8 +334,8 @@ def test_paged_kernel_shapes(cuda, dtype, KV, G, D, ps):
     cur = (0, 3, 4, 63, 64, 200, 255, -1)
     args = _paged_case(dtype, cuda, KV=KV, G=G, D=D, ps=ps, P=256 // ps,
                        cur=cur)
-    got = pa.paged_decode_attention(*args, backend="cuda")
-    want = pa.paged_decode_attention(*args, backend="torch")
+    got = pa.paged_decode_attention(*args, context="cuda")
+    want = pa.paged_decode_attention(*args, context="torch")
     torch.cuda.synchronize()
     assert torch.isfinite(got).all() and not got[-1].any()
     tol = PAGED_TOL[dtype]
@@ -345,24 +345,24 @@ def test_paged_kernel_shapes(cuda, dtype, KV, G, D, ps):
 def test_kernels_reject_bad_inputs(cuda):
     args, kw = _sandwich_case(576, 1536, 4, torch.float16, cuda)
     with pytest.raises(TypeError):
-        ks.sandwich_forward(**args, **kw, backend="cuda")
+        ks.sandwich_forward(**args, **kw, context="cuda")
     g = torch.zeros(4, 1536, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
-        ks.sandwich_backward(**args, g=g, **kw, backend="cuda")
+        ks.sandwich_backward(**args, g=g, **kw, context="cuda")
     q, k_pool, v_pool, ids, cur = _paged_case(torch.float32, cuda)
     with pytest.raises(TypeError):
         pa.paged_decode_attention(q, k_pool, v_pool, ids.long(), cur,
-                                  backend="cuda")
+                                  context="cuda")
     before = pa.paged_decode_attention.launches
     for bad in (dict(D=12), dict(G=17), dict(D=264)):
         args = _paged_case(torch.float32, cuda, **bad)
         with pytest.raises(ValueError, match="head dims"):
-            pa.paged_decode_attention(*args, backend="cuda")
+            pa.paged_decode_attention(*args, context="cuda")
     shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
     shifted.copy_(q)                       # contiguous, 4 bytes off
     with pytest.raises(ValueError, match="aligned"):
         pa.paged_decode_attention(shifted, k_pool, v_pool, ids, cur,
-                                  backend="cuda")
+                                  context="cuda")
     assert pa.paged_decode_attention.launches == before
     # past the widths the kernels take: ValueError naming the limit, before
     # any launch
@@ -373,21 +373,21 @@ def test_kernels_reject_bad_inputs(cuda):
         args, kw = _sandwich_case(n_in, n_out, 2, torch.float32, cuda, k=k)
         g = torch.zeros(2, n_out, device=cuda)
         for call in (lambda: ks.sandwich_forward(**args, **kw,
-                                                 backend="cuda"),
+                                                 context="cuda"),
                      lambda: ks.sandwich_backward(**args, g=g, **kw,
-                                                  backend="cuda"),
+                                                  context="cuda"),
                      lambda: ks.sandwich_factors(
                          args["b_in"], args["b_out"], args["idx_in"],
                          args["idx_out"], n_in=n_in, n_out=n_out,
-                         dtype=torch.float32, backend="cuda")):
+                         dtype=torch.float32, context="cuda")):
             with pytest.raises(ValueError, match="n1 <= 32768"):
                 call()
     x = torch.zeros(2, 65536, device=cuda)
     w = torch.zeros(16, 2, 65536, device=cuda)
     with pytest.raises(ValueError, match="32768"):
-        kb.butterfly_forward(x, w, backend="cuda")
+        kb.butterfly_forward(x, w, context="cuda")
     with pytest.raises(ValueError, match="32768"):
-        kb.butterfly_backward(x, w, x, backend="cuda")
+        kb.butterfly_backward(x, w, x, context="cuda")
     assert before == (ks.sandwich_forward.launches,
                       ks.sandwich_backward.launches,
                       kb.butterfly_forward.launches,
@@ -409,15 +409,15 @@ def test_butterfly_kernels_match_plain(cuda, rows, n, dtype, transpose):
     g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
     frac = 1e-5 if dtype == torch.float32 else 0.05
     before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
-    got = kb.butterfly_forward(x, w, transpose=transpose, backend="cuda")
+    got = kb.butterfly_forward(x, w, transpose=transpose, context="cuda")
     applied = torch.zeros(1, dtype=torch.int32, device=cuda)
     dx, dw = kb.butterfly_backward(x, w, g, transpose=transpose,
-                                   backend="cuda", applied=applied)
+                                   context="cuda", applied=applied)
     dx2, dw2 = kb.butterfly_backward(x, w, g, transpose=transpose,
-                                     need_dx=False, backend="cuda")
-    want = kb.butterfly_forward(x, w, transpose=transpose, backend="torch")
+                                     need_dx=False, context="cuda")
+    want = kb.butterfly_forward(x, w, transpose=transpose, context="torch")
     pdx, pdw = kb.butterfly_backward(x, w, g, transpose=transpose,
-                                     backend="torch")
+                                     context="torch")
     torch.cuda.synchronize()
     assert (kb.butterfly_forward.launches,
             kb.butterfly_backward.launches) == (
@@ -474,12 +474,12 @@ def test_sketch_training_on_card(cuda):
                                                 before[1] + 3 * kb.BWD_KERNELS)
     want, want_h = sketch.train_butterfly_sketch(
         spec, None, Xs.to(cuda), 3, batch=3, log_every=1, w0=w0,
-        device=cuda, backend="torch")
+        device=cuda, context="torch")
     torch.testing.assert_close(torch.tensor(hist), torch.tensor(want_h),
                                rtol=1e-4, atol=0)
     X = Xs[:1].to(cuda)
     losses = [float(sketch.reconstruction_loss(X, sketch.butterfly_sketch(
-        spec, v, X, backend="torch"), 4)) for v in (got, want)]
+        spec, v, X, context="torch"), 4)) for v in (got, want)]
     assert math.isclose(*losses, rel_tol=1e-4), losses
 
 
@@ -526,9 +526,9 @@ def test_butterfly_kernels_bits_at_tile_edges(cuda, n, edge):
             g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
             what = f"{rows}x{n} transpose={transpose} {dtype}"
             got = kb.butterfly_forward(x, w, transpose=transpose,
-                                       backend="cuda")
+                                       context="cuda")
             dx, dw = kb.butterfly_backward(x, w, g, transpose=transpose,
-                                           backend="cuda")
+                                           context="cuda")
             blocks = kb._bwd_plan(rows, n, transpose, kb._DTYPES[dtype],
                                   cuda.index or 0)[0]
             tdx, tdw = kb.butterfly_bwd_tiled_plain(
@@ -547,6 +547,40 @@ def test_butterfly_kernels_bits_at_tile_edges(cuda, n, edge):
                 msg=lambda m: f"{what} dw: {m}")
 
 
+@pytest.mark.parametrize("rows,n,transpose,dtype", [
+    (70000, 1024, False, torch.float32), (257, 8, True, torch.float32),
+    (9, 16384, False, torch.bfloat16)])
+def test_butterfly_backward_takes_the_default_segment(cuda, rows, n,
+                                                      transpose, dtype):
+    """The execution context's segment on the card: ⌈√p⌉ named explicitly
+    gives the unset field's bits and ``stage_applies(p)`` stage
+    applications; 1 and p are refused before any launch, naming ROADMAP
+    item 7."""
+    from repro_torch.kernels.context import ExecutionContext
+    p = n.bit_length() - 1
+    gen = torch.Generator().manual_seed(n + rows)
+    w = bf.random_weights(gen, n).to(cuda)
+    x = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    base = kb.butterfly_backward(x, w, g, transpose=transpose,
+                                 context="cuda")
+    applied = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dx, dw = kb.butterfly_backward(
+        x, w, g, transpose=transpose, applied=applied,
+        context=ExecutionContext(backend="cuda",
+                                 segment=kb.default_segment(p)))
+    torch.cuda.synchronize()
+    assert int(applied) == kb.stage_applies(p)
+    assert torch.equal(dx, base[0]) and torch.equal(dw, base[1])
+    before = kb.butterfly_backward.launches
+    for seg in (1, p):
+        with pytest.raises(ValueError, match="item 7"):
+            kb.butterfly_backward(
+                x, w, g, transpose=transpose,
+                context=ExecutionContext(backend="cuda", segment=seg))
+    assert kb.butterfly_backward.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,n", [(70000, 1024), (5, 1024), (1237, 2048),
                                     (64, 32768)])
@@ -558,11 +592,11 @@ def test_butterfly_backward_repeats_and_counts(cuda, rows, n, dtype):
     x = torch.randn(rows, n, generator=gen).to(cuda, dtype)
     g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
     before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
-    y1 = kb.butterfly_forward(x, w, backend="cuda")
-    y2 = kb.butterfly_forward(x, w, backend="cuda")
-    dx1, dw1 = kb.butterfly_backward(x, w, g, backend="cuda")
-    dx2, dw2 = kb.butterfly_backward(x, w, g, backend="cuda")
-    none, dw3 = kb.butterfly_backward(x, w, g, need_dx=False, backend="cuda")
+    y1 = kb.butterfly_forward(x, w, context="cuda")
+    y2 = kb.butterfly_forward(x, w, context="cuda")
+    dx1, dw1 = kb.butterfly_backward(x, w, g, context="cuda")
+    dx2, dw2 = kb.butterfly_backward(x, w, g, context="cuda")
+    none, dw3 = kb.butterfly_backward(x, w, g, need_dx=False, context="cuda")
     torch.cuda.synchronize()
     assert (kb.butterfly_forward.launches,
             kb.butterfly_backward.launches) == (
@@ -636,11 +670,11 @@ def test_flash_kernels_match_plain(cuda, B, H, S, D, causal, window, dtype):
                    for _ in range(4))
     kw = dict(causal=causal, window=window)
     before = (kf.flash_forward.launches, kf.flash_backward.launches)
-    out, lse = kf.flash_forward(q, k, v, backend="cuda", **kw)
-    pout, plse = kf.flash_forward(q, k, v, backend="torch", **kw)
-    got = kf.flash_backward(q, k, v, pout, plse, do, backend="cuda", **kw)
-    again = kf.flash_backward(q, k, v, pout, plse, do, backend="cuda", **kw)
-    want = kf.flash_backward(q, k, v, pout, plse, do, backend="torch", **kw)
+    out, lse = kf.flash_forward(q, k, v, context="cuda", **kw)
+    pout, plse = kf.flash_forward(q, k, v, context="torch", **kw)
+    got = kf.flash_backward(q, k, v, pout, plse, do, context="cuda", **kw)
+    again = kf.flash_backward(q, k, v, pout, plse, do, context="cuda", **kw)
+    want = kf.flash_backward(q, k, v, pout, plse, do, context="torch", **kw)
     torch.cuda.synchronize()
     assert (kf.flash_forward.launches, kf.flash_backward.launches) == (
         before[0] + 1, before[1] + 2 * kf.BWD_KERNELS)
@@ -675,9 +709,9 @@ def test_flash_forward_tensor_cores(cuda, S, D, causal, window, dtype):
                for _ in range(3))
     kw = dict(causal=causal, window=window)
     before = kf.flash_forward.launches
-    out, lse = kf.flash_forward(q, k, v, backend="cuda", **kw)
-    again, _ = kf.flash_forward(q, k, v, backend="cuda", **kw)
-    pout, plse = kf.flash_forward(q, k, v, backend="torch", **kw)
+    out, lse = kf.flash_forward(q, k, v, context="cuda", **kw)
+    again, _ = kf.flash_forward(q, k, v, context="cuda", **kw)
+    pout, plse = kf.flash_forward(q, k, v, context="torch", **kw)
     torch.cuda.synchronize()
     assert kf.flash_forward.launches == before + 2
     assert torch.equal(out, again)
@@ -704,13 +738,13 @@ def test_flash_backward_tensor_cores(cuda, S, D, causal, window, dtype):
     q, k, v, do = (torch.randn(2, 3, S, D, generator=gen).to(cuda, dtype)
                    for _ in range(4))
     kw = dict(causal=causal, window=window)
-    out, lse = kf.flash_forward(q, k, v, backend="torch", **kw)
+    out, lse = kf.flash_forward(q, k, v, context="torch", **kw)
     before = kf.flash_backward.launches
-    got = kf.flash_backward(q, k, v, out, lse, do, backend="cuda", **kw)
-    again = kf.flash_backward(q, k, v, out, lse, do, backend="cuda", **kw)
+    got = kf.flash_backward(q, k, v, out, lse, do, context="cuda", **kw)
+    again = kf.flash_backward(q, k, v, out, lse, do, context="cuda", **kw)
     torch.cuda.synchronize()
     assert kf.flash_backward.launches == before + 2 * kf.BWD_KERNELS
-    want = kf.flash_backward(q, k, v, out, lse, do, backend="torch", **kw)
+    want = kf.flash_backward(q, k, v, out, lse, do, context="torch", **kw)
     floors = cancel_floor(q, k, v, do, lse, kf.row_delta(out, do), **kw)
     for name, a, b, w, floor in zip(("dq", "dk", "dv"), got, again, want,
                                     floors):
@@ -735,7 +769,7 @@ def test_flash_kernels_keep_nan(cuda, where, causal, dtype):
     q, k, v, do = (torch.randn(2, 3, 130, 64, generator=gen).to(cuda, dtype)
                    for _ in range(4))
     kw = dict(causal=causal)
-    out, lse = kf.flash_forward(q, k, v, backend="torch", **kw)
+    out, lse = kf.flash_forward(q, k, v, context="torch", **kw)
     t = q if where == "q" else do
     if dtype == torch.float32:
         t.view(torch.int32)[1, 2, -1, 5] = 0x7fffffff
@@ -749,8 +783,8 @@ def test_flash_kernels_keep_nan(cuda, where, causal, dtype):
     names = ["dq", "dk", "dv"]
     if where == "q":
         names += ["o", "lse"]
-        got += kf.flash_forward(q, k, v, backend="cuda", **kw)
-        want += kf.flash_forward(q, k, v, backend="torch", **kw)
+        got += kf.flash_forward(q, k, v, context="cuda", **kw)
+        want += kf.flash_forward(q, k, v, context="torch", **kw)
     torch.cuda.synchronize()
     for name, a, w in zip(names, got, want):
         nan = torch.isnan(w)
@@ -771,7 +805,7 @@ def test_flash_fn_autograd_on_card(cuda, dtype):
     for backend in ("cuda", "torch"):
         before = (kf.flash_forward.launches, kf.flash_backward.launches)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = kf.flash_attention(*leaves, window=64, backend=backend)
+        out = kf.flash_attention(*leaves, window=64, context=backend)
         grads[backend] = torch.autograd.grad(
             (c.float() * out.float()).sum(), leaves)
         rose = (kf.flash_forward.launches - before[0],
@@ -800,15 +834,15 @@ def test_flash_kernels_reject_bad_inputs(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         kf.flash_forward(*[torch.zeros(1, 2, 16, 12, device=cuda)] * 3,
-                         backend="cuda")
+                         context="cuda")
     with pytest.raises(TypeError):
-        kf.flash_forward(q.half(), q.half(), q.half(), backend="cuda")
+        kf.flash_forward(q.half(), q.half(), q.half(), context="cuda")
     t = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
-        kf.flash_forward(q, t, q, backend="cuda")
+        kf.flash_forward(q, t, q, context="cuda")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        kf.flash_forward(q.cpu(), q.cpu(), q.cpu(), backend="cuda")
-    out, lse = kf.flash_forward(q, q, q, backend="cuda")
+        kf.flash_forward(q.cpu(), q.cpu(), q.cpu(), context="cuda")
+    out, lse = kf.flash_forward(q, q, q, context="cuda")
     with pytest.raises(ValueError, match="lse"):
         kf.dq_cuda(q, q, q, q, lse.double(), lse)
     shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
@@ -816,7 +850,7 @@ def test_flash_kernels_reject_bad_inputs(cuda):
     before = (kf.flash_forward.launches, kf.flash_backward.launches)
     for args in ((shifted, q, q), (q, q, shifted)):
         with pytest.raises(ValueError, match="aligned"):
-            kf.flash_forward(*args, backend="cuda")
+            kf.flash_forward(*args, context="cuda")
     for args in ((shifted, q, q, q), (q, shifted, q, q), (q, q, q, shifted)):
         for call in (kf.dq_cuda, kf.dkv_cuda):
             with pytest.raises(ValueError, match="aligned"):

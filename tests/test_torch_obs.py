@@ -34,6 +34,7 @@ from repro.serve import Router as JRouter
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.obs import (SNAPSHOT_SCHEMA, MetricsRegistry, NullTracer,
                              Tracer)
+from repro_torch.kernels.context import ExecutionContext
 from repro_torch.obs.profiling import annotate, profiling_enabled
 from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
 from repro_torch.obs.validate import (TraceValidationError,
@@ -437,15 +438,16 @@ def test_annotate_gates_on_argument_then_environment(monkeypatch):
     monkeypatch.delenv("REPRO_PROFILE", raising=False)
     assert not profiling_enabled()
     assert annotate("x") is annotate("y")          # the shared no-op
-    assert profiling_enabled(True)
-    cm = annotate("sandwich_matmul", enabled=True)
+    on, off = ExecutionContext(profile=True), ExecutionContext(profile=False)
+    assert profiling_enabled(on)
+    cm = annotate("sandwich_matmul", on)
     assert isinstance(cm, torch.profiler.record_function)
     with cm:                                       # no profiler running
         pass
     monkeypatch.setenv("REPRO_PROFILE", "1")
     assert profiling_enabled()
-    assert not profiling_enabled(False)            # the argument wins
-    assert annotate("x", enabled=False) is annotate("y", enabled=False)
+    assert not profiling_enabled(off)              # the argument wins
+    assert annotate("x", off) is annotate("y", off)
 
 
 def test_profiled_kernel_sites_keep_results_and_name_ranges(monkeypatch):

@@ -148,7 +148,7 @@ def test_cuda_backend_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tpa.paged_decode_attention(q, _t(k_pool), _t(v_pool), _t(ids).int(),
                                    torch.zeros(B, dtype=torch.int32),
-                                   backend="cuda")
+                                   context="cuda")
 
 
 # the split's plain twin: 6 slots over 5 pages of 4 positions, cur_pos at

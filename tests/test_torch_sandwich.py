@@ -150,8 +150,8 @@ def test_cuda_backend_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ks.sandwich_forward(t["x"], t["b_in"], t["core"], t["b_out"],
                             t["idx_in"], t["idx_out"], scale_in=1.0,
-                            scale_out=1.0, n_out=128, backend="cuda")
+                            scale_out=1.0, n_out=128, context="cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         ks.sandwich_forward(t["x"], t["b_in"], t["core"], t["b_out"],
                             t["idx_in"], t["idx_out"], scale_in=1.0,
-                            scale_out=1.0, n_out=128, backend="pallas")
+                            scale_out=1.0, n_out=128, context="pallas")

@@ -70,7 +70,7 @@ def test_decode_logits_leave_engine_state_untouched(models):
     eng.step()
     before = {t: c.clone() for t, c in eng.caches.items()}
     a = eng.decode_logits()
-    b = eng.decode_logits(backend="torch")
+    b = eng.decode_logits(context="torch")
     torch.testing.assert_close(a, b)
     for t in before:
         torch.testing.assert_close(eng.caches[t], before[t])
@@ -225,7 +225,7 @@ def test_greedy_tokens_on_card_match_cpu_plain_path(mode):
 def test_graph_replay_matches_eager_tick_at_full_width():
     """Full-width ``smollm-135m-butterfly`` in bfloat16, 8 slots: a replay of
     the decode graph gives the logits of the same tick run eagerly through
-    the kernels (``decode_logits(backend="cuda")``) within the bfloat16
+    the kernels (``decode_logits(context="cuda")``) within the bfloat16
     layer tolerance; whether bit for bit is printed."""
     smoke = _smoke_script()
     from repro_torch.configs import registry

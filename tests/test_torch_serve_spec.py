@@ -120,7 +120,7 @@ def test_verify_replay_matches_eager_pass_and_leaves_state(bfly_model):
             tokens, logits = eng.replay_verify_logits()
             assert tokens.shape == (4, 4)
             assert logits.shape == (4, 4, tcfg.vocab_size)
-            assert torch.equal(eng.verify_logits(tokens, backend="torch"),
+            assert torch.equal(eng.verify_logits(tokens, context="torch"),
                                logits)
         eng.run_until_idle(max_ticks=MAX_TICKS)
         toks[probe] = [f.result(0).tokens for f in futs]
@@ -215,7 +215,7 @@ def test_butterfly_head_ties_top_logits_at_init(bfly_model):
     pos = torch.arange(40, dtype=torch.int32).expand(5, 40)
     with torch.no_grad():
         x = cm.embed(tcfg, model.embed, tokens)
-        x = lm.backbone(model, x, positions=pos, backend="torch")
+        x = lm.backbone(model, x, positions=pos, context="torch")
         x = cm.rmsnorm(x, model.final_norm, tcfg.norm_eps)
         logits = cm.head_apply(tcfg, model.head, x, "torch").reshape(200, -1)
     top = logits.topk(2, dim=-1)

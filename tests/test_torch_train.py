@@ -10,6 +10,7 @@ orders); attention outputs at 1e-5.
 """
 
 import math
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -260,6 +261,98 @@ def test_trainer_needs_a_card_unless_asked_for_cpu():
         Trainer(tcfg, TrainConfig(**TC), seq_len=16, global_batch=2)
     Trainer(tcfg, TrainConfig(**TC), seq_len=16, global_batch=2,
             device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(tcfg, TrainConfig(**TC, grad_compression="topk"),
+    # gradient compression is ported; an unknown codec is refused
+    Trainer(tcfg, TrainConfig(**TC, grad_compression="topk"),
+            seq_len=16, global_batch=2, device="cpu")
+    with pytest.raises(ValueError, match="unknown gradient compression"):
+        Trainer(tcfg, TrainConfig(**TC, grad_compression="fp8"),
                 seq_len=16, global_batch=2, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["topk", "int8"])
+def test_trainer_with_compression_matches_reference_over_4_steps(kind):
+    """Gradient compression before Adam: the port's Trainer against the
+    reference's over 4 steps, at the 4-step test's tolerance."""
+    jcfg, tcfg = _configs()
+    params, params_np = _reference_params(jcfg)
+    jtc = JTrainConfig(**TC, grad_compression=kind)
+    trainer = JTrainer(jcfg, jtc, seq_len=32, global_batch=4)
+    start = jax.tree_util.tree_map(jnp.array, params)
+    want = trainer.run(4, params=start, opt_state=trainer.tx.init(start))
+    res = Trainer(tcfg, TrainConfig(**TC, grad_compression=kind), seq_len=32,
+                  global_batch=4, device="cpu").run(
+        4, model=_port_model(tcfg, jcfg, params_np))
+    np.testing.assert_allclose(res.losses, want.losses, rtol=1e-4)
+
+
+@pytest.fixture(scope="module", params=["", "topk"])
+def reference_resume_run(request, tmp_path_factory):
+    """The reference Trainer, 4 steps from the reference init with a
+    checkpoint every 2 (with and without the compression slot in the
+    optimizer's chain); returns its losses and a directory holding its
+    step-2 checkpoint alone."""
+    jcfg, tcfg = _configs()
+    params, params_np = _reference_params(jcfg)
+    tc = dict(TC, checkpoint_every=2, grad_compression=request.param)
+    ckdir = tmp_path_factory.mktemp("jax_resume")
+    trainer = JTrainer(jcfg, JTrainConfig(**tc, checkpoint_dir=str(ckdir)),
+                       seq_len=32, global_batch=4)
+    start = jax.tree_util.tree_map(jnp.array, params)
+    res = trainer.run(4, params=start, opt_state=trainer.tx.init(start))
+    step2 = tmp_path_factory.mktemp("jax_step2")
+    shutil.copytree(ckdir / "step_000000002", step2 / "step_000000002")
+    return jcfg, tcfg, params, params_np, tc, res.losses, step2
+
+
+def test_resumes_from_a_reference_checkpoint(reference_resume_run):
+    """The port resumes from the step-2 checkpoint the reference's Trainer
+    wrote, params and optimizer state, and its steps 3-4 match the
+    reference's continuous run."""
+    jcfg, tcfg, _, params_np, tc, want, step2 = reference_resume_run
+    res = Trainer(tcfg, TrainConfig(**tc, checkpoint_dir=str(step2)),
+                  seq_len=32, global_batch=4, device="cpu").run(
+        2, model=_port_model(tcfg, jcfg, params_np))
+    assert res.resumed_from == 2
+    np.testing.assert_allclose(res.losses, want[2:], rtol=1e-4)
+
+
+def test_reference_resumes_from_a_port_checkpoint(reference_resume_run,
+                                                  tmp_path):
+    """The reference resumes from the port's step-2 checkpoint and its
+    steps 3-4 match its own continuous run."""
+    jcfg, tcfg, params, params_np, tc, want, _ = reference_resume_run
+    tc = dict(tc, checkpoint_dir=str(tmp_path))
+    Trainer(tcfg, TrainConfig(**tc), seq_len=32, global_batch=4,
+            device="cpu").run(2, model=_port_model(tcfg, jcfg, params_np))
+    trainer = JTrainer(jcfg, JTrainConfig(**tc), seq_len=32, global_batch=4)
+    start = jax.tree_util.tree_map(jnp.array, params)
+    res = trainer.run(2, params=start, opt_state=trainer.tx.init(start))
+    assert res.resumed_from == 2
+    np.testing.assert_allclose(res.losses, want[2:], rtol=1e-4)
+
+
+def test_optimizer_state_round_trips_the_reference_layout():
+    """The optimizer state through the reference's layout and back is the
+    same state: counts int32, the empty ClipState() slots in the tuple,
+    the compression's error buffers stacked as ``unit`` like Adam's
+    moments."""
+    _, tcfg = _configs()
+    model = tlm.LM(tcfg, generator=torch.Generator().manual_seed(0))
+    tx = tsteps.make_optimizer(TrainConfig(**TC, grad_compression="int8"))
+    params = tsteps.trainable(model)
+    state = tx.init(params)
+    grads = {n: torch.randn_like(p) for n, p in params.items()}
+    _, state = tx.update(grads, state, params)
+    host = convert.opt_state_to_jax(state)
+    assert [type(s).__name__ for s in host] == [
+        "ClipState", "ErrorFeedbackState", "ScaleByAdamState", "ClipState",
+        "ScaleByScheduleState"]
+    assert host[2].count.dtype == np.int32 and host[2].count.shape == ()
+    stacked = host[1].error["unit"][0]["ffn"]["up"]["b_in"]
+    assert stacked.shape[0] == tcfg.n_layers
+    back = convert.load_jax_opt_state(tcfg, state, host)
+    flat_a = tckpt._flatten(tckpt._to_host(state))
+    flat_b = tckpt._flatten(tckpt._to_host(back))
+    assert flat_a.keys() == flat_b.keys()
+    for k in flat_a:
+        np.testing.assert_array_equal(flat_a[k], flat_b[k], err_msg=k)
