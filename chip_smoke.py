@@ -19,7 +19,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    group, head dim 64, pages of 16, at the serving engine's 512 positions
    and at a long 2048 (7,883 live positions), with a dirty trash page,
    stale rows and NaN pages past ``cur_pos``; float32 at 1e-5 and bfloat16
-   at 2e-2; two launches bit-identical.
+   at 2e-2; two launches bit-identical. The same at the zoo's decode
+   shapes, 512 positions: OLMoE-1B-7B (16 KV heads, 1 query head each,
+   head dim 128), DBRX-132B (8, 6, 128), Mistral-Large-123B (8, 12, 128)
+   and Gemma-7B (16, 1, 256: float32 rows take two vectors a lane).
 5. Sandwich backward (six kernels: the factors again, the row products,
    the column products, their sum over row splits, the factor-row VJP, the
    reduction) vs its plain
@@ -32,7 +35,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 5a. Widths past the smollm sites: the sandwich forward and backward at
    mistral-large-123b's ``down`` site (28,672 -> 12,288, n1 = 32,768, n2 =
    16,384, k = log2 n) at 64 rows, float32 and bfloat16, against the plain
-   twins at the tolerances above.
+   twins at the tolerances above; then the zoo's widest sites at 8 and 256
+   rows: Gemma-7B's up/gate (3072 -> 24,576), down (24,576 -> 3072, n1 =
+   32,768) and head (3072 -> 256,000, n2 = 262,144), OLMoE's head (2048 ->
+   50,304) and DBRX's (6144 -> 100,352).
 6. Serving: a ServeEngine on full-width ``smollm-135m-butterfly``
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
@@ -219,6 +225,44 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     field's; segments 1 and 10 refused, naming ROADMAP item 7, before any
     launch.
 
+24. Serving the zoo at full width (ROADMAP 5a), phase 6's path and checks
+    for each arch in turn, the other's weights freed first:
+    ``olmoe-1b-7b-butterfly`` (16 layers, d_model 2048, 16 heads of 128,
+    64 experts top-8, d_ff 1024, vocab 50,304; the sandwich on the head
+    alone, MoE blocks having no MLP site) and ``gemma-7b-butterfly`` (28
+    layers, d_model 3072, 16 heads of 256, GeGLU sandwiches 3072 -> 24,576
+    -> 3072, a sandwich head to 256,000), random float32 weights from seed
+    0 drawn on the CPU and moved (the seconds printed), bfloat16 compute,
+    8 slots, max_len 512, pages and chunks of 16, greedy, eager admission,
+    on CUDA graphs, 16 requests of 5-200 prompt tokens and 32 new. Held:
+    every request finished; the launch counters on the per-tick formula
+    (OLMoE 2 x 1 sandwich and 2 x 16 paged launches a decode tick, Gemma
+    2 x 85 and 2 x 28); every tick after a key's build a replay; no NaN in
+    the pool or the replayed logits; the live decode tick layer by layer
+    against the plain versions and its replay against eager, within 5e-2
+    in relative norm. Printed: init seconds, TTFT p50/p95, decode tok/s
+    over all ticks and over replays, the mean replayed tick, peak memory.
+    Then phase 8's profile of the arch's decode tick, graphed and eager,
+    with the device time by kind (sandwich, paged, matmul, copy/cast,
+    other).
+25. Training the MoE: ``Trainer`` on ``olmoe-1b-7b-butterfly`` at full
+    width, 4 of its 16 layers (Adam's state for all 16 would need ~110
+    GB), seq_len 2048 x batch 4 (8,192 tokens, capacity 1,280 an expert),
+    bfloat16 compute, remat, 2 warm and 3 timed steps. First its head's
+    sandwich (2048 -> 50,304) against the plain versions at the run's
+    shapes, float32 and bfloat16: the forward at 8,192 rows (two launches
+    bit-identical, SANDWICH_TOL), the backward at 2,048 (HEAD_BWD_ROWS;
+    GRAD_TOL). Then the run: every loss, ce and
+    aux finite, 2 x 1 forward and 6 x 1 backward sandwich launches a step;
+    step p50, tokens/s and peak memory printed.
+26. Phase 6a's eager, incremental and ``spec_k=3`` token cases again on
+    ``olmoe-1b-7b-butterfly-smoke`` in float32: the card's tokens equal to
+    the CPU's.
+27. Timing at the zoo's shapes (bfloat16): the paged kernel at each of
+    phase 4's zoo shapes (device time, plain, SDPA, bound) and the sandwich
+    forward at each zoo site at 8 rows (kernels, plain, a matmul by the
+    dense matrix, bound).
+
 The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
 but ``auto`` or ``cuda``: the plain versions would stand in for the
 kernels. Prints a ``{"kernels": [...]}`` line, then as its last line
@@ -276,6 +320,31 @@ def sites(cfg) -> dict:
     E, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     return {"up_gate": ("mlp_up", E, F), "down": ("mlp_down", F, E),
             "lm_head": ("lm_head", E, V)}
+
+
+def called_sites(cfg) -> tuple:
+    """The names of :func:`sites` that a forward pass of ``cfg`` calls: the
+    MLP's where ``mlp`` is a butterfly site and the blocks have an MLP (an
+    ``moe`` block has none), and the head where ``lm_head`` is one and not
+    tied."""
+    bc = cfg.butterfly
+    if bc is None:
+        return ()
+    mlp = "mlp" in bc.sites and tuple(cfg.block_unit) != ("moe",)
+    head = "lm_head" in bc.sites and not cfg.tie_embeddings
+    return ("up_gate", "down") * mlp + ("lm_head",) * head
+
+
+def sandwich_sites(cfg) -> tuple:
+    """(sandwich sites a forward pass calls, those inside the layers): up,
+    gate and down per layer at :func:`called_sites`' MLP (``gelu_mlp`` has
+    no gate), and the head."""
+    called = called_sites(cfg)
+    per_layer = 0
+    if "down" in called:
+        per_layer = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
+    return (per_layer * cfg.n_layers + int("lm_head" in called),
+            per_layer * cfg.n_layers)
 
 
 def sync(torch, dev) -> None:
@@ -527,29 +596,45 @@ def paged_inputs(torch, cfg, dtype, dev, seed=2, shape=PAGED_SHAPES[0]):
             ids.int().to(dev), cur.int().to(dev)]
 
 
-def phase_paged(torch, cfg, dev, kernel: str) -> float:
-    """The paged kernels against their plain twin at PAGED_SHAPES, both
-    dtypes; two launches bit-identical."""
+def check_paged(torch, pcfg, dev, kernel: str, shape, dtype: str,
+                label: str) -> float:
+    """The paged kernels against their plain twin on :func:`paged_inputs`
+    of ``pcfg`` (its KV heads, group and head dim) at ``shape``: two
+    launches bit-identical, within PAGED_TOL[dtype]; prints one line and
+    returns max|err|."""
     from repro_torch.kernels import paged_attention as pa
+    args = paged_inputs(torch, pcfg, getattr(torch, dtype), dev, shape=shape)
+    got = pa.paged_decode_attention(*args, context=kernel)
+    again = pa.paged_decode_attention(*args, context=kernel)
+    want = pa.paged_decode_attention(*args, context="torch")
+    sync(torch, dev)
+    if not torch.equal(got, again):
+        raise AssertionError(f"paged {label} {dtype}: two launches differ")
+    err = allclose_or_raise(torch, f"paged {label} {dtype}", got, want,
+                            PAGED_TOL[dtype])
+    say(f"paged {label} B={SLOTS} {tuple(args[0].shape)} ps=16 "
+        f"P={args[3].shape[1]} {dtype:9s} max|err|={err:.3e} (tol "
+        f"{PAGED_TOL[dtype]}); two launches bit-identical")
+    return err
+
+
+def phase_paged(torch, cfg, dev, kernel: str, zoo_archs=()) -> float:
+    """The paged kernels against their plain twin (:func:`check_paged`) at
+    PAGED_SHAPES, both dtypes; then at the serving shape for each of
+    ``zoo_archs``' decode shapes (KV heads, group, head dim). Returns the
+    worst error in the compute dtype at the serving shape."""
+    from repro_torch.configs import registry
+    cases = [(cfg, shape, f"{shape[0]:5s}") for shape in PAGED_SHAPES]
+    for arch in zoo_archs:
+        z = registry.get(arch)
+        cases.append((z, PAGED_SHAPES[0], f"{arch} KV={z.n_kv_heads} "
+                      f"G={z.n_heads // z.n_kv_heads} D={z.head_dim_}"))
     worst = 0.0
     with torch.no_grad():
-        for shape in PAGED_SHAPES:
+        for pcfg, shape, label in cases:
             for dtype in ("float32", "bfloat16"):
-                args = paged_inputs(torch, cfg, getattr(torch, dtype), dev,
-                                    shape=shape)
-                got = pa.paged_decode_attention(*args, context=kernel)
-                again = pa.paged_decode_attention(*args, context=kernel)
-                want = pa.paged_decode_attention(*args, context="torch")
-                sync(torch, dev)
-                if not torch.equal(got, again):
-                    raise AssertionError(f"paged {shape[0]} {dtype}: two "
-                                         f"launches differ")
-                err = allclose_or_raise(torch, f"paged {shape[0]} {dtype}",
-                                        got, want, PAGED_TOL[dtype])
-                say(f"paged {shape[0]:5s} B={SLOTS} {tuple(args[0].shape)} "
-                    f"ps=16 P={args[3].shape[1]} {dtype:9s} max|err|="
-                    f"{err:.3e} (tol {PAGED_TOL[dtype]}); two launches "
-                    f"bit-identical")
+                err = check_paged(torch, pcfg, dev, kernel, shape, dtype,
+                                  label)
                 if dtype == cfg.compute_dtype and shape is PAGED_SHAPES[0]:
                     worst = max(worst, err)
     return worst
@@ -593,7 +678,8 @@ def layerwise_check(torch, eng, kernel: str) -> None:
             cache = (caches["k"][i], caches["v"][i])
             got, want = (lm.layer_apply(cfg, layer, x, positions=positions,
                                         cache=cache, page_table=table,
-                                        context=b) for b in (kernel, "torch"))
+                                        context=b)[0]
+                         for b in (kernel, "torch"))
             pairs.append((f"layer {i}", got.float(), want.float()))
             x = want
         h = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
@@ -649,10 +735,11 @@ def serve_launches_want(cfg, snap, on_card: bool, spec_k: int = 0) -> dict:
     gather, as the chunk does); none off the card."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
-    per_tick = 3 * cfg.n_layers + 1
+    per_tick, in_layers = sandwich_sites(cfg)
     decode = snap["decode_steps"]
     return {"sandwich_fwd": on_card * ks.FWD_KERNELS
-            * (per_tick * (decode + snap["chunk_ticks"]) + spec_k * decode),
+            * (per_tick * (decode + snap["chunk_ticks"])
+               + spec_k * (per_tick - in_layers) * decode),
             "paged_decode_attention": on_card * pa.PAGED_KERNELS
             * cfg.n_layers * decode * (not spec_k)}
 
@@ -685,10 +772,11 @@ def graph_report(eng, snap, on_card: bool) -> dict:
     # (sandwich, paged) launches of one replay: every site of the model, or
     # the head alone spec_k times in the draft; the paged kernels in the
     # decode tick only
-    sites_ = ks.FWD_KERNELS * (3 * cfg.n_layers + 1)
+    sites_ = ks.FWD_KERNELS * sandwich_sites(cfg)[0]
     per_replay = {"decode": (sites_, pa.PAGED_KERNELS * cfg.n_layers),
                   "chunk_prefill": (sites_, 0), "spec_verify": (sites_, 0),
-                  "spec_draft": (ks.FWD_KERNELS * eng.spec_k, 0)}
+                  "spec_draft": (ks.FWD_KERNELS * eng.spec_k * (
+                      sandwich_sites(cfg)[0] - sandwich_sites(cfg)[1]), 0)}
     for key, st in stats.items():
         say(f"graph {key}: captures {st['captures']}, replays "
             f"{st['replays']}, launches per replay "
@@ -722,17 +810,25 @@ def serve_prompts(np, cfg):
     return lens, [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
 
 
-def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
+def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "") -> tuple:
+    """The main path's serving run on ``cfg``: a probe engine's live decode
+    tick held layer by layer and as a replay against eager, then 16
+    requests to completion with the counts set to 0 just before and read
+    just after. Returns (launches, summary, tokens); ``tag`` names the run
+    in its lines (``serve <tag>:``)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
     from repro_torch.serve import Request, ServeEngine
 
+    head = f"serve {tag}:" if tag else "serve:"
     t0 = time.monotonic()
     model = model_of(cfg, dev)
-    say(f"init: {time.monotonic() - t0:.1f} s, "
-        f"{sum(p.numel() for p in model.parameters())} parameters")
+    init_s = time.monotonic() - t0
+    say(f"{head} init: {init_s:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters())} parameters "
+        f"({cfg.param_dtype}, drawn on the CPU and moved)")
     lens, prompts = serve_prompts(np, cfg)
-    per_tick = 3 * cfg.n_layers + 1            # up, gate, down per layer + head
+    per_tick = sandwich_sites(cfg)[0]     # up, gate, down per layer + head
 
     # kernels vs plain on live engine state (also warms the path up)
     probe = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN,
@@ -783,12 +879,12 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
         if not bool(torch.isfinite(pool).all()):
             raise AssertionError(f"non-finite values in the {name} pool")
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    say(f"serve: {N_REQUESTS} requests, prompts {int(lens.min())}-"
+    say(f"{head} {N_REQUESTS} requests, prompts {int(lens.min())}-"
         f"{int(lens.max())} tokens, {snap['ticks']} ticks "
         f"({snap['chunk_ticks']} chunk, {snap['decode_steps']} decode), "
         f"wall {wall:.3f} s, on graphs ({eng.compile_stats['compiles']} "
         f"built)")
-    say(f"serve: TTFT p50 {snap['ttft_ms']['p50']} ms, p95 "
+    say(f"{head} TTFT p50 {snap['ttft_ms']['p50']} ms, p95 "
         f"{snap['ttft_ms']['p95']} ms; TPOT p50 {snap['tpot_ms']['p50']} ms; "
         f"decode {snap['decode_tok_per_s']:.1f} tok/s over all decode ticks, "
         f"{snap['decode_tok_per_s_steady']:.1f} tok/s over the replays; "
@@ -798,11 +894,11 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
     m = eng.metrics
     replayed = (m.decode_time_s - m.build_decode_time_s) * 1e3 / (
         m.decode_steps - 1)
-    say(f"serve: decode ticks, host clock: {replayed:.3f} ms a replayed "
+    say(f"{head} decode ticks, host clock: {replayed:.3f} ms a replayed "
         f"tick on average over {m.decode_steps - 1}; the "
         f"decode key's build tick (warm-up + capture) "
         f"{m.build_decode_time_s * 1e3:.3f} ms")
-    say(f"serve: launches {launches} = {ks.FWD_KERNELS} x {per_tick}/tick x "
+    say(f"{head} launches {launches} = {ks.FWD_KERNELS} x {per_tick}/tick x "
         f"(decode + chunk), {pa.PAGED_KERNELS} x {cfg.n_layers}/decode tick")
     graphs = graph_report(eng, snap, on_card)
     summary = {"ttft_p50_ms": snap["ttft_ms"]["p50"],
@@ -813,7 +909,7 @@ def phase_serve(torch, np, cfg, dev, kernel: str) -> tuple:
                "build_s": snap["build"]["time_s"],
                "replayed_decode_tick_ms": replayed,
                "peak_mib": peak / 2**20, "wall_s": wall,
-               "ticks": snap["ticks"], "graphs": graphs,
+               "ticks": snap["ticks"], "graphs": graphs, "init_s": init_s,
                "replay_vs_eager": replay}
     return launches, summary, tokens
 
@@ -972,6 +1068,7 @@ def phase_serve_spec(torch, np, cfg, dev, kernel: str, eager_tokens) -> dict:
             "spec_replay_vs_eager": replay}
 
 
+TOKEN_ARCH = "smollm-135m-butterfly-smoke"
 TOKEN_PROMPTS = (5, 23, 11, 3)   # tests/test_torch_serve.py's greedy prompts
 TOKEN_NEW = 16
 # the token runs' engines: eager admission; incremental admission on 3
@@ -1036,25 +1133,24 @@ def serve_router_tokens(cfg, dev, model, prompts) -> tuple:
     return rounds[0], rounds[1], snap
 
 
-def serve_tokens_case(torch, np, dev, mode: str) -> dict:
+def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH
+                      ) -> dict:
     """Greedy tokens through the kernels against the plain path, one
-    engine configuration of ``TOKEN_CASES``: ``smollm-135m-butterfly-smoke``
-    in float32 compute, weights made once from seed 0 on the CPU, one
-    engine on ``dev`` (in the router case two replicas behind a
-    ``Router``, :func:`serve_router_tokens`) and one on the CPU, the greedy
-    test's prompts into 2 slots with prefill chunks of 16. Every request's
-    tokens must be equal
-    (and the incremental case must preempt); at a flip, prints the request,
-    the step and the CPU run's top-1 minus top-2 logit gap there, and
-    raises. Returns the card engine's snapshot."""
+    engine configuration of ``TOKEN_CASES``: ``arch`` in float32 compute,
+    weights made once from seed 0 on the CPU, one engine on ``dev`` (in
+    the router case two replicas behind a ``Router``,
+    :func:`serve_router_tokens`) and one on the CPU, the greedy test's
+    prompts into 2 slots with prefill chunks of 16. Every request's tokens
+    must be equal (and the incremental case must preempt); at a flip,
+    prints the request, the step and the CPU run's top-1 minus top-2 logit
+    gap there, and raises. Returns the card engine's snapshot."""
     import copy
 
     from repro_torch.configs import registry
     from repro_torch.models import common as cm
     from repro_torch.models import lm
     from repro_torch.serve import Request, ServeEngine, loader
-    cfg = registry.get("smollm-135m-butterfly-smoke").with_(
-        compute_dtype="float32")
+    cfg = registry.get(arch).with_(compute_dtype="float32")
     cpu_model = loader.init_params(cfg, seed=0, device="cpu")
     card_model = copy.deepcopy(cpu_model)
     rng = np.random.default_rng(3)
@@ -1102,7 +1198,7 @@ def serve_tokens_case(torch, np, dev, mode: str) -> dict:
         with torch.no_grad():
             x = cm.embed(cfg, cpu_model.embed, ctx)
             pos = torch.arange(ctx.shape[1], dtype=torch.int32)[None]
-            x = lm.backbone(cpu_model, x, positions=pos, context="torch")
+            x, _ = lm.backbone(cpu_model, x, positions=pos, context="torch")
             x = cm.rmsnorm(x, cpu_model.final_norm, cfg.norm_eps)
             top = cm.head_apply(cfg, cpu_model.head, x, "torch")[0, -1].float(
                 ).topk(2).values
@@ -1249,11 +1345,12 @@ def phase_serve_cli(torch, cfg, dev, sizes=CLI_SERVE) -> tuple:
     return total, out_summary
 
 
-def phase_serve_tokens(torch, np, dev) -> None:
-    """:func:`serve_tokens_case` for every configuration of
-    ``TOKEN_CASES``."""
-    for mode in TOKEN_CASES:
-        serve_tokens_case(torch, np, dev, mode)
+def phase_serve_tokens(torch, np, dev, arch: str = TOKEN_ARCH,
+                       modes=TOKEN_CASES) -> None:
+    """:func:`serve_tokens_case` on ``arch`` for every configuration of
+    ``modes``."""
+    for mode in modes:
+        serve_tokens_case(torch, np, dev, mode, arch)
 
 
 def sandwich_ops(spec) -> tuple:
@@ -1532,17 +1629,33 @@ GRAPHED_KERNELS = ("sandwich_factors_kernel", "sandwich_rows_kernel",
                    "paged_split_kernel", "paged_combine_kernel")
 
 
-def phase_profile(torch, np, cfg, dev) -> dict:
+# kinds of device events in a profiled tick, by substrings of their names
+# (lower case): the first that matches names the kind, else "other"
+PROFILE_KINDS = (("sandwich", ("sandwich_",)), ("paged", ("paged_",)),
+                 ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+                 ("copy/cast", ("copy",)))
+
+
+def event_kind(key: str) -> str:
+    low = key.lower()
+    for kind, parts in PROFILE_KINDS:
+        if any(p in low for p in parts):
+            return kind
+    return "other"
+
+
+def phase_profile(torch, np, cfg, dev, tag: str = "") -> dict:
     """Where a pooled decode tick's time goes, graphed and eager:
     ``torch.profiler`` over three decode ticks of 8 slots (prompts of 5
     tokens) replayed from the engine's decode graph, then over three of
     the same ticks run eagerly through the kernels (``decode_logits``,
     which also copies the KV pool once a call); device time by kernel and
-    the device-busy share of the ticks' wall time. Each sandwich and paged
-    kernel's launches a tick in the graphed window's device trace must
-    equal the decode graph's launches per replay. Returns the
-    per-tick wall and busy ms and device launches of both windows ({}
-    where the profiler saw no device time)."""
+    the device-busy share of the ticks' wall time, and its shares by kind
+    (:data:`PROFILE_KINDS`). Each sandwich and paged kernel's launches a
+    tick in the graphed window's device trace must equal the decode
+    graph's launches per replay. ``tag`` prefixes the printed lines.
+    Returns the per-tick wall and busy ms and device launches of both
+    windows ({} where the profiler saw no device time)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
     from repro_torch.serve import Request, ServeEngine
@@ -1556,6 +1669,7 @@ def phase_profile(torch, np, cfg, dev) -> dict:
     eng.step()          # prefill + first decode: both graphs built
     eng.step()          # the first decode replay
     ticks, out = 3, {}
+    head = f"profile {tag} " if tag else "profile "
     windows = (("graphed", eng.step),
                ("eager", lambda: eng.decode_logits(context="cuda")))
     for name, fn in windows:
@@ -1564,17 +1678,24 @@ def phase_profile(torch, np, cfg, dev) -> dict:
         wall_us, events = profile_window(torch, dev, fn, ticks)
         busy_us = sum(e[1] for e in events)
         if not busy_us:
-            say(f"profile {name}: device time not measured")
+            say(f"{head}{name}: device time not measured")
             return {}
         n = sum(e[2] for e in events) // ticks
-        say(f"profile {name}: {ticks} decode ticks, wall "
+        say(f"{head}{name}: {ticks} decode ticks, wall "
             f"{wall_us / ticks / 1e3:.3f} ms/tick, device busy "
             f"{busy_us / ticks / 1e3:.3f} ms/tick "
             f"({100 * busy_us / wall_us:.1f}% of wall), {n} device "
             f"launches/tick")
-        for key, us, count in sorted(events, key=lambda e: -e[1])[:8]:
-            say(f"profile {name}: {us / ticks / 1e3:8.3f} ms/tick "
+        for key, us, count in sorted(events, key=lambda e: -e[1])[:10]:
+            say(f"{head}{name}: {us / ticks / 1e3:8.3f} ms/tick "
                 f"{count // ticks:5d} launches/tick  {key[:90]}")
+        kinds = {}
+        for key, us, _ in events:
+            kinds[event_kind(key)] = kinds.get(event_kind(key), 0.0) + us
+        say(f"{head}{name}: device time by kind, ms/tick (share of busy): "
+            + ", ".join(f"{k} {us / ticks / 1e3:.3f} "
+                        f"({100 * us / busy_us:.1f}%)" for k, us in
+                        sorted(kinds.items(), key=lambda kv: -kv[1])))
         if name == "graphed":
             # each kernel's launches a tick in the replayed ticks' device
             # trace against the decode graph's launches per replay, which
@@ -1587,7 +1708,7 @@ def phase_profile(torch, np, cfg, dev) -> dict:
             want = {k: lpr[c] / n for k, (c, n) in zip(GRAPHED_KERNELS, (
                 ("sandwich_fwd", ks.FWD_KERNELS),) * 2 + ((
                     "paged_decode_attention", pa.PAGED_KERNELS),) * 2)}
-            say(f"profile graphed: launches a tick in the device trace "
+            say(f"{head}graphed: launches a tick in the device trace "
                 f"{seen}, the decode graph's launches per replay {lpr}")
             if seen != want:
                 raise AssertionError(f"the graphed decode ticks' device "
@@ -1612,7 +1733,7 @@ def phase_profile(torch, np, cfg, dev) -> dict:
                     wait.append(time.perf_counter() - t1)
                 launch_ms = 1e3 * sorted(launch)[5]
                 wait_ms = 1e3 * sorted(wait)[5]
-                say(f"profile graphed: one replay of the decode graph "
+                say(f"{head}graphed: one replay of the decode graph "
                     f"{span:.3f} ms by CUDA events over 20 back-to-back "
                     f"replays; one replay alone (median of 10, host clock) "
                     f"{launch_ms:.3f} ms in the launch call, then "
@@ -1783,6 +1904,49 @@ def phase_wide(torch, dev, kernel: str, wide=WIDE, rows: int = WIDE_ROWS
                           layer, kernel, gen)
 
 
+def phase_train_sites(torch, cfg, dev, kernel: str, train_rows: int
+                      ) -> float:
+    """The sandwich sites a training run of ``cfg`` calls
+    (:func:`called_sites`), kernels against plain at the run's shapes, in
+    float32 and bfloat16: the forward at ``train_rows`` rows (two launches
+    bit-identical, within SANDWICH_TOL) and the backward at ``train_rows``,
+    the head at no more than HEAD_BWD_ROWS (:func:`check_sandwich_bwd`).
+    Returns the worst forward error in ``cfg``'s compute dtype."""
+    worst = 0.0
+    gen = torch.Generator().manual_seed(25)
+    with torch.no_grad():
+        for site in called_sites(cfg):
+            spec, layer = sandwich_site(torch, cfg, site, dev)
+            bwd_rows = (train_rows if site != "lm_head"
+                        else min(train_rows, HEAD_BWD_ROWS))
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                what = f"train site {cfg.name} {site}"
+                x = torch.randn(train_rows, spec.n_in, generator=gen).to(
+                    dev, dt)
+                got, again, want = (sandwich_call(torch, spec, layer, x, b)
+                                    for b in (kernel, kernel, "torch"))
+                sync(torch, dev)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what} forward: two launches "
+                                         f"differ")
+                err = allclose_or_raise(torch, f"{what} rows={train_rows} "
+                                        f"{dtype}", got, want,
+                                        SANDWICH_TOL[dtype])
+                say(f"{what} {spec.n_in}->{spec.n_out} rows={train_rows} "
+                    f"{dtype:9s} forward max|err|={err:.3e} (tol "
+                    f"{SANDWICH_TOL[dtype]}); repeat bit-identical")
+                if dtype == cfg.compute_dtype:
+                    worst = max(worst, err)
+                del got, again, want
+                g = torch.randn(bwd_rows, spec.n_out, generator=gen).to(
+                    dev, dt)
+                check_sandwich_bwd(torch, dev, f"{what} rows={bwd_rows} "
+                                   f"{dtype:9s} backward", spec, layer,
+                                   x[:bwd_rows], g, kernel, dtype)
+    return worst
+
+
 def phase_sandwich_bwd_bench(torch, dev, kernel: str, n: int,
                              rows: int = 64) -> None:
     """The backward kernel against its plain twin at ``bench_backward``'s
@@ -1809,28 +1973,33 @@ def train_counts(cfg) -> tuple:
     """Sandwich forward and backward launches per train step: every site
     once forward (two kernels: factors, rows) and once backward (six
     kernels: factors, rows, columns, their sum, factor-row VJP, reduction),
-    and with remat the 90 MLP sites (the checkpointed layers) once more
-    forward inside the backward pass."""
+    and with remat the MLP sites (the checkpointed layers; 90 on smollm)
+    once more forward inside the backward pass."""
     from repro_torch.kernels import sandwich as ks
-    sites_per_step = 3 * cfg.n_layers + 1
+    sites_per_step, in_layers = sandwich_sites(cfg)
     return (ks.FWD_KERNELS * (sites_per_step
-                              + (3 * cfg.n_layers if cfg.remat else 0)),
+                              + (in_layers if cfg.remat else 0)),
             ks.BWD_KERNELS * sites_per_step)
 
 
-def phase_train(torch, np, cfg, dev, seq_len: int, batch: int) -> tuple:
+def phase_train(torch, np, cfg, dev, seq_len: int, batch: int,
+                steps: tuple = TRAIN_STEPS, profile: bool = True) -> tuple:
     """The training main path: Trainer on ``cfg`` from seed 0, TrainConfig
-    defaults with warmup_steps=2, TRAIN_STEPS warm and timed steps; counts
-    set to 0 just before and read just after. Returns (launches, summary)."""
+    defaults with warmup_steps=2, ``steps`` (warm, timed) steps; counts set
+    to 0 just before and read just after; every step's loss, ce and aux
+    finite. With ``profile`` one more step under ``torch.profiler``.
+    Returns (launches, summary)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels import sandwich as ks
     from repro_torch.train.trainer import Trainer
-    warm, timed = TRAIN_STEPS
+    warm, timed = steps
+    t0 = time.monotonic()
     trainer = Trainer(cfg, TrainConfig(warmup_steps=2), seq_len=seq_len,
                       global_batch=batch, device=dev)
     model, opt_state = trainer.init_state(seed=0)
     on_card = dev.type == "cuda"
     sync(torch, dev)
+    init_s = time.monotonic() - t0
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     ks.sandwich_forward.launches = 0
@@ -1846,26 +2015,32 @@ def phase_train(torch, np, cfg, dev, seq_len: int, batch: int) -> tuple:
     if launches != want:
         raise AssertionError(f"train launch counts {launches}, expected "
                              f"{want}")
-    if not all(math.isfinite(v) for v in res.losses):
-        raise AssertionError(f"non-finite training loss: {res.losses}")
+    if not all(math.isfinite(v) for m in res.metrics for v in m.values()):
+        raise AssertionError(f"non-finite training metrics: {res.metrics}")
     ms = sorted(1e3 * t for t in res.step_times[warm:])
     p50 = ms[len(ms) // 2]
     tokens = seq_len * batch
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     say(f"train: {cfg.name}, {cfg.n_layers} layers, seq_len {seq_len} x "
-        f"batch {batch} = {tokens} tokens/step, remat {cfg.remat}, "
+        f"batch {batch} = {tokens} tokens/step, remat {cfg.remat}, init "
+        f"{init_s:.1f} s, "
         f"{warm} warm + {timed} timed steps; step ms p50 {p50:.1f} (min "
         f"{ms[0]:.1f}, max {ms[-1]:.1f}); {tokens / p50 * 1e3:.0f} tokens/s; "
         f"peak memory {peak / 2**20:.1f} MiB; straggler EMA "
         f"{1e3 * res.step_time_ema:.1f} ms")
-    say(f"train: losses {' '.join(f'{v:.4f}' for v in res.losses)}")
+    aux = [m["aux"] for m in res.metrics]
+    say(f"train: losses {' '.join(f'{v:.4f}' for v in res.losses)}"
+        + (f"; of which aux {' '.join(f'{v:.5f}' for v in aux)}"
+           if cfg.n_experts else ""))
     say(f"train: launches {launches} = ({fwd} fwd, {bwd} bwd) per step x "
         f"{steps} steps")
     summary = {"train_step_ms_p50": p50,
                "train_tokens_per_s": tokens / p50 * 1e3,
-               "train_peak_mib": peak / 2**20, "train_losses": res.losses}
-    summary.update(profile_train_step(torch, trainer, model, opt_state,
-                                      dev))
+               "train_peak_mib": peak / 2**20, "train_losses": res.losses,
+               "train_aux": aux, "train_init_s": init_s}
+    if profile:
+        summary.update(profile_train_step(torch, trainer, model, opt_state,
+                                          dev))
     return launches, summary
 
 
@@ -1959,7 +2134,7 @@ def phase_train_gradcheck(torch, np, cfg, dev, kernel: str,
     for layer in model.layers:
         ins.append(xs[-1].detach().requires_grad_())
         outs.append(lm.layer_apply(cfg, layer, ins[-1], positions=positions,
-                                   context="torch"))
+                                   context="torch")[0])
         xs.append(outs[-1].detach())
     last = xs[-1].detach().requires_grad_()
     (cot,) = torch.autograd.grad(head_loss(last, "torch"), last)
@@ -1978,8 +2153,8 @@ def phase_train_gradcheck(torch, np, cfg, dev, kernel: str,
         ps = leaves(layer.ffn, f"layers.{i}.ffn")
         grads = []
         for backend in (kernel, "torch"):
-            out = lm.layer_apply(cfg, layer, xs[i], positions=positions,
-                                 context=backend)
+            out, _ = lm.layer_apply(cfg, layer, xs[i], positions=positions,
+                                    context=backend)
             grads.append(torch.autograd.grad(out, list(ps.values()),
                                              grad_outputs=cots[i]))
         for name, gk, gp in zip(ps, *grads):
@@ -3617,13 +3792,144 @@ def phase_paper(torch, np, dev, kernel: str, kernels: list, layers,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The zoo's paged-servable archs (ROADMAP queue 1, item 5a): the kernels at
+# their shapes, serving and training at full width, the MoE's tokens
+# ---------------------------------------------------------------------------
+
+ZOO = dict(
+    # the paged kernel at each arch's decode shape: (KV heads, query heads
+    # per KV head, head dim) = (16, 1, 128), (8, 6, 128), (8, 12, 128),
+    # (16, 1, 256), at the serving engine's 512 positions
+    paged=("olmoe-1b-7b", "dbrx-132b", "mistral-large-123b", "gemma-7b"),
+    # the widest sandwich sites: Gemma-7B's MLP (its down site has n1 =
+    # 32,768) and head (n2 = 262,144, the kernels' widest output), OLMoE's
+    # and DBRX's heads; each at a decode tick's and a check's rows
+    sites=(("gemma_up", 3072, 24576), ("gemma_down", 24576, 3072),
+           ("gemma_head", 3072, 256000), ("olmoe_head", 2048, 50304),
+           ("dbrx_head", 6144, 100352)),
+    rows=(SLOTS, 256),
+    # served at full width, in this order, each through phase 6's path
+    serve=("olmoe-1b-7b-butterfly", "gemma-7b-butterfly"),
+    # the MoE's training run: arch, layers kept (Adam's state for all 16
+    # would need ~110 GB), (seq_len, batch), (warm, timed) steps
+    train=("olmoe-1b-7b-butterfly", 4, (2048, 4), (2, 3)),
+    # phase 6a's token case again, on the MoE
+    tokens="olmoe-1b-7b-butterfly-smoke",
+)
+
+
+def free_device(torch, dev) -> None:
+    """Drop the served model and return cached blocks, so that the next
+    full-width model has the card."""
+    import gc
+    _MODELS.clear()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+
+def phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo) -> dict:
+    """The zoo's new kernel shapes in bfloat16: the paged kernel at each
+    arch's decode shape (:func:`time_paged`: device time, plain, SDPA,
+    bound) and the sandwich forward at each site at 8 rows (kernels, plain,
+    a ``torch.matmul`` by the dense matrix, bound, by ``time_fn``)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import layers as blayers
+    from repro_torch.nn import ButterflyLinear
+    out = {"paged": {}, "sandwich": {}}
+    for arch in zoo["paged"]:
+        zcfg = registry.get(arch)
+        p = time_paged(torch, zcfg, dev, kernel, time_fn, device_fn,
+                       (arch,) + PAGED_SHAPES[0][1:])
+        out["paged"][arch] = {k: p[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "library_ms")}
+    gen = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for name, n_in, n_out in zoo["sites"]:
+            spec = blayers.make_spec(gen, n_in, n_out, use_bias=False)
+            layer = ButterflyLinear(spec, generator=gen).to(dev)
+            x = torch.randn(SLOTS, n_in, generator=gen).to(dev,
+                                                           torch.bfloat16)
+            ms = time_fn(torch, lambda: sandwich_call(torch, spec, layer, x,
+                                                      kernel), reps=100)
+            plain = time_fn(torch, lambda: sandwich_call(
+                torch, spec, layer, x, "torch"), reps=5)
+            eye = torch.eye(n_in, device=dev)
+            dense = sandwich_call(torch, spec, layer, eye, kernel).to(x.dtype)
+            del eye
+            lib = time_fn(torch, lambda: torch.matmul(x, dense), reps=100)
+            del dense
+            nbytes, ops = sandwich_bound(spec, SLOTS, "bfloat16")
+            bnd, by = bound_ms(nbytes, ops, PEAK_OPS["float32"])
+            say(f"time sandwich {name} {n_in}->{n_out} rows={SLOTS} "
+                f"bfloat16: kernels {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"matmul by the dense matrix {lib:.4f} ms, bound {bnd:.5f} ms "
+                f"({by}: {nbytes} B, {ops} ops){clocks(dev)}")
+            out["sandwich"][name] = {"ms": ms, "plain_ms": plain,
+                                     "library_ms": lib, "bound_ms": bnd}
+    return out
+
+
+def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
+              device_fn, zoo=ZOO) -> dict:
+    """The zoo phases, each main path with the counts set to 0 just before
+    and read just after: serving each of ``zoo["serve"]`` at full width
+    (phase 6's checks and readings, :func:`phase_serve`, then its decode
+    tick profiled, :func:`phase_profile`), the MoE's training run at
+    reduced depth (:func:`phase_train`), its sandwich sites first held
+    against plain at the run's rows (:func:`phase_train_sites`), phase
+    6a's token
+    case on ``zoo["tokens"]`` (eager, incremental, ``spec_k=3``), and the
+    timing of the new kernel shapes. Each path's launches join its
+    kernels' entries in ``kernels``. Returns the summary."""
+    from repro_torch.configs import registry
+    summary = {}
+    for arch in zoo["serve"]:
+        free_device(torch, dev)
+        t0 = time.monotonic()
+        zcfg = registry.get(arch)
+        launches, s, _ = phase_serve(torch, np, zcfg, dev, kernel, tag=arch)
+        s.update(phase_profile(torch, np, zcfg, dev, tag=arch))
+        free_device(torch, dev)
+        s["phase_s"] = time.monotonic() - t0
+        say(f"serve {arch}: phase {s['phase_s']:.1f} s")
+        summary[f"serve {arch}"] = s
+        for k, counter in ((kernels[0], "sandwich_fwd"),
+                           (kernels[1], "paged_decode_attention")):
+            k["launches_by_path"][f"serve {arch}"] = launches[counter]
+            k["launches"] += launches[counter]
+    arch, layers, (seq_len, batch), steps = zoo["train"]
+    t0 = time.monotonic()
+    tcfg = registry.get(arch).with_(n_layers=layers)
+    say(f"train {arch}: {layers} of {registry.get(arch).n_layers} layers "
+        f"(depth cut: Adam's state for all would not fit one card)")
+    phase_train_sites(torch, tcfg, dev, kernel, seq_len * batch)
+    launches, s = phase_train(torch, np, tcfg, dev, seq_len, batch,
+                              steps=steps, profile=False)
+    free_device(torch, dev)
+    s["phase_s"] = time.monotonic() - t0
+    summary[f"train {arch}"] = s
+    for k, counter in ((kernels[0], "sandwich_fwd"),
+                       (kernels[2], "sandwich_bwd")):
+        k["launches_by_path"][f"train {arch}"] = launches[counter]
+        k["launches"] += launches[counter]
+    phase_serve_tokens(torch, np, dev, zoo["tokens"],
+                       modes=("eager", "incremental", "spec"))
+    timing = phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo)
+    kernels[0]["zoo"] = timing["sandwich"]
+    kernels[1]["zoo"] = timing["paged"]
+    return summary
+
+
 def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         train_shape=(2048, 4), encdec_shape=MNIST,
         encdec_steps=TWO_PHASE_STEPS, bfly_shapes=BFLY_SHAPES,
         flash_shapes=FLASH_SHAPES, flash_timed=FLASH_TIMED,
         bench=None, wide=WIDE, cli=CLI_SERVE, layers=LAYER_API_LAYERS,
         fit=QUICKSTART_FIT, sketch_run=SKETCH_RUN, gated=GATED_SHAPES,
-        nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS) -> list:
+        nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS, zoo=ZOO) -> list:
     """Phases 3 to 22 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
@@ -3636,7 +3942,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     reference's sizes), ``wide`` the sandwich widths of
     :func:`phase_wide` and ``cli`` the serving tier's sizes of
     :func:`phase_serve_cli`; ``layers``, ``fit``, ``sketch_run``,
-    ``gated``, ``nonlinear_steps`` and ``lm_steps`` size phases 20 to 22.
+    ``gated``, ``nonlinear_steps`` and ``lm_steps`` size phases 20 to 22,
+    and ``zoo`` the zoo's phases (:data:`ZOO`).
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     device_fn = device_fn or time_fn
@@ -3645,10 +3952,14 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
                                                        kernel),
                                 phase_sandwich(torch, cfg, dev, kernel,
                                                train_rows)),
-            "paged_decode_attention": phase_paged(torch, cfg, dev, kernel),
+            "paged_decode_attention": phase_paged(torch, cfg, dev, kernel,
+                                                  zoo["paged"]),
             "sandwich_bwd": phase_sandwich_bwd(torch, cfg, dev, kernel,
                                                train_rows)}
     phase_wide(torch, dev, kernel, wide)
+    for site in zoo["sites"]:
+        for rows in zoo["rows"]:
+            phase_wide(torch, dev, kernel, site, rows)
     errs.update(phase_butterfly(torch, dev, kernel, bfly_shapes))
     from repro_torch.launch import speed
     phase_sandwich_bwd_bench(torch, dev, kernel,
@@ -3718,6 +4029,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         flash_timed[0], cfg.n_kv_heads)
     summary.update(phase_paper(torch, np, dev, kernel, kernels, layers, fit,
                                sketch_run, gated, nonlinear_steps, lm_steps))
+    summary.update(phase_zoo(torch, np, dev, kernel, kernels, time_fn,
+                             device_fn, zoo))
     say("summary: " + json.dumps(summary))
     return kernels
 

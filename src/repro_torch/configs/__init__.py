@@ -1,2 +1,2 @@
-"""Model and training configurations of the port (smollm-135m and its
-variants)."""
+"""Model and training configurations of the port: the zoo's ten archs and
+their variants, and the shape cells."""

@@ -1,9 +1,13 @@
-"""Config dataclasses: model architecture, where the butterfly goes, and
-training.
+"""Config dataclasses: model architecture, shape cells, where the
+butterfly goes, and training.
 
-Frozen and hashable, like the reference's. Only the fields the port's
-serving and training paths read are kept; dtypes resolve to ``torch``
-dtypes.
+Frozen and hashable, like the reference's, field for field: every one of
+the zoo's ten configs constructs here. Fields that no ported path reads
+yet (the recurrent, xLSTM, frontend and encoder fields, the sliding
+window) are carried as data; the model refuses a config that needs them
+(:func:`repro_torch.models.lm.unported_reason`). ``seq_shard_activations``
+has no single-device meaning and is kept as data, as
+``ButterflyConfig.mesh_shape`` is. Dtypes resolve to ``torch`` dtypes.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ class ButterflyConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense
+    family: str                    # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,23 +60,61 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0              # 0 -> d_model // n_heads
+    # --- attention ---
+    sliding_window: int = 0        # 0 = full attention
     rope_theta: float = 10000.0
+    # --- layer pattern: repeating unit of block types; n_layers =
+    #     repeats * len(unit) + tail (tail = unit prefix) ---
     block_unit: Tuple[str, ...] = ("attn",)
+    # --- moe ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    load_balance_coef: float = 1e-2
+    # --- hybrid (RG-LRU / Griffin) ---
+    lru_width: int = 0
+    conv_width: int = 4
+    # --- enc-dec ---
+    n_enc_layers: int = 0
+    enc_seq: int = 0               # encoder (frontend) sequence length
+    # --- frontend stubs (vlm/audio): precomputed embeddings ---
+    frontend: str = ""             # "" | "vision" | "audio"
+    frontend_tokens: int = 0
+    # --- mlp ---
     mlp_variant: str = "swiglu"    # swiglu | geglu | gelu_mlp
+    # --- numerics ---
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     norm_eps: float = 1e-6
     logit_softcap: float = 0.0
+    tie_embeddings: bool = False
+    # --- paper technique ---
     butterfly: Optional[ButterflyConfig] = None
     # --- training: per-layer activation checkpointing, attention tiles ---
     remat: bool = True
     attn_block_q: int = 512        # blockwise attention tile sizes
     attn_block_kv: int = 1024
     blockwise_threshold: int = 8192  # use blockwise attention if S >= this
+    mlstm_chunk: int = 256
+    moe_token_chunk: int = 8192    # the reference's EP dispatch bound
+    seq_shard_activations: bool = True   # multi-device only: data here
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def unit_repeats(self) -> int:
+        return self.n_layers // len(self.block_unit)
+
+    @property
+    def tail_layers(self) -> Tuple[str, ...]:
+        return self.block_unit[: self.n_layers % len(self.block_unit)]
+
+    @property
+    def lru_width_(self) -> int:
+        return self.lru_width or self.d_model
 
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
@@ -82,6 +124,37 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (seq_len, global_batch) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+#: archs with a sub-quadratic or bounded-window attention path may run the
+#: 512k-context decode cell; pure full-attention archs skip it
+LONG_CONTEXT_OK = ("recurrentgemma-2b", "xlstm-125m", "gemma3-27b")
+
+
+def cell_applicable(model: ModelConfig, shape: ShapeConfig
+                    ) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and model.name not in LONG_CONTEXT_OK:
+        return False, "skip: pure full-attention arch at 512k context"
+    return True, ""
 
 
 @dataclass(frozen=True)

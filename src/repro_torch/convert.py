@@ -2,11 +2,12 @@
 
 :func:`from_jax_params` takes the reference's param tree as numpy arrays
 (``{"embed": {"table"}, "unit": [stacked layer tree], "tail": [],
-"final_norm", "head"}``) and the reference's butterfly specs of the four
-site keys, and returns an :class:`~repro_torch.models.lm.LM` holding the
-same weights. The reference derives the truncation indices from
-``jax.random``, which the port cannot reproduce, so they come in with the
-weights. :func:`load_jax_params` loads such a tree into an existing model
+"final_norm", "head"}``; an MoE layer's ``ffn`` holds ``router``,
+``w_gate``, ``w_up`` and ``w_down``, and a tied config's ``head`` is
+empty) and the reference's butterfly specs of its site keys, and returns
+an :class:`~repro_torch.models.lm.LM` holding the same weights. The
+reference derives the truncation indices from ``jax.random``, which the
+port cannot reproduce, so they come in with the weights. :func:`load_jax_params` loads such a tree into an existing model
 (a checkpoint's params), :func:`to_jax_params` is the inverse (the port's
 checkpoints store their params in the reference's layout, layers stacked
 as ``unit``), and :func:`names_by_reference_key` names the port parameters
@@ -95,10 +96,10 @@ def from_jax_params(cfg: ModelConfig, params_np: Mapping,
                     device: Union[str, torch.device, None] = None) -> LM:
     """The reference's params as a port :class:`LM` on ``device``.
 
-    ``site_specs`` maps each butterfly site key (``mlp_up``, ``mlp_gate``,
-    ``mlp_down``, ``lm_head``) to the reference's spec (any object with
-    the :class:`ButterflySpec` fields). The stacked ``(R, ...)`` unit leaves
-    are split per layer.
+    ``site_specs`` maps each butterfly site key of ``cfg`` (of ``mlp_up``,
+    ``mlp_gate``, ``mlp_down``, ``lm_head``) to the reference's spec (any
+    object with the :class:`ButterflySpec` fields). The stacked
+    ``(R, ...)`` unit leaves are split per layer.
     """
     dev = resolve_device(device)
     specs = {key: butterfly_spec_from_jax(s)
@@ -180,7 +181,7 @@ def to_jax_params(named: Mapping[str, torch.Tensor]) -> Dict:
     """The reference's param tree, as host numpy arrays, from port tensors
     ``named`` (``model.named_parameters()`` as a dict, or gradients under
     the same names): unit leaves stacked over layers into ``unit[0]``,
-    ``tail`` empty."""
+    ``tail`` empty, ``head`` empty for a tied head."""
     unit: Dict = {}
     tree: Dict = {"unit": [unit], "tail": []}
     for key, group in names_by_reference_key(named).items():
@@ -189,6 +190,7 @@ def to_jax_params(named: Mapping[str, torch.Tensor]) -> Dict:
             _insert(unit, key[len("unit[0]."):].split("."), np.stack(arrays))
         else:
             _insert(tree, key.split("."), arrays[0])
+    tree.setdefault("head", {})
     return tree
 
 

@@ -16,8 +16,8 @@ torn, so the loader falls back to the newest valid one) while the other
 replica serves.
 
 Run: ``python -m repro_torch.examples.serve_lm --arch smollm-135m-smoke
-[--device cpu]``. The port has the smollm archs only; others are refused
-(ROADMAP queue 1, item 5, brings the rest of the zoo).
+[--device cpu]``. Archs whose blocks the port does not build yet are
+refused, naming the ROADMAP sub-item (queue 1, item 5b/5c/5d).
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch import convert
-from repro_torch.configs import registry
 from repro_torch.kernels.context import resolve_device
+from repro_torch.launch import ported_config
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -52,11 +52,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from repro_torch.serve import (Request, SamplingParams, ServeClient,
                                    ServeEngine, loader)
 
-    try:
-        cfg = registry.get(args.arch)
-    except KeyError as e:
-        raise SystemExit(f"{e.args[0]} (ROADMAP queue 1, item 5, brings the "
-                         f"rest of the zoo)")
+    cfg = ported_config(args.arch)
     dev = resolve_device(args.device)
     _, model = loader.load_for_serving(cfg, seed=0, device=dev)
     engine = ServeEngine(

@@ -12,7 +12,7 @@ rows with the same ``derived`` fields, one ``name,us_per_call,derived``
 line each after a header:
 
 * ``serve/trace_e2e`` — skipped: it runs the dense pool, which is not
-  ported (ROADMAP queue 1, item 5);
+  ported (ROADMAP queue 1, item 5b);
 * ``serve/paged_e2e`` — wall µs to drain the bimodal trace (half the
   prompts span several prefill chunks) on 4 slots;
 * ``serve/preempt_overload`` — the same trace on 8 usable pages under

@@ -35,8 +35,10 @@ timelines through one shared :class:`repro_torch.obs.Tracer` (replica
 
 Not ported yet, and refused with a message rather than ignored:
 ``--pool dense`` and ``--prefill-chunk 0`` (whole-bucket admission;
-ROADMAP queue 1, item 5), ``--mesh-shape`` and ``--simulated-devices``
-(multi-device serving; item 6).
+ROADMAP queue 1, item 5b), ``--mesh-shape`` and ``--simulated-devices``
+(multi-device serving; item 6). ``--arch`` takes every registry name
+whose blocks the port builds (``attn``, ``global``, ``moe``); any other
+exits naming its sub-item (5b, 5c, 5d).
 
 :func:`main` takes ``argv`` and returns the document ``--metrics-json``
 writes, so it can be called in-process.
@@ -150,11 +152,11 @@ def _refuse_unported(args) -> None:
     if args.pool == "dense":
         raise SystemExit("--pool dense is not ported: the port serves "
                          "through the paged pool only (ROADMAP queue 1, "
-                         "item 5, brings the dense pool)")
+                         "item 5b, brings the dense pool)")
     if args.prefill_chunk <= 0:
         raise SystemExit("--prefill-chunk 0 (whole-bucket admission) is not "
                          "ported: the port admits through chunked prefill "
-                         "only (ROADMAP queue 1, item 5)")
+                         "only (ROADMAP queue 1, item 5b)")
     if args.mesh_shape or args.simulated_devices:
         raise SystemExit("--mesh-shape and --simulated-devices are not "
                          "ported: the port serves on one device (ROADMAP "
@@ -167,14 +169,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.replicas < 1:
         raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
 
-    from repro_torch.configs import registry
     from repro_torch.kernels import build
+    from repro_torch.launch import ported_config
     from repro_torch.kernels.context import resolve_device
     from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
     from repro_torch.serve import (FaultInjector, Router, SamplingParams,
                                    ServeClient, ServeEngine, loader, trace)
 
-    cfg = registry.get(args.arch)
+    cfg = ported_config(args.arch)
     dev = resolve_device(args.device)
     step, model = loader.load_for_serving(cfg, args.checkpoint_dir,
                                           seed=args.seed, device=dev)

@@ -13,8 +13,11 @@ reference's, resumes from its newest step ("resumed from step N").
 The reference's multi-device flags (``--mesh-shape``,
 ``--simulated-devices``, ``--distributed``) exit with a message naming
 ROADMAP queue 1, item 6; ``--xla-perf-flags`` exits too, since XLA's flags
-have no torch meaning. ``--arch`` takes what
-:mod:`repro_torch.configs.registry` knows; the rest of the zoo is item 5.
+have no torch meaning. ``--arch`` takes every
+registry name whose blocks the port builds (``attn``, ``global``,
+``moe``: smollm-135m, olmoe-1b-7b, dbrx-132b, gemma-7b,
+mistral-large-123b and their variants); any other exits naming the
+ROADMAP sub-item (5b, 5c, 5d) that brings it.
 
 :func:`main` returns the :class:`~repro_torch.train.trainer.TrainResult`,
 so that scripts and tests drive the CLI in process.
@@ -76,16 +79,12 @@ def main(argv: Optional[List[str]] = None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
 
-    from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels.context import resolve_device
+    from repro_torch.launch import ported_config
     from repro_torch.train.trainer import Trainer
 
-    try:
-        cfg = registry.get(args.arch)
-    except KeyError as e:
-        raise SystemExit(f"{e.args[0]} (ROADMAP queue 1, item 5, brings the "
-                         f"rest of the zoo)")
+    cfg = ported_config(args.arch)
     device = resolve_device(args.device)
     tc = TrainConfig(
         learning_rate=args.lr, warmup_steps=args.warmup_steps,

@@ -1,1 +1,1 @@
-"""The llama-style LM of the port (``block_unit=("attn",)``)."""
+"""The LM of the port: the block units ``attn``, ``global`` and ``moe``."""

@@ -122,9 +122,28 @@ def embed(cfg: ModelConfig, emb: Embed, tokens: torch.Tensor
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype())
 
 
-def head_module(cfg: ModelConfig, *,
+class TiedHead(nn.Module):
+    """The head of a ``tie_embeddings`` config: logits ``x @ tableᵀ`` with
+    the embedding table cast to the compute dtype, a plain product as in the
+    reference. It holds no parameter (the reference's ``head`` is ``{}``):
+    the table is read from the :class:`Embed` it was built with, which is
+    kept out of the module tree so that the table is registered once, as
+    ``embed.table``. ``copy.deepcopy`` of the model keeps the link."""
+
+    def __init__(self, emb: Embed):
+        super().__init__()
+        object.__setattr__(self, "_embed", emb)
+
+    def forward(self, x: torch.Tensor, context: ContextLike = None
+                ) -> torch.Tensor:
+        return x @ self._embed.table.to(x.dtype).T
+
+
+def head_module(cfg: ModelConfig, emb: Embed, *,
                 generator: Optional[torch.Generator] = None,
                 site_specs: SiteSpecs = None) -> nn.Module:
+    if cfg.tie_embeddings:
+        return TiedHead(emb)
     return linear_module(cfg, cfg.d_model, cfg.vocab_size, site="lm_head",
                          generator=generator, site_specs=site_specs)
 

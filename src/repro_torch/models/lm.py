@@ -1,15 +1,22 @@
-"""The decoder-only LM for ``block_unit=("attn",)``: serving and training
-entry points.
+"""The decoder-only LM for the block units ``("attn",)``, ``("global",)``
+and ``("moe",)``: serving and training entry points.
 
 Counterpart of ``repro.models.lm`` for the port's serving and training
 paths. The reference scans one stacked layer unit with ``lax.scan``; here
-:func:`backbone` is a Python loop over an ``nn.ModuleList``. Serving: the
-KV caches are one pair of ``(n_layers, N, ps, KV, D)`` page pools
-(:class:`repro_torch.serve.cache.PagedCachePool`), updated in place, so the
-entry points return no caches. Training: :func:`loss_fn` runs the stack
-without caches; with ``cfg.remat`` each layer is checkpointed
-(``torch.utils.checkpoint``, the counterpart of the reference's
-``jax.checkpoint`` of the scan body) and runs again in the backward pass.
+:func:`backbone` is a Python loop over an ``nn.ModuleList``, summing each
+block's aux loss as the reference's scan carry does. ``global`` is
+``attn`` with window 0, as in the reference; ``moe`` swaps the MLP for
+:class:`repro_torch.models.moe.MoE`. Serving: the KV caches are one pair
+of ``(n_layers, N, ps, KV, D)`` page pools
+(:class:`repro_torch.serve.cache.PagedCachePool`), updated in place, so
+the entry points return no caches and drop the aux loss. Training:
+:func:`loss_fn` runs the stack without caches; with ``cfg.remat`` each
+layer is checkpointed (``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint`` of the scan body) and runs again in the
+backward pass.
+
+The rest of the zoo is refused with a ``ValueError`` naming the ROADMAP
+sub-item that brings it (:func:`unported_reason`).
 """
 
 from __future__ import annotations
@@ -25,43 +32,90 @@ from repro_torch.kernels.context import ContextLike
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
+
+#: the block units the port builds, serves and trains
+PORTED_UNITS = (("attn",), ("global",), ("moe",))
+
+#: the ROADMAP sub-item (queue 1, item 5) that brings each unported piece
+_SUB_ITEMS = {
+    "local": "5b (sliding-window ring caches, the dense pool and bucketed "
+             "prefill)",
+    "rec": "5c (rglru.py and xlstm.py on the dense exact-length path)",
+    "mlstm": "5c (rglru.py and xlstm.py on the dense exact-length path)",
+    "slstm": "5c (rglru.py and xlstm.py on the dense exact-length path)",
+    "xdec": "5d (frontends and the encoder)",
+    "enc": "5d (frontends and the encoder)",
+}
+
+
+def unported_reason(cfg: ModelConfig) -> Optional[str]:
+    """``None`` when the port builds, serves and trains ``cfg``; else why
+    not, naming the ROADMAP sub-item (queue 1, item 5b/5c/5d) that brings
+    it."""
+    def refuse(what: str, item: str) -> str:
+        return (f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1, "
+                f"item {item})")
+
+    for t in tuple(cfg.block_unit) + tuple(cfg.tail_layers):
+        if t in _SUB_ITEMS:
+            return refuse(f"block type {t!r}", _SUB_ITEMS[t])
+    if cfg.frontend or cfg.n_enc_layers:
+        return refuse(f"the {cfg.frontend or 'encoder'} frontend",
+                      _SUB_ITEMS["enc"])
+    if tuple(cfg.block_unit) not in PORTED_UNITS or cfg.tail_layers:
+        return refuse(f"block unit {cfg.block_unit} with tail "
+                      f"{cfg.tail_layers}", _SUB_ITEMS["local"])
+    return None
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` with :func:`unported_reason` when ``cfg`` is
+    not ported."""
+    reason = unported_reason(cfg)
+    if reason is not None:
+        raise ValueError(reason)
 
 
 class Layer(nn.Module):
-    """One ``attn`` block: norm → attention → residual, norm → MLP →
-    residual."""
+    """One ``attn``/``global``/``moe`` block: norm → attention → residual,
+    norm → MLP or MoE → residual."""
 
-    def __init__(self, cfg: ModelConfig, *,
+    def __init__(self, cfg: ModelConfig, btype: str, *,
                  generator: Optional[torch.Generator] = None,
                  site_specs: cm.SiteSpecs = None):
         super().__init__()
         E = cfg.d_model
+        self.btype = btype
         self.norm1 = nn.Parameter(torch.ones(E, dtype=cfg.pdtype()))
         self.attn = attn.Attention(cfg, generator=generator)
         self.norm2 = nn.Parameter(torch.ones(E, dtype=cfg.pdtype()))
-        self.ffn = mlpm.MLP(cfg, generator=generator, site_specs=site_specs)
+        self.ffn = (moem.MoE(cfg, generator=generator) if btype == "moe"
+                    else mlpm.MLP(cfg, generator=generator,
+                                  site_specs=site_specs))
 
 
 class LM(nn.Module):
     """Parameters named after the reference's param tree (``embed.table``,
-    ``layers.<i>.attn.wq``, ``layers.<i>.ffn.up.b_in``, ``head.core``, ...),
-    initialised from ``generator``."""
+    ``layers.<i>.attn.wq``, ``layers.<i>.ffn.up.b_in``,
+    ``layers.<i>.ffn.router``, ``head.core``, ...), initialised from
+    ``generator``. A ``tie_embeddings`` config has no head parameters
+    (:class:`repro_torch.models.common.TiedHead`)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None,
                  site_specs: cm.SiteSpecs = None):
         super().__init__()
-        if tuple(cfg.block_unit) != ("attn",):
-            raise ValueError(f"{cfg.name}: the port serves block_unit "
-                             f"('attn',) only, got {cfg.block_unit}")
+        check_ported(cfg)
         self.cfg = cfg
+        (btype,) = cfg.block_unit
         self.embed = cm.Embed(cfg, generator=generator)
         self.layers = nn.ModuleList(
-            Layer(cfg, generator=generator, site_specs=site_specs)
+            Layer(cfg, btype, generator=generator, site_specs=site_specs)
             for _ in range(cfg.n_layers))
         self.final_norm = nn.Parameter(
             torch.ones(cfg.d_model, dtype=cfg.pdtype()))
-        self.head = cm.head_module(cfg, generator=generator,
+        self.head = cm.head_module(cfg, self.embed, generator=generator,
                                    site_specs=site_specs)
 
 
@@ -69,56 +123,70 @@ def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
                 positions: torch.Tensor,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 page_table: Optional[torch.Tensor] = None,
-                context: ContextLike = None) -> torch.Tensor:
-    """One layer; without ``cache`` the attention runs over the whole
+                context: ContextLike = None
+                ) -> Tuple[torch.Tensor, moem.AuxLoss]:
+    """One layer; returns ``(x, aux)`` with ``aux`` the MoE's aux loss,
+    0.0 for other blocks and when serving (``cache`` given: the entry
+    points drop it). Without ``cache`` the attention runs over the whole
     sequence (training)."""
     h = cm.rmsnorm(x, layer.norm1, cfg.norm_eps)
     x = x + attn.attention(cfg, layer.attn, h, positions=positions,
                            cache=cache, page_table=page_table,
                            context=context)
     h = cm.rmsnorm(x, layer.norm2, cfg.norm_eps)
-    return x + mlpm.mlp_apply(cfg, layer.ffn, h, context)
+    if layer.btype == "moe":
+        f, aux = moem.moe_apply(cfg, layer.ffn, h, with_aux=cache is None)
+        return x + f, aux
+    return x + mlpm.mlp_apply(cfg, layer.ffn, h, context), 0.0
 
 
 def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
              caches: Optional[Dict[str, torch.Tensor]] = None,
              page_table: Optional[torch.Tensor] = None,
-             context: ContextLike = None) -> torch.Tensor:
-    """Run the layer stack. Serving: ``caches`` is ``{"k", "v"}`` of
+             context: ContextLike = None
+             ) -> Tuple[torch.Tensor, moem.AuxLoss]:
+    """Run the layer stack; returns ``(x, aux)``, the blocks' aux losses
+    summed in layer order (0.0 without MoE blocks, and when serving).
+    Serving: ``caches`` is ``{"k", "v"}`` of
     ``(n_layers, N, ps, KV, D)`` pools, written in place. Training
     (``caches=None``): with ``cfg.remat`` and gradients on, each layer is
     checkpointed and recomputed in the backward pass."""
     cfg = model.cfg
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
     for i, layer in enumerate(model.layers):
         cache = None if caches is None else (caches["k"][i], caches["v"][i])
         if remat:
-            x = checkpoint(layer_apply, cfg, layer, x, positions=positions,
-                           context=context, use_reentrant=False)
+            x, a = checkpoint(layer_apply, cfg, layer, x,
+                              positions=positions, context=context,
+                              use_reentrant=False)
         else:
-            x = layer_apply(cfg, layer, x, positions=positions, cache=cache,
-                            page_table=page_table, context=context)
-    return x
+            x, a = layer_apply(cfg, layer, x, positions=positions,
+                               cache=cache, page_table=page_table,
+                               context=context)
+        aux = aux + a
+    return x, aux
 
 
 def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
             context: ContextLike = None) -> Tuple[torch.Tensor, Dict]:
     """Training loss, the mean next-token CE over ``batch`` ``tokens``
     (B, S), ``targets`` (B, S) and optional ``mask`` (B, S), plus metrics
-    ``{"ce", "aux"}`` (``aux`` is 0: the port has no MoE)."""
+    ``{"ce", "aux"}``; the loss is ``ce + aux``, ``aux`` the MoE blocks'
+    summed aux losses (0 without MoE)."""
     cfg = model.cfg
     tokens = batch["tokens"]
     x = cm.embed(cfg, model.embed, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    x = backbone(model, x, positions=positions, context=context)
+    x, aux = backbone(model, x, positions=positions, context=context)
     x = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = cm.head_apply(cfg, model.head, x, context)
     mask = batch.get("mask")
     ce = cm.cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
                           None if mask is None else mask[:, 1:])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -134,8 +202,8 @@ def decode_step(model: LM, token: torch.Tensor,
     cur_pos = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device)
     positions = cur_pos.expand(B)[:, None] if cur_pos.ndim == 0 \
         else cur_pos[:, None]
-    x = backbone(model, x, positions=positions.contiguous(), caches=caches,
-                 page_table=page_table, context=context)
+    x, _ = backbone(model, x, positions=positions.contiguous(),
+                    caches=caches, page_table=page_table, context=context)
     x = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
     return cm.head_apply(cfg, model.head, x, context)[:, 0]
 
@@ -163,8 +231,8 @@ def prefill_chunk(model: LM, tokens: torch.Tensor,
                                 device=x.device)
     positions = start_pos[:, None] + torch.arange(
         C, dtype=torch.int32, device=x.device)[None, :]
-    x = backbone(model, x, positions=positions, caches=caches,
-                 page_table=page_table, context=context)
+    x, _ = backbone(model, x, positions=positions, caches=caches,
+                    page_table=page_table, context=context)
     rows = torch.arange(B, device=x.device)
     x_last = x[rows, torch.as_tensor(last_idx, device=x.device).long()]
     h = cm.rmsnorm(x_last[:, None], model.final_norm, cfg.norm_eps)
@@ -195,7 +263,7 @@ def verify_chunk(model: LM, tokens: torch.Tensor,
     cur_pos = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device)
     positions = cur_pos[:, None] + torch.arange(
         K, dtype=torch.int32, device=x.device)[None, :]
-    x = backbone(model, x, positions=positions, caches=caches,
-                 page_table=page_table, context=context)
+    x, _ = backbone(model, x, positions=positions, caches=caches,
+                    page_table=page_table, context=context)
     h = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
     return cm.head_apply(cfg, model.head, h, context), x

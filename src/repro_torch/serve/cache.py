@@ -8,7 +8,13 @@ worst-case ``max_len``.
 
 The pool is one pair of ``(n_layers, num_pages, page_size, KV, D)`` tensors
 (``{"k", "v"}``), updated **in place** by the model's attention; the
-reference rebuilds its immutable arrays instead.
+reference rebuilds its immutable arrays instead. It pages the ``self`` KV
+of ``attn``, ``global`` and ``moe`` blocks. :func:`paged_supported` and
+:func:`chunked_prefill_supported` are the reference's predicates. A pool
+can be built without a model, so it refuses, as ``LM`` does, an arch
+whose blocks the port does not build yet, naming its ROADMAP sub-item
+(:func:`repro_torch.models.lm.check_ported`); the engine's refusal is
+its pool's.
 
 Physical **page 0 is the trash page**: never allocated, the target of every
 unallocated page-table entry, and the engine redirects inactive slots'
@@ -33,6 +39,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.context import resolve_device
 from repro_torch.kernels.paged_attention import TRASH_PAGE
+from repro_torch.models import lm
+
+#: block types whose cache mixes positions sequentially (recurrent state):
+#: a right-padded prefill or a paged gather would corrupt them
+SEQUENTIAL_STATE_BLOCKS = ("rec", "mlstm", "slstm")
 
 
 class PoolExhausted(RuntimeError):
@@ -41,8 +52,21 @@ class PoolExhausted(RuntimeError):
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """True when every block's cache is a full-attention KV cache."""
-    return tuple(cfg.block_unit) == ("attn",)
+    """True when every cache of ``cfg`` is pageable or boundedly dense
+    (the reference's predicate)."""
+    types = set(cfg.block_unit) | set(cfg.tail_layers)
+    return not (types & set(SEQUENTIAL_STATE_BLOCKS))
+
+
+def chunked_prefill_supported(cfg: ModelConfig) -> bool:
+    """True when prompts can be admitted as fixed-size prefill chunks:
+    every self-attention cache paged (no sliding-window ring) and a plain
+    token stream (no frontend prefix, no encoder); the reference's
+    predicate."""
+    types = set(cfg.block_unit) | set(cfg.tail_layers)
+    return (paged_supported(cfg)
+            and not (types & {"local", "xdec", "enc"})
+            and not cfg.frontend and not cfg.n_enc_layers)
 
 
 class PagedCachePool:
@@ -64,9 +88,7 @@ class PagedCachePool:
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  device: Union[str, torch.device, None] = None):
-        if not paged_supported(cfg):
-            raise ValueError(f"{cfg.name}: the port pages block_unit "
-                             f"('attn',) only, got {cfg.block_unit}")
+        lm.check_ported(cfg)
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.cfg = cfg

@@ -96,7 +96,6 @@ from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
-from repro_torch.serve import cache as cache_lib
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import steps as steps_lib
 from repro_torch.serve.cache import PagedCachePool, PoolExhausted
@@ -275,14 +274,13 @@ class ServeEngine:
         if queue_limit is not None and queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1 or None, got "
                              f"{queue_limit}")
-        if (not prefill_chunk or prefill_chunk < 1
-                or not cache_lib.paged_supported(cfg)):
+        if not prefill_chunk or prefill_chunk < 1:
             raise ValueError(
                 f"the port serves through the paged pool with chunked "
                 f"prefill only (admission='incremental' and spec_k > 0 "
                 f"ride that path too; the dense pool and bucketed prefill "
-                f"are not ported); got prefill_chunk={prefill_chunk!r} for "
-                f"{cfg.name}")
+                f"are ROADMAP queue 1, item 5b); got "
+                f"prefill_chunk={prefill_chunk!r} for {cfg.name}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if spec_k and not sampling.greedy:

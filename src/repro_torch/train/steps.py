@@ -58,12 +58,20 @@ def loss_and_grads(model: lm.LM, batch: Mapping[str, torch.Tensor],
     float32 sums of the microbatches' gradients and losses are averaged,
     as the reference's scan does; peak activation memory follows the
     microbatch."""
+    loss, grads, _ = _loss_grads_metrics(model, batch, microbatches, context)
+    return loss, grads
+
+
+def _loss_grads_metrics(model, batch, microbatches, context):
+    """:func:`loss_and_grads` and the loss's metrics (``{"ce", "aux"}``,
+    detached; empty when microbatched, as in the reference's step)."""
     params = trainable(model)
     names = list(params)
     if microbatches == 1:
-        loss, _ = lm.loss_fn(model, batch, context)
+        loss, metrics = lm.loss_fn(model, batch, context)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
-        return loss.detach(), dict(zip(names, grads))
+        return (loss.detach(), dict(zip(names, grads)),
+                {k: v.detach() for k, v in metrics.items()})
     B = batch["tokens"].shape[0]
     if B % microbatches:
         raise ValueError(f"batch {B} does not split into {microbatches} "
@@ -81,24 +89,26 @@ def loss_and_grads(model: lm.LM, batch: Mapping[str, torch.Tensor],
             gsum[n] += g.float()
         lsum = lsum + loss.detach()
     inv = 1.0 / microbatches
-    return lsum * inv, {n: g * inv for n, g in gsum.items()}
+    return lsum * inv, {n: g * inv for n, g in gsum.items()}, {}
 
 
 def make_train_step(cfg: ModelConfig, tx: opt.GradientTransformation,
                     microbatches: int = 1,
                     context: ContextLike = None) -> Callable:
     """Returns ``step(model, opt_state, batch) -> (opt_state, metrics)``,
-    metrics ``{"loss", "grad_norm"}`` as 0-d tensors; the model's
+    metrics ``{"loss", "grad_norm"}`` and, unless microbatched, the loss's
+    ``{"ce", "aux"}``, as 0-d tensors (the reference's keys); the model's
     parameters are updated in place. ``context`` is every kernel call's
     explicit execution context (the ``Trainer`` passes its finalized
     one)."""
 
     def step(model: lm.LM, opt_state, batch):
-        loss, grads = loss_and_grads(model, batch, microbatches, context)
+        loss, grads, metrics = _loss_grads_metrics(model, batch,
+                                                   microbatches, context)
         grad_norm = opt.global_norm(grads)
         params = trainable(model)
         updates, opt_state = tx.update(grads, opt_state, params)
         opt.apply_updates(params, updates)
-        return opt_state, {"loss": loss, "grad_norm": grad_norm}
+        return opt_state, {"loss": loss, "grad_norm": grad_norm, **metrics}
 
     return step

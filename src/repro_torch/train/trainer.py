@@ -76,6 +76,9 @@ class TrainResult:
     step_times: List[float] = field(default_factory=list)
     # the straggler monitor's step-time EMA (seconds) after the last step
     step_time_ema: float = 0.0
+    # each step's metrics as floats: loss, grad_norm and, unless
+    # microbatched, the loss's ce and aux (the MoE's aux losses)
+    metrics: List[Dict[str, float]] = field(default_factory=list)
     # the resolved execution policy of the run
     execution: ExecutionRecord = field(default_factory=ExecutionRecord)
 
@@ -174,6 +177,7 @@ class Trainer:
         prefetch = Prefetcher(self.data, start_step=start_step)
         losses: List[float] = []
         step_times: List[float] = []
+        step_metrics: List[Dict[str, float]] = []
         try:
             for i in range(start_step, start_step + steps):
                 _, raw = next(prefetch)
@@ -184,6 +188,7 @@ class Trainer:
                                                       batch)
                 loss = float(metrics["loss"])      # waits for the device
                 dt = time.monotonic() - t0
+                step_metrics.append({k: float(v) for k, v in metrics.items()})
                 self.straggler.record({"host0": dt})
                 losses.append(loss)
                 step_times.append(dt)
@@ -203,6 +208,7 @@ class Trainer:
         return TrainResult(steps_run=steps, losses=losses,
                            resumed_from=resumed_from, step_times=step_times,
                            step_time_ema=self.straggler.ema["host0"],
+                           metrics=step_metrics,
                            execution=ExecutionRecord(
                                backend=self.kernel_backend,
                                context=self.exec_ctx))

@@ -8,9 +8,11 @@ the sandwich backward and factor-VJP checks, the wide-width checks at
 100 -> 36, training and its gradient check, the butterfly kernels' checks,
 the encoder-decoder at 64 x 256, the flash kernels' checks at small shapes,
 the benches at n = 64, the layer API at 64 -> 96 and 64 x 64, the learned
-sketch at 64 x 48, the paper's rows at 2 steps, and the training CLI's
+sketch at 64 x 48, the paper's rows at 2 steps, the training CLI's
 continuous, resumed and compressed runs with the execution context's
-checks) runs on the
+checks, and the zoo's phases: the paged kernel at the four zoo shapes,
+the sandwich at a small zoo site, the OLMoE and Gemma butterfly smoke
+configs served, the MoE trained one step and its greedy tokens) runs on the
 smoke-sized butterfly config with the plain PyTorch versions in place of
 the kernels, so wrong paths, shapes and control flow show up before the
 script reaches a card. Also the script's refusals: no result
@@ -32,8 +34,26 @@ from repro_torch.core.layers import ButterflySpec
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SCRIPT = os.path.join(ROOT, "chip_smoke.py")
+# the zoo phases at smoke size; the paged kernel's shapes are the zoo's own
+ZOO_SMOKE = dict(
+    paged=("olmoe-1b-7b", "dbrx-132b", "mistral-large-123b", "gemma-7b"),
+    sites=(("zoo", 48, 500),), rows=(8, 20),
+    serve=("olmoe-1b-7b-butterfly-smoke", "gemma-7b-butterfly-smoke"),
+    train=("olmoe-1b-7b-butterfly-smoke", 1, (32, 2), (1, 1)),
+    tokens="olmoe-1b-7b-butterfly-smoke")
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under the
+    suite's parallel workers the threads only contend: this module runs on
+    one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _load_script():
@@ -70,7 +90,8 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
                                 ("quick", 64, 64, 8, 8, 8, False)),
                         fit=(64, 8, 32, 5),
                         sketch_run=(64, 48, 16, 8, 24, 8, 20),
-                        gated=((16, 64),), nonlinear_steps=2, lm_steps=2)
+                        gated=((16, 64),), nonlinear_steps=2, lm_steps=2,
+                        zoo=ZOO_SMOKE)
     out = capsys.readouterr().out
     assert "serve: 16 requests" in out and "on graphs (2 built)" in out
     assert "decode tick replay vs eager (torch)" in out
@@ -79,7 +100,37 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         "captures 1, replays 31" in out
     for mode in ("eager", "incremental", "spec", "router"):
         assert f"serve tokens {mode}: " in out
-    assert out.count("give the same greedy tokens (64 tokens") == 3
+    assert out.count("give the same greedy tokens (64 tokens") == 6
+    assert out.count("olmoe-1b-7b-butterfly-smoke float32, 4 prompts") == 3
+    # the zoo: the paged kernel at its four shapes, the sandwich at its
+    # sites, both archs served, the MoE trained, the new shapes timed
+    for arch, kv, g, d in (("olmoe-1b-7b", 16, 1, 128),
+                           ("dbrx-132b", 8, 6, 128),
+                           ("mistral-large-123b", 8, 12, 128),
+                           ("gemma-7b", 16, 1, 256)):
+        for dtype in ("float32", "bfloat16"):
+            assert f"paged {arch} KV={kv} G={g} D={d} B=8 " \
+                f"{(8, kv, g, d)} ps=16 P=32 {dtype}" in out
+        assert f"time paged {arch} B=8 P=32" in out
+    for rows in (8, 20):
+        assert f"sandwich_bwd zoo 48->500 (n1 64, n2 512, k 6/9) " \
+            f"rows={rows} bfloat16" in out
+    assert "time sandwich zoo 48->500 rows=8 bfloat16: kernels" in out
+    for arch in ZOO_SMOKE["serve"]:
+        assert f"serve {arch}: init: " in out
+        assert f"serve {arch}: 16 requests" in out
+        assert f"serve {arch}: phase " in out
+        assert f"profile {arch} graphed: device time not measured" in out
+    assert "graph decode | olmoe-1b-7b-butterfly-smoke | 8 | " in out
+    assert ("train: olmoe-1b-7b-butterfly-smoke, 1 layers, seq_len 32 x "
+            "batch 2") in out
+    assert "; of which aux " in out
+    # the MoE's head held against plain at the training run's rows first
+    for dtype in ("float32", "bfloat16"):
+        assert (f"train site olmoe-1b-7b-butterfly-smoke lm_head 64->512 "
+                f"rows=64 {dtype:9s} forward max|err|=") in out
+        assert (f"train site olmoe-1b-7b-butterfly-smoke lm_head rows=64 "
+                f"{dtype:9s} backward max|err|") in out
     assert ("into 2 slots (two replicas behind a Router, a torn-checkpoint "
             "swap on replica 0 mid-run, the prompts twice), chunks of 16, "
             "16 new tokens each: kernels on cpu and plain on the CPU give "
@@ -164,8 +215,15 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     assert kernels[0]["train_bound_ms"] > kernels[0]["bound_ms"] > 0
     assert {"serve", "router", "train", "layer_api", "lm_butterfly"} <= \
         kernels[0]["launches_by_path"].keys()
-    assert {"train", "train_cli", "layer_api", "lm_butterfly"} == \
+    assert {"train", "train_cli", "layer_api", "lm_butterfly",
+            "train olmoe-1b-7b-butterfly-smoke"} == \
         kernels[2]["launches_by_path"].keys()
+    assert {"serve olmoe-1b-7b-butterfly-smoke",
+            "serve gemma-7b-butterfly-smoke",
+            "train olmoe-1b-7b-butterfly-smoke"} <= \
+        kernels[0]["launches_by_path"].keys()
+    assert set(kernels[0]["zoo"]) == {"zoo"}
+    assert set(kernels[1]["zoo"]) == set(ZOO_SMOKE["paged"])
     assert "train_cli" in kernels[0]["launches_by_path"]
     for run in ("continuous", "resumed", "topk", "int8"):
         assert f"train cli {run}: [train] done: loss " in out
@@ -177,7 +235,9 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
             "use_execution('torch'), torch") in out
     assert ("segments: butterfly backward small 5x64 float32: segment 3 "
             "named gives the unset field's bits; 1 and 6 refused") in out
-    assert set(kernels[1]["launches_by_path"]) == {"serve", "router"}
+    assert set(kernels[1]["launches_by_path"]) == {
+        "serve", "router", "serve olmoe-1b-7b-butterfly-smoke",
+        "serve gemma-7b-butterfly-smoke"}
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
     # sdpa's backward stands once, on dq, for the dq/dkv pair
     assert [k["library_ms"] for k in kernels[5:]] == [0.0, 0.0, None]

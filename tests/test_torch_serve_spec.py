@@ -215,7 +215,7 @@ def test_butterfly_head_ties_top_logits_at_init(bfly_model):
     pos = torch.arange(40, dtype=torch.int32).expand(5, 40)
     with torch.no_grad():
         x = cm.embed(tcfg, model.embed, tokens)
-        x = lm.backbone(model, x, positions=pos, context="torch")
+        x, _ = lm.backbone(model, x, positions=pos, context="torch")
         x = cm.rmsnorm(x, model.final_norm, tcfg.norm_eps)
         logits = cm.head_apply(tcfg, model.head, x, "torch").reshape(200, -1)
     top = logits.topk(2, dim=-1)
