@@ -21,8 +21,9 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    stale rows and NaN pages past ``cur_pos``; float32 at 1e-5 and bfloat16
    at 2e-2; two launches bit-identical. The same at the zoo's decode
    shapes, 512 positions: OLMoE-1B-7B (16 KV heads, 1 query head each,
-   head dim 128), DBRX-132B (8, 6, 128), Mistral-Large-123B (8, 12, 128)
-   and Gemma-7B (16, 1, 256: float32 rows take two vectors a lane).
+   head dim 128), DBRX-132B (8, 6, 128), Mistral-Large-123B (8, 12, 128),
+   Gemma-7B (16, 1, 256: float32 rows take two vectors a lane) and
+   Gemma3-27B (16, 2, 128; also at the long 2048, its serving max_len).
 5. Sandwich backward (six kernels: the factors again, the row products,
    the column products, their sum over row splits, the factor-row VJP, the
    reduction) vs its plain
@@ -38,7 +39,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    twins at the tolerances above; then the zoo's widest sites at 8 and 256
    rows: Gemma-7B's up/gate (3072 -> 24,576), down (24,576 -> 3072, n1 =
    32,768) and head (3072 -> 256,000, n2 = 262,144), OLMoE's head (2048 ->
-   50,304) and DBRX's (6144 -> 100,352).
+   50,304), DBRX's (6144 -> 100,352) and Gemma3-27B's up/gate (5376 ->
+   21,504), down (21,504 -> 5376, n1 = 32,768) and head (5376 -> 262,144).
 6. Serving: a ServeEngine on full-width ``smollm-135m-butterfly``
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
@@ -61,6 +63,12 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    capture, is set-up). (The whole
    tick's logits through kernels and plain versions are printed, not
    held: bf16 rounding differences grow through a random-init stack.)
+6e. The dense pool: phase 6's 16 requests on ``pool="dense"`` (a full
+   512-position row per slot, whole prompts prefilled eagerly in
+   power-of-two buckets from 8 to 512 and spliced into the slot, decode on
+   one CUDA graph): phase 6's checks, with 2 x 91 sandwich launches per
+   decode tick and per prefill and no paged launch, and its printed
+   readings, each prefill's ms by prompt length among them.
 6a. Greedy tokens on the card: ``smollm-135m-butterfly-smoke`` in float32
    compute, weights made once from seed 0 on the CPU, served by one engine
    on the card (the kernels, on graphs) and one on the CPU (the plain
@@ -257,11 +265,37 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     step p50, tokens/s and peak memory printed.
 26. Phase 6a's eager, incremental and ``spec_k=3`` token cases again on
     ``olmoe-1b-7b-butterfly-smoke`` in float32: the card's tokens equal to
-    the CPU's.
+    the CPU's; then the eager case on ``gemma3-27b-butterfly-smoke``
+    (window 16, prompts of 5, 16, 20 and 40 tokens, max_len 64, whole
+    prompts beside rings) and ``smollm-135m-butterfly-smoke`` on the dense
+    pool, tokens equal; gemma3's incremental and ``spec_k=3`` engines are
+    refused, as the reference refuses them.
 27. Timing at the zoo's shapes (bfloat16): the paged kernel at each of
     phase 4's zoo shapes (device time, plain, SDPA, bound) and the sandwich
     forward at each zoo site at 8 rows (kernels, plain, a matmul by the
     dense matrix, bound).
+28. ``gemma3-27b-butterfly`` served at full width (ROADMAP 5b; 62 layers,
+    ten units of five ``local`` and one ``global`` and a two-layer
+    ``local`` tail, d_model 5376, 32 heads and 16 KV heads of 128, GeGLU
+    5376 -> 21,504, vocab 262,144, window 1,024), phase 24's path and
+    checks with the other archs' weights freed first: random float32
+    weights from seed 0, bfloat16 compute, 8 slots, max_len 2048 (rings of
+    1,024 that wrap), pages of 16, greedy, eager admission of whole prompts
+    at their exact lengths, decode on CUDA graphs; 16 requests of 32 new
+    tokens, phase 6's twelve shortest prompts and four of 1,000, 1,020,
+    1,300 and 1,500 tokens; the probe tick at positions 6 to 1,501, across
+    the wrap. Held: every request finished; 2 x 187 sandwich launches per
+    decode tick and per prefill, 2 x 10 paged per decode tick; every tick
+    after the build a replay; no NaN in pages, rings or logits; the tick
+    layer by layer and its replay against eager within 5e-2. Printed: as
+    phase 24, each prefill's ms by prompt length, then phase 8's profile.
+29. ``gemma3-27b-butterfly`` trained at 8 of its 62 layers (one unit and
+    the two-layer tail: Adam's state for all would not fit), seq_len 2048
+    x batch 2 (the window masks), bfloat16, remat, 2 warm and 3 timed
+    steps, its sites first held against plain at the run's rows (forward
+    4,096, the head's backward 2,048): finite losses, 2 x 49 forward and 6
+    x 25 backward sandwich launches a step; step p50, tokens/s and peak
+    memory printed.
 
 The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
 but ``auto`` or ``cuda``: the plain versions would stand in for the
@@ -618,16 +652,19 @@ def check_paged(torch, pcfg, dev, kernel: str, shape, dtype: str,
     return err
 
 
-def phase_paged(torch, cfg, dev, kernel: str, zoo_archs=()) -> float:
+def phase_paged(torch, cfg, dev, kernel: str, zoo_archs=(),
+                long_archs=()) -> float:
     """The paged kernels against their plain twin (:func:`check_paged`) at
     PAGED_SHAPES, both dtypes; then at the serving shape for each of
-    ``zoo_archs``' decode shapes (KV heads, group, head dim). Returns the
-    worst error in the compute dtype at the serving shape."""
+    ``zoo_archs``' decode shapes (KV heads, group, head dim), and at the
+    long shape for ``long_archs``. Returns the worst error in the compute
+    dtype at the serving shape."""
     from repro_torch.configs import registry
     cases = [(cfg, shape, f"{shape[0]:5s}") for shape in PAGED_SHAPES]
-    for arch in zoo_archs:
+    for arch, shape in ([(a, PAGED_SHAPES[0]) for a in zoo_archs]
+                        + [(a, PAGED_SHAPES[1]) for a in long_archs]):
         z = registry.get(arch)
-        cases.append((z, PAGED_SHAPES[0], f"{arch} KV={z.n_kv_heads} "
+        cases.append((z, shape, f"{arch} KV={z.n_kv_heads} "
                       f"G={z.n_heads // z.n_kv_heads} D={z.head_dim_}"))
     worst = 0.0
     with torch.no_grad():
@@ -668,14 +705,18 @@ def layerwise_check(torch, eng, kernel: str) -> None:
     cfg, model, tol = eng.cfg, eng.model, LAYER_TOL
     tokens, cur_pos, active = (torch.from_numpy(a).to(eng.device)
                                for a in eng.decode_inputs())
-    table = steps.mask_table(eng.pool.gather_args()["page_table"], active)
+    table = eng.pool.gather_args().get("page_table")      # None: dense pool
+    if table is not None:
+        table = steps.mask_table(table, active)
     caches = {t: c.clone() for t, c in eng.caches.items()}
+    index = lm.cache_index(cfg)
     positions = cur_pos[:, None].contiguous()
     pairs = []
     with torch.no_grad():
         x = cm.embed(cfg, model.embed, tokens[:, None])
         for i, layer in enumerate(model.layers):
-            cache = (caches["k"][i], caches["v"][i])
+            pre, j = index[i]
+            cache = (caches[pre + "k"][j], caches[pre + "v"][j])
             got, want = (lm.layer_apply(cfg, layer, x, positions=positions,
                                         cache=cache, page_table=table,
                                         context=b)[0]
@@ -726,22 +767,41 @@ def replay_vs_eager(torch, eng, kernel: str) -> dict:
     return out
 
 
-def serve_launches_want(cfg, snap, on_card: bool, spec_k: int = 0) -> dict:
+def paged_layers(eng) -> int:
+    """The layers whose decode reads ``eng``'s pool through the paged
+    kernels: the full-attention ones on a paged pool (a ``local`` layer's
+    ring and the dense pool's rows take the plain dense branch, as in the
+    reference), none on a dense pool."""
+    return paged_per_tick(eng.cfg) if eng.pool.kind == "paged" else 0
+
+
+def paged_per_tick(cfg) -> int:
+    """Paged kernel calls a decode tick of ``cfg`` on the paged pool makes:
+    one per full-attention layer (``local`` layers read their rings)."""
+    from repro_torch.models import lm
+    return sum(t != "local" for t in lm.layer_types(cfg))
+
+
+def serve_launches_want(cfg, snap, on_card: bool, spec_k: int = 0,
+                        paged=None, prefills: int = 0) -> dict:
     """Kernel launches a serving run must count: the sandwich's
     ``FWD_KERNELS`` at every site (up, gate, down per layer and the head)
-    per decode (or verify) and chunk tick, and at the head ``spec_k`` times
+    per decode (or verify) and chunk tick and per whole-prompt prefill
+    (``prefills``, each one call a site), and at the head ``spec_k`` times
     per speculative tick's draft; the paged kernels' ``PAGED_KERNELS`` per
-    layer per decode tick (a verify pass reads the pool through the plain
-    gather, as the chunk does); none off the card."""
+    paged layer (``paged``, all ``cfg.n_layers`` by default;
+    :func:`paged_layers`) per decode tick (a verify pass reads the pool
+    through the plain gather, as the chunk does); none off the card."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
     per_tick, in_layers = sandwich_sites(cfg)
     decode = snap["decode_steps"]
+    paged = cfg.n_layers if paged is None else paged
     return {"sandwich_fwd": on_card * ks.FWD_KERNELS
-            * (per_tick * (decode + snap["chunk_ticks"])
+            * (per_tick * (decode + snap["chunk_ticks"] + prefills)
                + spec_k * (per_tick - in_layers) * decode),
             "paged_decode_attention": on_card * pa.PAGED_KERNELS
-            * cfg.n_layers * decode * (not spec_k)}
+            * paged * decode * (not spec_k)}
 
 
 def read_launches() -> dict:
@@ -773,7 +833,7 @@ def graph_report(eng, snap, on_card: bool) -> dict:
     # the head alone spec_k times in the draft; the paged kernels in the
     # decode tick only
     sites_ = ks.FWD_KERNELS * sandwich_sites(cfg)[0]
-    per_replay = {"decode": (sites_, pa.PAGED_KERNELS * cfg.n_layers),
+    per_replay = {"decode": (sites_, pa.PAGED_KERNELS * paged_layers(eng)),
                   "chunk_prefill": (sites_, 0), "spec_verify": (sites_, 0),
                   "spec_draft": (ks.FWD_KERNELS * eng.spec_k * (
                       sandwich_sites(cfg)[0] - sandwich_sites(cfg)[1]), 0)}
@@ -804,39 +864,70 @@ def graph_report(eng, snap, on_card: bool) -> dict:
                                  "capture_s")} for key, st in stats.items()}}
 
 
-def serve_prompts(np, cfg):
+def serve_prompts(np, cfg, long=()):
+    """Phase 6's prompt lengths (16 from 5 to 200) in a seeded order and
+    their tokens; ``long`` lengths take the places of the longest."""
     rng = np.random.default_rng(0)
-    lens = rng.permutation(np.linspace(5, 200, N_REQUESTS).astype(int))
+    lens = np.linspace(5, 200, N_REQUESTS).astype(int)
+    if long:
+        lens = np.concatenate([lens[:N_REQUESTS - len(long)], long])
+    lens = rng.permutation(lens)
     return lens, [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
 
 
-def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "") -> tuple:
+# phase 6's engine: the paged pool at max_len 512, prompts into chunks;
+# ``probe`` the probe engine's prompt lengths (None: 5 to 12 tokens, cut
+# from the run's prompts), ``long`` the run's long prompts
+SERVE_PAGED = dict(pool="paged", max_len=MAX_LEN, long=(), probe=None)
+# phase 6e: the same requests on the dense pool (a full row per slot,
+# whole prompts in power-of-two buckets from 8 to 512)
+SERVE_DENSE = dict(SERVE_PAGED, pool="dense")
+
+
+def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "",
+                sizes=SERVE_PAGED) -> tuple:
     """The main path's serving run on ``cfg``: a probe engine's live decode
     tick held layer by layer and as a replay against eager, then 16
     requests to completion with the counts set to 0 just before and read
-    just after. Returns (launches, summary, tokens); ``tag`` names the run
-    in its lines (``serve <tag>:``)."""
+    just after. ``sizes`` (:data:`SERVE_PAGED`) sets the pool, ``max_len``
+    and the long prompts; a run that admits whole prompts prints each
+    prefill's time by its length (its engine's tracer spans). Returns
+    (launches, summary, tokens); ``tag`` names the run in its lines
+    (``serve <tag>:``)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
+    from repro_torch.obs import Tracer
     from repro_torch.serve import Request, ServeEngine
 
     head = f"serve {tag}:" if tag else "serve:"
+    geometry = dict(slots=SLOTS, max_len=sizes["max_len"],
+                    pool=sizes["pool"], prefill_chunk=CHUNK, device=dev)
     t0 = time.monotonic()
     model = model_of(cfg, dev)
     init_s = time.monotonic() - t0
     say(f"{head} init: {init_s:.1f} s, "
         f"{sum(p.numel() for p in model.parameters())} parameters "
         f"({cfg.param_dtype}, drawn on the CPU and moved)")
-    lens, prompts = serve_prompts(np, cfg)
+    lens, prompts = serve_prompts(np, cfg, sizes["long"])
     per_tick = sandwich_sites(cfg)[0]     # up, gate, down per layer + head
 
     # kernels vs plain on live engine state (also warms the path up)
-    probe = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN,
-                        prefill_chunk=CHUNK, device=dev)
-    for n in range(SLOTS):                     # <= 12 tokens: one chunk each
-        probe.submit(Request(prompt=prompts[n][:5 + n],
-                             max_new_tokens=NEW_TOKENS))
+    probe = ServeEngine(cfg, model, **geometry)
+    whole = probe.prefill_chunk is None          # whole-prompt admission
+    if sizes["probe"]:
+        rng = np.random.default_rng(5)
+        probe_prompts = [rng.integers(0, cfg.vocab_size, n)
+                         for n in sizes["probe"]]
+    else:                                  # <= 12 tokens: one chunk each
+        probe_prompts = [prompts[n][:5 + n] for n in range(SLOTS)]
+    for p in probe_prompts:
+        probe.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
     probe.step()
+    if sizes["probe"]:
+        ring = probe.caches.get("ring_k")
+        say(f"{head} probe tick at positions "
+            f"{probe.decode_inputs()[1].tolist()} (ring "
+            f"{'none' if ring is None else ring.shape[2]})")
     layerwise_check(torch, probe, kernel)
     # the whole tick through both paths, for the record only: rounding
     # differences of bf16 compound over the random-init layer stack
@@ -852,8 +943,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "") -> tuple:
     del probe
 
     # the main path: counters from 0, 16 requests to completion
-    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN,
-                      prefill_chunk=CHUNK, device=dev)
+    tracer = Tracer() if whole else None
+    eng = ServeEngine(cfg, model, tracer=tracer, **geometry)
     sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -872,7 +963,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "") -> tuple:
             raise AssertionError(f"request {i}: {len(toks)} tokens, "
                                  f"expected {NEW_TOKENS}")
     on_card = dev.type == "cuda"       # on the CPU the plain versions run
-    want = serve_launches_want(cfg, snap, on_card)
+    want = serve_launches_want(cfg, snap, on_card, paged=paged_layers(eng),
+                               prefills=snap["prefills"] * whole)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     for name, pool in eng.caches.items():
@@ -883,7 +975,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "") -> tuple:
         f"{int(lens.max())} tokens, {snap['ticks']} ticks "
         f"({snap['chunk_ticks']} chunk, {snap['decode_steps']} decode), "
         f"wall {wall:.3f} s, on graphs ({eng.compile_stats['compiles']} "
-        f"built)")
+        f"built); pool {eng.pool.kind}, max_len {eng.max_len}, "
+        f"{'whole-prompt prefill' if whole else f'chunks of {CHUNK}'}")
     say(f"{head} TTFT p50 {snap['ttft_ms']['p50']} ms, p95 "
         f"{snap['ttft_ms']['p95']} ms; TPOT p50 {snap['tpot_ms']['p50']} ms; "
         f"decode {snap['decode_tok_per_s']:.1f} tok/s over all decode ticks, "
@@ -898,8 +991,18 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "") -> tuple:
         f"tick on average over {m.decode_steps - 1}; the "
         f"decode key's build tick (warm-up + capture) "
         f"{m.build_decode_time_s * 1e3:.3f} ms")
+    prefill_ms = {}
+    if whole:
+        spans = [e for e in tracer.events() if e["name"] == "prefill"]
+        prefill_ms = {int(e["args"]["tokens"]): e["dur"] / 1e3
+                      for e in sorted(spans, key=lambda e: e["args"]
+                                      ["tokens"])}
+        say(f"{head} whole-prompt prefill ms by prompt length (host clock, "
+            f"eager, the splice and first token included): "
+            + ", ".join(f"{n}: {ms:.1f}" for n, ms in prefill_ms.items()))
     say(f"{head} launches {launches} = {ks.FWD_KERNELS} x {per_tick}/tick x "
-        f"(decode + chunk), {pa.PAGED_KERNELS} x {cfg.n_layers}/decode tick")
+        f"(decode + chunk + whole prefills {snap['prefills'] * whole}), "
+        f"{pa.PAGED_KERNELS} x {paged_layers(eng)}/decode tick")
     graphs = graph_report(eng, snap, on_card)
     summary = {"ttft_p50_ms": snap["ttft_ms"]["p50"],
                "ttft_p95_ms": snap["ttft_ms"]["p95"],
@@ -911,6 +1014,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "") -> tuple:
                "peak_mib": peak / 2**20, "wall_s": wall,
                "ticks": snap["ticks"], "graphs": graphs, "init_s": init_s,
                "replay_vs_eager": replay}
+    if whole:
+        summary["prefill_ms_by_len"] = prefill_ms
     return launches, summary, tokens
 
 
@@ -1078,7 +1183,12 @@ TOKEN_NEW = 16
 TOKEN_CASES = {"eager": {},
                "incremental": dict(admission="incremental", num_pages=4),
                "spec": dict(spec_k=3),
-               "router": {}}
+               "router": {},
+               "dense": dict(pool="dense")}
+# phase 6a's cases; the dense pool's is phase 26's
+PHASE_6A = ("eager", "incremental", "spec", "router")
+# phase 26's windowed arch (window 16): prompts below, at and past it
+WINDOW_PROMPTS = (5, 16, 20, 40)
 # the router case's driver watchdog: above a first-use nvcc build
 TICK_TIMEOUT = 120.0
 
@@ -1107,7 +1217,7 @@ def serve_router_tokens(cfg, dev, model, prompts) -> tuple:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
         mgr = CheckpointManager(ckpt)
         tree = {"params": convert.to_jax_params(
-            dict(model.named_parameters()))}
+            dict(model.named_parameters()), cfg)}
         mgr.save(1, tree)
         mgr.save(2, tree)
         tear_checkpoint(ckpt)
@@ -1133,17 +1243,18 @@ def serve_router_tokens(cfg, dev, model, prompts) -> tuple:
     return rounds[0], rounds[1], snap
 
 
-def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH
-                      ) -> dict:
+def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH,
+                      lens=TOKEN_PROMPTS, max_len: int = 48) -> dict:
     """Greedy tokens through the kernels against the plain path, one
     engine configuration of ``TOKEN_CASES``: ``arch`` in float32 compute,
     weights made once from seed 0 on the CPU, one engine on ``dev`` (in
     the router case two replicas behind a ``Router``,
-    :func:`serve_router_tokens`) and one on the CPU, the greedy test's
-    prompts into 2 slots with prefill chunks of 16. Every request's tokens
-    must be equal (and the incremental case must preempt); at a flip,
-    prints the request, the step and the CPU run's top-1 minus top-2 logit
-    gap there, and raises. Returns the card engine's snapshot."""
+    :func:`serve_router_tokens`) and one on the CPU, prompts of ``lens``
+    tokens (the greedy test's by default) into 2 slots with prefill chunks
+    of 16 where the engine chunks. Every request's tokens must be equal
+    (and the incremental case must preempt); at a flip, prints the
+    request, the step and the CPU run's top-1 minus top-2 logit gap there,
+    and raises. Returns the card engine's snapshot."""
     import copy
 
     from repro_torch.configs import registry
@@ -1155,8 +1266,8 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH
     card_model = copy.deepcopy(cpu_model)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in TOKEN_PROMPTS]
-    assert max(TOKEN_PROMPTS) > 16             # one prompt chunks twice
+               for n in lens]
+    assert max(lens) > 16                      # one prompt chunks twice
     before = read_launches()
     runs, snaps = [], []                    # the card's run, then the CPU's
     for where, model in ((dev, card_model), (torch.device("cpu"),
@@ -1167,8 +1278,9 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH
             runs.append(first + second)
             snaps.append(rsnap["per_replica"][0]["engine"])
             continue
-        eng = ServeEngine(cfg, model, slots=2, max_len=48, prefill_chunk=16,
-                          device=where, **TOKEN_CASES[mode])
+        eng = ServeEngine(cfg, model, slots=2, max_len=max_len,
+                          prefill_chunk=16, device=where,
+                          **TOKEN_CASES[mode])
         futs = [eng.submit(Request(prompt=p, max_new_tokens=TOKEN_NEW))
                 for p in prompts]
         eng.run_until_idle(max_ticks=1000)
@@ -1181,9 +1293,9 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH
     rose = {k: after[k] - before[k] for k in after}
     # every kernel of the path must have launched on the card; a speculative
     # run has no paged decode tick (verify reads the pool through the plain
-    # gather, as the chunk does)
+    # gather, as the chunk does), nor has the dense pool
     need = ("sandwich_fwd",) + (("paged_decode_attention",)
-                                if mode != "spec" else ())
+                                if mode not in ("spec", "dense") else ())
     if dev.type == "cuda" and not all(rose[k] for k in need):
         raise AssertionError(f"the card's engine ({mode}) launched "
                              f"{rose}: none of {need} may be 0")
@@ -1210,8 +1322,10 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH
     tier = (" (two replicas behind a Router, a torn-checkpoint swap on "
             "replica 0 mid-run, the prompts twice)" if mode == "router"
             else "")
+    admit = ("chunks of 16" if eng.prefill_chunk else
+             f"whole prompts on the {eng.pool.kind} pool")
     say(f"serve tokens {mode}: {cfg.name} float32, {len(prompts)} prompts of "
-        f"{TOKEN_PROMPTS} tokens into 2 slots{tier}, chunks of 16, "
+        f"{tuple(lens)} tokens into 2 slots{tier}, {admit}, "
         f"{TOKEN_NEW} new "
         f"tokens each: kernels on {dev.type} and plain on the CPU give the "
         f"same greedy tokens ({sum(map(len, card))} tokens; preempted "
@@ -1346,11 +1460,34 @@ def phase_serve_cli(torch, cfg, dev, sizes=CLI_SERVE) -> tuple:
 
 
 def phase_serve_tokens(torch, np, dev, arch: str = TOKEN_ARCH,
-                       modes=TOKEN_CASES) -> None:
+                       modes=PHASE_6A, **kw) -> None:
     """:func:`serve_tokens_case` on ``arch`` for every configuration of
-    ``modes``."""
+    ``modes`` (``kw``: its prompt lengths and ``max_len``)."""
     for mode in modes:
-        serve_tokens_case(torch, np, dev, mode, arch)
+        serve_tokens_case(torch, np, dev, mode, arch, **kw)
+
+
+def phase_window_refusals(dev, arch: str) -> None:
+    """Phase 26's refusals on the card: ``arch``'s rings keep it off
+    chunked prefill, so incremental admission and ``spec_k > 0``, which
+    ride the chunk machinery, are refused at construction, as the
+    reference's engine refuses them."""
+    from repro_torch.configs import registry
+    from repro_torch.serve import ServeEngine, loader
+    cfg = registry.get(arch).with_(compute_dtype="float32")
+    model = loader.init_params(cfg, seed=0, device="cpu")
+    for kw, what in ((dict(admission="incremental"), "incremental"),
+                     (dict(spec_k=3), "spec_k")):
+        try:
+            ServeEngine(cfg, model, slots=2, max_len=64, device=dev, **kw)
+        except ValueError as e:
+            if what not in str(e):
+                raise AssertionError(f"{arch} {kw}: refused for another "
+                                     f"reason: {e}")
+            say(f"serve tokens {arch} {what}: refused ({str(e)[:60]}...)")
+            continue
+        raise AssertionError(f"{arch} {kw}: not refused without chunked "
+                             f"prefill")
 
 
 def sandwich_ops(spec) -> tuple:
@@ -1597,7 +1734,8 @@ def time_paged(torch, cfg, dev, kernel, time_fn, device_fn, shape) -> dict:
         f"events over back-to-back calls), plain {r['plain_ms']:.4f} ms, sdpa "
         f"{r['library_ms']:.5f} ms device ({r['library_event_ms']:.5f} by "
         f"events), bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes} B,"
-        f" {ops} ops); x{cfg.n_layers} per decode tick{clocks(dev)}")
+        f" {ops} ops); x{paged_per_tick(cfg)} per decode tick"
+        f"{clocks(dev)}")
     return r
 
 
@@ -1644,7 +1782,8 @@ def event_kind(key: str) -> str:
     return "other"
 
 
-def phase_profile(torch, np, cfg, dev, tag: str = "") -> dict:
+def phase_profile(torch, np, cfg, dev, tag: str = "",
+                  sizes=SERVE_PAGED) -> dict:
     """Where a pooled decode tick's time goes, graphed and eager:
     ``torch.profiler`` over three decode ticks of 8 slots (prompts of 5
     tokens) replayed from the engine's decode graph, then over three of
@@ -1660,7 +1799,8 @@ def phase_profile(torch, np, cfg, dev, tag: str = "") -> dict:
     from repro_torch.kernels import sandwich as ks
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.graphs import format_key
-    eng = ServeEngine(cfg, model_of(cfg, dev), slots=SLOTS, max_len=MAX_LEN,
+    eng = ServeEngine(cfg, model_of(cfg, dev), slots=SLOTS,
+                      max_len=sizes["max_len"], pool=sizes["pool"],
                       prefill_chunk=CHUNK, device=dev)
     rng = np.random.default_rng(4)
     for _ in range(SLOTS):
@@ -3800,14 +3940,20 @@ def phase_paper(torch, np, dev, kernel: str, kernels: list, layers,
 ZOO = dict(
     # the paged kernel at each arch's decode shape: (KV heads, query heads
     # per KV head, head dim) = (16, 1, 128), (8, 6, 128), (8, 12, 128),
-    # (16, 1, 256), at the serving engine's 512 positions
-    paged=("olmoe-1b-7b", "dbrx-132b", "mistral-large-123b", "gemma-7b"),
+    # (16, 1, 256), gemma3's (16, 2, 128), at the serving engine's 512
+    # positions; gemma3's also at the long 2048 (its serving max_len)
+    paged=("olmoe-1b-7b", "dbrx-132b", "mistral-large-123b", "gemma-7b",
+           "gemma3-27b"),
+    paged_long=("gemma3-27b",),
     # the widest sandwich sites: Gemma-7B's MLP (its down site has n1 =
     # 32,768) and head (n2 = 262,144, the kernels' widest output), OLMoE's
-    # and DBRX's heads; each at a decode tick's and a check's rows
+    # and DBRX's heads, gemma3's three (up/gate 5376 -> 21,504, down n1 =
+    # 32,768, head n2 = 262,144); each at a decode tick's and a check's
+    # rows
     sites=(("gemma_up", 3072, 24576), ("gemma_down", 24576, 3072),
            ("gemma_head", 3072, 256000), ("olmoe_head", 2048, 50304),
-           ("dbrx_head", 6144, 100352)),
+           ("dbrx_head", 6144, 100352), ("gemma3_up", 5376, 21504),
+           ("gemma3_down", 21504, 5376), ("gemma3_head", 5376, 262144)),
     rows=(SLOTS, 256),
     # served at full width, in this order, each through phase 6's path
     serve=("olmoe-1b-7b-butterfly", "gemma-7b-butterfly"),
@@ -3816,6 +3962,20 @@ ZOO = dict(
     train=("olmoe-1b-7b-butterfly", 4, (2048, 4), (2, 3)),
     # phase 6a's token case again, on the MoE
     tokens="olmoe-1b-7b-butterfly-smoke",
+    # phase 28: gemma3 (5 local : 1 global, 1,024-token windows) on the
+    # paged pool with rings beside the pages, whole-prompt admission, at
+    # max_len 2048 so that the rings wrap: phase 6's twelve shortest
+    # prompts and four of 1,000-1,500 tokens; the probe tick at positions
+    # below, at and past the wrap
+    windowed=("gemma3-27b-butterfly",
+              dict(SERVE_PAGED, max_len=2048, long=(1000, 1020, 1300, 1500),
+                   probe=(5, 12, 1000, 1023, 1024, 1025, 1300, 1500))),
+    # phase 29: gemma3 trained at one unit and the two-layer local tail
+    # (8 of 62 layers: Adam's state for all would not fit), sequences
+    # past the window
+    windowed_train=("gemma3-27b-butterfly", 8, (2048, 2), (2, 3)),
+    # phase 26's windowed token case (window 16)
+    windowed_tokens=("gemma3-27b-butterfly-smoke", WINDOW_PROMPTS, 64),
 )
 
 
@@ -3839,12 +3999,15 @@ def phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo) -> dict:
     from repro_torch.core import layers as blayers
     from repro_torch.nn import ButterflyLinear
     out = {"paged": {}, "sandwich": {}}
-    for arch in zoo["paged"]:
+    shapes = [(arch, PAGED_SHAPES[0]) for arch in zoo["paged"]] + [
+        (arch, PAGED_SHAPES[1]) for arch in zoo["paged_long"]]
+    for arch, shape in shapes:
         zcfg = registry.get(arch)
         p = time_paged(torch, zcfg, dev, kernel, time_fn, device_fn,
-                       (arch,) + PAGED_SHAPES[0][1:])
-        out["paged"][arch] = {k: p[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                 "library_ms")}
+                       (arch,) + shape[1:])
+        name = arch if shape is PAGED_SHAPES[0] else f"{arch} {shape[0]}"
+        out["paged"][name] = {k: p[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "library_ms")}
     gen = torch.Generator().manual_seed(21)
     with torch.no_grad():
         for name, n_in, n_out in zoo["sites"]:
@@ -3886,12 +4049,14 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
     kernels' entries in ``kernels``. Returns the summary."""
     from repro_torch.configs import registry
     summary = {}
-    for arch in zoo["serve"]:
+    served = [(arch, SERVE_PAGED) for arch in zoo["serve"]]
+    for arch, sizes in served + [zoo["windowed"]]:
         free_device(torch, dev)
         t0 = time.monotonic()
         zcfg = registry.get(arch)
-        launches, s, _ = phase_serve(torch, np, zcfg, dev, kernel, tag=arch)
-        s.update(phase_profile(torch, np, zcfg, dev, tag=arch))
+        launches, s, _ = phase_serve(torch, np, zcfg, dev, kernel, tag=arch,
+                                     sizes=sizes)
+        s.update(phase_profile(torch, np, zcfg, dev, tag=arch, sizes=sizes))
         free_device(torch, dev)
         s["phase_s"] = time.monotonic() - t0
         say(f"serve {arch}: phase {s['phase_s']:.1f} s")
@@ -3900,23 +4065,32 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
                            (kernels[1], "paged_decode_attention")):
             k["launches_by_path"][f"serve {arch}"] = launches[counter]
             k["launches"] += launches[counter]
-    arch, layers, (seq_len, batch), steps = zoo["train"]
-    t0 = time.monotonic()
-    tcfg = registry.get(arch).with_(n_layers=layers)
-    say(f"train {arch}: {layers} of {registry.get(arch).n_layers} layers "
-        f"(depth cut: Adam's state for all would not fit one card)")
-    phase_train_sites(torch, tcfg, dev, kernel, seq_len * batch)
-    launches, s = phase_train(torch, np, tcfg, dev, seq_len, batch,
-                              steps=steps, profile=False)
-    free_device(torch, dev)
-    s["phase_s"] = time.monotonic() - t0
-    summary[f"train {arch}"] = s
-    for k, counter in ((kernels[0], "sandwich_fwd"),
-                       (kernels[2], "sandwich_bwd")):
-        k["launches_by_path"][f"train {arch}"] = launches[counter]
-        k["launches"] += launches[counter]
+    for arch, layers, (seq_len, batch), steps in (zoo["train"],
+                                                  zoo["windowed_train"]):
+        t0 = time.monotonic()
+        tcfg = registry.get(arch).with_(n_layers=layers)
+        say(f"train {arch}: {layers} of {registry.get(arch).n_layers} "
+            f"layers (depth cut: Adam's state for all would not fit one "
+            f"card); units {tcfg.unit_repeats} x {tcfg.block_unit}, tail "
+            f"{tcfg.tail_layers}")
+        phase_train_sites(torch, tcfg, dev, kernel, seq_len * batch)
+        launches, s = phase_train(torch, np, tcfg, dev, seq_len, batch,
+                                  steps=steps, profile=False)
+        free_device(torch, dev)
+        s["phase_s"] = time.monotonic() - t0
+        say(f"train {arch}: phase {s['phase_s']:.1f} s")
+        summary[f"train {arch}"] = s
+        for k, counter in ((kernels[0], "sandwich_fwd"),
+                           (kernels[2], "sandwich_bwd")):
+            k["launches_by_path"][f"train {arch}"] = launches[counter]
+            k["launches"] += launches[counter]
     phase_serve_tokens(torch, np, dev, zoo["tokens"],
                        modes=("eager", "incremental", "spec"))
+    warch, wlens, wmax = zoo["windowed_tokens"]
+    phase_serve_tokens(torch, np, dev, warch, modes=("eager",), lens=wlens,
+                       max_len=wmax)
+    phase_window_refusals(dev, warch)
+    phase_serve_tokens(torch, np, dev, modes=("dense",))
     timing = phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo)
     kernels[0]["zoo"] = timing["sandwich"]
     kernels[1]["zoo"] = timing["paged"]
@@ -3953,7 +4127,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
                                 phase_sandwich(torch, cfg, dev, kernel,
                                                train_rows)),
             "paged_decode_attention": phase_paged(torch, cfg, dev, kernel,
-                                                  zoo["paged"]),
+                                                  zoo["paged"],
+                                                  zoo["paged_long"]),
             "sandwich_bwd": phase_sandwich_bwd(torch, cfg, dev, kernel,
                                                train_rows)}
     phase_wide(torch, dev, kernel, wide)
@@ -3970,6 +4145,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     flash_errs = phase_flash(torch, dev, kernel, flash_shapes)
     launches, summary, eager_tokens = phase_serve(torch, np, cfg, dev,
                                                   kernel)
+    dense_launches, summary["serve dense"], _ = phase_serve(
+        torch, np, cfg, dev, kernel, tag=f"{cfg.name} dense",
+        sizes=SERVE_DENSE)
     phase_serve_tokens(torch, np, dev)
     summary.update(phase_serve_incremental(torch, np, cfg, dev,
                                            eager_tokens))
@@ -4004,6 +4182,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     fwd["launches"] += (train_launches["sandwich_fwd"]
                         + router_launches["sandwich_fwd"]
                         + cli_launches["sandwich_fwd"])
+    fwd["launches_by_path"]["serve dense"] = dense_launches["sandwich_fwd"]
+    fwd["launches"] += dense_launches["sandwich_fwd"]
     kernels[-1]["launches_by_path"] = {
         "train": kernels[-1]["launches"],
         "train_cli": cli_launches["sandwich_bwd"]}

@@ -66,7 +66,8 @@ def load_latest(directory: str, template: PyTree,
 
 
 def _to_host(tree: PyTree) -> PyTree:
-    """The tree with every tensor leaf as a host numpy array."""
+    """The tree with every tensor leaf as a host numpy array of its own,
+    which no later in-place update of the tensor reaches."""
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -76,7 +77,7 @@ def _to_host(tree: PyTree) -> PyTree:
     if tree is None:
         return None
     if hasattr(tree, "detach"):
-        return tree.detach().cpu().numpy()
+        return tree.detach().to("cpu", copy=True).numpy()
     return np.asarray(tree)
 
 

@@ -1,17 +1,22 @@
 """Weight carry-over between the JAX reference's param tree and the port.
 
 :func:`from_jax_params` takes the reference's param tree as numpy arrays
-(``{"embed": {"table"}, "unit": [stacked layer tree], "tail": [],
-"final_norm", "head"}``; an MoE layer's ``ffn`` holds ``router``,
+(``{"embed": {"table"}, "unit": [stacked layer tree per unit position],
+"tail": [layer tree per tail layer], "final_norm", "head"}``; an MoE
+layer's ``ffn`` holds ``router``,
 ``w_gate``, ``w_up`` and ``w_down``, and a tied config's ``head`` is
 empty) and the reference's butterfly specs of its site keys, and returns
 an :class:`~repro_torch.models.lm.LM` holding the same weights. The
 reference derives the truncation indices from ``jax.random``, which the
 port cannot reproduce, so they come in with the weights. :func:`load_jax_params` loads such a tree into an existing model
 (a checkpoint's params), :func:`to_jax_params` is the inverse (the port's
-checkpoints store their params in the reference's layout, layers stacked
-as ``unit``), and :func:`names_by_reference_key` names the port parameters
-behind each reference leaf, so gradients compare leaf by leaf.
+checkpoints store their params in the reference's layout), and
+:func:`names_by_reference_key` names the port parameters behind each
+reference leaf, so gradients compare leaf by leaf. Port layer ``L`` is
+repeat ``L // U`` of ``unit[L % U]`` below ``R·U`` (``U`` the unit's
+length, ``R`` its repeats) and ``tail[L - R·U]`` from there on
+(:func:`layer_key`); the functions that need it take the config, and
+without one assume a one-type unit and no tail.
 :func:`opt_state_to_jax` and :func:`load_jax_opt_state` do the same for the
 optimizer state, so a checkpoint either package's ``Trainer`` wrote resumes
 in the other.
@@ -24,6 +29,7 @@ params) as a :class:`~repro_torch.nn.ButterflyLinear`.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Mapping, Union
 
 import numpy as np
@@ -50,16 +56,27 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return {prefix[:-1]: np.asarray(tree)}
 
 
+def layer_key(cfg: ModelConfig, layer: int) -> str:
+    """The reference's list entry holding port layer ``layer``:
+    ``unit[i]`` (one repeat of its stacked leaves) or ``tail[j]``."""
+    U, R = len(cfg.block_unit), cfg.unit_repeats
+    if layer < R * U:
+        return f"unit[{layer % U}]"
+    return f"tail[{layer - R * U}]"
+
+
 def _port_flat(cfg: ModelConfig, params_np: Mapping) -> Dict[str, Any]:
     """The reference tree as ``{port state name: array}``; the stacked
-    ``(R, ...)`` unit leaves split per layer."""
-    if params_np.get("tail"):
-        raise ValueError("tail layers are outside the port's block_unit")
-    (unit,) = params_np["unit"]
+    ``(R, ...)`` unit leaves split per layer, tail layers as they are."""
+    U, R = len(cfg.block_unit), cfg.unit_repeats
     flat = {}
-    for path, leaf in _flatten(unit).items():
-        for i in range(cfg.n_layers):
-            flat[f"layers.{i}.{path}"] = leaf[i]
+    for i, unit in enumerate(params_np["unit"]):
+        for path, leaf in _flatten(unit).items():
+            for r in range(R):
+                flat[f"layers.{r * U + i}.{path}"] = leaf[r]
+    for j, layer in enumerate(params_np.get("tail") or ()):
+        for path, leaf in _flatten(layer).items():
+            flat[f"layers.{R * U + j}.{path}"] = leaf
     rest = {k: v for k, v in params_np.items() if k not in ("unit", "tail")}
     flat.update(_flatten(rest))
     return flat
@@ -148,27 +165,32 @@ def sandwich_from_jax(spec: Any, params_np: Mapping, *,
     return ButterflyLinear(port_spec, params=params).to(dev)
 
 
-def reference_key(name: str) -> str:
+def reference_key(name: str, cfg: ModelConfig) -> str:
     """The checkpoint key of the reference leaf holding port parameter
-    ``name`` (``layers.3.ffn.up.b_in`` -> ``unit[0].ffn.up.b_in``)."""
+    ``name`` (for gemma3's unit of six, ``layers.8.ffn.up.b_in`` ->
+    ``unit[2].ffn.up.b_in``; :func:`layer_key`)."""
     parts = name.split(".")
     if parts[0] == "layers":
-        return "unit[0]." + ".".join(parts[2:])
+        return f"{layer_key(cfg, int(parts[1]))}." + ".".join(parts[2:])
     return name
 
 
-def names_by_reference_key(names) -> Dict[str, List[str]]:
+def names_by_reference_key(names, cfg: ModelConfig
+                           ) -> Dict[str, List[str]]:
     """``{reference key: [port names]}`` for the port names ``names`` (index
     buffers dropped); a unit key lists its layers in order, which is the
     order of the reference's stacked leading axis."""
     out: Dict[str, List[str]] = {}
     for name in names:
         if not name.endswith(INDEX_BUFFERS):
-            out.setdefault(reference_key(name), []).append(name)
+            out.setdefault(reference_key(name, cfg), []).append(name)
     for key, group in out.items():
-        if key.startswith("unit[0]."):
+        if key.startswith("unit["):
             group.sort(key=lambda n: int(n.split(".")[1]))
     return out
+
+
+_LIST_KEY = re.compile(r"(unit|tail)\[(\d+)\]\.(.*)")
 
 
 def _insert(tree: Dict, path: List[str], leaf) -> None:
@@ -177,24 +199,33 @@ def _insert(tree: Dict, path: List[str], leaf) -> None:
     tree[path[-1]] = leaf
 
 
-def to_jax_params(named: Mapping[str, torch.Tensor]) -> Dict:
+def to_jax_params(named: Mapping[str, torch.Tensor], cfg: ModelConfig
+                  ) -> Dict:
     """The reference's param tree, as host numpy arrays, from port tensors
     ``named`` (``model.named_parameters()`` as a dict, or gradients under
-    the same names): unit leaves stacked over layers into ``unit[0]``,
-    ``tail`` empty, ``head`` empty for a tied head."""
-    unit: Dict = {}
-    tree: Dict = {"unit": [unit], "tail": []}
-    for key, group in names_by_reference_key(named).items():
-        arrays = [named[n].detach().cpu().numpy() for n in group]
-        if key.startswith("unit[0]."):
-            _insert(unit, key[len("unit[0]."):].split("."), np.stack(arrays))
+    the same names) of a model of ``cfg``: each unit position's leaves
+    stacked over its repeats into ``unit[i]``, tail layers into
+    ``tail[j]``, ``head`` empty for a tied head. Every array is a copy:
+    none shares memory with a tensor that a later step updates in place."""
+    lists: Dict[str, List[Dict]] = {"unit": [], "tail": []}
+    tree: Dict = dict(lists)
+    for key, group in names_by_reference_key(named, cfg).items():
+        m = _LIST_KEY.fullmatch(key)
+        if m is not None and m[1] == "unit":
+            leaf = np.stack([named[n].detach().cpu().numpy() for n in group])
         else:
-            _insert(tree, key.split("."), arrays[0])
+            leaf = named[group[0]].detach().to("cpu", copy=True).numpy()
+        if m is None:
+            _insert(tree, key.split("."), leaf)
+            continue
+        entries, i = lists[m[1]], int(m[2])
+        entries.extend({} for _ in range(i + 1 - len(entries)))
+        _insert(entries[i], m[3].split("."), leaf)
     tree.setdefault("head", {})
     return tree
 
 
-def opt_state_to_jax(state: Any) -> Any:
+def opt_state_to_jax(state: Any, cfg: ModelConfig) -> Any:
     """The port's optimizer state in the reference's layout, as host numpy:
     the chain's tuple and its states (``NamedTuple``s, the empty
     ``ClipState()`` slots included) as they are, every ``{name: tensor}``
@@ -203,11 +234,11 @@ def opt_state_to_jax(state: Any) -> Any:
     order is the chain's, so it follows the run's own ``TrainConfig`` (a
     compression slot shifts every later index)."""
     if isinstance(state, Mapping):
-        return to_jax_params(state)
+        return to_jax_params(state, cfg)
     if isinstance(state, tuple) and hasattr(state, "_fields"):
-        return type(state)(*[opt_state_to_jax(v) for v in state])
+        return type(state)(*[opt_state_to_jax(v, cfg) for v in state])
     if isinstance(state, (list, tuple)):
-        return type(state)(opt_state_to_jax(v) for v in state)
+        return type(state)(opt_state_to_jax(v, cfg) for v in state)
     if state is None:
         return None
     return state.detach().cpu().numpy()

@@ -2,13 +2,17 @@
 
 Mixed-length prompts arrive over time through the async client; the engine
 admits them into its decode slots as slots free up, prefilling in chunks
-into a paged KV cache, and advances every in-flight request one token per
-pooled decode tick (on the card, ticks replay CUDA graphs). Per-request
-TTFT/TPOT and the engine's throughput, occupancy and pages are printed.
+into a paged KV cache (whole prompts at their exact lengths for archs with
+sliding-window rings, such as gemma3-27b), and advances every in-flight
+request one token per pooled decode tick (on the card, ticks replay CUDA
+graphs). Per-request TTFT/TPOT and the engine's throughput, occupancy and
+pages are printed.
 
 A second act shows the lifecycle on a deliberately tiny page pool: a
 request *preempted* mid-decode under ``admission="incremental"`` (pages
-freed, request requeued, prefix recomputed) and a request *cancelled*
+freed, request requeued, prefix recomputed; archs that cannot chunk their
+prefill wait for pages under eager admission instead) and a request
+*cancelled*
 through ``client.cancel(rid)``, recorded by a live tracer. A third act
 runs two replicas behind the :class:`repro_torch.serve.Router` with a live
 checkpoint hot-swap on a drained replica (the newest checkpoint on disk is
@@ -17,7 +21,7 @@ replica serves.
 
 Run: ``python -m repro_torch.examples.serve_lm --arch smollm-135m-smoke
 [--device cpu]``. Archs whose blocks the port does not build yet are
-refused, naming the ROADMAP sub-item (queue 1, item 5b/5c/5d).
+refused, naming the ROADMAP sub-item (queue 1, item 5c or 5d).
 """
 
 from __future__ import annotations
@@ -93,8 +97,10 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"ticks: {snap['ticks']}  pool: {snap['pool']['kind']} "
           f"(pages hwm {snap['pool']['pages_hwm']}/"
           f"{snap['pool']['total_pages']})  graphs built: "
-          f"{stats['compiles']} (chunked prefill: one key for every prompt "
-          f"length)")
+          f"{stats['compiles']} ("
+          + ("chunked prefill: one key for every prompt length)"
+             if engine.prefill_chunk else
+             "whole-prompt prefill runs eagerly, decode on one key)"))
 
     lifecycle_demo(cfg, model, rng, dev)
     router_demo(cfg, model, dev)
@@ -109,15 +115,19 @@ def lifecycle_demo(cfg, model, rng, dev):
     from repro_torch.obs import Tracer
     from repro_torch.serve import (Request, RequestCancelled, ServeClient,
                                    ServeEngine)
+    from repro_torch.serve.cache import chunked_prefill_supported
 
-    print("\n-- lifecycle demo: tiny pool, incremental admission --")
+    # preemption recomputes through chunked prefill: archs without it wait
+    # for pages under eager admission
+    admission = ("incremental" if chunked_prefill_supported(cfg)
+                 else "eager")
+    print(f"\n-- lifecycle demo: tiny pool, {admission} admission --")
     tracer = Tracer()
     # 2 slots but only 4 usable 8-token pages: both requests' full budgets
     # cannot co-reside, so incremental admission must preempt
     engine = ServeEngine(cfg, model, slots=2, max_len=32, page_size=8,
-                         num_pages=5, prefill_chunk=4,
-                         admission="incremental", tracer=tracer, seed=0,
-                         device=dev)
+                         num_pages=5, prefill_chunk=4, admission=admission,
+                         tracer=tracer, seed=0, device=dev)
     with ServeClient(engine) as client:
         def mk():
             return rng.integers(0, cfg.vocab_size, size=5)
@@ -174,7 +184,7 @@ def router_demo(cfg, model, dev):
     with tempfile.TemporaryDirectory() as ckpt_dir:
         mgr = CheckpointManager(ckpt_dir)
         tree = {"params": convert.to_jax_params(
-            dict(model.named_parameters()))}
+            dict(model.named_parameters()), cfg)}
         mgr.save(1, tree)
         mgr.save(2, tree)
         tear_checkpoint(ckpt_dir)      # the newest step is now damaged

@@ -6,13 +6,14 @@
 Replays the reference bench's seeded traces (:mod:`repro_torch.serve.trace`,
 the same workloads byte for byte) through the port's greedy
 :class:`~repro_torch.serve.ServeEngine` on the smoke arch (max_len 96,
-pages and chunks of 16), after the same burn-in (one 8- and one 48-token
-prompt build every graph key; then ``reset_metrics``), and prints the same
-rows with the same ``derived`` fields, one ``name,us_per_call,derived``
+pages and chunks of 16), after the same burn-in (on the paged pool one 8-
+and one 48-token prompt build every graph key; on the dense pool one
+prompt per power-of-two bucket; then ``reset_metrics``), and prints the
+same rows with the same ``derived`` fields, one ``name,us_per_call,derived``
 line each after a header:
 
-* ``serve/trace_e2e`` — skipped: it runs the dense pool, which is not
-  ported (ROADMAP queue 1, item 5b);
+* ``serve/trace_e2e`` — wall µs to drain the uniform trace on the dense
+  pool (4 slots, whole-prompt admission);
 * ``serve/paged_e2e`` — wall µs to drain the bimodal trace (half the
   prompts span several prefill chunks) on 4 slots;
 * ``serve/preempt_overload`` — the same trace on 8 usable pages under
@@ -81,27 +82,34 @@ def _model(cfg, dev):
 
 
 def _warm(engine, cfg, rng) -> None:
-    """The burn-in: one multi-chunk prompt builds every key the trace
-    takes; then the metrics (tick clock, trace ring) reset."""
+    """The burn-in: on the paged pool one multi-chunk prompt builds every
+    key the trace takes; on the dense pool a prompt per bucket runs each
+    bucket's prefill once, as the reference's burn-in compiles each; then
+    the metrics (tick clock, trace ring) reset."""
+    burn = (8,) if engine.pool.kind == "paged" else (8, 16, 32, 48)
     _drain(engine, [rng.integers(0, cfg.vocab_size, size=n)
-                    for n in (8, 48)], 2)
+                    for n in (*burn, 48)], 2)
     engine.reset_metrics()
 
 
 def _run_engine(dev, slots: int, requests: int, max_new: int, seed: int = 0,
-                admission: str = "eager", num_pages=None, arch: str = ARCH,
-                spec_k: int = 0):
+                pool: str = "paged", admission: str = "eager",
+                num_pages=None, arch: str = ARCH, spec_k: int = 0):
     from repro_torch.configs import registry
     from repro_torch.serve import ServeEngine
 
     cfg = registry.get(arch)
     engine = ServeEngine(cfg, _model(cfg, dev), slots=slots, max_len=MAX_LEN,
-                         admission=admission, num_pages=num_pages,
-                         spec_k=spec_k, seed=seed, device=dev)
+                         pool=pool, admission=admission,
+                         num_pages=num_pages, spec_k=spec_k, seed=seed,
+                         device=dev)
     _warm(engine, cfg, np.random.default_rng(seed))
     warm = engine.compile_stats["compiles"]
-    items = _items(cfg, requests, max_new, mix="bimodal",
-                   chunk=engine.prefill_chunk, seed=seed)
+    if pool == "paged":
+        items = _items(cfg, requests, max_new, mix="bimodal",
+                       chunk=engine.prefill_chunk, seed=seed)
+    else:
+        items = _items(cfg, requests, max_new, mix="uniform", seed=seed)
     t0 = time.perf_counter()
     _drain(engine, [it.prompt for it in items], max_new)
     wall = time.perf_counter() - t0
@@ -161,7 +169,14 @@ def run(dev: torch.device, requests: int = 24, max_new: int = 8,
     from repro_torch.obs import Tracer
     from repro_torch.obs.validate import validate_chrome_trace
 
-    rows = [skipped("serve/trace_e2e", "dense_pool_not_ported")]
+    snap, wall = _run_engine(dev, 4, requests, max_new, pool="dense")
+    rows = [row(
+        "serve/trace_e2e", wall * 1e6, _engine_derived(snap)
+        + f"p50_ttft_ms={snap['ttft_ms']['p50']};"
+        f"p95_ttft_ms={snap['ttft_ms']['p95']};"
+        f"occupancy={snap['slot_occupancy']};"
+        f"requests={snap['requests_finished']};"
+        f"tokens={snap['total_tokens']}", 1)]
 
     snap, wall = _run_engine(dev, 4, requests, max_new)
     rows.append(row(

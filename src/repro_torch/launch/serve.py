@@ -33,12 +33,14 @@ timelines through one shared :class:`repro_torch.obs.Tracer` (replica
 (summary + metrics-registry snapshot), rewritten atomically every
 ``--metrics-interval`` seconds while serving.
 
-Not ported yet, and refused with a message rather than ignored:
-``--pool dense`` and ``--prefill-chunk 0`` (whole-bucket admission;
-ROADMAP queue 1, item 5b), ``--mesh-shape`` and ``--simulated-devices``
-(multi-device serving; item 6). ``--arch`` takes every registry name
-whose blocks the port builds (``attn``, ``global``, ``moe``); any other
-exits naming its sub-item (5b, 5c, 5d).
+``--pool dense`` serves one full row per slot; ``--prefill-chunk 0``
+admits whole prompts (power-of-two buckets; exact lengths for archs with
+sliding-window rings, which never chunk). Not ported yet, and refused
+with a message rather than ignored: ``--mesh-shape`` and
+``--simulated-devices`` (multi-device serving; ROADMAP queue 1, item 6).
+``--arch`` takes every registry name whose blocks the port builds
+(``attn``, ``local``, ``global``, ``moe``); any other exits naming its
+sub-item (5c, 5d).
 
 :func:`main` takes ``argv`` and returns the document ``--metrics-json``
 writes, so it can be called in-process.
@@ -84,7 +86,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="per-slot budget: prompt + generated tokens")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--pool", default="paged", choices=("paged", "dense"),
-                    help="cache pool kind (only paged is ported)")
+                    help="cache pool kind (paged falls back to dense for "
+                         "sequential-state archs)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="paged pool: tokens per page")
     ap.add_argument("--num-pages", type=int, default=0,
@@ -149,14 +152,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.pool == "dense":
-        raise SystemExit("--pool dense is not ported: the port serves "
-                         "through the paged pool only (ROADMAP queue 1, "
-                         "item 5b, brings the dense pool)")
-    if args.prefill_chunk <= 0:
-        raise SystemExit("--prefill-chunk 0 (whole-bucket admission) is not "
-                         "ported: the port admits through chunked prefill "
-                         "only (ROADMAP queue 1, item 5b)")
     if args.mesh_shape or args.simulated_devices:
         raise SystemExit("--mesh-shape and --simulated-devices are not "
                          "ported: the port serves on one device (ROADMAP "
@@ -196,8 +191,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     tracer = Tracer() if args.trace_out else NULL_TRACER
     engines = [ServeEngine(
         cfg, m, slots=args.slots, max_len=args.max_len,
-        page_size=args.page_size, num_pages=args.num_pages or None,
-        prefill_chunk=args.prefill_chunk,
+        pool=args.pool, page_size=args.page_size,
+        num_pages=args.num_pages or None,
+        prefill_chunk=args.prefill_chunk or None,
         sampling=SamplingParams(temperature=args.temperature,
                                 top_k=args.top_k, top_p=args.top_p),
         admission=args.admission, spec_k=args.spec_k,
@@ -209,7 +205,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if dev.type == "cuda":
         build.build(SERVE_LIBRARIES)
     print(f"[serve] {cfg.name} | params: {src} | slots={args.slots} "
-          f"max_len={args.max_len} pool=paged "
+          f"max_len={args.max_len} pool={engine.pool.kind} "
           f"chunk={engine.prefill_chunk} admission={engine.admission} "
           f"spec_k={engine.spec_k} "
           f"sampling=(T={args.temperature}, "
@@ -227,7 +223,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         spec = trace.TraceSpec(
             requests=args.requests, seed=args.seed, rate=args.rate,
             min_prompt=args.min_prompt, max_prompt=hi, mix=args.mix,
-            chunk=engine.prefill_chunk, max_new_tokens=args.max_new)
+            chunk=engine.prefill_chunk or 16, max_new_tokens=args.max_new)
     except ValueError as e:
         raise SystemExit(f"invalid trace: {e}")
     items = trace.generate(spec, cfg.vocab_size)

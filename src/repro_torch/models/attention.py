@@ -1,16 +1,35 @@
-"""GQA attention: over the paged KV pool (serving) and over whole
-sequences without a cache (training).
+"""GQA attention: over the paged KV pool and over dense rows and
+sliding-window rings (serving), and over whole sequences without a cache
+(training).
 
-Counterpart of ``repro.models.attention.attention`` for two of its
-branches. Serving: project q/k/v, apply RoPE, scatter this step's K/V into
-the pool at ``(page, offset)`` — positions past the page table's reach go
-to the trash page — and read back through the page table. One query
-position (``Sq == 1``, decode) goes to the CUDA kernel; a prompt chunk
-(``Sq > 1``) goes to the plain gather :func:`paged_attend_ref`, exactly as
-the reference does. The pool is updated in place. Training (no cache): the
-causal masked path :func:`_attend_masked`, or the online-softmax blockwise
-path :func:`_attend_blockwise` from ``cfg.blockwise_threshold`` on. Both
-are plain PyTorch, as the reference's are plain jnp.
+Counterpart of ``repro.models.attention.attention`` for its self-attention
+branches.
+
+* **Training** (no cache): the masked path :func:`_attend_masked`, or the
+  online-softmax blockwise path :func:`_attend_blockwise` from
+  ``cfg.blockwise_threshold`` on, both with the sliding ``window`` of a
+  ``local`` block. Training's blockwise loop visits every KV block and
+  masks; a block outside the causal window contributes exactly zero
+  through ``corr = exp(m - m_new)``.
+* **Prefill** (``prefill=True``): the whole prompt at once, the blockwise
+  path skipping the KV blocks outside each query block's window (the
+  reference's ``dynamic_bounds``); the layer's dense cache row is written
+  in place. A ring (``window > 0``) keeps the last ``ring`` positions with
+  ``slot = pos % ring``; a full row keeps the prompt and zeros after it.
+* **Paged decode** (``page_table`` given, ``window == 0``): scatter this
+  step's K/V into the pool at ``(page, offset)`` — positions past the page
+  table's reach go to the trash page — and read back through the page
+  table. One query position goes to the CUDA kernel; a prompt chunk
+  (``Sq > 1``) goes to the plain gather :func:`paged_attend_ref`, as the
+  reference does.
+* **Dense decode** (otherwise): one query position per row, written at
+  ``cur_pos % ring`` into a ring or at ``cur_pos`` into a full row, read
+  back under a validity mask that rebuilds each ring entry's absolute
+  position. Plain PyTorch, as the reference's is plain jnp: the reference
+  has no ring-decode kernel.
+
+Every cache is updated in place and no branch synchronises with the host,
+so a decode tick captures as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -52,40 +71,58 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+                   q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   window: int = 0) -> torch.Tensor:
     """Causal grouped-query attention without KV expansion: q (B,Sq,KV,G,D),
-    k/v (B,Skv,KV,D), positions (B,S). Scores and softmax in float32."""
+    k/v (B,Skv,KV,D), positions (B,S); ``window > 0`` also masks keys
+    ``window`` or more positions back. Scores and softmax in float32."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
-    mask = k_pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]
+    kp = k_pos[:, None, None, None, :]
+    qp = q_pos[:, None, None, :, None]
+    mask = kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
 
 
 def _attend_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      block_q: int, block_kv: int) -> torch.Tensor:
-    """Online-softmax causal GQA attention over (block_q, block_kv) tiles,
-    the reference's training variant: every KV block of every query block,
-    masked (no block skipping). q (B,S,KV,G,D), k/v (B,S,KV,D); S divides
-    both blocks."""
+                      block_q: int, block_kv: int, window: int = 0,
+                      dynamic_bounds: bool = False) -> torch.Tensor:
+    """Online-softmax causal GQA attention over (block_q, block_kv) tiles.
+    q (B,S,KV,G,D), k/v (B,S,KV,D); S divides both blocks; ``window > 0``
+    is a sliding window. Training (``dynamic_bounds=False``) visits every
+    KV block of every query block and masks; prefill visits only the
+    blocks that intersect ``[qi*bq - window, (qi+1)*bq)``, the reference's
+    block skipping. The bounds are Python ints: no host sync."""
     B, S, KV, G, D = q.shape
     scale = D ** -0.5
     dev = q.device
+    nkv = S // block_kv
     outs = []
     for qi in range(S // block_q):
+        lo, hi = 0, nkv
+        if dynamic_bounds:
+            hi = (qi * block_q + block_q + block_kv - 1) // block_kv
+            if window > 0:
+                lo = max(0, (qi * block_q - window) // block_kv)
         qblk = q[:, qi * block_q:(qi + 1) * block_q].permute(0, 2, 3, 1, 4)
         q_ids = qi * block_q + torch.arange(block_q, device=dev)
         m = torch.full((B, KV, G, block_q), NEG_INF, device=dev)
         l = torch.zeros((B, KV, G, block_q), device=dev)
         acc = torch.zeros((B, KV, G, block_q, D), device=dev)
-        for j in range(S // block_kv):
+        for j in range(lo, hi):
             sl = slice(j * block_kv, (j + 1) * block_kv)
             kblk = k[:, sl].permute(0, 2, 1, 3)          # (B,KV,bkv,D)
             vblk = v[:, sl].permute(0, 2, 1, 3)
             k_ids = j * block_kv + torch.arange(block_kv, device=dev)
             s = torch.einsum("bkgqd,bkcd->bkgqc", qblk, kblk).float() * scale
-            s = s.masked_fill(~(k_ids[None, :] <= q_ids[:, None]), NEG_INF)
+            msk = k_ids[None, :] <= q_ids[:, None]
+            if window > 0:
+                msk &= k_ids[None, :] > q_ids[:, None] - window
+            s = s.masked_fill(~msk, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -102,12 +139,17 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
               positions: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               page_table: Optional[torch.Tensor] = None,
+              window: int = 0, prefill: bool = False,
               context: ContextLike = None) -> torch.Tensor:
-    """x (B, Sq, E); positions (B, Sq) int32 absolute positions.
+    """x (B, Sq, E); positions (B, Sq) int32 absolute positions; ``window``
+    the sliding window of a ``local`` block (0 = full attention).
 
-    With ``cache`` (this layer's ``(k_pool, v_pool)``, each (N, ps, KV, D),
-    written in place) and ``page_table`` (B, P) int32: the paged serving
-    path. Without: causal attention over the whole sequence (training)."""
+    Without ``cache``: attention over the whole sequence (training). With
+    ``cache``, this layer's ``(k, v)``, written in place: under ``prefill``
+    a dense row or ring (B, length, KV, D) filled from the whole prompt;
+    with ``page_table`` (B, P) int32 and ``window == 0`` the paged pool
+    (N, ps, KV, D); else a dense row or ring at one decode position per
+    row, ``positions[:, 0]``."""
     B, Sq, E = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = cm.rope(_project(x, attn.wq), positions, cfg.rope_theta)
@@ -115,14 +157,21 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
     k = cm.rope(_project(x, attn.wk), positions, cfg.rope_theta)
     v = _project(x, attn.wv)
 
-    if cache is None:
+    if cache is None or prefill:
+        if cache is not None:
+            _write_prefill(cache, k, v, window)
         if (Sq >= cfg.blockwise_threshold and Sq % cfg.attn_block_q == 0
                 and Sq % cfg.attn_block_kv == 0):
             att = _attend_blockwise(q, k, v, block_q=cfg.attn_block_q,
-                                    block_kv=cfg.attn_block_kv)
+                                    block_kv=cfg.attn_block_kv,
+                                    window=window, dynamic_bounds=prefill)
         else:
-            att = _attend_masked(q, k, v, positions, positions)
+            att = _attend_masked(q, k, v, positions, positions, window)
         return _proj_out(cfg, attn, att)
+
+    if page_table is None or window > 0:
+        return _proj_out(cfg, attn, _decode_dense(q, k, v, cache,
+                                                  positions, window))
 
     k_pool, v_pool = cache
     ps = k_pool.shape[1]
@@ -140,6 +189,59 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
     else:
         att = pa.paged_attend_ref(q, k_pool, v_pool, page_table, positions)
     return _proj_out(cfg, attn, att)
+
+
+def _write_prefill(cache: Tuple[torch.Tensor, torch.Tensor],
+                   k: torch.Tensor, v: torch.Tensor, window: int) -> None:
+    """Fill a dense cache row (B, length, KV, D) from a whole prompt's k/v
+    (B, Sq, KV, D), in place. A ring (``window > 0``) of a prompt at least
+    as long keeps its last ``length`` positions, rolled so that ``slot =
+    pos % length``; a shorter prompt, or a full row, lands at slots
+    ``0..Sq-1`` with zeros after it. The zero tail is never read: decode's
+    validity mask admits a slot only once its position has been written."""
+    length, Sq = cache[0].shape[1], k.shape[1]
+    for c, new in zip(cache, (k, v)):
+        new = new.to(c.dtype)
+        if window > 0 and Sq >= length:
+            start = Sq - length
+            c.copy_(torch.roll(new[:, start:], start % length, dims=1))
+        else:
+            c[:, :Sq] = new
+            c[:, Sq:] = 0
+
+
+def _decode_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cache: Tuple[torch.Tensor, torch.Tensor],
+                  positions: torch.Tensor, window: int) -> torch.Tensor:
+    """One decode position per row against a dense cache row (B, length,
+    KV, D): write k/v at ``cur_pos % length`` (a ring, ``window > 0``) or at
+    ``cur_pos``, then attend over the row. A ring entry ``i`` holds the
+    absolute position ``p <= cur_pos`` with ``p % length == i``; it is valid
+    when ``p > cur_pos - window``. Returns (B, 1, KV, G, D)."""
+    if q.shape[1] != 1:
+        raise ValueError(f"dense-cache decode takes one query position per "
+                         f"row, got {q.shape[1]}")
+    k_all, v_all = cache
+    B, length = k_all.shape[:2]
+    cp = positions[:, 0].long()
+    slot = cp % length if window > 0 else cp
+    rows = torch.arange(B, device=q.device)
+    k_all[rows, slot] = k[:, 0].to(k_all.dtype)
+    v_all[rows, slot] = v[:, 0].to(v_all.dtype)
+    kpos = torch.arange(length, device=q.device)[None, :]
+    cp = cp[:, None]
+    if window > 0:
+        abs_pos = kpos + (cp - cp % length)
+        abs_pos = torch.where(abs_pos > cp, abs_pos - length, abs_pos)
+        valid = abs_pos >= (cp - window + 1).clamp(min=0)
+    else:
+        valid = kpos <= cp
+    scale = q.shape[-1] ** -0.5
+    ka, va = k_all.to(q.dtype), v_all.to(q.dtype)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q, ka).float() * scale
+    logits = logits.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs.to(va.dtype), va)
 
 
 def _proj_out(cfg: ModelConfig, attn: Attention, att: torch.Tensor

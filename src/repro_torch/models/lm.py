@@ -1,19 +1,24 @@
-"""The decoder-only LM for the block units ``("attn",)``, ``("global",)``
-and ``("moe",)``: serving and training entry points.
+"""The decoder-only LM for units of ``attn``, ``local``, ``global`` and
+``moe`` blocks, with a tail: serving and training entry points.
 
 Counterpart of ``repro.models.lm`` for the port's serving and training
-paths. The reference scans one stacked layer unit with ``lax.scan``; here
-:func:`backbone` is a Python loop over an ``nn.ModuleList``, summing each
-block's aux loss as the reference's scan carry does. ``global`` is
-``attn`` with window 0, as in the reference; ``moe`` swaps the MLP for
-:class:`repro_torch.models.moe.MoE`. Serving: the KV caches are one pair
-of ``(n_layers, N, ps, KV, D)`` page pools
-(:class:`repro_torch.serve.cache.PagedCachePool`), updated in place, so
-the entry points return no caches and drop the aux loss. Training:
-:func:`loss_fn` runs the stack without caches; with ``cfg.remat`` each
-layer is checkpointed (``torch.utils.checkpoint``, the counterpart of the
-reference's ``jax.checkpoint`` of the scan body) and runs again in the
-backward pass.
+paths. The reference scans a stacked layer unit ``unit_repeats`` times with
+``lax.scan``, then runs the ``tail_layers`` unrolled; here the layers are
+one ``nn.ModuleList`` in that order (:func:`layer_types`) and
+:func:`backbone` is a Python loop over it, summing each block's aux loss as
+the reference's scan carry does. ``global`` is ``attn`` with window 0 and
+``local`` is ``attn`` with ``cfg.sliding_window``, as in the reference;
+``moe`` swaps the MLP for :class:`repro_torch.models.moe.MoE`.
+
+Serving: the caches are one flat dict of stacked tensors, updated in place
+(:mod:`repro_torch.serve.cache`): ``"k"``/``"v"`` for the full-attention
+layers (pages of the paged pool with a page table, one full row per slot
+without) and ``"ring_k"``/``"ring_v"`` for the ``local`` layers' rings;
+:func:`cache_index` names each layer's entry. The entry points return no
+caches and drop the aux loss. Training: :func:`loss_fn` runs the stack
+without caches; with ``cfg.remat`` each layer is checkpointed
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` of the scan body) and runs again in the backward pass.
 
 The rest of the zoo is refused with a ``ValueError`` naming the ROADMAP
 sub-item that brings it (:func:`unported_reason`).
@@ -21,7 +26,7 @@ sub-item that brings it (:func:`unported_reason`).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,13 +39,8 @@ from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 
-#: the block units the port builds, serves and trains
-PORTED_UNITS = (("attn",), ("global",), ("moe",))
-
 #: the ROADMAP sub-item (queue 1, item 5) that brings each unported piece
 _SUB_ITEMS = {
-    "local": "5b (sliding-window ring caches, the dense pool and bucketed "
-             "prefill)",
     "rec": "5c (rglru.py and xlstm.py on the dense exact-length path)",
     "mlstm": "5c (rglru.py and xlstm.py on the dense exact-length path)",
     "slstm": "5c (rglru.py and xlstm.py on the dense exact-length path)",
@@ -51,7 +51,7 @@ _SUB_ITEMS = {
 
 def unported_reason(cfg: ModelConfig) -> Optional[str]:
     """``None`` when the port builds, serves and trains ``cfg``; else why
-    not, naming the ROADMAP sub-item (queue 1, item 5b/5c/5d) that brings
+    not, naming the ROADMAP sub-item (queue 1, item 5c or 5d) that brings
     it."""
     def refuse(what: str, item: str) -> str:
         return (f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1, "
@@ -63,9 +63,6 @@ def unported_reason(cfg: ModelConfig) -> Optional[str]:
     if cfg.frontend or cfg.n_enc_layers:
         return refuse(f"the {cfg.frontend or 'encoder'} frontend",
                       _SUB_ITEMS["enc"])
-    if tuple(cfg.block_unit) not in PORTED_UNITS or cfg.tail_layers:
-        return refuse(f"block unit {cfg.block_unit} with tail "
-                      f"{cfg.tail_layers}", _SUB_ITEMS["local"])
     return None
 
 
@@ -77,9 +74,29 @@ def check_ported(cfg: ModelConfig) -> None:
         raise ValueError(reason)
 
 
+def layer_types(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Each layer's block type in the reference's order: the unit
+    ``unit_repeats`` times, then the tail."""
+    return (tuple(cfg.block_unit) * cfg.unit_repeats
+            + tuple(cfg.tail_layers))
+
+
+def cache_index(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """Per layer, the prefix of its serving cache entry (``""`` for
+    ``"k"``/``"v"``, ``"ring_"`` for a ``local`` layer's ring) and its index
+    in that stack."""
+    seen = {"": 0, "ring_": 0}
+    out = []
+    for t in layer_types(cfg):
+        pre = "ring_" if t == "local" else ""
+        out.append((pre, seen[pre]))
+        seen[pre] += 1
+    return out
+
+
 class Layer(nn.Module):
-    """One ``attn``/``global``/``moe`` block: norm → attention → residual,
-    norm → MLP or MoE → residual."""
+    """One ``attn``/``local``/``global``/``moe`` block: norm → attention →
+    residual, norm → MLP or MoE → residual."""
 
     def __init__(self, cfg: ModelConfig, btype: str, *,
                  generator: Optional[torch.Generator] = None,
@@ -108,11 +125,10 @@ class LM(nn.Module):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
-        (btype,) = cfg.block_unit
         self.embed = cm.Embed(cfg, generator=generator)
         self.layers = nn.ModuleList(
-            Layer(cfg, btype, generator=generator, site_specs=site_specs)
-            for _ in range(cfg.n_layers))
+            Layer(cfg, t, generator=generator, site_specs=site_specs)
+            for t in layer_types(cfg))
         self.final_norm = nn.Parameter(
             torch.ones(cfg.d_model, dtype=cfg.pdtype()))
         self.head = cm.head_module(cfg, self.embed, generator=generator,
@@ -123,16 +139,18 @@ def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
                 positions: torch.Tensor,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 page_table: Optional[torch.Tensor] = None,
-                context: ContextLike = None
+                prefill: bool = False, context: ContextLike = None
                 ) -> Tuple[torch.Tensor, moem.AuxLoss]:
     """One layer; returns ``(x, aux)`` with ``aux`` the MoE's aux loss,
     0.0 for other blocks and when serving (``cache`` given: the entry
     points drop it). Without ``cache`` the attention runs over the whole
-    sequence (training)."""
+    sequence (training); ``prefill`` fills ``cache`` from the whole
+    prompt (:func:`repro_torch.models.attention.attention`)."""
+    window = cfg.sliding_window if layer.btype == "local" else 0
     h = cm.rmsnorm(x, layer.norm1, cfg.norm_eps)
     x = x + attn.attention(cfg, layer.attn, h, positions=positions,
                            cache=cache, page_table=page_table,
-                           context=context)
+                           window=window, prefill=prefill, context=context)
     h = cm.rmsnorm(x, layer.norm2, cfg.norm_eps)
     if layer.btype == "moe":
         f, aux = moem.moe_apply(cfg, layer.ffn, h, with_aux=cache is None)
@@ -143,19 +161,23 @@ def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
 def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
              caches: Optional[Dict[str, torch.Tensor]] = None,
              page_table: Optional[torch.Tensor] = None,
-             context: ContextLike = None
+             prefill: bool = False, context: ContextLike = None
              ) -> Tuple[torch.Tensor, moem.AuxLoss]:
     """Run the layer stack; returns ``(x, aux)``, the blocks' aux losses
     summed in layer order (0.0 without MoE blocks, and when serving).
-    Serving: ``caches`` is ``{"k", "v"}`` of
-    ``(n_layers, N, ps, KV, D)`` pools, written in place. Training
-    (``caches=None``): with ``cfg.remat`` and gradients on, each layer is
-    checkpointed and recomputed in the backward pass."""
+    Serving: ``caches`` holds the stacked ``"k"``/``"v"`` and
+    ``"ring_k"``/``"ring_v"`` caches (:func:`cache_index`), written in
+    place. Training (``caches=None``): with ``cfg.remat`` and gradients on,
+    each layer is checkpointed and recomputed in the backward pass."""
     cfg = model.cfg
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
+    index = cache_index(cfg)
     aux = 0.0
     for i, layer in enumerate(model.layers):
-        cache = None if caches is None else (caches["k"][i], caches["v"][i])
+        cache = None
+        if caches is not None:
+            pre, j = index[i]
+            cache = (caches[pre + "k"][j], caches[pre + "v"][j])
         if remat:
             x, a = checkpoint(layer_apply, cfg, layer, x,
                               positions=positions, context=context,
@@ -163,7 +185,7 @@ def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
         else:
             x, a = layer_apply(cfg, layer, x, positions=positions,
                                cache=cache, page_table=page_table,
-                               context=context)
+                               prefill=prefill, context=context)
         aux = aux + a
     return x, aux
 
@@ -190,12 +212,46 @@ def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
     return ce + aux, {"ce": ce, "aux": aux}
 
 
+def prefill_at(model: LM, tokens: torch.Tensor,
+               caches: Dict[str, torch.Tensor], last_pos: torch.Tensor,
+               context: ContextLike = None) -> torch.Tensor:
+    """Whole-prompt prefill: ``tokens`` (B, S) right-padded prompts at
+    positions ``0..S-1``, ``last_pos`` (B,) each prompt's last real token,
+    whose logits (B, V) are returned. Fills the dense-layout ``caches``
+    (full rows of length >= S and rings, :func:`repro_torch.serve.cache.
+    init_caches`) in place. Causality keeps the pad tail inert for every
+    real position, so the caches serve decode as they are; not for rings,
+    where pads would push real positions out: the engine prefills archs
+    with ``local`` blocks at their exact prompt lengths."""
+    cfg = model.cfg
+    x = cm.embed(cfg, model.embed, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    x, _ = backbone(model, x, positions=positions, caches=caches,
+                    prefill=True, context=context)
+    rows = torch.arange(B, device=x.device)
+    x_last = x[rows, torch.as_tensor(last_pos, device=x.device).long()]
+    h = cm.rmsnorm(x_last[:, None], model.final_norm, cfg.norm_eps)
+    return cm.head_apply(cfg, model.head, h, context)[:, 0]
+
+
+def prefill(model: LM, tokens: torch.Tensor,
+            caches: Dict[str, torch.Tensor], context: ContextLike = None
+            ) -> torch.Tensor:
+    """:func:`prefill_at` read at the last position of ``tokens`` (B, S)."""
+    last = torch.full((tokens.shape[0],), tokens.shape[1] - 1,
+                      dtype=torch.int32, device=tokens.device)
+    return prefill_at(model, tokens, caches, last, context)
+
+
 def decode_step(model: LM, token: torch.Tensor,
                 caches: Dict[str, torch.Tensor], cur_pos: torch.Tensor,
-                page_table: torch.Tensor, context: ContextLike = None
-                ) -> torch.Tensor:
+                page_table: Optional[torch.Tensor] = None,
+                context: ContextLike = None) -> torch.Tensor:
     """One decode step: ``token`` (B,) at absolute positions ``cur_pos``
-    (B,) (or a scalar for the whole batch). Returns logits (B, V)."""
+    (B,) (or a scalar for the whole batch), through the paged pool with
+    ``page_table`` or the dense one without. Returns logits (B, V)."""
     cfg = model.cfg
     x = cm.embed(cfg, model.embed, token[:, None])
     B = x.shape[0]

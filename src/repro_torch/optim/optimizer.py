@@ -10,7 +10,13 @@ should a caller pass them) are never updated.
 :func:`apply_updates` adds the updates to the parameters **in place** (the
 reference returns new arrays): the parameters are the model's own
 ``nn.Parameter`` tensors, and an out-of-place copy would double their
-memory for nothing.
+memory for nothing. For the same reason :func:`scale_by_adam` updates its
+moments in place, with the reference's operations in its order (the same
+bits): the state it returns holds the tensors it was given, so a caller
+must not reuse a state it has passed to ``update``. Kept functional, the
+old and new moments would live together through the update, four float32
+copies of every parameter, which at gemma3-27b's 8-layer training run
+(1.95 B parameters, 1.4 B of them the embedding) leaves one card no room.
 """
 
 from __future__ import annotations
@@ -98,15 +104,19 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
                                 nu=zeros())
 
     def update(grads, state, params=None):
+        # in place, each product and sum of the reference's expressions
+        # ``b1 * m + (1 - b1) * g``, ``b2 * v + (1 - b2) * g * g`` and
+        # ``(m / c1) / (sqrt(v / c2) + eps)`` in its order
         count = state.count + 1
-        mu = _map(lambda g, m: None if m is None else b1 * m + (1 - b1) * g,
-                  grads, state.mu)
+        mu = _map(lambda g, m: None if m is None
+                  else m.mul_(b1).add_((1 - b1) * g), grads, state.mu)
         nu = _map(lambda g, v: None if v is None
-                  else b2 * v + (1 - b2) * g * g, grads, state.nu)
+                  else v.mul_(b2).add_((1 - b2) * g * g), grads, state.nu)
         c1 = 1 - b1 ** count.to(torch.float32)
         c2 = 1 - b2 ** count.to(torch.float32)
         updates = _map(lambda m, v: None if m is None
-                       else (m / c1) / (torch.sqrt(v / c2) + eps), mu, nu)
+                       else (m / c1).div_((v / c2).sqrt_().add_(eps)),
+                       mu, nu)
         return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
 
     return GradientTransformation(init, update)

@@ -1,25 +1,36 @@
-"""The paged KV cache pool of the serving engine.
+"""The serving engine's KV cache pools: dense and paged.
 
-Counterpart of ``repro.serve.cache.PagedCachePool``: KV leaves are ONE
-preallocated pool of fixed-size pages per layer stack, plus a host-side
-per-slot page table and a FIFO free-list allocator with recycling.
-Capacity is reserved per request (``prompt + max_new_tokens``), not per
-worst-case ``max_len``.
+Counterpart of ``repro.serve.cache``. A pool's caches are one flat dict of
+stacked tensors, updated **in place** by the model's attention (the
+reference rebuilds its immutable trees instead), laid out per block type
+as the reference lays them out:
 
-The pool is one pair of ``(n_layers, num_pages, page_size, KV, D)`` tensors
-(``{"k", "v"}``), updated **in place** by the model's attention; the
-reference rebuilds its immutable arrays instead. It pages the ``self`` KV
-of ``attn``, ``global`` and ``moe`` blocks. :func:`paged_supported` and
-:func:`chunked_prefill_supported` are the reference's predicates. A pool
-can be built without a model, so it refuses, as ``LM`` does, an arch
-whose blocks the port does not build yet, naming its ROADMAP sub-item
-(:func:`repro_torch.models.lm.check_ported`); the engine's refusal is
-its pool's.
+=================  ==================================================
+attn/global/moe    ``"k"``/``"v"`` (n, ...): a full row per slot on
+                   :class:`DenseCachePool`, pages of one shared pool on
+                   :class:`PagedCachePool` (the reference's
+                   ``_PAGED_KEYS``)
+local              ``"ring_k"``/``"ring_v"`` (n_local, slots, ring, KV,
+                   D): a dense ring of ``min(window, total_seq)``
+                   positions per slot, on either pool
+=================  ==================================================
+
+:func:`repro_torch.models.lm.cache_index` maps each layer to its entry.
+:func:`init_caches` is the dense layout at any batch: the dense pool's
+caches, and the batch-1 tree a whole-prompt prefill fills before
+``write_slot`` splices it into a slot. :func:`paged_supported` and
+:func:`chunked_prefill_supported` are the reference's predicates;
+:func:`make_pool` picks a pool as the reference's does. A pool can be
+built without a model, so it refuses, as ``LM`` does, an arch whose blocks
+the port does not build yet, naming its ROADMAP sub-item
+(:func:`repro_torch.models.lm.check_ported`); the engine's refusal is its
+pool's.
 
 Physical **page 0 is the trash page**: never allocated, the target of every
 unallocated page-table entry, and the engine redirects inactive slots'
 whole rows to it. Stray writes land there; reads from it are masked by the
-positional validity mask.
+positional validity mask. Rings and dense rows are per slot: an inactive
+slot's decode writes land in its own row, which admission rewrites whole.
 
 The page table lives on the host, where the allocator edits it, and in one
 persistent device buffer that :meth:`PagedCachePool.gather_args` refreshes
@@ -42,13 +53,25 @@ from repro_torch.kernels.paged_attention import TRASH_PAGE
 from repro_torch.models import lm
 
 #: block types whose cache mixes positions sequentially (recurrent state):
-#: a right-padded prefill or a paged gather would corrupt them
+#: a right-padded prefill or a paged gather would corrupt them. The
+#: cache's list; the engine's own (``repro_torch.serve.engine``) adds
+#: ``local``, whose rings must be prefilled at exact lengths.
 SEQUENTIAL_STATE_BLOCKS = ("rec", "mlstm", "slstm")
+
+#: the block types whose ``self`` KV the paged pool pages
+_PAGED_BLOCKS = ("attn", "global", "moe")
+
+Caches = Dict[str, torch.Tensor]
 
 
 class PoolExhausted(RuntimeError):
-    """The page pool cannot cover a requested allocation. The engine
-    catches it at admission and leaves the request queued."""
+    """The pool cannot cover a requested allocation. The engine catches it
+    at admission and leaves the request queued."""
+
+
+def total_seq(cfg: ModelConfig, seq_len: int) -> int:
+    """Cache length: text tokens plus any prepended frontend tokens."""
+    return seq_len + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
@@ -69,8 +92,128 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
             and not cfg.frontend and not cfg.n_enc_layers)
 
 
+def layer_cache_spec(cfg: ModelConfig, btype: str, batch: int,
+                     seq_len: int) -> Tuple[int, ...]:
+    """The dense shape of each of a layer's ``k`` and ``v`` caches:
+    ``(batch, length, KV, D)``, ``length`` the whole ``seq_len`` for full
+    attention and ``min(sliding_window, seq_len)`` for a ``local`` ring."""
+    if btype not in ("attn", "local", "global", "moe"):
+        raise ValueError(f"{cfg.name}: no port cache for block type "
+                         f"{btype!r}")
+    length = (min(cfg.sliding_window, seq_len) if btype == "local"
+              else seq_len)
+    return (batch, length, cfg.n_kv_heads, cfg.head_dim_)
+
+
+def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[str, int]]:
+    """``{prefix: (a block type of the stack, layers in it)}`` for the
+    prefixes of :func:`repro_torch.models.lm.cache_index` in use."""
+    out: Dict[str, Tuple[str, int]] = {}
+    for t, (pre, _) in zip(lm.layer_types(cfg), lm.cache_index(cfg)):
+        out[pre] = (t, out.get(pre, (t, 0))[1] + 1)
+    return out
+
+
+def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
+                device: Union[str, torch.device, None] = None) -> Caches:
+    """Zeroed caches in the dense layout: ``"k"``/``"v"`` (n_full, batch,
+    total_seq, KV, D) and ``"ring_k"``/``"ring_v"`` (n_local, batch, ring,
+    KV, D), each present when some layer uses it, in the compute dtype."""
+    dev = resolve_device(device)
+    seq_len = total_seq(cfg, seq_len)
+    out = {}
+    for pre, (t, n) in _stacks(cfg).items():
+        shape = (n,) + layer_cache_spec(cfg, t, batch, seq_len)
+        for kv in ("k", "v"):
+            out[pre + kv] = torch.zeros(shape, dtype=cfg.cdtype(),
+                                        device=dev)
+    return out
+
+
+def write_cache_slot(pool: Caches, sub: Caches, slot: int,
+                     keys: Optional[Tuple[str, ...]] = None) -> None:
+    """Copy a batch-1 dense cache tree ``sub`` (:func:`init_caches`, filled
+    by a prefill) into batch index ``slot`` of the dense-layout ``pool``,
+    in place; ``keys`` limits the entries (all of ``pool``'s by default)."""
+    for key in (pool if keys is None else keys):
+        pool[key][:, slot] = sub[key][:, 0]
+
+
+def reset_cache_slot(pool: Caches, slot: int,
+                     keys: Optional[Tuple[str, ...]] = None) -> None:
+    """Zero batch index ``slot`` of the dense-layout ``pool`` in place
+    (its init state)."""
+    for key in (pool if keys is None else keys):
+        pool[key][:, slot] = 0
+
+
+class DenseCachePool:
+    """One full ``max_len`` row per slot (and a ring per slot for
+    ``local`` layers): the reference's ``DenseCachePool``, simple and
+    exact. No pages: the allocator only checks that a request fits a row,
+    and there is nothing to gather."""
+
+    kind = "dense"
+    faults = None                      # never consulted: no allocation
+
+    def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
+                 device: Union[str, torch.device, None] = None):
+        lm.check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.slots = slots
+        self.max_len = int(max_len)
+
+    def init(self) -> Caches:
+        return init_caches(self.cfg, self.slots, self.max_len, self.device)
+
+    def write_slot(self, caches: Caches, sub: Caches, slot: int) -> None:
+        """Splice a batch-1 prefill result into ``slot``, every row whole."""
+        write_cache_slot(caches, sub, slot)
+
+    def reset_slot(self, caches: Caches, slot: int) -> None:
+        reset_cache_slot(caches, slot)
+
+    def check_fits(self, n_tokens: int) -> None:
+        """Raise ``ValueError`` for a request that no row could hold."""
+        limit = total_seq(self.cfg, self.max_len)
+        if n_tokens > limit:
+            raise ValueError(f"request needs {n_tokens} positions but a "
+                             f"dense pool row holds {limit}")
+
+    def alloc_pages(self, slot: int, n_tokens: int) -> None:
+        limit = total_seq(self.cfg, self.max_len)
+        if n_tokens > limit:
+            raise PoolExhausted(
+                f"dense pool row holds {limit} positions, request needs "
+                f"{n_tokens}")
+
+    def free(self, slot: int) -> None:
+        return None
+
+    def gather_args(self) -> Dict[str, torch.Tensor]:
+        """No page table: the decode step runs on the dense rows."""
+        return {}
+
+    @property
+    def pages_in_use(self) -> int:
+        return 0
+
+    @property
+    def pages_hwm(self) -> int:
+        return 0
+
+    @property
+    def total_pages(self) -> int:
+        return 0
+
+    def reset_stats(self) -> None:
+        return None
+
+
 class PagedCachePool:
-    """Fixed-size pages in one preallocated pool + per-slot page tables.
+    """Fixed-size pages in one preallocated pool + per-slot page tables,
+    with the ``local`` layers' rings beside the pages.
 
     ``num_pages`` counts physical pages including the trash page; the
     default matches a dense pool of the same ``slots``/``max_len`` plus the
@@ -83,12 +226,18 @@ class PagedCachePool:
     exhaustion even while free pages exist.
     """
 
+    kind = "paged"
     faults = None                      # Optional[FaultInjector]
 
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  device: Union[str, torch.device, None] = None):
         lm.check_ported(cfg)
+        if not paged_supported(cfg):
+            raise ValueError(
+                f"{cfg.name}: sequential-state blocks "
+                f"({SEQUENTIAL_STATE_BLOCKS}) cannot be paged; use "
+                f"pool='dense'")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.cfg = cfg
@@ -96,7 +245,8 @@ class PagedCachePool:
         self.slots = slots
         self.max_len = int(max_len)
         self.page_size = int(page_size)
-        self.pages_per_slot = math.ceil(self.max_len / self.page_size)
+        self.max_len_total = total_seq(cfg, self.max_len)
+        self.pages_per_slot = math.ceil(self.max_len_total / self.page_size)
         if num_pages is None:
             num_pages = slots * self.pages_per_slot + 1
         if num_pages < 2:
@@ -118,12 +268,21 @@ class PagedCachePool:
     def pages_for(self, n_tokens: int) -> int:
         return math.ceil(n_tokens / self.page_size)
 
+    def check_fits(self, n_tokens: int) -> None:
+        """Raise ``ValueError`` for a request that even the whole pool
+        could not hold."""
+        need = self.pages_for(n_tokens)
+        if need > self.total_pages - 1:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.total_pages - 1} usable pages")
+
     def alloc_pages(self, slot: int, n_tokens: int) -> None:
         """Ensure ``slot`` owns pages covering positions [0, n_tokens)."""
-        if n_tokens > self.max_len:
+        if n_tokens > self.max_len_total:
             raise PoolExhausted(
-                f"slot page table holds {self.max_len} positions, request "
-                f"needs {n_tokens}")
+                f"slot page table holds {self.max_len_total} positions, "
+                f"request needs {n_tokens}")
         owned = self._owned[slot]
         need = self.pages_for(n_tokens) - len(owned)
         if need <= 0:
@@ -182,21 +341,67 @@ class PagedCachePool:
 
     # -- the pool tensors -------------------------------------------------
 
-    def init(self) -> Dict[str, torch.Tensor]:
-        """Zeroed ``{"k", "v"}`` pools, (n_layers, N, ps, KV, D) each, in
-        the compute dtype on the pool's device."""
+    def init(self) -> Caches:
+        """Zeroed caches in the compute dtype on the pool's device:
+        ``"k"``/``"v"`` (n_paged, N, ps, KV, D) pages of the
+        full-attention layers and, for ``local`` layers, ``"ring_k"``/
+        ``"ring_v"`` (n_local, slots, ring, KV, D)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, self.num_pages, self.page_size,
-                 cfg.n_kv_heads, cfg.head_dim_)
-        return {t: torch.zeros(shape, dtype=cfg.cdtype(), device=self.device)
-                for t in ("k", "v")}
+        out = {}
+        for pre, (t, n) in _stacks(cfg).items():
+            if t in _PAGED_BLOCKS:
+                shape = (n, self.num_pages, self.page_size, cfg.n_kv_heads,
+                         cfg.head_dim_)
+            else:
+                shape = (n,) + layer_cache_spec(cfg, t, self.slots,
+                                                 self.max_len_total)
+            for kv in ("k", "v"):
+                out[pre + kv] = torch.zeros(shape, dtype=cfg.cdtype(),
+                                            device=self.device)
+        return out
 
-    def reset_slot(self, caches: Dict[str, torch.Tensor], slot: int
-                   ) -> None:
-        """Zero the slot's cache state in place, through its page row, in
-        every layer: its own pages and, for the row's unallocated entries,
-        the trash page (as the reference's scatter of a fresh cache does).
-        Call before :meth:`free`, which sends the row to the trash page."""
+    def write_slot(self, caches: Caches, sub: Caches, slot: int) -> None:
+        """Splice a batch-1 dense tree (:func:`init_caches` at ``max_len``,
+        filled by a whole-prompt prefill) into ``slot`` in place: its full
+        rows scatter through the slot's page row (positions past its pages
+        land on the trash page), its rings replace the slot's rings whole,
+        zero tail included."""
         row = self.page_row(slot).long()
-        for pool in caches.values():
-            pool[:, row] = 0
+        pos = torch.arange(self.max_len_total, device=self.device)
+        pages, offs = row[pos // self.page_size], pos % self.page_size
+        for kv in ("k", "v"):
+            if kv in caches:
+                caches[kv][:, pages, offs] = sub[kv][:, 0]
+        write_cache_slot(caches, sub, slot, self._ring_keys(caches))
+
+    def reset_slot(self, caches: Caches, slot: int) -> None:
+        """Zero the slot's cache state in place: its pages through its page
+        row, in every layer, and for the row's unallocated entries the
+        trash page (as the reference's scatter of a fresh cache does), and
+        its rings. Call before :meth:`free`, which sends the row to the
+        trash page."""
+        row = self.page_row(slot).long()
+        for kv in ("k", "v"):
+            if kv in caches:
+                caches[kv][:, row] = 0
+        reset_cache_slot(caches, slot, self._ring_keys(caches))
+
+    @staticmethod
+    def _ring_keys(caches: Caches) -> Tuple[str, ...]:
+        return tuple(k for k in caches if k.startswith("ring_"))
+
+
+def make_pool(cfg: ModelConfig, slots: int, max_len: int, *,
+              kind: str = "paged", page_size: int = 16,
+              num_pages: Optional[int] = None,
+              device: Union[str, torch.device, None] = None
+              ) -> Union[DenseCachePool, PagedCachePool]:
+    """The reference's pool factory: ``kind`` ``"paged"`` (dense for
+    sequential-state archs, which cannot be paged) or ``"dense"``."""
+    if kind == "dense" or (kind == "paged" and not paged_supported(cfg)):
+        return DenseCachePool(cfg, slots, max_len, device=device)
+    if kind == "paged":
+        return PagedCachePool(cfg, slots, max_len, page_size=page_size,
+                              num_pages=num_pages, device=device)
+    raise ValueError(f"unknown pool kind {kind!r}: expected 'paged' or "
+                     f"'dense'")

@@ -1,9 +1,11 @@
 """Continuous-batching inference engine of the port.
 
-Counterpart of ``repro.serve.engine.ServeEngine`` on the paged pool with
-chunked prefill. The engine owns ``slots`` decode lanes over one paged KV
-pool (:class:`~repro_torch.serve.cache.PagedCachePool`) and runs a strict
-tick loop:
+Counterpart of ``repro.serve.engine.ServeEngine``. The engine owns
+``slots`` decode lanes over one KV pool (``pool="paged"``:
+:class:`~repro_torch.serve.cache.PagedCachePool`, with the ``local``
+layers' rings beside its pages; ``pool="dense"``:
+:class:`~repro_torch.serve.cache.DenseCachePool`, one full row per slot)
+and runs a strict tick loop:
 
   0. **Lifecycle** — pending ``cancel(rid)`` calls and blown deadlines
      (``deadline_ticks``/``deadline_s``) resolve their futures with
@@ -14,6 +16,12 @@ tick loop:
      (``prompt + max_new_tokens``), deadlock-free with no preemption;
      under ``admission="incremental"`` only the prompt's pages. A pool that
      cannot cover the reservation leaves the request queued (backpressure).
+     Without chunked prefill (the dense pool, ``prefill_chunk=None``/0,
+     or an arch with rings) the whole prompt is prefilled here, right-padded
+     to a power-of-two bucket (:meth:`ServeEngine.bucket_for`; exact
+     lengths for archs in :data:`SEQUENTIAL_STATE_BLOCKS`), eagerly (a
+     length is seen once: a graph would cost more than it saves), into a
+     fresh dense cache tree that the pool splices into the slot.
   2. **Grow / preempt** (incremental admission only) — every live slot's
      page table grows to cover this tick's writes, oldest slot first; when
      the pool runs out the youngest slot is preempted: its pages are freed
@@ -21,7 +29,8 @@ tick loop:
      appended to the prompt, to be recomputed through chunked prefill.
      Greedy decoding makes the resumed output token-identical to a
      never-preempted run (in float32; see ``PERF.md`` for bfloat16).
-  3. **Chunked prefill** — admitted prompts advance one fixed-size chunk
+  3. **Chunked prefill** (the paged pool, full-attention archs) —
+     admitted prompts advance one fixed-size chunk
      (``prefill_chunk`` tokens) per tick through one pool-wide step. A slot
      whose final chunk lands samples its first token from the chunk logits
      and joins this very tick's decode.
@@ -35,18 +44,19 @@ tick loop:
 
 Every slot exit (finish, cancel, deadline, preempt, abort) goes through
 one scrub-then-free tail, which under ``scrub_freed_slots`` zeroes the
-slot's pages before they are recycled. A
+slot's pages, rings and rows before they are recycled. A
 :class:`~repro_torch.serve.faults.FaultInjector` passed as ``faults=``
 forces exhaustion at ``pool.alloc`` and crashes at ``engine.tick`` on a
 seeded schedule.
 
 The steps run through a :class:`~repro_torch.serve.graphs.GraphCache`,
 the counterpart of the reference's ``CompileCache``: on CUDA every
-decode, chunk, draft and verify tick is the replay of one CUDA graph
-captured once per key, with the host state copied into the entry's
-static inputs first; sampling runs eagerly on the replayed logits with
-one ``torch.Generator`` seeded from ``seed``. :meth:`decode_logits` runs
-the next decode tick eagerly, the check a replay is held against.
+decode (paged or dense), chunk, draft and verify tick is the replay of
+one CUDA graph captured once per key, with the host state copied into
+the entry's static inputs first; sampling runs eagerly on the replayed
+logits with one ``torch.Generator`` seeded from ``seed``.
+:meth:`decode_logits` runs the next decode tick eagerly, the check a
+replay is held against.
 
 Execution policy: the engine resolves one
 :class:`~repro_torch.kernels.context.ExecutionContext` at construction —
@@ -98,10 +108,20 @@ from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import steps as steps_lib
-from repro_torch.serve.cache import PagedCachePool, PoolExhausted
+from repro_torch.serve.cache import (PoolExhausted,
+                                     chunked_prefill_supported, make_pool)
 from repro_torch.serve.faults import SITES as FAULT_SITES
 from repro_torch.serve.graphs import GraphCache, GraphEntry
 from repro_torch.serve.metrics import EngineMetrics, RequestMetrics
+
+
+#: block types whose caches mix positions sequentially (recurrent state) or
+#: ring-buffer by position: right-padded bucket prefill would fold the pads
+#: into the state or push real positions out of the ring, so these archs
+#: prefill at exact prompt lengths. The engine's list, which adds
+#: ``local`` to the cache's (:data:`repro_torch.serve.cache.
+#: SEQUENTIAL_STATE_BLOCKS`), as the reference's engine does.
+SEQUENTIAL_STATE_BLOCKS = ("rec", "mlstm", "slstm", "local")
 
 
 class QueueFull(RuntimeError):
@@ -228,19 +248,25 @@ class ServeEngine:
     * ``slots`` — decode lanes (the pooled batch of the serve step).
     * ``max_len`` — per-slot budget: ``prompt_len + max_new_tokens <=
       max_len``.
+    * ``pool`` — ``"paged"`` (default; dense for sequential-state archs)
+      or ``"dense"`` (:func:`repro_torch.serve.cache.make_pool`).
     * ``page_size`` / ``num_pages`` — paged-pool geometry; ``num_pages``
       defaults to dense-equivalent capacity plus the trash page.
-    * ``prefill_chunk`` — chunked-prefill chunk size, >= 1.
+    * ``prefill_chunk`` — chunked-prefill chunk size on the paged pool of
+      a full-attention arch; ``None``/0 admits whole prompts instead.
+    * ``min_bucket`` — the smallest whole-prompt prefill bucket.
     * ``sampling`` — engine-wide :class:`SamplingParams` (greedy default).
     * ``admission`` — ``"eager"`` (whole-budget reservation) or
       ``"incremental"`` (prompt-only reservation, per-tick growth,
-      preempt-youngest and recompute on exhaustion).
-    * ``spec_k`` — draft tokens per slot per tick (0 = off); greedy only.
+      preempt-youngest and recompute on exhaustion; needs chunked prefill).
+    * ``spec_k`` — draft tokens per slot per tick (0 = off); greedy only,
+      and needs chunked prefill.
     * ``queue_limit`` — a submit finding that many requests queued raises
       :class:`QueueFull`; ``None`` = unbounded.
     * ``faults`` — a :class:`repro_torch.serve.faults.FaultInjector` for
       the ``pool.alloc`` and ``engine.tick`` sites.
-    * ``scrub_freed_slots`` — zero a slot's pages when its request exits.
+    * ``scrub_freed_slots`` — zero a slot's pages, rings and rows when its
+      request exits.
     * ``device`` — ``None`` means ``cuda`` and raises without a card; pass
       ``"cpu"`` to serve through the plain PyTorch versions.
     * ``tracer`` — a :class:`repro_torch.obs.Tracer` for the span timeline;
@@ -256,9 +282,9 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int = 4,
-                 max_len: int = 128, page_size: int = 16,
-                 num_pages: Optional[int] = None,
-                 prefill_chunk: Optional[int] = 16,
+                 max_len: int = 128, pool: str = "paged",
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = 16, min_bucket: int = 8,
                  sampling: sampling_lib.SamplingParams = sampling_lib.GREEDY,
                  admission: str = "eager", spec_k: int = 0,
                  queue_limit: Optional[int] = None, faults=None,
@@ -274,13 +300,9 @@ class ServeEngine:
         if queue_limit is not None and queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1 or None, got "
                              f"{queue_limit}")
-        if not prefill_chunk or prefill_chunk < 1:
-            raise ValueError(
-                f"the port serves through the paged pool with chunked "
-                f"prefill only (admission='incremental' and spec_k > 0 "
-                f"ride that path too; the dense pool and bucketed prefill "
-                f"are ROADMAP queue 1, item 5b); got "
-                f"prefill_chunk={prefill_chunk!r} for {cfg.name}")
+        if prefill_chunk is not None and prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0 or None, got "
+                             f"{prefill_chunk}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if spec_k and not sampling.greedy:
@@ -290,6 +312,31 @@ class ServeEngine:
                 f"only lossless under greedy — got {sampling}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.pool = make_pool(cfg, slots, int(max_len), kind=pool,
+                              page_size=page_size, num_pages=num_pages,
+                              device=self.device)
+        self.prefill_chunk = (
+            int(prefill_chunk)
+            if (prefill_chunk and self.pool.kind == "paged"
+                and chunked_prefill_supported(cfg)) else None)
+        if admission == "incremental" and self.prefill_chunk is None:
+            raise ValueError(
+                "admission='incremental' needs the paged pool with chunked "
+                "prefill (preempted requests recompute through the chunk "
+                f"path); this engine resolved pool={self.pool.kind!r}, "
+                f"prefill_chunk={self.prefill_chunk!r} — use "
+                "admission='eager' for this arch/pool")
+        if spec_k and self.prefill_chunk is None:
+            raise ValueError(
+                "spec_k > 0 needs the paged pool with chunked prefill (the "
+                "multi-position verify pass and the draft anchor ride the "
+                f"chunk machinery); this engine resolved "
+                f"pool={self.pool.kind!r}, "
+                f"prefill_chunk={self.prefill_chunk!r} — use spec_k=0 for "
+                "this arch/pool")
+        types = set(cfg.block_unit) | set(cfg.tail_layers)
+        self._exact_buckets = bool(types & set(SEQUENTIAL_STATE_BLOCKS))
+        self.min_bucket = int(min_bucket)
         self.context = exctx.resolve_for_device(
             context, self.device,
             default=exctx.ExecutionContext.from_butterfly_config(
@@ -297,16 +344,12 @@ class ServeEngine:
         self.model = model.to(self.device)
         self.slots = slots
         self.max_len = int(max_len)
-        self.prefill_chunk = int(prefill_chunk)
         self.sampling = sampling
         self.admission = admission
         self.spec_k = int(spec_k)
         self.queue_limit = queue_limit
         self.faults = faults
         self.scrub_freed_slots = scrub_freed_slots
-        self.pool = PagedCachePool(cfg, slots, self.max_len,
-                                   page_size=page_size, num_pages=num_pages,
-                                   device=self.device)
         self.pool.faults = faults
         self._caches = self.pool.init()
         self._slots: List[Optional[_Slot]] = [None] * slots
@@ -333,7 +376,8 @@ class ServeEngine:
 
     def _fresh_metrics(self, history: int = 1024) -> EngineMetrics:
         return EngineMetrics(slots=self.slots, max_request_history=history,
-                             pool_kind="paged", admission=self.admission,
+                             pool_kind=self.pool.kind,
+                             admission=self.admission,
                              total_pages=self.pool.total_pages,
                              spec_k=self.spec_k)
 
@@ -465,7 +509,8 @@ class ServeEngine:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def _decode_entry(self) -> GraphEntry:
-        key = ("decode", self.cfg.name, self.slots, self.sampling)
+        key = ("decode", self.cfg.name, self.slots, self.pool.kind,
+               self.sampling)
         S, i32 = self.slots, torch.int32
         return self.graphs.entry(key, lambda: (
             steps_lib.make_pool_decode_step(self.model, self._caches,
@@ -473,7 +518,7 @@ class ServeEngine:
             {"tokens": self._static((S,), i32),
              "cur_pos": self._static((S,), i32),
              "active": self._static((S,), torch.bool),
-             "page_table": self.pool.gather_args()["page_table"]}))
+             **self.pool.gather_args()}))
 
     def _chunk_entry(self) -> GraphEntry:
         key = ("chunk_prefill", self.cfg.name, self.slots,
@@ -537,11 +582,7 @@ class ServeEngine:
             raise ValueError(
                 "per-request sampling must match the engine-wide policy "
                 f"(engine: {self.sampling}, request: {request.sampling})")
-        need = self.pool.pages_for(plen + request.max_new_tokens)
-        if need > self.pool.total_pages - 1:
-            raise ValueError(
-                f"request needs {need} pages but the pool only has "
-                f"{self.pool.total_pages - 1} usable pages")
+        self.pool.check_fits(plen + request.max_new_tokens)
         with self._lock:
             if (self.queue_limit is not None
                     and len(self._queue) >= self.queue_limit):
@@ -585,7 +626,9 @@ class ServeEngine:
 
     @property
     def caches(self) -> Dict[str, torch.Tensor]:
-        """The live KV pool ``{"k", "v"}``, written in place every tick."""
+        """The live KV caches (``"k"``/``"v"``, and ``"ring_k"``/
+        ``"ring_v"`` for ``local`` layers; :mod:`repro_torch.serve.cache`),
+        written in place every tick."""
         return self._caches
 
     @property
@@ -794,16 +837,16 @@ class ServeEngine:
                                                self.context)
         tokens, cur_pos, active = (torch.from_numpy(a).to(self.device)
                                    for a in self.decode_inputs())
-        return step(tokens, cur_pos, active,
-                    self.pool.gather_args()["page_table"],
+        return step(tokens, cur_pos, active, **self.pool.gather_args(),
                     context=context or self.context)[0]
 
     def replay_decode_logits(self) -> torch.Tensor:
         """Logits (slots, V) of the next pooled decode tick through the
         graph cache's decode entry (a replay once the entry is built), on
         the live KV pool, returned as a copy. The entry writes each active
-        slot's K/V at ``cur_pos``, which the next decode tick writes again
-        before any read, so engine state is unchanged."""
+        slot's K/V at ``cur_pos`` (and each inactive dense lane's at its own
+        row's position 0, which admission rewrites), which the next decode
+        tick writes again before any read, so engine state is unchanged."""
         if not any(s is not None and s.decoding for s in self._slots):
             raise RuntimeError("no slot is decoding")
         tokens, cur_pos, active = self.decode_inputs()
@@ -906,8 +949,67 @@ class ServeEngine:
                                 tick=self.metrics.ticks)
             slot.admit_seq = self._admit_seq
             self._admit_seq += 1
+            if self.prefill_chunk is None:
+                self._admit_bucketed(slot, idx)
+                continue
             slot.prefilled = 0
             self._slots[idx] = slot
+
+    def bucket_for(self, prompt_len: int) -> int:
+        """Whole-prompt prefill bucket: the next power of two (>=
+        ``min_bucket``, <= ``max_len``), or the exact length for archs in
+        :data:`SEQUENTIAL_STATE_BLOCKS`, whose padded prefill would corrupt
+        their state or rings."""
+        if self._exact_buckets:
+            return prompt_len
+        b = self.min_bucket
+        while b < prompt_len:
+            b *= 2
+        return min(b, self.max_len)
+
+    def _admit_bucketed(self, slot: _Slot, idx: int) -> None:
+        """Whole-prompt admission: right-pad ``prefill_seq`` (the prompt,
+        or prompt + generated tokens after a preemption: the recompute) to
+        its bucket, prefill it at batch 1 into a fresh dense cache tree,
+        splice the tree into the slot, sample the first token. Eager: each
+        bucket's launches count as the kernels' counters count them."""
+        plen = int(slot.prefill_seq.size)
+        bucket = self.bucket_for(plen)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :plen] = slot.prefill_seq
+        step = steps_lib.make_bucket_prefill_step(self.model, self.max_len,
+                                                  self.context)
+        t0 = time.monotonic()
+        tt0 = self.tracer.now()
+        logits, sub = step(torch.from_numpy(tokens).to(self.device),
+                           torch.tensor([plen - 1], dtype=torch.int32,
+                                        device=self.device))
+        self.pool.write_slot(self._caches, sub, idx)
+        del sub
+        tok = int(self._sample_fn(logits, self._gen)[0])
+        self.metrics.on_prefill_work(plen, time.monotonic() - t0)
+        self.tracer.complete("prefill", tt0, self.tracer.now(),
+                             pid=self.replica, tid=slot.rid + 1,
+                             rid=slot.rid, bucket=bucket, tokens=plen,
+                             recompute=bool(slot.tokens))
+        if slot.tokens:
+            # resumed after preemption: the recomputed prefix ends in
+            # generated tokens, so this is the NEXT token, and the
+            # request's one real prefill was already counted
+            self.metrics.on_token(slot.rid)
+        else:
+            self.metrics.on_prefill_done()
+            self.metrics.on_first_token(slot.rid)
+            self.tracer.instant("first_token", pid=self.replica,
+                                tid=slot.rid + 1, rid=slot.rid,
+                                tick=self.metrics.ticks)
+        slot.tokens.append(tok)
+        slot.last_token = tok
+        slot.cur_pos = plen
+        slot.prefilled = -1                  # decode phase
+        self._slots[idx] = slot
+        if self._finished(slot):
+            self._finish(idx)
 
     # -- lifecycle: cancel / deadline / preempt -------------------------
 
@@ -1103,7 +1205,7 @@ class ServeEngine:
         elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.metrics.on_prefill_work(real, time.monotonic() - t0,
-                                     build=build)
+                                     chunked=True, build=build)
         finishers = []
         for i, s in live:
             s.prefilled = spans[i][1]
@@ -1226,9 +1328,9 @@ class ServeEngine:
     def _release_slot(self, idx: int) -> None:
         """The one scrub-then-free tail of every slot exit (finish, cancel,
         deadline, preempt, abort): under ``scrub_freed_slots`` the slot's
-        pages are zeroed BEFORE ``pool.free()``, which sends its table row
-        to the trash page (a later scrub would zero the trash page and
-        leave the request's KV in recycled pages)."""
+        pages, rings and rows are zeroed BEFORE ``pool.free()``, which
+        sends its table row to the trash page (a later scrub would zero the
+        trash page and leave the request's KV in recycled pages)."""
         if self.scrub_freed_slots:
             self.pool.reset_slot(self._caches, idx)
         self.pool.free(idx)

@@ -58,7 +58,8 @@ def restore_params(cfg: ModelConfig, directory: str, *,
     its leaves fails its candidate and falls through to older ones.
     """
     model = LM(cfg, generator=torch.Generator().manual_seed(0))
-    template = convert.to_jax_params(dict(model.named_parameters()))
+    template = convert.to_jax_params(dict(model.named_parameters()),
+                                     cfg)
     s, tree, _extra = load_latest(directory, {"params": template},
                                   step=step)
     if s is None:

@@ -128,7 +128,7 @@ class EngineMetrics:
     requests_finished: int = 0       # lifetime total
     finished_tokens: int = 0         # lifetime total over finished requests
     max_concurrent_slots: int = 0    # high-water mark of occupied slots
-    pool_kind: str = "paged"         # cache pool flavor (the port: paged)
+    pool_kind: str = "paged"         # cache pool flavor: paged or dense
     admission: str = "eager"         # page reservation policy
     total_pages: int = 0             # physical pages incl. the trash page
     pages_in_use: int = 0            # gauge, engine-synced after alloc/free
@@ -177,14 +177,16 @@ class EngineMetrics:
         with self._lock:
             self.ticks += 1
 
-    def on_prefill_work(self, tokens: int, dt: float,
+    def on_prefill_work(self, tokens: int, dt: float, chunked: bool = False,
                         build: bool = False) -> None:
-        """Prompt tokens pushed through one chunked-prefill pool tick;
-        ``build``: the call built its graph entry (warm-up and capture)."""
+        """Prompt tokens pushed through a prefill call (a whole prompt, or
+        one chunked-prefill pool tick: ``chunked``); ``build``: the call
+        built its graph entry (warm-up and capture)."""
         with self._lock:
             self.prefill_tokens += tokens
             self.prefill_time_s += dt
-            self.chunk_ticks += 1
+            if chunked:
+                self.chunk_ticks += 1
             if build:
                 self.build_ticks += 1
                 self.build_time_s += dt

@@ -1,12 +1,14 @@
-"""Pool-wide serve steps: the pooled decode tick, the chunked-prefill tick
-and the two halves of a speculative tick (draft, verify) over the engine's
-slots. Counterparts of the serving step factories in
-``repro.train.steps``.
+"""Serve steps: the pooled decode tick (paged or dense), the chunked-prefill
+tick, the two halves of a speculative tick (draft, verify) over the
+engine's slots, and the whole-prompt prefill of one request. Counterparts
+of the serving step factories in ``repro.train.steps``.
 
-Each step is a function of fixed-shape tensors and the KV pool, free of
-host synchronisation and data-dependent control flow, so that the engine
-can capture it once per shape as a CUDA graph
-(:mod:`repro_torch.serve.graphs`) and replay it. Sampling is not part of
+Each pool-wide step is a function of fixed-shape tensors and the KV pool,
+free of host synchronisation and data-dependent control flow, so that the
+engine can capture it once per shape as a CUDA graph
+(:mod:`repro_torch.serve.graphs`) and replay it. The whole-prompt prefill
+has a shape per prompt length (an exact length for archs with rings), so
+the engine runs it eagerly. Sampling is not part of
 the steps: the engine samples from the replayed logits eagerly, with its
 own ``torch.Generator``.
 
@@ -32,6 +34,7 @@ from repro_torch.kernels.context import ContextLike
 from repro_torch.kernels.paged_attention import TRASH_PAGE
 from repro_torch.models import common as cm
 from repro_torch.models import lm
+from repro_torch.serve import cache as cache_lib
 
 
 def mask_table(page_table: torch.Tensor, active: torch.Tensor
@@ -44,17 +47,38 @@ def mask_table(page_table: torch.Tensor, active: torch.Tensor
 
 def make_pool_decode_step(model: lm.LM, caches,
                           context: ContextLike = None) -> Callable:
-    """``step(tokens, cur_pos, active, page_table) -> (logits,)`` over the
-    whole slot pool: ``tokens (S,)`` each slot's previous token, ``cur_pos
-    (S,)`` its write position, ``active (S,)`` bool; ``logits (S, V)``.
-    The step's ``context=`` (:mod:`repro_torch.kernels.context`) overrides
-    the builder's, to hold the kernels against the plain versions on the
-    same state."""
-    def step(tokens, cur_pos, active, page_table, context=context):
+    """``step(tokens, cur_pos, active, page_table=None) -> (logits,)`` over
+    the whole slot pool: ``tokens (S,)`` each slot's previous token,
+    ``cur_pos (S,)`` its write position, ``active (S,)`` bool; ``logits
+    (S, V)``. The arguments are the pool's ``gather_args()``: the paged
+    pool's ``page_table``, or none for the dense pool, where an inactive
+    lane writes into its own rows, which admission rewrites whole. The
+    step's ``context=`` (:mod:`repro_torch.kernels.context`) overrides the
+    builder's, to hold the kernels against the plain versions on the same
+    state."""
+    def step(tokens, cur_pos, active, page_table=None, context=context):
+        table = None if page_table is None else mask_table(page_table,
+                                                           active)
         with torch.no_grad():
-            return (lm.decode_step(model, tokens, caches, cur_pos,
-                                   mask_table(page_table, active),
+            return (lm.decode_step(model, tokens, caches, cur_pos, table,
                                    context=context),)
+    return step
+
+
+def make_bucket_prefill_step(model: lm.LM, max_len: int,
+                             context: ContextLike = None) -> Callable:
+    """``step(tokens, last_pos) -> (logits, sub)``: the whole-prompt
+    prefill of the engine's bucketed admission. ``tokens (B, bucket)`` are
+    right-padded prompts, ``last_pos (B,)`` each one's last real token;
+    ``sub`` is a fresh dense cache tree at the pool's length ``max_len``
+    (:func:`repro_torch.serve.cache.init_caches`), filled, for the pool's
+    ``write_slot``."""
+    def step(tokens, last_pos):
+        with torch.no_grad():
+            sub = cache_lib.init_caches(model.cfg, tokens.shape[0], max_len,
+                                        tokens.device)
+            return lm.prefill_at(model, tokens, sub, last_pos,
+                                 context=context), sub
     return step
 
 

@@ -9,6 +9,7 @@ optimizer state and the metrics.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Mapping, Tuple
 
 import torch
@@ -21,7 +22,8 @@ from repro_torch.optim import optimizer as opt
 from repro_torch.optim.compression import compress_gradients
 
 
-def make_optimizer(tc: TrainConfig) -> opt.GradientTransformation:
+def make_optimizer(tc: TrainConfig, cfg: ModelConfig
+                   ) -> opt.GradientTransformation:
     """Clip, gradient compression, Adam, decoupled weight decay and the
     warmup-cosine schedule, chained in the reference's order (each only
     where the config asks for it), so the optimizer state is a tuple in the
@@ -36,7 +38,9 @@ def make_optimizer(tc: TrainConfig) -> opt.GradientTransformation:
         # unit leaf
         parts.append(compress_gradients(tc.grad_compression,
                                         tc.grad_compression_ratio,
-                                        group=convert.reference_key))
+                                        group=functools.partial(
+                                            convert.reference_key,
+                                            cfg=cfg)))
     parts.append(opt.scale_by_adam())
     if tc.weight_decay:
         parts.append(opt.add_decayed_weights(tc.weight_decay))

@@ -111,7 +111,7 @@ class Trainer:
         self.global_batch = global_batch
         self.data = data or for_model(model_cfg, seq_len, global_batch,
                                       seed=train_cfg.seed)
-        self.tx = steps_lib.make_optimizer(train_cfg)
+        self.tx = steps_lib.make_optimizer(train_cfg, model_cfg)
         bc = model_cfg.butterfly
         if bc is not None:
             self.exec_ctx = exctx.resolve_for_device(
@@ -141,8 +141,8 @@ class Trainer:
 
     def _restore(self, model, opt_state):
         params = steps_lib.trainable(model)
-        tmpl = {"params": convert.to_jax_params(params),
-                "opt": convert.opt_state_to_jax(opt_state)}
+        tmpl = {"params": convert.to_jax_params(params, self.cfg),
+                "opt": convert.opt_state_to_jax(opt_state, self.cfg)}
         step, tree, _ = self.ckpt.restore(tmpl)
         if step is None:
             return None, opt_state
@@ -196,8 +196,9 @@ class Trainer:
                         and (i + 1) % self.tc.checkpoint_every == 0):
                     params = steps_lib.trainable(model)
                     self.ckpt.save(i + 1, {
-                        "params": convert.to_jax_params(params),
-                        "opt": convert.opt_state_to_jax(opt_state)},
+                        "params": convert.to_jax_params(params, self.cfg),
+                        "opt": convert.opt_state_to_jax(opt_state,
+                                                        self.cfg)},
                         extra={"loss": loss}, async_=True)
         finally:
             prefetch.close()

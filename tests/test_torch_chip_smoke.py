@@ -40,7 +40,12 @@ ZOO_SMOKE = dict(
     sites=(("zoo", 48, 500),), rows=(8, 20),
     serve=("olmoe-1b-7b-butterfly-smoke", "gemma-7b-butterfly-smoke"),
     train=("olmoe-1b-7b-butterfly-smoke", 1, (32, 2), (1, 1)),
-    tokens="olmoe-1b-7b-butterfly-smoke")
+    tokens="olmoe-1b-7b-butterfly-smoke", paged_long=("gemma3-27b",),
+    windowed=("gemma3-27b-butterfly-smoke",
+              dict(pool="paged", max_len=256, long=(40, 60),
+                   probe=(5, 12, 15, 16, 17, 30, 40, 60))),
+    windowed_train=("gemma3-27b-butterfly-smoke", 8, (32, 2), (1, 1)),
+    windowed_tokens=("gemma3-27b-butterfly-smoke", (5, 16, 20, 40), 64))
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -100,7 +105,8 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         "captures 1, replays 31" in out
     for mode in ("eager", "incremental", "spec", "router"):
         assert f"serve tokens {mode}: " in out
-    assert out.count("give the same greedy tokens (64 tokens") == 6
+    # smollm's and the MoE's three cases each, gemma3's, smollm's dense
+    assert out.count("give the same greedy tokens (64 tokens") == 8
     assert out.count("olmoe-1b-7b-butterfly-smoke float32, 4 prompts") == 3
     # the zoo: the paged kernel at its four shapes, the sandwich at its
     # sites, both archs served, the MoE trained, the new shapes timed
@@ -122,6 +128,41 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         assert f"serve {arch}: phase " in out
         assert f"profile {arch} graphed: device time not measured" in out
     assert "graph decode | olmoe-1b-7b-butterfly-smoke | 8 | " in out
+    # phase 6e: phase 6's requests on the dense pool, whole prompts
+    head = "serve smollm-135m-butterfly-smoke dense:"
+    assert (f"{head} 16 requests, prompts 5-200 tokens, 62 ticks (0 chunk, "
+            f"62 decode)") in out
+    assert "pool dense, max_len 512, whole-prompt prefill" in out
+    assert f"{head} whole-prompt prefill ms by prompt length" in out
+    assert "graph decode | smollm-135m-butterfly-smoke | 8 | dense | " in out
+    assert "serve dense" in kernels[0]["launches_by_path"]
+    # phases 28-29: gemma3 served with rings beside the pages, probed
+    # across the wrap, and trained at one unit and the tail
+    head = "serve gemma3-27b-butterfly-smoke:"
+    assert f"{head} probe tick at positions [6, 13, 16, 17, 18, 31, " \
+        f"41, 61] (ring 16)" in out
+    assert f"{head} 16 requests, prompts 5-174 tokens" in out
+    assert "pool paged, max_len 256, whole-prompt prefill" in out
+    assert f"{head} whole-prompt prefill ms by prompt length" in out
+    assert "graph decode | gemma3-27b-butterfly-smoke | 8 | paged | " in out
+    assert ("train gemma3-27b-butterfly-smoke: 8 of 8 layers (depth cut: "
+            "Adam's state for all would not fit one card); units 1 x "
+            "('local', 'local', 'local', 'local', 'local', 'global'), tail "
+            "('local', 'local')") in out
+    assert ("train: gemma3-27b-butterfly-smoke, 8 layers, seq_len 32 x "
+            "batch 2") in out
+    for dtype in ("float32", "bfloat16"):
+        assert f"paged gemma3-27b KV=16 G=2 D=128 B=8 (8, 16, 2, 128) " \
+            f"ps=16 P=128 {dtype}" in out
+    assert ("serve tokens eager: gemma3-27b-butterfly-smoke float32, 4 "
+            "prompts of (5, 16, 20, 40) tokens into 2 slots, whole prompts "
+            "on the paged pool") in out
+    for what in ("incremental", "spec_k"):
+        assert f"serve tokens gemma3-27b-butterfly-smoke {what}: refused" \
+            in out
+    assert ("serve tokens dense: smollm-135m-butterfly-smoke float32, 4 "
+            "prompts of (5, 23, 11, 3) tokens into 2 slots, whole prompts "
+            "on the dense pool") in out
     assert ("train: olmoe-1b-7b-butterfly-smoke, 1 layers, seq_len 32 x "
             "batch 2") in out
     assert "; of which aux " in out
@@ -216,14 +257,16 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     assert {"serve", "router", "train", "layer_api", "lm_butterfly"} <= \
         kernels[0]["launches_by_path"].keys()
     assert {"train", "train_cli", "layer_api", "lm_butterfly",
-            "train olmoe-1b-7b-butterfly-smoke"} == \
+            "train olmoe-1b-7b-butterfly-smoke",
+            "train gemma3-27b-butterfly-smoke"} == \
         kernels[2]["launches_by_path"].keys()
     assert {"serve olmoe-1b-7b-butterfly-smoke",
             "serve gemma-7b-butterfly-smoke",
             "train olmoe-1b-7b-butterfly-smoke"} <= \
         kernels[0]["launches_by_path"].keys()
     assert set(kernels[0]["zoo"]) == {"zoo"}
-    assert set(kernels[1]["zoo"]) == set(ZOO_SMOKE["paged"])
+    assert set(kernels[1]["zoo"]) == set(ZOO_SMOKE["paged"]) | {
+        f"{a} long" for a in ZOO_SMOKE["paged_long"]}
     assert "train_cli" in kernels[0]["launches_by_path"]
     for run in ("continuous", "resumed", "topk", "int8"):
         assert f"train cli {run}: [train] done: loss " in out
@@ -237,7 +280,7 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
             "named gives the unset field's bits; 1 and 6 refused") in out
     assert set(kernels[1]["launches_by_path"]) == {
         "serve", "router", "serve olmoe-1b-7b-butterfly-smoke",
-        "serve gemma-7b-butterfly-smoke"}
+        "serve gemma-7b-butterfly-smoke", "serve gemma3-27b-butterfly-smoke"}
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
     # sdpa's backward stands once, on dq, for the dq/dkv pair
     assert [k["library_ms"] for k in kernels[5:]] == [0.0, 0.0, None]

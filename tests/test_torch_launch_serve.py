@@ -98,12 +98,25 @@ def test_cli_rejects_bad_geometry():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--pool", "dense"), "item 5"), (("--prefill-chunk", "0"), "item 5"),
     (("--mesh-shape", "8"), "item 6"), (("--simulated-devices", "8"),
                                         "item 6")])
 def test_cli_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit, match=item):
         _run(*flags)
+
+
+@pytest.mark.parametrize("flags,kind,chunk", [
+    (("--pool", "dense"), "dense", None),
+    (("--prefill-chunk", "0"), "paged", None)])
+def test_cli_serves_dense_pool_and_whole_prompts(flags, kind, chunk, capsys):
+    """The flags the CLI refused before the dense pool and whole-prompt
+    admission were ported now serve every request."""
+    doc = _run("--requests", "3", "--max-new", "3", *flags)
+    out = capsys.readouterr().out
+    assert f"pool={kind} chunk={chunk} " in out
+    assert doc["summary"]["requests_finished"] == 3
+    assert doc["summary"]["pool"]["kind"] == kind
+    assert doc["summary"]["chunk_ticks"] == 0
 
 
 def test_cli_restores_newest_valid_checkpoint(tmp_path, capsys):
@@ -115,7 +128,8 @@ def test_cli_restores_newest_valid_checkpoint(tmp_path, capsys):
     from repro_torch.serve import loader, tear_checkpoint
     cfg = registry.get(ARCH)
     model = loader.init_params(cfg, seed=7, device="cpu")
-    tree = {"params": convert.to_jax_params(dict(model.named_parameters()))}
+    tree = {"params": convert.to_jax_params(dict(model.named_parameters()),
+                                          cfg)}
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(3, tree)
     mgr.save(4, tree)
@@ -145,11 +159,12 @@ def test_bench_serving_rows(tmp_path, capsys):
                           "serve/preempt_overload", "serve/spec_decode",
                           "serve/router_slo", "serve/chrome_trace",
                           "serve/large_pool"]
-    for name in ("serve/trace_e2e", "serve/large_pool"):
-        assert rows[name]["skipped"] and "status=skipped" in \
-            rows[name]["derived"]
-    for name in ("serve/paged_e2e", "serve/preempt_overload",
-                 "serve/spec_decode", "serve/router_slo"):
+    assert rows["serve/large_pool"]["skipped"] and "status=skipped" in \
+        rows["serve/large_pool"]["derived"]
+    assert "occupancy=" in rows["serve/trace_e2e"]["derived"]
+    for name in ("serve/trace_e2e", "serve/paged_e2e",
+                 "serve/preempt_overload", "serve/spec_decode",
+                 "serve/router_slo"):
         assert rows[name]["us_per_call"] > 0
         assert f"{name},{rows[name]['us_per_call']:.2f}," in text
     assert "requests=8" in rows["serve/router_slo"]["derived"]

@@ -220,8 +220,21 @@ def test_cli_refuses_unported_flags(flags, why):
 
 
 def test_cli_refuses_archs_the_port_lacks():
-    with pytest.raises(SystemExit, match="item 5"):
-        train_cli.main(["--arch", "gemma3-27b-smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 5c"):
+        train_cli.main(["--arch", "recurrentgemma-2b-smoke", "--device",
+                        "cpu"])
+
+
+def test_cli_trains_gemma3_on_the_cpu(capsys):
+    """gemma3's unit of five `local` blocks and one `global`, with its
+    two-layer `local` tail, trains through the CLI (sequences past its
+    16-token window)."""
+    res = train_cli.main(["--arch", "gemma3-27b-smoke", "--steps", "2",
+                          "--seq-len", "24", "--global-batch", "2",
+                          "--device", "cpu"])
+    assert res.steps_run == 2 and all(np.isfinite(res.losses))
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "[train] done: loss ")
 
 
 def test_cli_trains_on_the_cpu(tmp_path, capsys):

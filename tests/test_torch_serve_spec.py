@@ -187,7 +187,7 @@ def test_spec_constructor_validation(models):
     with pytest.raises(ValueError, match="paged"):
         JServeEngine(jcfg, params, slots=2, max_len=64, spec_k=2,
                      pool="dense")
-    with pytest.raises(TypeError, match="pool"):   # the port has no dense pool
+    with pytest.raises(ValueError, match="paged"):
         ServeEngine(tcfg, model, slots=2, max_len=64, device="cpu", spec_k=2,
                     pool="dense")
     eng = ServeEngine(tcfg, model, slots=2, max_len=64, device="cpu")

@@ -11,6 +11,7 @@ orders); attention outputs at 1e-5.
 
 import math
 import shutil
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -86,9 +87,9 @@ def test_step1_loss_and_grads_match_reference(seq_len):
     tloss, tgrads = tsteps.loss_and_grads(model, _torch_batch(batch))
     np.testing.assert_allclose(float(tloss), float(loss), atol=1e-5,
                                rtol=1e-4)
-    port = convert.to_jax_params(tgrads)
+    port = convert.to_jax_params(tgrads, tcfg)
     leaves = jax.tree_util.tree_leaves_with_path(grads)
-    assert len(leaves) == len(convert.names_by_reference_key(tgrads))
+    assert len(leaves) == len(convert.names_by_reference_key(tgrads, tcfg))
     for path, want in leaves:
         np.testing.assert_allclose(_leaf(port, path), np.asarray(want),
                                    atol=1e-5, rtol=1e-4,
@@ -151,7 +152,8 @@ def test_optimizer_matches_reference():
     shapes = {"w": (4, 3), "v": (5,), "b": (2, 2, 4)}
     params = {k: rng.normal(size=s).astype(np.float32)
               for k, s in shapes.items()}
-    jtx, ttx = jsteps.make_optimizer(jtc), tsteps.make_optimizer(tc)
+    _, tcfg = _configs()
+    jtx, ttx = jsteps.make_optimizer(jtc), tsteps.make_optimizer(tc, tcfg)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     js, ts = jtx.init(jp), ttx.init(tp)
@@ -197,7 +199,8 @@ def test_trainer_losses_match_reference_over_4_steps(reference_run):
 def test_loads_params_of_a_reference_checkpoint(reference_run):
     jcfg, tcfg, params_np, _, ckdir = reference_run
     model = _port_model(tcfg, jcfg, params_np)
-    tmpl = {"params": convert.to_jax_params(dict(model.named_parameters()))}
+    tmpl = {"params": convert.to_jax_params(dict(model.named_parameters()),
+                                          tcfg)}
     step, tree, extra = tckpt.load_latest(ckdir, tmpl)
     assert step == 4 and "loss" in extra
     convert.load_jax_params(model, tree["params"])
@@ -251,6 +254,51 @@ def test_resume_from_own_checkpoint(tmp_path):
     assert rest.resumed_from == 2
     np.testing.assert_allclose(rest.losses, whole.losses[2:], rtol=1e-6)
     assert all(math.isfinite(v) for v in whole.losses)
+
+
+def test_async_checkpoint_holds_its_own_step(tmp_path):
+    """Step 1's checkpoint, written on its thread only after step 2 has
+    updated the params and Adam's moments in place, holds step 1's own
+    params and moments: the host snapshot shares no memory with them."""
+    _, tcfg = _configs()
+    tc = TrainConfig(**dict(TC, checkpoint_every=1),
+                     checkpoint_dir=str(tmp_path / "ck"))
+    trainer = Trainer(tcfg, tc, seq_len=16, global_batch=2, device="cpu")
+    steps_done, second = [], threading.Event()
+    step_fn, write = trainer.step_fn, trainer.ckpt._write
+
+    def step_and_signal(*args):
+        out = step_fn(*args)
+        steps_done.append(len(steps_done) + 1)
+        if len(steps_done) == 2:
+            second.set()
+        return out
+
+    def write_after_step_two(step, tree, extra):
+        if step == 1:
+            second.wait(timeout=120)
+        write(step, tree, extra)
+
+    trainer.step_fn = step_and_signal
+    trainer.ckpt._write = write_after_step_two
+    trainer.run(2)
+    assert second.is_set()
+    assert tckpt.CheckpointManager(tc.checkpoint_dir).steps() == [1, 2]
+    one = Trainer(tcfg, TrainConfig(**TC), seq_len=16, global_batch=2,
+                  device="cpu")
+    one.run(1)
+    want = {"params": convert.to_jax_params(
+                tsteps.trainable(one.model), tcfg),
+            "opt": convert.opt_state_to_jax(one.opt_state, tcfg)}
+    step, got, _ = tckpt.load_latest(tc.checkpoint_dir, want, step=1)
+    assert step == 1
+    leaves = jax.tree_util.tree_leaves_with_path(want)
+    assert any("embed" in jax.tree_util.keystr(p) for p, _ in leaves)
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(want)
+    for (path, w), g in zip(leaves, jax.tree_util.tree_leaves(got)):
+        np.testing.assert_allclose(g, w, rtol=1e-6,
+                                   err_msg=jax.tree_util.keystr(path))
 
 
 def test_trainer_needs_a_card_unless_asked_for_cpu():
@@ -338,12 +386,13 @@ def test_optimizer_state_round_trips_the_reference_layout():
     moments."""
     _, tcfg = _configs()
     model = tlm.LM(tcfg, generator=torch.Generator().manual_seed(0))
-    tx = tsteps.make_optimizer(TrainConfig(**TC, grad_compression="int8"))
+    tx = tsteps.make_optimizer(TrainConfig(**TC, grad_compression="int8"),
+                               tcfg)
     params = tsteps.trainable(model)
     state = tx.init(params)
     grads = {n: torch.randn_like(p) for n, p in params.items()}
     _, state = tx.update(grads, state, params)
-    host = convert.opt_state_to_jax(state)
+    host = convert.opt_state_to_jax(state, tcfg)
     assert [type(s).__name__ for s in host] == [
         "ClipState", "ErrorFeedbackState", "ScaleByAdamState", "ClipState",
         "ScaleByScheduleState"]

@@ -81,7 +81,7 @@ def carried(arch, seed=0):
              if jcfg.butterfly else None)
     model = tlm.LM(tcfg, generator=torch.Generator().manual_seed(seed),
                    site_specs=specs)
-    params_np = convert.to_jax_params(dict(model.named_parameters()))
+    params_np = convert.to_jax_params(dict(model.named_parameters()), tcfg)
     return (jcfg, jax.tree_util.tree_map(jnp.asarray, params_np), tcfg,
             model)
 
@@ -202,9 +202,9 @@ def test_gradients_match_reference_leaf_by_leaf(arch):
     model.zero_grad(set_to_none=True)
     np.testing.assert_allclose(float(tloss), float(loss), atol=1e-5,
                                rtol=1e-4)
-    port = convert.to_jax_params(tgrads)
+    port = convert.to_jax_params(tgrads, tcfg)
     leaves = jax.tree_util.tree_leaves_with_path(grads)
-    assert len(leaves) == len(convert.names_by_reference_key(tgrads))
+    assert len(leaves) == len(convert.names_by_reference_key(tgrads, tcfg))
     if jcfg.n_experts:
         assert any("router" in jax.tree_util.keystr(p) for p, _ in leaves)
     for path, want in leaves:
@@ -222,7 +222,7 @@ def test_param_tree_round_trips(arch):
     want = jax.tree_util.tree_map(np.asarray, params)
     specs = (reference_site_specs(jcfg) if jcfg.butterfly else {})
     model = convert.from_jax_params(tcfg, want, specs, device="cpu")
-    got = convert.to_jax_params(dict(model.named_parameters()))
+    got = convert.to_jax_params(dict(model.named_parameters()), tcfg)
     assert jax.tree_util.tree_structure(got) == \
         jax.tree_util.tree_structure(
             jlm.model_specs(jcfg),
