@@ -39,8 +39,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    twins at the tolerances above; then the zoo's widest sites at 8 and 256
    rows: Gemma-7B's up/gate (3072 -> 24,576), down (24,576 -> 3072, n1 =
    32,768) and head (3072 -> 256,000, n2 = 262,144), OLMoE's head (2048 ->
-   50,304), DBRX's (6144 -> 100,352) and Gemma3-27B's up/gate (5376 ->
-   21,504), down (21,504 -> 5376, n1 = 32,768) and head (5376 -> 262,144).
+   50,304), DBRX's (6144 -> 100,352), Gemma3-27B's up/gate (5376 ->
+   21,504), down (21,504 -> 5376, n1 = 32,768) and head (5376 -> 262,144),
+   RecurrentGemma-2B's up/gate (2560 -> 7680), down (7680 -> 2560) and
+   head (2560 -> 256,000) and xLSTM-125M's head (768 -> 50,304).
 6. Serving: a ServeEngine on full-width ``smollm-135m-butterfly``
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
@@ -296,6 +298,44 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     4,096, the head's backward 2,048): finite losses, 2 x 49 forward and 6
     x 25 backward sandwich launches a step; step p50, tokens/s and peak
     memory printed.
+30. The recurrent archs served at full width (ROADMAP 5c), phase 24's path
+    and checks with the other archs' weights freed first, on the dense
+    pool (recurrent state cannot be paged), whole prompts at their exact
+    lengths, max_len 2048, 8 slots, decode on CUDA graphs; 16 requests of
+    32 new tokens, phase 6's fourteen shortest prompts and two of 1,000
+    and 1,500 tokens (past the mLSTM's chunk of 256 and not a multiple of
+    it: the padded chunkwise prefill): ``recurrentgemma-2b-butterfly`` (26
+    layers, eight units of two ``rec`` blocks and a ``local`` one and a
+    two-layer ``rec`` tail, d_model and lru_width 2560, 10 heads and 1 KV
+    head of 256, window 2,048, GeGLU 2560 -> 7680, vocab 256,000) and
+    ``xlstm-125m-butterfly`` (12 layers, two units of five ``mlstm`` and
+    one ``slstm``, d_model 768, 4 heads, mLSTM heads of 384, chunk 256,
+    vocab 50,304; the head its only sandwich site). Held: every request
+    finished; 2 x 79 (recurrentgemma) and 2 x 1 (xLSTM) sandwich launches
+    per decode tick and per prefill, none paged; every tick after the
+    build a replay; no NaN in any state stack; the tick layer by layer and
+    its replay against eager within 5e-2 (the replay puts the recurrent
+    state back). Printed: init seconds, TTFT p50/p95, decode tok/s over all
+    ticks and over replays, the mean replayed tick, each prefill's ms by
+    prompt length, peak memory, then phase 8's profile of the decode tick
+    by kind, and the phase's seconds.
+31. Both recurrent archs trained at all their layers: recurrentgemma at
+    seq_len 2048 x batch 2, xLSTM at 1024 x 2 (four mLSTM chunks),
+    bfloat16, remat, 2 warm and 3 timed steps, their sandwich sites first
+    held against plain at the run's rows (forward at all of them, the
+    head's backward at 2,048): finite losses, 2 x 157 forward and 6 x 79
+    backward (recurrentgemma) and 2 x 1 and 6 x 1 (xLSTM) sandwich
+    launches a step; the warm steps' ms, step p50, tokens/s, peak memory,
+    for recurrentgemma one more step's device time by kernel and by kind
+    (``torch.profiler``; xLSTM's ~200,000 launches a step would hold the
+    profiler's event processing for minutes), and the phase's seconds
+    printed.
+32. Phase 26's eager token case on ``recurrentgemma-2b-butterfly-smoke``
+    and ``xlstm-125m-butterfly-smoke`` in float32, prompts of 1, 2, 3 and
+    20 tokens (shorter than the conv's history of 3 rows, and past the
+    smoke mLSTM's chunk of 16), max_len 64, on the dense pool: the card's
+    tokens equal to the CPU's; incremental admission and ``spec_k=3`` are
+    refused, as the reference refuses them.
 
 The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
 but ``auto`` or ``cuda``: the plain versions would stand in for the
@@ -322,7 +362,10 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 TC / fp32
 # a float32 route on the tensor cores in 3xTF32 (three TF32 products for
 # each float32 one): the TF32 peak over three
 PEAK_3XTF32 = 495e12 / 3
-PROFILE_TRIES = 3         # device_ms: profiler windows read before it raises
+PROFILE_TRIES = 3         # device_ms: profiler windows read before events
+# the times that device_ms took by CUDA events, the profiler having seen
+# no device time
+EVENT_FALLBACKS: list = []
 SANDWICH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 FACTOR_TOL = 1e-5         # the factors are float32 in both routes
 WIDEST = ("widest", 32, 262144)   # n2 = 4096 x 64, the kernels' limit
@@ -356,29 +399,40 @@ def sites(cfg) -> dict:
             "lm_head": ("lm_head", E, V)}
 
 
+# the block types with an MLP (an ``moe`` block has the MoE instead, the
+# xLSTM blocks neither)
+MLP_BLOCKS = ("attn", "local", "global", "rec")
+
+
+def mlp_layers(cfg) -> int:
+    """The layers of ``cfg`` that run an MLP."""
+    from repro_torch.models import lm
+    return sum(t in MLP_BLOCKS for t in lm.layer_types(cfg))
+
+
 def called_sites(cfg) -> tuple:
     """The names of :func:`sites` that a forward pass of ``cfg`` calls: the
-    MLP's where ``mlp`` is a butterfly site and the blocks have an MLP (an
-    ``moe`` block has none), and the head where ``lm_head`` is one and not
+    MLP's where ``mlp`` is a butterfly site and some layer has an MLP
+    (:data:`MLP_BLOCKS`), and the head where ``lm_head`` is one and not
     tied."""
     bc = cfg.butterfly
     if bc is None:
         return ()
-    mlp = "mlp" in bc.sites and tuple(cfg.block_unit) != ("moe",)
+    mlp = "mlp" in bc.sites and mlp_layers(cfg) > 0
     head = "lm_head" in bc.sites and not cfg.tie_embeddings
     return ("up_gate", "down") * mlp + ("lm_head",) * head
 
 
 def sandwich_sites(cfg) -> tuple:
     """(sandwich sites a forward pass calls, those inside the layers): up,
-    gate and down per layer at :func:`called_sites`' MLP (``gelu_mlp`` has
-    no gate), and the head."""
+    gate and down per MLP layer at :func:`called_sites`' MLP
+    (``gelu_mlp`` has no gate), and the head."""
     called = called_sites(cfg)
     per_layer = 0
     if "down" in called:
         per_layer = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
-    return (per_layer * cfg.n_layers + int("lm_head" in called),
-            per_layer * cfg.n_layers)
+    in_layers = per_layer * mlp_layers(cfg)
+    return in_layers + int("lm_head" in called), in_layers
 
 
 def sync(torch, dev) -> None:
@@ -413,7 +467,11 @@ def device_ms(torch, fn, reps: int, warm: int = 3) -> float:
     one over. So each kernel's mean duration counts as many times a call
     as it ran per call, rounded (a kernel seen fewer than reps/2 times is
     a stray and does not count); a window with no device time is read
-    again, up to PROFILE_TRIES times, and then raises."""
+    again, up to PROFILE_TRIES times. Where every window came back empty
+    (CUPTI now and then delivers no device records, for a whole run of
+    windows), the call is timed with CUDA events instead (:func:`cuda_ms`,
+    host gaps included, so never below the device time), said on a line of
+    its own and counted in :data:`EVENT_FALLBACKS`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warm):
@@ -435,8 +493,12 @@ def device_ms(torch, fn, reps: int, warm: int = 3) -> float:
         if us:
             return us / 1e3
         say(f"device_ms: no device time over {reps} calls; read again")
-    raise RuntimeError(f"device_ms: the profiler saw no device time over "
-                       f"{reps} calls in each of {PROFILE_TRIES} windows")
+    ms = cuda_ms(torch, fn, reps=reps, warm=0)
+    EVENT_FALLBACKS.append(ms)
+    say(f"device_ms: the profiler saw no device time over {reps} calls in "
+        f"each of {PROFILE_TRIES} windows; timed by CUDA events instead: "
+        f"{ms:.4f} ms")
+    return ms
 
 
 def clocks(dev) -> str:
@@ -694,7 +756,8 @@ def layerwise_check(torch, eng, kernel: str) -> None:
     on a copy of its KV pool: each layer, then the final norm and head, runs
     under ``kernel`` and under the plain versions on the same input, the
     plain path's state, so each comparison sees one layer's rounding and
-    not its growth through the stack after it. Each output must be finite
+    not its growth through the stack after it; a recurrent layer's state,
+    which a step advances, is copied for each path. Each output must be finite
     and within 5e-2 of the plain one in relative norm, |got - want| /
     |want|. The norm, not a per-element bound: the residual add can cancel
     large terms, so one bfloat16 step of a term (8 at magnitude 1024) may
@@ -712,13 +775,17 @@ def layerwise_check(torch, eng, kernel: str) -> None:
     index = lm.cache_index(cfg)
     positions = cur_pos[:, None].contiguous()
     pairs = []
+
+    def own(cache):
+        return ({f: t.clone() for f, t in cache.items()}
+                if isinstance(cache, dict) else cache)
+
     with torch.no_grad():
         x = cm.embed(cfg, model.embed, tokens[:, None])
         for i, layer in enumerate(model.layers):
-            pre, j = index[i]
-            cache = (caches[pre + "k"][j], caches[pre + "v"][j])
+            cache = lm.layer_cache(cfg, caches, i, index)
             got, want = (lm.layer_apply(cfg, layer, x, positions=positions,
-                                        cache=cache, page_table=table,
+                                        cache=own(cache), page_table=table,
                                         context=b)[0]
                          for b in (kernel, "torch"))
             pairs.append((f"layer {i}", got.float(), want.float()))
@@ -1189,6 +1256,9 @@ TOKEN_CASES = {"eager": {},
 PHASE_6A = ("eager", "incremental", "spec", "router")
 # phase 26's windowed arch (window 16): prompts below, at and past it
 WINDOW_PROMPTS = (5, 16, 20, 40)
+# phase 32's recurrent archs: prompts shorter than the conv's three rows of
+# history, at them, and past the smoke mLSTM's chunk of 16
+RECURRENT_PROMPTS = (1, 2, 3, 20)
 # the router case's driver watchdog: above a first-use nvcc build
 TICK_TIMEOUT = 120.0
 
@@ -1270,6 +1340,7 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH,
     assert max(lens) > 16                      # one prompt chunks twice
     before = read_launches()
     runs, snaps = [], []                    # the card's run, then the CPU's
+    card_pool = "paged"                     # the router's replicas page
     for where, model in ((dev, card_model), (torch.device("cpu"),
                                              cpu_model)):
         if mode == "router" and not runs:
@@ -1286,6 +1357,8 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH,
         eng.run_until_idle(max_ticks=1000)
         runs.append([f.result(timeout=0).tokens for f in futs])
         snaps.append(eng.metrics.snapshot())
+        if len(runs) == 1:
+            card_pool = eng.pool.kind
     card, cpu = runs
     if mode == "router":                    # both rounds against the CPU's
         cpu, prompts = cpu * 2, prompts * 2
@@ -1295,7 +1368,8 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH,
     # run has no paged decode tick (verify reads the pool through the plain
     # gather, as the chunk does), nor has the dense pool
     need = ("sandwich_fwd",) + (("paged_decode_attention",)
-                                if mode not in ("spec", "dense") else ())
+                                if mode != "spec" and card_pool == "paged"
+                                else ())
     if dev.type == "cuda" and not all(rose[k] for k in need):
         raise AssertionError(f"the card's engine ({mode}) launched "
                              f"{rose}: none of {need} may be 0")
@@ -1468,10 +1542,10 @@ def phase_serve_tokens(torch, np, dev, arch: str = TOKEN_ARCH,
 
 
 def phase_window_refusals(dev, arch: str) -> None:
-    """Phase 26's refusals on the card: ``arch``'s rings keep it off
-    chunked prefill, so incremental admission and ``spec_k > 0``, which
-    ride the chunk machinery, are refused at construction, as the
-    reference's engine refuses them."""
+    """Phase 26's refusals on the card: ``arch``'s rings (or recurrent
+    state, phase 32) keep it off chunked prefill, so incremental admission
+    and ``spec_k > 0``, which ride the chunk machinery, are refused at
+    construction, as the reference's engine refuses them."""
     from repro_torch.configs import registry
     from repro_torch.serve import ServeEngine, loader
     cfg = registry.get(arch).with_(compute_dtype="float32")
@@ -2164,7 +2238,9 @@ def phase_train(torch, np, cfg, dev, seq_len: int, batch: int,
     say(f"train: {cfg.name}, {cfg.n_layers} layers, seq_len {seq_len} x "
         f"batch {batch} = {tokens} tokens/step, remat {cfg.remat}, init "
         f"{init_s:.1f} s, "
-        f"{warm} warm + {timed} timed steps; step ms p50 {p50:.1f} (min "
+        f"{warm} warm + {timed} timed steps (warm ms "
+        f"{' '.join(f'{1e3 * t:.1f}' for t in res.step_times[:warm])}); "
+        f"step ms p50 {p50:.1f} (min "
         f"{ms[0]:.1f}, max {ms[-1]:.1f}); {tokens / p50 * 1e3:.0f} tokens/s; "
         f"peak memory {peak / 2**20:.1f} MiB; straggler EMA "
         f"{1e3 * res.step_time_ema:.1f} ms")
@@ -2227,6 +2303,12 @@ def profile_train_step(torch, trainer, model, opt_state, dev) -> dict:
     for key, us, count in sorted(events, key=lambda e: -e[1])[:10]:
         say(f"profile train: {us / 1e3:9.3f} ms {count:6d} launches  "
             f"{key[:90]}")
+    kinds = {}
+    for key, us, _ in events:
+        kinds[event_kind(key)] = kinds.get(event_kind(key), 0.0) + us
+    say("profile train: device time by kind, ms (share of busy): "
+        + ", ".join(f"{k} {us / 1e3:.3f} ({100 * us / busy_us:.1f}%)"
+                    for k, us in sorted(kinds.items(), key=lambda kv: -kv[1])))
     for key, us, count in sorted(events, key=lambda e: -e[1]):
         if "sandwich" in key:
             say(f"profile train sandwich: {us / 1e3:8.3f} ms {count:5d} "
@@ -2735,7 +2817,7 @@ def close_to_max_or_raise(torch, what, got, want, frac) -> tuple:
     """Max |got - want| and its share of max|want|; raises unless it is
     within frac·max|want| + frac·|want| everywhere and ``got`` is
     finite."""
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: kernel output is not finite")
     err = (got - want).abs()
@@ -3949,11 +4031,13 @@ ZOO = dict(
     # 32,768) and head (n2 = 262,144, the kernels' widest output), OLMoE's
     # and DBRX's heads, gemma3's three (up/gate 5376 -> 21,504, down n1 =
     # 32,768, head n2 = 262,144); each at a decode tick's and a check's
-    # rows
+    # rows; recurrentgemma's three and xLSTM's head (phase 30)
     sites=(("gemma_up", 3072, 24576), ("gemma_down", 24576, 3072),
            ("gemma_head", 3072, 256000), ("olmoe_head", 2048, 50304),
            ("dbrx_head", 6144, 100352), ("gemma3_up", 5376, 21504),
-           ("gemma3_down", 21504, 5376), ("gemma3_head", 5376, 262144)),
+           ("gemma3_down", 21504, 5376), ("gemma3_head", 5376, 262144),
+           ("rgemma_up", 2560, 7680), ("rgemma_down", 7680, 2560),
+           ("rgemma_head", 2560, 256000), ("xlstm_head", 768, 50304)),
     rows=(SLOTS, 256),
     # served at full width, in this order, each through phase 6's path
     serve=("olmoe-1b-7b-butterfly", "gemma-7b-butterfly"),
@@ -3976,6 +4060,23 @@ ZOO = dict(
     windowed_train=("gemma3-27b-butterfly", 8, (2048, 2), (2, 3)),
     # phase 26's windowed token case (window 16)
     windowed_tokens=("gemma3-27b-butterfly-smoke", WINDOW_PROMPTS, 64),
+    # phase 30: the recurrent archs on the dense pool at max_len 2048,
+    # whole prompts at exact lengths: phase 6's fourteen shortest prompts
+    # and two past the mLSTM's chunk of 256 and not multiples of it
+    recurrent=tuple((arch, dict(SERVE_DENSE, max_len=2048,
+                                long=(1000, 1500)))
+                    for arch in ("recurrentgemma-2b-butterfly",
+                                 "xlstm-125m-butterfly")),
+    # phase 31: both trained at all their layers; recurrentgemma's step
+    # profiled (xLSTM's ~200k launches a step would hold the profiler's
+    # event processing for minutes)
+    recurrent_train=(("recurrentgemma-2b-butterfly", 26, (2048, 2), (2, 3)),
+                     ("xlstm-125m-butterfly", 12, (1024, 2), (2, 3))),
+    profiled_train=("recurrentgemma-2b-butterfly",),
+    # phase 32: their smoke archs' token cases, prompts shorter than the
+    # conv's history of 3 rows and one past the smoke mLSTM's chunk of 16
+    recurrent_tokens=(("recurrentgemma-2b-butterfly-smoke",
+                       "xlstm-125m-butterfly-smoke"), RECURRENT_PROMPTS, 64),
 )
 
 
@@ -4045,12 +4146,15 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
     against plain at the run's rows (:func:`phase_train_sites`), phase
     6a's token
     case on ``zoo["tokens"]`` (eager, incremental, ``spec_k=3``), and the
-    timing of the new kernel shapes. Each path's launches join its
+    timing of the new kernel shapes; the windowed arch's serving, training
+    and tokens (phases 26, 28, 29) and the recurrent archs' (phases 30-32)
+    go the same ways. Each path's launches join its
     kernels' entries in ``kernels``. Returns the summary."""
     from repro_torch.configs import registry
     summary = {}
     served = [(arch, SERVE_PAGED) for arch in zoo["serve"]]
-    for arch, sizes in served + [zoo["windowed"]]:
+    for arch, sizes in (served + [zoo["windowed"]]
+                        + list(zoo["recurrent"])):
         free_device(torch, dev)
         t0 = time.monotonic()
         zcfg = registry.get(arch)
@@ -4063,19 +4167,24 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
         summary[f"serve {arch}"] = s
         for k, counter in ((kernels[0], "sandwich_fwd"),
                            (kernels[1], "paged_decode_attention")):
-            k["launches_by_path"][f"serve {arch}"] = launches[counter]
-            k["launches"] += launches[counter]
-    for arch, layers, (seq_len, batch), steps in (zoo["train"],
-                                                  zoo["windowed_train"]):
+            if counter == "sandwich_fwd" or sizes["pool"] == "paged":
+                k["launches_by_path"][f"serve {arch}"] = launches[counter]
+                k["launches"] += launches[counter]
+    trained = ((zoo["train"], zoo["windowed_train"])
+               + tuple(zoo["recurrent_train"]))
+    for arch, layers, (seq_len, batch), steps in trained:
         t0 = time.monotonic()
+        full = registry.get(arch).n_layers
         tcfg = registry.get(arch).with_(n_layers=layers)
-        say(f"train {arch}: {layers} of {registry.get(arch).n_layers} "
-            f"layers (depth cut: Adam's state for all would not fit one "
-            f"card); units {tcfg.unit_repeats} x {tcfg.block_unit}, tail "
+        say(f"train {arch}: {layers} of {full} layers"
+            + (" (depth cut: Adam's state for all would not fit one card)"
+               if layers < full else "")
+            + f"; units {tcfg.unit_repeats} x {tcfg.block_unit}, tail "
             f"{tcfg.tail_layers}")
         phase_train_sites(torch, tcfg, dev, kernel, seq_len * batch)
         launches, s = phase_train(torch, np, tcfg, dev, seq_len, batch,
-                                  steps=steps, profile=False)
+                                  steps=steps,
+                                  profile=arch in zoo["profiled_train"])
         free_device(torch, dev)
         s["phase_s"] = time.monotonic() - t0
         say(f"train {arch}: phase {s['phase_s']:.1f} s")
@@ -4091,6 +4200,13 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
                        max_len=wmax)
     phase_window_refusals(dev, warch)
     phase_serve_tokens(torch, np, dev, modes=("dense",))
+    rarchs, rlens, rmax = zoo["recurrent_tokens"]
+    for arch in rarchs:
+        t0 = time.monotonic()
+        phase_serve_tokens(torch, np, dev, arch, modes=("eager",),
+                           lens=rlens, max_len=rmax)
+        phase_window_refusals(dev, arch)
+        say(f"serve tokens {arch}: phase {time.monotonic() - t0:.1f} s")
     timing = phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo)
     kernels[0]["zoo"] = timing["sandwich"]
     kernels[1]["zoo"] = timing["paged"]
@@ -4246,6 +4362,8 @@ def main() -> int:
     kernels = run(torch, np, registry.get("smollm-135m-butterfly"), dev,
                   kernel="cuda", time_fn=cuda_ms, device_fn=device_ms)
     say(f"total: {time.monotonic() - t_start:.1f} s")
+    say(f"device_ms: {len(EVENT_FALLBACKS)} timings by CUDA events where "
+        f"the profiler saw no device time")
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ replica serves.
 
 Run: ``python -m repro_torch.examples.serve_lm --arch smollm-135m-smoke
 [--device cpu]``. Archs whose blocks the port does not build yet are
-refused, naming the ROADMAP sub-item (queue 1, item 5c or 5d).
+refused, naming the ROADMAP sub-item (queue 1, item 5d).
 """
 
 from __future__ import annotations

@@ -39,8 +39,9 @@ sliding-window rings, which never chunk). Not ported yet, and refused
 with a message rather than ignored: ``--mesh-shape`` and
 ``--simulated-devices`` (multi-device serving; ROADMAP queue 1, item 6).
 ``--arch`` takes every registry name whose blocks the port builds
-(``attn``, ``local``, ``global``, ``moe``); any other exits naming its
-sub-item (5c, 5d).
+(``attn``, ``local``, ``global``, ``moe``, ``rec``, ``mlstm``, ``slstm``;
+the recurrent archs serve on the dense pool, whole prompts at their exact
+lengths); any other exits naming its sub-item (5d).
 
 :func:`main` takes ``argv`` and returns the document ``--metrics-json``
 writes, so it can be called in-process.

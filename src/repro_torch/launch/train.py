@@ -15,9 +15,10 @@ The reference's multi-device flags (``--mesh-shape``,
 ROADMAP queue 1, item 6; ``--xla-perf-flags`` exits too, since XLA's flags
 have no torch meaning. ``--arch`` takes every
 registry name whose blocks the port builds (``attn``, ``local``,
-``global``, ``moe``: smollm-135m, olmoe-1b-7b, dbrx-132b, gemma-7b,
-gemma3-27b, mistral-large-123b and their variants); any other exits
-naming the ROADMAP sub-item (5c, 5d) that brings it.
+``global``, ``moe``, ``rec``, ``mlstm``, ``slstm``: smollm-135m,
+olmoe-1b-7b, dbrx-132b, gemma-7b, gemma3-27b, mistral-large-123b,
+recurrentgemma-2b, xlstm-125m and their variants); any other exits naming
+the ROADMAP sub-item (5d) that brings it.
 
 :func:`main` returns the :class:`~repro_torch.train.trainer.TrainResult`,
 so that scripts and tests drive the CLI in process.

@@ -1,5 +1,6 @@
-"""The decoder-only LM for units of ``attn``, ``local``, ``global`` and
-``moe`` blocks, with a tail: serving and training entry points.
+"""The decoder-only LM for units of ``attn``, ``local``, ``global``,
+``moe``, ``rec``, ``mlstm`` and ``slstm`` blocks, with a tail: serving and
+training entry points.
 
 Counterpart of ``repro.models.lm`` for the port's serving and training
 paths. The reference scans a stacked layer unit ``unit_repeats`` times with
@@ -8,17 +9,23 @@ one ``nn.ModuleList`` in that order (:func:`layer_types`) and
 :func:`backbone` is a Python loop over it, summing each block's aux loss as
 the reference's scan carry does. ``global`` is ``attn`` with window 0 and
 ``local`` is ``attn`` with ``cfg.sliding_window``, as in the reference;
-``moe`` swaps the MLP for :class:`repro_torch.models.moe.MoE`.
+``moe`` swaps the MLP for :class:`repro_torch.models.moe.MoE`; ``rec`` is
+the Griffin recurrent block and an MLP (:mod:`repro_torch.models.rglru`),
+``mlstm`` and ``slstm`` the xLSTM blocks alone (:mod:`repro_torch.models.
+xlstm`).
 
 Serving: the caches are one flat dict of stacked tensors, updated in place
 (:mod:`repro_torch.serve.cache`): ``"k"``/``"v"`` for the full-attention
 layers (pages of the paged pool with a page table, one full row per slot
-without) and ``"ring_k"``/``"ring_v"`` for the ``local`` layers' rings;
-:func:`cache_index` names each layer's entry. The entry points return no
-caches and drop the aux loss. Training: :func:`loss_fn` runs the stack
-without caches; with ``cfg.remat`` each layer is checkpointed
-(``torch.utils.checkpoint``, the counterpart of the reference's
-``jax.checkpoint`` of the scan body) and runs again in the backward pass.
+without), ``"ring_k"``/``"ring_v"`` for the ``local`` layers' rings, and
+per-type state stacks for the recurrent blocks (``"rec_h"``,
+``"rec_conv"``, ``"mlstm_C"``, ..., ``"slstm_h"``: :data:`STATE_FIELDS`);
+:func:`cache_index` names each layer's entry and :func:`layer_cache`
+takes its views. The entry points return no caches and drop the aux
+loss. Training: :func:`loss_fn` runs the stack without caches; with
+``cfg.remat`` each layer is checkpointed (``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint`` of the scan body) and
+runs again in the backward pass.
 
 The rest of the zoo is refused with a ``ValueError`` naming the ROADMAP
 sub-item that brings it (:func:`unported_reason`).
@@ -26,7 +33,7 @@ sub-item that brings it (:func:`unported_reason`).
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,12 +45,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
+from repro_torch.models import rglru as rgm
+from repro_torch.models import xlstm as xm
 
 #: the ROADMAP sub-item (queue 1, item 5) that brings each unported piece
 _SUB_ITEMS = {
-    "rec": "5c (rglru.py and xlstm.py on the dense exact-length path)",
-    "mlstm": "5c (rglru.py and xlstm.py on the dense exact-length path)",
-    "slstm": "5c (rglru.py and xlstm.py on the dense exact-length path)",
     "xdec": "5d (frontends and the encoder)",
     "enc": "5d (frontends and the encoder)",
 }
@@ -51,8 +57,7 @@ _SUB_ITEMS = {
 
 def unported_reason(cfg: ModelConfig) -> Optional[str]:
     """``None`` when the port builds, serves and trains ``cfg``; else why
-    not, naming the ROADMAP sub-item (queue 1, item 5c or 5d) that brings
-    it."""
+    not, naming the ROADMAP sub-item (queue 1, item 5d) that brings it."""
     def refuse(what: str, item: str) -> str:
         return (f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1, "
                 f"item {item})")
@@ -81,22 +86,52 @@ def layer_types(cfg: ModelConfig) -> Tuple[str, ...]:
             + tuple(cfg.tail_layers))
 
 
+#: the serving state of each recurrent block type, one stack per field
+#: (``"rec_h"``, ``"rec_conv"``, ...), in the reference's cache layout
+STATE_FIELDS = {"rec": ("h", "conv"), "mlstm": ("C", "n", "m", "conv"),
+                "slstm": ("c", "n", "m", "h")}
+
+#: the cache-entry prefix of each block type besides full attention's ""
+_PREFIXES = {"local": "ring_", **{t: t + "_" for t in STATE_FIELDS}}
+
+LayerCache = Union[Tuple[torch.Tensor, torch.Tensor],
+                   Dict[str, torch.Tensor]]
+
+
 def cache_index(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """Per layer, the prefix of its serving cache entry (``""`` for
-    ``"k"``/``"v"``, ``"ring_"`` for a ``local`` layer's ring) and its index
-    in that stack."""
-    seen = {"": 0, "ring_": 0}
+    """Per layer, the prefix of its serving cache entries (``""`` for
+    ``"k"``/``"v"``, ``"ring_"`` for a ``local`` layer's ring, ``"rec_"``,
+    ``"mlstm_"`` or ``"slstm_"`` for a recurrent block's state) and its
+    index in those stacks."""
+    seen: Dict[str, int] = {}
     out = []
     for t in layer_types(cfg):
-        pre = "ring_" if t == "local" else ""
-        out.append((pre, seen[pre]))
-        seen[pre] += 1
+        pre = _PREFIXES.get(t, "")
+        out.append((pre, seen.get(pre, 0)))
+        seen[pre] = seen.get(pre, 0) + 1
     return out
 
 
+def layer_cache(cfg: ModelConfig, caches: Mapping[str, torch.Tensor],
+                layer: int, index: Optional[List[Tuple[str, int]]] = None
+                ) -> LayerCache:
+    """Layer ``layer``'s views into the stacked ``caches``: ``(k, v)`` for
+    an attention block, ``{field: tensor}`` for a recurrent one; writing
+    them writes the pool. ``index`` is :func:`cache_index` (computed when
+    not given)."""
+    pre, j = (index or cache_index(cfg))[layer]
+    btype = layer_types(cfg)[layer]
+    if btype in STATE_FIELDS:
+        return {f: caches[pre + f][j] for f in STATE_FIELDS[btype]}
+    return caches[pre + "k"][j], caches[pre + "v"][j]
+
+
 class Layer(nn.Module):
-    """One ``attn``/``local``/``global``/``moe`` block: norm → attention →
-    residual, norm → MLP or MoE → residual."""
+    """One block, with the reference's per-type parameters: an
+    ``attn``/``local``/``global``/``moe`` block is norm → attention →
+    residual, norm → MLP or MoE → residual; ``rec`` the same with the
+    recurrent block in attention's place; ``mlstm`` and ``slstm`` are norm
+    → block → residual."""
 
     def __init__(self, cfg: ModelConfig, btype: str, *,
                  generator: Optional[torch.Generator] = None,
@@ -104,9 +139,22 @@ class Layer(nn.Module):
         super().__init__()
         E = cfg.d_model
         self.btype = btype
-        self.norm1 = nn.Parameter(torch.ones(E, dtype=cfg.pdtype()))
-        self.attn = attn.Attention(cfg, generator=generator)
-        self.norm2 = nn.Parameter(torch.ones(E, dtype=cfg.pdtype()))
+
+        def norm() -> nn.Parameter:
+            return nn.Parameter(torch.ones(E, dtype=cfg.pdtype()))
+
+        self.norm1 = norm()
+        if btype == "mlstm":
+            self.mlstm = xm.MLSTM(cfg, generator=generator)
+            return
+        if btype == "slstm":
+            self.slstm = xm.SLSTM(cfg, generator=generator)
+            return
+        if btype == "rec":
+            self.rec = rgm.RGLRU(cfg, generator=generator)
+        else:
+            self.attn = attn.Attention(cfg, generator=generator)
+        self.norm2 = norm()
         self.ffn = (moem.MoE(cfg, generator=generator) if btype == "moe"
                     else mlpm.MLP(cfg, generator=generator,
                                   site_specs=site_specs))
@@ -135,22 +183,40 @@ class LM(nn.Module):
                                    site_specs=site_specs)
 
 
+#: each recurrent block type's block function; its module is the layer's
+#: attribute of the type's name
+_RECURRENT = {"rec": rgm.rglru_block, "mlstm": xm.mlstm_block,
+              "slstm": xm.slstm_block}
+
+
 def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
-                positions: torch.Tensor,
-                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                positions: torch.Tensor, cache: Optional[LayerCache] = None,
                 page_table: Optional[torch.Tensor] = None,
                 prefill: bool = False, context: ContextLike = None
                 ) -> Tuple[torch.Tensor, moem.AuxLoss]:
     """One layer; returns ``(x, aux)`` with ``aux`` the MoE's aux loss,
     0.0 for other blocks and when serving (``cache`` given: the entry
-    points drop it). Without ``cache`` the attention runs over the whole
-    sequence (training); ``prefill`` fills ``cache`` from the whole
-    prompt (:func:`repro_torch.models.attention.attention`)."""
-    window = cfg.sliding_window if layer.btype == "local" else 0
+    points drop it). ``cache`` is the layer's :func:`layer_cache`. Without
+    it the block runs over the whole sequence (training); ``prefill``
+    fills it from the whole prompt; else one decode position updates it,
+    all in place (:func:`repro_torch.models.attention.attention`,
+    :func:`repro_torch.models.rglru.rglru_block`, :func:`repro_torch.
+    models.xlstm.mlstm_block`, :func:`repro_torch.models.xlstm.
+    slstm_block`)."""
     h = cm.rmsnorm(x, layer.norm1, cfg.norm_eps)
-    x = x + attn.attention(cfg, layer.attn, h, positions=positions,
-                           cache=cache, page_table=page_table,
-                           window=window, prefill=prefill, context=context)
+    if layer.btype in _RECURRENT:
+        mode = ("train" if cache is None
+                else "prefill" if prefill else "decode")
+        x = x + _RECURRENT[layer.btype](cfg, getattr(layer, layer.btype), h,
+                                        mode=mode, cache=cache)
+        if layer.btype != "rec":
+            return x, 0.0
+    else:
+        window = cfg.sliding_window if layer.btype == "local" else 0
+        x = x + attn.attention(cfg, layer.attn, h, positions=positions,
+                               cache=cache, page_table=page_table,
+                               window=window, prefill=prefill,
+                               context=context)
     h = cm.rmsnorm(x, layer.norm2, cfg.norm_eps)
     if layer.btype == "moe":
         f, aux = moem.moe_apply(cfg, layer.ffn, h, with_aux=cache is None)
@@ -165,10 +231,11 @@ def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
              ) -> Tuple[torch.Tensor, moem.AuxLoss]:
     """Run the layer stack; returns ``(x, aux)``, the blocks' aux losses
     summed in layer order (0.0 without MoE blocks, and when serving).
-    Serving: ``caches`` holds the stacked ``"k"``/``"v"`` and
-    ``"ring_k"``/``"ring_v"`` caches (:func:`cache_index`), written in
-    place. Training (``caches=None``): with ``cfg.remat`` and gradients on,
-    each layer is checkpointed and recomputed in the backward pass."""
+    Serving: ``caches`` holds the stacked ``"k"``/``"v"``,
+    ``"ring_k"``/``"ring_v"`` and recurrent state caches (:func:`
+    cache_index`), written in place. Training (``caches=None``): with
+    ``cfg.remat`` and gradients on, each layer is checkpointed and
+    recomputed in the backward pass."""
     cfg = model.cfg
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
     index = cache_index(cfg)
@@ -176,8 +243,7 @@ def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
     for i, layer in enumerate(model.layers):
         cache = None
         if caches is not None:
-            pre, j = index[i]
-            cache = (caches[pre + "k"][j], caches[pre + "v"][j])
+            cache = layer_cache(cfg, caches, i, index)
         if remat:
             x, a = checkpoint(layer_apply, cfg, layer, x,
                               positions=positions, context=context,
@@ -218,11 +284,13 @@ def prefill_at(model: LM, tokens: torch.Tensor,
     """Whole-prompt prefill: ``tokens`` (B, S) right-padded prompts at
     positions ``0..S-1``, ``last_pos`` (B,) each prompt's last real token,
     whose logits (B, V) are returned. Fills the dense-layout ``caches``
-    (full rows of length >= S and rings, :func:`repro_torch.serve.cache.
-    init_caches`) in place. Causality keeps the pad tail inert for every
-    real position, so the caches serve decode as they are; not for rings,
-    where pads would push real positions out: the engine prefills archs
-    with ``local`` blocks at their exact prompt lengths."""
+    (full rows of length >= S, rings and recurrent state, :func:`
+    repro_torch.serve.cache.init_caches`) in place. Causality keeps the pad
+    tail inert for every real position, so the caches serve decode as they
+    are; not for rings, where pads would push real positions out, nor for
+    recurrent state, which would fold the pads in: the engine prefills
+    archs with ``local`` or recurrent blocks at their exact prompt
+    lengths."""
     cfg = model.cfg
     x = cm.embed(cfg, model.embed, tokens)
     B, S, _ = x.shape

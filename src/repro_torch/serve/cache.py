@@ -13,9 +13,19 @@ attn/global/moe    ``"k"``/``"v"`` (n, ...): a full row per slot on
 local              ``"ring_k"``/``"ring_v"`` (n_local, slots, ring, KV,
                    D): a dense ring of ``min(window, total_seq)``
                    positions per slot, on either pool
+rec                ``"rec_h"`` (n, slots, R) float32, ``"rec_conv"`` (n,
+                   slots, W-1, R): dense pool only
+mlstm              ``"mlstm_C"`` (n, slots, H, D, D), ``"mlstm_n"``,
+                   ``"mlstm_m"`` float32, ``"mlstm_conv"`` (n, slots,
+                   W-1, DI): dense pool only
+slstm              ``"slstm_c"``/``"_n"``/``"_m"``/``"_h"`` (n, slots,
+                   E) float32: dense pool only
 =================  ==================================================
 
-:func:`repro_torch.models.lm.cache_index` maps each layer to its entry.
+Every entry starts at zeros but the xLSTM stabilizers and normalizer, as
+the reference's init: ``mlstm_m`` and ``slstm_m`` at -1e30, ``slstm_n`` at
+1e-6 (:func:`init_fill`); a slot's reset writes the same values.
+:func:`repro_torch.models.lm.cache_index` maps each layer to its entries.
 :func:`init_caches` is the dense layout at any batch: the dense pool's
 caches, and the batch-1 tree a whole-prompt prefill fills before
 ``write_slot`` splices it into a slot. :func:`paged_supported` and
@@ -51,6 +61,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.context import resolve_device
 from repro_torch.kernels.paged_attention import TRASH_PAGE
 from repro_torch.models import lm
+from repro_torch.models import rglru as rgm
+from repro_torch.models import xlstm as xm
 
 #: block types whose cache mixes positions sequentially (recurrent state):
 #: a right-padded prefill or a paged gather would corrupt them. The
@@ -92,17 +104,37 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
             and not cfg.frontend and not cfg.n_enc_layers)
 
 
+#: each key of the caches whose init value is not zero
+_INIT_FILL = {**{"mlstm_" + f: v for f, v in xm.MLSTM_INIT.items()},
+              **{"slstm_" + f: v for f, v in xm.SLSTM_INIT.items()}}
+
+
+def init_fill(key: str) -> float:
+    """The init value of every element of the cache entry ``key``."""
+    return _INIT_FILL.get(key, 0.0)
+
+
 def layer_cache_spec(cfg: ModelConfig, btype: str, batch: int,
-                     seq_len: int) -> Tuple[int, ...]:
-    """The dense shape of each of a layer's ``k`` and ``v`` caches:
-    ``(batch, length, KV, D)``, ``length`` the whole ``seq_len`` for full
-    attention and ``min(sliding_window, seq_len)`` for a ``local`` ring."""
+                     seq_len: int) -> rgm.StateSpec:
+    """One layer's dense cache entries, ``{field: (shape, dtype, init
+    value)}``: ``k`` and ``v`` ``(batch, length, KV, D)`` in the compute
+    dtype, ``length`` the whole ``seq_len`` for full attention and
+    ``min(sliding_window, seq_len)`` for a ``local`` ring; a recurrent
+    block's state as the reference's ``rglru_cache_spec``,
+    ``mlstm_cache_spec`` and ``slstm_cache_spec``."""
+    if btype == "rec":
+        return rgm.cache_spec(cfg, batch)
+    if btype == "mlstm":
+        return xm.mlstm_cache_spec(cfg, batch)
+    if btype == "slstm":
+        return xm.slstm_cache_spec(cfg, batch)
     if btype not in ("attn", "local", "global", "moe"):
         raise ValueError(f"{cfg.name}: no port cache for block type "
                          f"{btype!r}")
     length = (min(cfg.sliding_window, seq_len) if btype == "local"
               else seq_len)
-    return (batch, length, cfg.n_kv_heads, cfg.head_dim_)
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim_)
+    return {kv: (shape, cfg.cdtype(), 0.0) for kv in ("k", "v")}
 
 
 def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[str, int]]:
@@ -116,17 +148,18 @@ def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[str, int]]:
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                 device: Union[str, torch.device, None] = None) -> Caches:
-    """Zeroed caches in the dense layout: ``"k"``/``"v"`` (n_full, batch,
-    total_seq, KV, D) and ``"ring_k"``/``"ring_v"`` (n_local, batch, ring,
-    KV, D), each present when some layer uses it, in the compute dtype."""
+    """The caches in the dense layout at their init values: ``"k"``/``"v"``
+    (n_full, batch, total_seq, KV, D), ``"ring_k"``/``"ring_v"`` (n_local,
+    batch, ring, KV, D) and each recurrent state stack (n, batch, ...),
+    each present when some layer uses it (:func:`layer_cache_spec`)."""
     dev = resolve_device(device)
     seq_len = total_seq(cfg, seq_len)
     out = {}
     for pre, (t, n) in _stacks(cfg).items():
-        shape = (n,) + layer_cache_spec(cfg, t, batch, seq_len)
-        for kv in ("k", "v"):
-            out[pre + kv] = torch.zeros(shape, dtype=cfg.cdtype(),
-                                        device=dev)
+        for f, (shape, dt, fill) in layer_cache_spec(cfg, t, batch,
+                                                     seq_len).items():
+            out[pre + f] = torch.full((n,) + shape, fill, dtype=dt,
+                                      device=dev)
     return out
 
 
@@ -141,17 +174,24 @@ def write_cache_slot(pool: Caches, sub: Caches, slot: int,
 
 def reset_cache_slot(pool: Caches, slot: int,
                      keys: Optional[Tuple[str, ...]] = None) -> None:
-    """Zero batch index ``slot`` of the dense-layout ``pool`` in place
-    (its init state)."""
+    """Write batch index ``slot`` of the dense-layout ``pool`` back to its
+    init values (:func:`init_fill`) in place."""
     for key in (pool if keys is None else keys):
-        pool[key][:, slot] = 0
+        pool[key][:, slot] = init_fill(key)
+
+
+def state_keys(caches: Caches) -> Tuple[str, ...]:
+    """The entries of ``caches`` that hold recurrent state: a decode tick
+    advances them, where it only writes K/V at its own position."""
+    prefixes = tuple(t + "_" for t in lm.STATE_FIELDS)
+    return tuple(k for k in caches if k.startswith(prefixes))
 
 
 class DenseCachePool:
-    """One full ``max_len`` row per slot (and a ring per slot for
-    ``local`` layers): the reference's ``DenseCachePool``, simple and
-    exact. No pages: the allocator only checks that a request fits a row,
-    and there is nothing to gather."""
+    """One full ``max_len`` row per slot (a ring per slot for ``local``
+    layers, a state per slot for recurrent ones): the reference's
+    ``DenseCachePool``, simple and exact. No pages: the allocator only
+    checks that a request fits a row, and there is nothing to gather."""
 
     kind = "dense"
     faults = None                      # never consulted: no allocation
@@ -349,14 +389,12 @@ class PagedCachePool:
         cfg = self.cfg
         out = {}
         for pre, (t, n) in _stacks(cfg).items():
-            if t in _PAGED_BLOCKS:
-                shape = (n, self.num_pages, self.page_size, cfg.n_kv_heads,
-                         cfg.head_dim_)
-            else:
-                shape = (n,) + layer_cache_spec(cfg, t, self.slots,
-                                                 self.max_len_total)
-            for kv in ("k", "v"):
-                out[pre + kv] = torch.zeros(shape, dtype=cfg.cdtype(),
+            for kv, (shape, dt, _) in layer_cache_spec(
+                    cfg, t, self.slots, self.max_len_total).items():
+                if t in _PAGED_BLOCKS:
+                    shape = (self.num_pages, self.page_size, cfg.n_kv_heads,
+                             cfg.head_dim_)
+                out[pre + kv] = torch.zeros((n,) + shape, dtype=dt,
                                             device=self.device)
         return out
 

@@ -109,7 +109,8 @@ from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import steps as steps_lib
 from repro_torch.serve.cache import (PoolExhausted,
-                                     chunked_prefill_supported, make_pool)
+                                     chunked_prefill_supported, make_pool,
+                                     state_keys)
 from repro_torch.serve.faults import SITES as FAULT_SITES
 from repro_torch.serve.graphs import GraphCache, GraphEntry
 from repro_torch.serve.metrics import EngineMetrics, RequestMetrics
@@ -626,8 +627,9 @@ class ServeEngine:
 
     @property
     def caches(self) -> Dict[str, torch.Tensor]:
-        """The live KV caches (``"k"``/``"v"``, and ``"ring_k"``/
-        ``"ring_v"`` for ``local`` layers; :mod:`repro_torch.serve.cache`),
+        """The live KV caches (``"k"``/``"v"``, ``"ring_k"``/``"ring_v"``
+        for ``local`` layers, state stacks for recurrent ones;
+        :mod:`repro_torch.serve.cache`),
         written in place every tick."""
         return self._caches
 
@@ -846,12 +848,19 @@ class ServeEngine:
         the live KV pool, returned as a copy. The entry writes each active
         slot's K/V at ``cur_pos`` (and each inactive dense lane's at its own
         row's position 0, which admission rewrites), which the next decode
-        tick writes again before any read, so engine state is unchanged."""
+        tick writes again before any read; it advances recurrent state,
+        which is copied first and put back after. So engine state is
+        unchanged."""
         if not any(s is not None and s.decoding for s in self._slots):
             raise RuntimeError("no slot is decoding")
         tokens, cur_pos, active = self.decode_inputs()
-        return self._run(self._decode_entry(), tokens=tokens,
-                         cur_pos=cur_pos, active=active)[0].clone()
+        kept = {k: self._caches[k].clone()
+                for k in state_keys(self._caches)}
+        logits = self._run(self._decode_entry(), tokens=tokens,
+                           cur_pos=cur_pos, active=active)[0].clone()
+        for k, t in kept.items():
+            self._caches[k].copy_(t)
+        return logits
 
     def _spec_inputs(self) -> Tuple[np.ndarray, ...]:
         """``(last_token, cur_pos, active, anchor)`` on the host of the

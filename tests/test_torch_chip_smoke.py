@@ -12,10 +12,12 @@ sketch at 64 x 48, the paper's rows at 2 steps, the training CLI's
 continuous, resumed and compressed runs with the execution context's
 checks, and the zoo's phases: the paged kernel at the four zoo shapes,
 the sandwich at a small zoo site, the OLMoE and Gemma butterfly smoke
-configs served, the MoE trained one step and its greedy tokens) runs on the
-smoke-sized butterfly config with the plain PyTorch versions in place of
-the kernels, so wrong paths, shapes and control flow show up before the
-script reaches a card. Also the script's refusals: no result
+configs served, the MoE trained one step and its greedy tokens, gemma3's
+rings served, trained and its tokens, and the recurrent archs' smoke
+configs served on the dense pool, trained and their tokens with 1- and
+2-token prompts) runs on the smoke-sized butterfly config with the plain
+PyTorch versions in place of the kernels, so wrong paths, shapes and
+control flow show up before the script reaches a card. Also the script's refusals: no result
 and a non-zero exit without a CUDA device, or alone in a directory."""
 
 import importlib.util
@@ -45,7 +47,17 @@ ZOO_SMOKE = dict(
               dict(pool="paged", max_len=256, long=(40, 60),
                    probe=(5, 12, 15, 16, 17, 30, 40, 60))),
     windowed_train=("gemma3-27b-butterfly-smoke", 8, (32, 2), (1, 1)),
-    windowed_tokens=("gemma3-27b-butterfly-smoke", (5, 16, 20, 40), 64))
+    windowed_tokens=("gemma3-27b-butterfly-smoke", (5, 16, 20, 40), 64),
+    recurrent=tuple((arch, dict(pool="dense", max_len=256, long=(40,),
+                                probe=None))
+                    for arch in ("recurrentgemma-2b-butterfly-smoke",
+                                 "xlstm-125m-butterfly-smoke")),
+    recurrent_train=(("recurrentgemma-2b-butterfly-smoke", 5, (32, 2),
+                      (1, 1)),
+                     ("xlstm-125m-butterfly-smoke", 6, (32, 2), (1, 1))),
+    profiled_train=("recurrentgemma-2b-butterfly-smoke",),
+    recurrent_tokens=(("recurrentgemma-2b-butterfly-smoke",
+                       "xlstm-125m-butterfly-smoke"), (1, 2, 3, 20), 64))
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -105,8 +117,9 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         "captures 1, replays 31" in out
     for mode in ("eager", "incremental", "spec", "router"):
         assert f"serve tokens {mode}: " in out
-    # smollm's and the MoE's three cases each, gemma3's, smollm's dense
-    assert out.count("give the same greedy tokens (64 tokens") == 8
+    # smollm's and the MoE's three cases each, gemma3's, smollm's dense,
+    # the two recurrent archs'
+    assert out.count("give the same greedy tokens (64 tokens") == 10
     assert out.count("olmoe-1b-7b-butterfly-smoke float32, 4 prompts") == 3
     # the zoo: the paged kernel at its four shapes, the sandwich at its
     # sites, both archs served, the MoE trained, the new shapes timed
@@ -145,8 +158,7 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     assert "pool paged, max_len 256, whole-prompt prefill" in out
     assert f"{head} whole-prompt prefill ms by prompt length" in out
     assert "graph decode | gemma3-27b-butterfly-smoke | 8 | paged | " in out
-    assert ("train gemma3-27b-butterfly-smoke: 8 of 8 layers (depth cut: "
-            "Adam's state for all would not fit one card); units 1 x "
+    assert ("train gemma3-27b-butterfly-smoke: 8 of 8 layers; units 1 x "
             "('local', 'local', 'local', 'local', 'local', 'global'), tail "
             "('local', 'local')") in out
     assert ("train: gemma3-27b-butterfly-smoke, 8 layers, seq_len 32 x "
@@ -165,6 +177,38 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
             "on the dense pool") in out
     assert ("train: olmoe-1b-7b-butterfly-smoke, 1 layers, seq_len 32 x "
             "batch 2") in out
+    # phases 30-32: the recurrent archs served on the dense pool, trained
+    # at all their layers, and their token cases with 1- and 2-token
+    # prompts
+    for arch, sites_, unit, tail in (
+            ("recurrentgemma-2b-butterfly-smoke", 16,
+             "('rec', 'rec', 'local')", "('rec', 'rec')"),
+            ("xlstm-125m-butterfly-smoke", 1,
+             "('mlstm', 'mlstm', 'mlstm', 'mlstm', 'mlstm', 'slstm')", "()")):
+        head = f"serve {arch}:"
+        assert f"{head} 16 requests, prompts 5-187 tokens" in out
+        assert "pool dense, max_len 256, whole-prompt prefill" in out
+        assert f"{head} whole-prompt prefill ms by prompt length" in out
+        assert f"{head} phase " in out
+        assert (f"= 2 x {sites_}/tick x (decode + chunk + whole prefills "
+                f"16), 2 x 0/decode tick") in out
+        assert f"graph decode | {arch} | 8 | dense | " in out
+        assert f"profile {arch} graphed: device time not measured" in out
+        n = registry.get(arch).n_layers
+        assert (f"train {arch}: {n} of {n} layers; units 1 x {unit}, tail "
+                f"{tail}") in out
+        assert f"train: {arch}, {n} layers, seq_len 32 x batch 2" in out
+        assert (f"serve tokens eager: {arch} float32, 4 prompts of (1, 2, 3, "
+                f"20) tokens into 2 slots, whole prompts on the dense pool"
+                ) in out
+        for what in ("incremental", "spec_k"):
+            assert f"serve tokens {arch} {what}: refused" in out
+        assert f"serve tokens {arch}: phase " in out
+        assert {f"serve {arch}", f"train {arch}"} <= \
+            kernels[0]["launches_by_path"].keys()
+    assert ("train site xlstm-125m-butterfly-smoke lm_head 64->512 rows=64 "
+            "float32   forward") in out
+    assert "train site xlstm-125m-butterfly-smoke up_gate" not in out
     assert "; of which aux " in out
     # the MoE's head held against plain at the training run's rows first
     for dtype in ("float32", "bfloat16"):
@@ -258,7 +302,9 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         kernels[0]["launches_by_path"].keys()
     assert {"train", "train_cli", "layer_api", "lm_butterfly",
             "train olmoe-1b-7b-butterfly-smoke",
-            "train gemma3-27b-butterfly-smoke"} == \
+            "train gemma3-27b-butterfly-smoke",
+            "train recurrentgemma-2b-butterfly-smoke",
+            "train xlstm-125m-butterfly-smoke"} == \
         kernels[2]["launches_by_path"].keys()
     assert {"serve olmoe-1b-7b-butterfly-smoke",
             "serve gemma-7b-butterfly-smoke",
@@ -299,6 +345,26 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         assert k["bound_ms"] > 0
         assert os.path.exists(os.path.join(ROOT, k["source"]))
     json.dumps({"kernels": kernels})
+
+
+@pytest.mark.parametrize("arch,sites,per_tick,train", [
+    ("recurrentgemma-2b-butterfly", ("up_gate", "down", "lm_head"),
+     (79, 78), (2 * 157, 6 * 79)),
+    ("xlstm-125m-butterfly", ("lm_head",), (1, 0), (2 * 1, 6 * 1)),
+    ("olmoe-1b-7b-butterfly", ("lm_head",), (1, 0), (2 * 1, 6 * 1)),
+    ("gemma3-27b-butterfly", ("up_gate", "down", "lm_head"), (187, 186),
+     (2 * 373, 6 * 187))])
+def test_site_and_launch_counts_of_the_full_width_archs(arch, sites,
+                                                        per_tick, train):
+    """The sandwich sites a forward pass of the full-width arch calls and
+    the launch counts phases 24-31 hold: every layer with an MLP (the
+    `rec` and `local` ones, not the MoE or xLSTM blocks) runs up, gate
+    and down; the head is one site."""
+    smoke = _load_script()
+    cfg = registry.get(arch)
+    assert smoke.called_sites(cfg) == sites
+    assert smoke.sandwich_sites(cfg) == per_tick
+    assert smoke.train_counts(cfg) == train
 
 
 @pytest.mark.parametrize("case", ["dense", "by_hand"])

@@ -5,8 +5,9 @@ CPU (`--device cpu`), on the cases of the reference's
 telemetry JSON; `--trace-out` with the periodic metrics flusher, its Chrome
 trace passing the reference's validator; two replicas behind the router;
 bad geometry. Also: the flags of parts not ported exit with a message
-naming the ROADMAP item, a checkpoint directory restores the newest valid
-step, and the bench prints the reference bench's rows."""
+naming the ROADMAP item, the recurrent archs serve on the dense pool, a
+checkpoint directory restores the newest valid step, and the bench prints
+the reference bench's rows."""
 
 import json
 
@@ -116,6 +117,19 @@ def test_cli_serves_dense_pool_and_whole_prompts(flags, kind, chunk, capsys):
     assert f"pool={kind} chunk={chunk} " in out
     assert doc["summary"]["requests_finished"] == 3
     assert doc["summary"]["pool"]["kind"] == kind
+    assert doc["summary"]["chunk_ticks"] == 0
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b-smoke",
+                                  "xlstm-125m-butterfly-smoke"])
+def test_cli_serves_the_recurrent_archs(arch, capsys):
+    """The recurrent archs through the CLI: the paged request falls back
+    to the dense pool, whole prompts at their exact lengths."""
+    doc = serve_cli.main(["--device", "cpu", "--arch", arch, "--requests",
+                          "3", "--max-new", "3", "--min-prompt", "1",
+                          "--max-prompt", "20"])
+    assert "pool=dense chunk=None " in capsys.readouterr().out
+    assert doc["summary"]["requests_finished"] == 3
     assert doc["summary"]["chunk_ticks"] == 0
 
 

@@ -220,9 +220,20 @@ def test_cli_refuses_unported_flags(flags, why):
 
 
 def test_cli_refuses_archs_the_port_lacks():
-    with pytest.raises(SystemExit, match="item 5c"):
-        train_cli.main(["--arch", "recurrentgemma-2b-smoke", "--device",
-                        "cpu"])
+    with pytest.raises(SystemExit, match="item 5d"):
+        train_cli.main(["--arch", "internvl2-1b-smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b-butterfly-smoke",
+                                  "xlstm-125m-butterfly-smoke"])
+def test_cli_trains_the_recurrent_archs_on_the_cpu(arch, capsys):
+    """RG-LRU with local attention, and mLSTM/sLSTM, through the CLI on
+    sequences past the mLSTM's chunk of 16 and recurrentgemma's window."""
+    res = train_cli.main(["--arch", arch, "--steps", "2", "--seq-len", "24",
+                          "--global-batch", "2", "--device", "cpu"])
+    assert res.steps_run == 2 and all(np.isfinite(res.losses))
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "[train] done: loss ")
 
 
 def test_cli_trains_gemma3_on_the_cpu(capsys):

@@ -130,6 +130,5 @@ def test_example_runs_on_cpu(name, tmp_path, capsys):
 
 def test_serve_lm_refuses_archs_the_port_lacks():
     from repro_torch.examples import serve_lm
-    with pytest.raises(SystemExit, match="item 5c"):
-        serve_lm.main(["--arch", "recurrentgemma-2b-smoke", "--device",
-                       "cpu"])
+    with pytest.raises(SystemExit, match="item 5d"):
+        serve_lm.main(["--arch", "internvl2-1b-smoke", "--device", "cpu"])

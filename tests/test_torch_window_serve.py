@@ -16,7 +16,8 @@ dense pool in the port's serving engine against the JAX reference's
   `test_bucketed_prefill_compiles_once_per_bucket` (the port runs the
   whole-prompt prefill eagerly: each prefill's span names its bucket;
   one decode graph, ever) and `test_exact_buckets_for_sequential_state_
-  archs` (gemma3 and smollm buckets equal the reference engine's).
+  archs` (gemma3, smollm and recurrentgemma buckets equal the reference
+  engine's).
 * A prefill spliced into a paged slot by `write_slot` equals the
   reference's `write_slot`, pages and rings (its ring's roll undone); `scrub_freed_slots` zeroes
   rings and dense rows; `admission="incremental"` and `spec_k > 0` are
@@ -49,6 +50,7 @@ from test_torch_zoo_lm import _close
 
 GEMMA3 = "gemma3-27b-smoke"
 SMOLLM = "smollm-135m-smoke"
+RECURRENT = "recurrentgemma-2b-smoke"
 NEW = 8
 
 
@@ -159,14 +161,18 @@ def test_bucketed_prefill_runs_once_per_bucket(archs):
 
 def test_exact_buckets_for_sequential_state_archs(archs):
     """gemma3's rings prefill at exact lengths and never chunk; smollm
-    pads to power-of-two buckets; both as the reference's engines (the
-    engine's own list of sequential-state blocks adds `local` to the
-    cache's)."""
-    for arch, kind in ((GEMMA3, "exact"), (SMOLLM, "pow2")):
-        jcfg, params, tcfg, model = archs[arch]
+    pads to power-of-two buckets; recurrentgemma's state takes the dense
+    pool at exact lengths; all as the reference's engines (the engine's
+    own list of sequential-state blocks adds `local` to the cache's). An
+    arch with a frontend is refused, naming ROADMAP item 5d."""
+    for arch, kind in ((GEMMA3, "exact"), (SMOLLM, "pow2"),
+                       (RECURRENT, "exact")):
+        jcfg, params, tcfg, model = (archs[arch] if arch in archs
+                                     else carried(arch))
         j = JServeEngine(jcfg, params, slots=1, max_len=64)
         t = ServeEngine(tcfg, model, slots=1, max_len=64, device="cpu")
-        assert t.pool.kind == j.pool.kind == "paged"
+        assert t.pool.kind == j.pool.kind == (
+            "dense" if arch == RECURRENT else "paged")
         assert t.prefill_chunk == j.prefill_chunk
         lens = range(1, 65)
         assert [t.bucket_for(n) for n in lens] == \
@@ -176,8 +182,8 @@ def test_exact_buckets_for_sequential_state_archs(archs):
     assert tcache.SEQUENTIAL_STATE_BLOCKS == jcache.SEQUENTIAL_STATE_BLOCKS
     assert tengine.SEQUENTIAL_STATE_BLOCKS == jengine.SEQUENTIAL_STATE_BLOCKS
     assert "local" in tengine.SEQUENTIAL_STATE_BLOCKS
-    with pytest.raises(ValueError, match="item 5c"):
-        ServeEngine(treg.get("recurrentgemma-2b-smoke"), model, slots=1,
+    with pytest.raises(ValueError, match="item 5d"):
+        ServeEngine(treg.get("internvl2-1b-smoke"), model, slots=1,
                     max_len=64, device="cpu")
 
 

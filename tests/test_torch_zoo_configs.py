@@ -4,10 +4,10 @@ reference, and the port's refusal of the archs it does not build yet.
 Every registry name (ten archs, each as the base, `-smoke`, `-butterfly`
 and `-butterfly-smoke`) must equal the reference's config field for field,
 and `SHAPES`, `LONG_CONTEXT_OK` and `cell_applicable` must agree. The
-archs with recurrent, xLSTM, encoder or frontend blocks are refused by the
-model, the page pool, the engine and both command lines, each naming its
-ROADMAP sub-item (queue 1, item 5c or 5d); gemma3-27b, with its `local`
-blocks, is ported.
+archs with encoder or frontend blocks are refused by the model, the page
+pool, the engine and both command lines, naming their ROADMAP sub-item
+(queue 1, item 5d); gemma3-27b, with its `local` blocks, and the
+recurrent archs recurrentgemma-2b and xlstm-125m are ported.
 """
 
 import dataclasses
@@ -29,10 +29,9 @@ from repro_torch.serve.cache import (PagedCachePool,
 VARIANTS = ("", "-smoke", "-butterfly", "-butterfly-smoke")
 NAMES = [a + v for a in jreg.names() for v in VARIANTS]
 SERVED = ("olmoe-1b-7b", "dbrx-132b", "smollm-135m", "gemma-7b",
-          "mistral-large-123b", "gemma3-27b")
-REFUSED = {"recurrentgemma-2b": "5c",
-           "xlstm-125m": "5c", "internvl2-1b": "5d",
-           "seamless-m4t-medium": "5d"}
+          "mistral-large-123b", "gemma3-27b", "recurrentgemma-2b",
+          "xlstm-125m")
+REFUSED = {"internvl2-1b": "5d", "seamless-m4t-medium": "5d"}
 
 
 def _as_dict(cfg):
