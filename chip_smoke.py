@@ -22,8 +22,9 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    at 2e-2; two launches bit-identical. The same at the zoo's decode
    shapes, 512 positions: OLMoE-1B-7B (16 KV heads, 1 query head each,
    head dim 128), DBRX-132B (8, 6, 128), Mistral-Large-123B (8, 12, 128),
-   Gemma-7B (16, 1, 256: float32 rows take two vectors a lane) and
-   Gemma3-27B (16, 2, 128; also at the long 2048, its serving max_len).
+   Gemma-7B (16, 1, 256: float32 rows take two vectors a lane),
+   Gemma3-27B (16, 2, 128; also at the long 2048, its serving max_len),
+   InternVL2-1B (2, 7, 64) and SeamlessM4T-medium (16, 1, 64).
 5. Sandwich backward (six kernels: the factors again, the row products,
    the column products, their sum over row splits, the factor-row VJP, the
    reduction) vs its plain
@@ -42,7 +43,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    50,304), DBRX's (6144 -> 100,352), Gemma3-27B's up/gate (5376 ->
    21,504), down (21,504 -> 5376, n1 = 32,768) and head (5376 -> 262,144),
    RecurrentGemma-2B's up/gate (2560 -> 7680), down (7680 -> 2560) and
-   head (2560 -> 256,000) and xLSTM-125M's head (768 -> 50,304).
+   head (2560 -> 256,000), xLSTM-125M's head (768 -> 50,304),
+   InternVL2-1B's up/gate (896 -> 4,864), down and head (896 -> 151,655)
+   and SeamlessM4T-medium's up (1,024 -> 4,096), down and head (1,024 ->
+   256,206).
 6. Serving: a ServeEngine on full-width ``smollm-135m-butterfly``
    (random weights from seed 0, bfloat16 compute, 8 slots, max_len 512,
    prefill chunks of 16, greedy) serves 16 requests with prompts of 5 to
@@ -336,6 +340,40 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     smoke mLSTM's chunk of 16), max_len 64, on the dense pool: the card's
     tokens equal to the CPU's; incremental admission and ``spec_k=3`` are
     refused, as the reference refuses them.
+33. The frontend and encoder archs served at full width (ROADMAP 5d),
+    phase 24's path and checks with the other archs' weights freed first,
+    on phase 6's paged engine (8 slots, max_len 512, 16 requests of 5-200
+    prompt tokens and 32 new, greedy), whole prompts in power-of-two
+    buckets, each request's stub inputs drawn from the serving CLI's
+    stream ``default_rng([0, 2])``: ``internvl2-1b-butterfly`` (24 layers,
+    d_model 896, 14 heads and 2 KV heads of 64, SwiGLU 896 -> 4,864, vocab
+    151,655; 256 patch embeddings projected and prepended to each prompt,
+    so a slot's pages hold 768 positions) and
+    ``seamless-m4t-medium-butterfly`` (a 12-layer bidirectional encoder
+    over 1,536 frames inside each prefill, 12 ``xdec`` layers: paged
+    self-attention, cross-attention to the encoder's rows cached dense per
+    slot, GeLU MLP 1,024 -> 4,096; 16 heads of 64, vocab 256,206). Held:
+    every request finished; 2 x 73 (InternVL) and 2 x 25 (Seamless)
+    sandwich launches per decode tick and per prefill, plus 2 x 24 at the
+    encoder's sites per Seamless prefill; 2 x 24 and 2 x 12 paged launches
+    per decode tick; every tick after the build a replay; no NaN in pages,
+    cross rows or logits; the tick layer by layer and its replay against
+    eager within 5e-2. Printed: as phase 24, each prefill's ms by prompt
+    length, then phase 8's profile of the decode tick by kind, and the
+    phase's seconds.
+34. Both trained at all their layers, seq_len 2048 x batch 2 text tokens
+    (InternVL's 256 prefix tokens a sequence and Seamless's 1,536 frames
+    besides, the trainer's stub inputs), bfloat16, remat, 2 warm and 3
+    timed steps, their sandwich sites first held against plain at the
+    run's rows (4,608 and 4,096; the head's backward at 2,048): finite
+    losses, 2 x 145 forward and 6 x 73 backward (InternVL) and 2 x 73 and
+    6 x 49 (Seamless: the encoder's 24 sites once, not checkpointed)
+    sandwich launches a step; step p50, tokens/s, peak memory printed.
+35. Phase 26's eager token case, on the paged and the dense pool, on
+    ``internvl2-1b-butterfly-smoke`` and
+    ``seamless-m4t-medium-butterfly-smoke`` in float32 with their stub
+    inputs: the card's tokens equal to the CPU's; incremental admission
+    and ``spec_k=3`` are refused, as the reference refuses them.
 
 The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
 but ``auto`` or ``cuda``: the plain versions would stand in for the
@@ -400,8 +438,9 @@ def sites(cfg) -> dict:
 
 
 # the block types with an MLP (an ``moe`` block has the MoE instead, the
-# xLSTM blocks neither)
-MLP_BLOCKS = ("attn", "local", "global", "rec")
+# xLSTM blocks neither); an encoder's ``enc`` layers have one too
+# (:func:`enc_sites`)
+MLP_BLOCKS = ("attn", "local", "global", "rec", "xdec")
 
 
 def mlp_layers(cfg) -> int:
@@ -421,6 +460,32 @@ def called_sites(cfg) -> tuple:
     mlp = "mlp" in bc.sites and mlp_layers(cfg) > 0
     head = "lm_head" in bc.sites and not cfg.tie_embeddings
     return ("up_gate", "down") * mlp + ("lm_head",) * head
+
+
+def enc_sites(cfg) -> int:
+    """Sandwich sites of the encoder, which runs once per whole-prompt
+    prefill and per training forward (not checkpointed): its layers' MLP
+    sites, which share the decoder's site keys."""
+    if "down" not in called_sites(cfg) or not cfg.n_enc_layers:
+        return 0
+    per_layer = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
+    return per_layer * cfg.n_enc_layers
+
+
+def with_extras(np, cfg, prompts, seed: int = 0) -> list:
+    """``(prompt, extras)`` pairs: a frontend arch's stub inputs for each
+    prompt, drawn as the serving CLI draws them
+    (``np.random.default_rng([seed, 2])``); ``None`` for a text-only arch."""
+    from repro_torch.serve.trace import stub_extras
+    xrng = np.random.default_rng([seed, 2])
+    return [(p, stub_extras(cfg, xrng)) for p in prompts]
+
+
+def train_rows(cfg, seq_len: int, batch: int) -> int:
+    """Rows of a train step's decoder sites: a vision arch's prefix tokens
+    ride with the text."""
+    front = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    return batch * (seq_len + front)
 
 
 def sandwich_sites(cfg) -> tuple:
@@ -854,7 +919,8 @@ def serve_launches_want(cfg, snap, on_card: bool, spec_k: int = 0,
     """Kernel launches a serving run must count: the sandwich's
     ``FWD_KERNELS`` at every site (up, gate, down per layer and the head)
     per decode (or verify) and chunk tick and per whole-prompt prefill
-    (``prefills``, each one call a site), and at the head ``spec_k`` times
+    (``prefills``, each one call a site, and one at each of the encoder's
+    sites, :func:`enc_sites`), and at the head ``spec_k`` times
     per speculative tick's draft; the paged kernels' ``PAGED_KERNELS`` per
     paged layer (``paged``, all ``cfg.n_layers`` by default;
     :func:`paged_layers`) per decode tick (a verify pass reads the pool
@@ -866,6 +932,7 @@ def serve_launches_want(cfg, snap, on_card: bool, spec_k: int = 0,
     paged = cfg.n_layers if paged is None else paged
     return {"sandwich_fwd": on_card * ks.FWD_KERNELS
             * (per_tick * (decode + snap["chunk_ticks"] + prefills)
+               + enc_sites(cfg) * prefills
                + spec_k * (per_tick - in_layers) * decode),
             "paged_decode_attention": on_card * pa.PAGED_KERNELS
             * paged * decode * (not spec_k)}
@@ -987,8 +1054,8 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "",
                          for n in sizes["probe"]]
     else:                                  # <= 12 tokens: one chunk each
         probe_prompts = [prompts[n][:5 + n] for n in range(SLOTS)]
-    for p in probe_prompts:
-        probe.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
+    for p, x in with_extras(np, cfg, probe_prompts, seed=5):
+        probe.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS, extras=x))
     probe.step()
     if sizes["probe"]:
         ring = probe.caches.get("ring_k")
@@ -1016,8 +1083,9 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "",
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     zero_launches()
-    futs = [eng.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
-            for p in prompts]
+    futs = [eng.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS,
+                               extras=x))
+            for p, x in with_extras(np, cfg, prompts)]
     t0 = time.monotonic()
     eng.run_until_idle()
     sync(torch, dev)
@@ -1067,9 +1135,11 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "",
         say(f"{head} whole-prompt prefill ms by prompt length (host clock, "
             f"eager, the splice and first token included): "
             + ", ".join(f"{n}: {ms:.1f}" for n, ms in prefill_ms.items()))
+    enc = (f" + {ks.FWD_KERNELS} x {enc_sites(cfg)} encoder sites x whole "
+           f"prefills" if enc_sites(cfg) else "")
     say(f"{head} launches {launches} = {ks.FWD_KERNELS} x {per_tick}/tick x "
-        f"(decode + chunk + whole prefills {snap['prefills'] * whole}), "
-        f"{pa.PAGED_KERNELS} x {paged_layers(eng)}/decode tick")
+        f"(decode + chunk + whole prefills {snap['prefills'] * whole})"
+        f"{enc}, {pa.PAGED_KERNELS} x {paged_layers(eng)}/decode tick")
     graphs = graph_report(eng, snap, on_card)
     summary = {"ttft_p50_ms": snap["ttft_ms"]["p50"],
                "ttft_p95_ms": snap["ttft_ms"]["p95"],
@@ -1352,8 +1422,9 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH,
         eng = ServeEngine(cfg, model, slots=2, max_len=max_len,
                           prefill_chunk=16, device=where,
                           **TOKEN_CASES[mode])
-        futs = [eng.submit(Request(prompt=p, max_new_tokens=TOKEN_NEW))
-                for p in prompts]
+        futs = [eng.submit(Request(prompt=p, max_new_tokens=TOKEN_NEW,
+                                   extras=x))
+                for p, x in with_extras(np, cfg, prompts)]
         eng.run_until_idle(max_ticks=1000)
         runs.append([f.result(timeout=0).tokens for f in futs])
         snaps.append(eng.metrics.snapshot())
@@ -1381,10 +1452,15 @@ def serve_tokens_case(torch, np, dev, mode: str, arch: str = TOKEN_ARCH,
             continue
         step = next(j for j, (u, v) in enumerate(zip(a, b)) if u != v)
         ctx = torch.tensor(np.concatenate([prompts[i], b[:step]]))[None]
+        ex = {k: torch.from_numpy(v) for k, v in
+              (with_extras(np, cfg, prompts)[i % len(lens)][1] or {}).items()}
         with torch.no_grad():
-            x = cm.embed(cfg, cpu_model.embed, ctx)
-            pos = torch.arange(ctx.shape[1], dtype=torch.int32)[None]
-            x, _ = lm.backbone(cpu_model, x, positions=pos, context="torch")
+            x = lm.embed_inputs(cpu_model, ctx, ex.get("frontend_embeds"))
+            enc_out = (lm.run_encoder(cpu_model, ex["frames"], "torch")
+                       if cfg.n_enc_layers else None)
+            pos = torch.arange(x.shape[1], dtype=torch.int32)[None]
+            x, _ = lm.backbone(cpu_model, x, positions=pos, context="torch",
+                               enc_out=enc_out)
             x = cm.rmsnorm(x, cpu_model.final_norm, cfg.norm_eps)
             top = cm.head_apply(cfg, cpu_model.head, x, "torch")[0, -1].float(
                 ).topk(2).values
@@ -1543,9 +1619,10 @@ def phase_serve_tokens(torch, np, dev, arch: str = TOKEN_ARCH,
 
 def phase_window_refusals(dev, arch: str) -> None:
     """Phase 26's refusals on the card: ``arch``'s rings (or recurrent
-    state, phase 32) keep it off chunked prefill, so incremental admission
-    and ``spec_k > 0``, which ride the chunk machinery, are refused at
-    construction, as the reference's engine refuses them."""
+    state, phase 32, or its frontend or encoder, phase 35) keep it off
+    chunked prefill, so incremental admission and ``spec_k > 0``, which
+    ride the chunk machinery, are refused at construction, as the
+    reference's engine refuses them."""
     from repro_torch.configs import registry
     from repro_torch.serve import ServeEngine, loader
     cfg = registry.get(arch).with_(compute_dtype="float32")
@@ -1877,9 +1954,9 @@ def phase_profile(torch, np, cfg, dev, tag: str = "",
                       max_len=sizes["max_len"], pool=sizes["pool"],
                       prefill_chunk=CHUNK, device=dev)
     rng = np.random.default_rng(4)
-    for _ in range(SLOTS):
-        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 5),
-                           max_new_tokens=NEW_TOKENS))
+    for p, x in with_extras(np, cfg, [rng.integers(0, cfg.vocab_size, 5)
+                                      for _ in range(SLOTS)]):
+        eng.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS, extras=x))
     eng.step()          # prefill + first decode: both graphs built
     eng.step()          # the first decode replay
     ticks, out = 3, {}
@@ -2187,10 +2264,12 @@ def train_counts(cfg) -> tuple:
     """Sandwich forward and backward launches per train step: every site
     once forward (two kernels: factors, rows) and once backward (six
     kernels: factors, rows, columns, their sum, factor-row VJP, reduction),
-    and with remat the MLP sites (the checkpointed layers; 90 on smollm)
-    once more forward inside the backward pass."""
+    the encoder's (:func:`enc_sites`) among them, and with remat the
+    decoder's MLP sites (the checkpointed layers; 90 on smollm) once more
+    forward inside the backward pass."""
     from repro_torch.kernels import sandwich as ks
     sites_per_step, in_layers = sandwich_sites(cfg)
+    sites_per_step += enc_sites(cfg)
     return (ks.FWD_KERNELS * (sites_per_step
                               + (in_layers if cfg.remat else 0)),
             ks.BWD_KERNELS * sites_per_step)
@@ -4022,22 +4101,29 @@ def phase_paper(torch, np, dev, kernel: str, kernels: list, layers,
 ZOO = dict(
     # the paged kernel at each arch's decode shape: (KV heads, query heads
     # per KV head, head dim) = (16, 1, 128), (8, 6, 128), (8, 12, 128),
-    # (16, 1, 256), gemma3's (16, 2, 128), at the serving engine's 512
+    # (16, 1, 256), gemma3's (16, 2, 128), internvl2-1b's (2, 7, 64) and
+    # seamless-m4t-medium's (16, 1, 64), at the serving engine's 512
     # positions; gemma3's also at the long 2048 (its serving max_len)
     paged=("olmoe-1b-7b", "dbrx-132b", "mistral-large-123b", "gemma-7b",
-           "gemma3-27b"),
+           "gemma3-27b", "internvl2-1b", "seamless-m4t-medium"),
     paged_long=("gemma3-27b",),
     # the widest sandwich sites: Gemma-7B's MLP (its down site has n1 =
     # 32,768) and head (n2 = 262,144, the kernels' widest output), OLMoE's
     # and DBRX's heads, gemma3's three (up/gate 5376 -> 21,504, down n1 =
     # 32,768, head n2 = 262,144); each at a decode tick's and a check's
-    # rows; recurrentgemma's three and xLSTM's head (phase 30)
+    # rows; recurrentgemma's three and xLSTM's head (phase 30);
+    # internvl2-1b's three and seamless-m4t-medium's (phase 33: up 1,024
+    # -> 4,096, down, head to 256,206, padded n2 262,144)
     sites=(("gemma_up", 3072, 24576), ("gemma_down", 24576, 3072),
            ("gemma_head", 3072, 256000), ("olmoe_head", 2048, 50304),
            ("dbrx_head", 6144, 100352), ("gemma3_up", 5376, 21504),
            ("gemma3_down", 21504, 5376), ("gemma3_head", 5376, 262144),
            ("rgemma_up", 2560, 7680), ("rgemma_down", 7680, 2560),
-           ("rgemma_head", 2560, 256000), ("xlstm_head", 768, 50304)),
+           ("rgemma_head", 2560, 256000), ("xlstm_head", 768, 50304),
+           ("internvl_up", 896, 4864), ("internvl_down", 4864, 896),
+           ("internvl_head", 896, 151655), ("seamless_up", 1024, 4096),
+           ("seamless_down", 4096, 1024),
+           ("seamless_head", 1024, 256206)),
     rows=(SLOTS, 256),
     # served at full width, in this order, each through phase 6's path
     serve=("olmoe-1b-7b-butterfly", "gemma-7b-butterfly"),
@@ -4077,6 +4163,21 @@ ZOO = dict(
     # conv's history of 3 rows and one past the smoke mLSTM's chunk of 16
     recurrent_tokens=(("recurrentgemma-2b-butterfly-smoke",
                        "xlstm-125m-butterfly-smoke"), RECURRENT_PROMPTS, 64),
+    # phase 33: the vision prefix and the encoder-decoder on phase 6's
+    # paged engine (whole prompts in power-of-two buckets, each request's
+    # stub inputs from the serving CLI's stream)
+    frontends=tuple((arch, SERVE_PAGED)
+                    for arch in ("internvl2-1b-butterfly",
+                                 "seamless-m4t-medium-butterfly")),
+    # phase 34: both trained at all their layers, 2048 text tokens x 2
+    # (internvl's 256 prefix tokens and seamless's 1,536 frames besides)
+    frontend_train=(("internvl2-1b-butterfly", 24, (2048, 2), (2, 3)),
+                    ("seamless-m4t-medium-butterfly", 12, (2048, 2),
+                     (2, 3))),
+    # phase 35: their smoke archs' token cases on both pools
+    frontend_tokens=(("internvl2-1b-butterfly-smoke",
+                      "seamless-m4t-medium-butterfly-smoke"), TOKEN_PROMPTS,
+                     48),
 )
 
 
@@ -4147,14 +4248,15 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
     6a's token
     case on ``zoo["tokens"]`` (eager, incremental, ``spec_k=3``), and the
     timing of the new kernel shapes; the windowed arch's serving, training
-    and tokens (phases 26, 28, 29) and the recurrent archs' (phases 30-32)
-    go the same ways. Each path's launches join its
-    kernels' entries in ``kernels``. Returns the summary."""
+    and tokens (phases 26, 28, 29), the recurrent archs' (phases 30-32)
+    and the frontend and encoder archs' (phases 33-35) go the same ways.
+    Each path's launches join its kernels' entries in ``kernels``. Returns
+    the summary."""
     from repro_torch.configs import registry
     summary = {}
     served = [(arch, SERVE_PAGED) for arch in zoo["serve"]]
     for arch, sizes in (served + [zoo["windowed"]]
-                        + list(zoo["recurrent"])):
+                        + list(zoo["recurrent"]) + list(zoo["frontends"])):
         free_device(torch, dev)
         t0 = time.monotonic()
         zcfg = registry.get(arch)
@@ -4171,7 +4273,7 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
                 k["launches_by_path"][f"serve {arch}"] = launches[counter]
                 k["launches"] += launches[counter]
     trained = ((zoo["train"], zoo["windowed_train"])
-               + tuple(zoo["recurrent_train"]))
+               + tuple(zoo["recurrent_train"]) + tuple(zoo["frontend_train"]))
     for arch, layers, (seq_len, batch), steps in trained:
         t0 = time.monotonic()
         full = registry.get(arch).n_layers
@@ -4181,7 +4283,8 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
                if layers < full else "")
             + f"; units {tcfg.unit_repeats} x {tcfg.block_unit}, tail "
             f"{tcfg.tail_layers}")
-        phase_train_sites(torch, tcfg, dev, kernel, seq_len * batch)
+        phase_train_sites(torch, tcfg, dev, kernel,
+                          train_rows(tcfg, seq_len, batch))
         launches, s = phase_train(torch, np, tcfg, dev, seq_len, batch,
                                   steps=steps,
                                   profile=arch in zoo["profiled_train"])
@@ -4205,6 +4308,13 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
         t0 = time.monotonic()
         phase_serve_tokens(torch, np, dev, arch, modes=("eager",),
                            lens=rlens, max_len=rmax)
+        phase_window_refusals(dev, arch)
+        say(f"serve tokens {arch}: phase {time.monotonic() - t0:.1f} s")
+    farchs, flens, fmax = zoo["frontend_tokens"]
+    for arch in farchs:
+        t0 = time.monotonic()
+        phase_serve_tokens(torch, np, dev, arch, modes=("eager", "dense"),
+                           lens=flens, max_len=fmax)
         phase_window_refusals(dev, arch)
         say(f"serve tokens {arch}: phase {time.monotonic() - t0:.1f} s")
     timing = phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo)

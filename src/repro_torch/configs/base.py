@@ -2,11 +2,9 @@
 butterfly goes, and training.
 
 Frozen and hashable, like the reference's, field for field: every one of
-the zoo's ten configs constructs here. Fields that no ported path reads
-yet (the recurrent, xLSTM, frontend and encoder fields, the sliding
-window) are carried as data; the model refuses a config that needs them
-(:func:`repro_torch.models.lm.unported_reason`). ``seq_shard_activations``
-has no single-device meaning and is kept as data, as
+the zoo's ten configs constructs here, and the port builds, serves and
+trains each. ``seq_shard_activations`` and ``moe_token_chunk`` have no
+single-device meaning and are kept as data, as
 ``ButterflyConfig.mesh_shape`` is. Dtypes resolve to ``torch`` dtypes.
 """
 

@@ -2,8 +2,7 @@
 variants, and the ``-butterfly`` / ``-butterfly-smoke`` variants (the
 paper's §3.2 replacement applied to the LM head and MLP projections).
 
-Every name constructs; which ones the port serves and trains is decided
-by the model layer (``repro_torch.models.lm.unported_reason``)."""
+Every name constructs, and the port builds, serves and trains each."""
 
 from __future__ import annotations
 

@@ -2,8 +2,10 @@
 
 :func:`from_jax_params` takes the reference's param tree as numpy arrays
 (``{"embed": {"table"}, "unit": [stacked layer tree per unit position],
-"tail": [layer tree per tail layer], "final_norm", "head"}``; an MoE
-layer's ``ffn`` holds ``router``,
+"tail": [layer tree per tail layer], "final_norm", "head"}``, and for the
+frontends ``frontend_proj``, ``enc_unit`` (one ``enc`` layer tree stacked
+over ``n_enc_layers``, the port's ``enc_layers.<i>``) and ``enc_norm``;
+an MoE layer's ``ffn`` holds ``router``,
 ``w_gate``, ``w_up`` and ``w_down``, and a tied config's ``head`` is
 empty) and the reference's butterfly specs of its site keys, and returns
 an :class:`~repro_torch.models.lm.LM` holding the same weights. The
@@ -67,7 +69,8 @@ def layer_key(cfg: ModelConfig, layer: int) -> str:
 
 def _port_flat(cfg: ModelConfig, params_np: Mapping) -> Dict[str, Any]:
     """The reference tree as ``{port state name: array}``; the stacked
-    ``(R, ...)`` unit leaves split per layer, tail layers as they are."""
+    ``(R, ...)`` unit leaves split per layer, tail layers as they are, the
+    encoder's stacked ``enc_unit[0]`` split into ``enc_layers.<i>``."""
     U, R = len(cfg.block_unit), cfg.unit_repeats
     flat = {}
     for i, unit in enumerate(params_np["unit"]):
@@ -77,7 +80,12 @@ def _port_flat(cfg: ModelConfig, params_np: Mapping) -> Dict[str, Any]:
     for j, layer in enumerate(params_np.get("tail") or ()):
         for path, leaf in _flatten(layer).items():
             flat[f"layers.{R * U + j}.{path}"] = leaf
-    rest = {k: v for k, v in params_np.items() if k not in ("unit", "tail")}
+    for enc in params_np.get("enc_unit") or ():
+        for path, leaf in _flatten(enc).items():
+            for r in range(leaf.shape[0]):
+                flat[f"enc_layers.{r}.{path}"] = leaf[r]
+    rest = {k: v for k, v in params_np.items()
+            if k not in ("unit", "tail", "enc_unit")}
     flat.update(_flatten(rest))
     return flat
 
@@ -168,29 +176,35 @@ def sandwich_from_jax(spec: Any, params_np: Mapping, *,
 def reference_key(name: str, cfg: ModelConfig) -> str:
     """The checkpoint key of the reference leaf holding port parameter
     ``name`` (for gemma3's unit of six, ``layers.8.ffn.up.b_in`` ->
-    ``unit[2].ffn.up.b_in``; :func:`layer_key`)."""
+    ``unit[2].ffn.up.b_in``; :func:`layer_key`; an encoder layer's
+    ``enc_layers.3.attn.wq`` -> ``enc_unit[0].attn.wq``)."""
     parts = name.split(".")
     if parts[0] == "layers":
         return f"{layer_key(cfg, int(parts[1]))}." + ".".join(parts[2:])
+    if parts[0] == "enc_layers":
+        return "enc_unit[0]." + ".".join(parts[2:])
     return name
 
 
 def names_by_reference_key(names, cfg: ModelConfig
                            ) -> Dict[str, List[str]]:
     """``{reference key: [port names]}`` for the port names ``names`` (index
-    buffers dropped); a unit key lists its layers in order, which is the
-    order of the reference's stacked leading axis."""
+    buffers dropped); a unit key (``unit[i]``, ``enc_unit[0]``) lists its
+    layers in order, which is the order of the reference's stacked leading
+    axis."""
     out: Dict[str, List[str]] = {}
     for name in names:
         if not name.endswith(INDEX_BUFFERS):
             out.setdefault(reference_key(name, cfg), []).append(name)
     for key, group in out.items():
-        if key.startswith("unit["):
+        if key.startswith(_STACKED):
             group.sort(key=lambda n: int(n.split(".")[1]))
     return out
 
 
-_LIST_KEY = re.compile(r"(unit|tail)\[(\d+)\]\.(.*)")
+#: the reference's lists whose entries stack layers on a leading axis
+_STACKED = ("unit[", "enc_unit[")
+_LIST_KEY = re.compile(r"(unit|tail|enc_unit)\[(\d+)\]\.(.*)")
 
 
 def _insert(tree: Dict, path: List[str], leaf) -> None:
@@ -205,20 +219,20 @@ def to_jax_params(named: Mapping[str, torch.Tensor], cfg: ModelConfig
     ``named`` (``model.named_parameters()`` as a dict, or gradients under
     the same names) of a model of ``cfg``: each unit position's leaves
     stacked over its repeats into ``unit[i]``, tail layers into
-    ``tail[j]``, ``head`` empty for a tied head. Every array is a copy:
-    none shares memory with a tensor that a later step updates in place."""
-    lists: Dict[str, List[Dict]] = {"unit": [], "tail": []}
-    tree: Dict = dict(lists)
+    ``tail[j]``, the encoder's layers stacked into ``enc_unit[0]``,
+    ``head`` empty for a tied head. Every array is a copy: none shares
+    memory with a tensor that a later step updates in place."""
+    tree: Dict = {"unit": [], "tail": []}
     for key, group in names_by_reference_key(named, cfg).items():
         m = _LIST_KEY.fullmatch(key)
-        if m is not None and m[1] == "unit":
+        if m is not None and key.startswith(_STACKED):
             leaf = np.stack([named[n].detach().cpu().numpy() for n in group])
         else:
             leaf = named[group[0]].detach().to("cpu", copy=True).numpy()
         if m is None:
             _insert(tree, key.split("."), leaf)
             continue
-        entries, i = lists[m[1]], int(m[2])
+        entries, i = tree.setdefault(m[1], []), int(m[2])
         entries.extend({} for _ in range(i + 1 - len(entries)))
         _insert(entries[i], m[3].split("."), leaf)
     tree.setdefault("head", {})
@@ -249,8 +263,8 @@ def load_jax_opt_state(cfg: ModelConfig, template: Any, tree: Any) -> Any:
     layout, numpy, as a checkpoint restores it against
     ``opt_state_to_jax(template)``) as a port optimizer state shaped like
     ``template``, each tensor on its template's device and dtype; stacked
-    ``unit`` leaves are split per layer as :func:`load_jax_params` splits
-    the params."""
+    ``unit`` and ``enc_unit`` leaves are split per layer as
+    :func:`load_jax_params` splits the params."""
     if isinstance(template, Mapping):
         flat = _port_flat(cfg, tree)
         return {k: torch.as_tensor(np.array(flat[k])).to(t.device, t.dtype)

@@ -19,9 +19,13 @@ checkpoint hot-swap on a drained replica (the newest checkpoint on disk is
 torn, so the loader falls back to the newest valid one) while the other
 replica serves.
 
+A frontend arch's requests carry their stub inputs
+(:func:`repro_torch.serve.trace.stub_extras`:
+internvl2-1b's ``frontend_embeds``, seamless-m4t-medium's ``frames``),
+drawn as the reference's demo draws them.
+
 Run: ``python -m repro_torch.examples.serve_lm --arch smollm-135m-smoke
-[--device cpu]``. Archs whose blocks the port does not build yet are
-refused, naming the ROADMAP sub-item (queue 1, item 5d).
+[--device cpu]``; every registry arch is taken.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 from repro_torch import convert
 from repro_torch.kernels.context import resolve_device
 from repro_torch.launch import ported_config
+from repro_torch.serve.trace import stub_extras
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -80,7 +85,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         for plen in lengths:
             prompt = rng.integers(0, cfg.vocab_size, size=int(plen))
             futs.append(client.submit(Request(
-                prompt=prompt, max_new_tokens=args.gen_len)))
+                prompt=prompt, max_new_tokens=args.gen_len,
+                extras=stub_extras(cfg, rng))))
             time.sleep(0.01)          # requests trickle in, engine runs
         for fut in futs:
             r = fut.result(timeout=600)
@@ -132,9 +138,13 @@ def lifecycle_demo(cfg, model, rng, dev):
         def mk():
             return rng.integers(0, cfg.vocab_size, size=5)
 
-        f1 = client.submit(Request(prompt=mk(), max_new_tokens=14))
-        f2 = client.submit(Request(prompt=mk(), max_new_tokens=14))
-        f3 = client.submit(Request(prompt=mk(), max_new_tokens=14, rid=99))
+        def req(**kw):
+            return Request(prompt=mk(), max_new_tokens=14,
+                           extras=stub_extras(cfg, rng), **kw)
+
+        f1 = client.submit(req())
+        f2 = client.submit(req())
+        f3 = client.submit(req(rid=99))
         client.cancel(99)
         for fut in (f1, f2):
             r = fut.result(timeout=600)
@@ -189,7 +199,9 @@ def router_demo(cfg, model, dev):
         mgr.save(2, tree)
         tear_checkpoint(ckpt_dir)      # the newest step is now damaged
         with router:
-            futs = [router.submit(it.request()) for it in items]
+            xrng = np.random.default_rng([7, 2])
+            futs = [router.submit(it.request(extras=stub_extras(cfg, xrng)))
+                    for it in items]
             step = router.swap_checkpoint(0, ckpt_dir)
             for fut in futs:
                 fut.result(timeout=600)

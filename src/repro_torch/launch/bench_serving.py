@@ -1,7 +1,7 @@
 """Serving bench: the twin of the reference's ``benchmarks/bench_serving.py``.
 
     python -m repro_torch.launch.bench_serving [--device cpu]
-        [--requests N] [--max-new M] [--out FILE]
+        [--arch NAME] [--requests N] [--max-new M] [--out FILE]
 
 Replays the reference bench's seeded traces (:mod:`repro_torch.serve.trace`,
 the same workloads byte for byte) through the port's greedy
@@ -30,6 +30,11 @@ line each after a header:
 * ``serve/large_pool`` — 16 slots and four times the requests: timed on
   the card, skipped on the CPU (as the reference skips it off its
   accelerator).
+
+``--arch`` serves every row but the speculative ones on another registry
+arch (a frontend arch's requests carry stub inputs from
+``default_rng([seed, 2])``, as the serving CLI's do; an arch that cannot
+chunk its prefill skips ``serve/preempt_overload``).
 
 Rows follow :mod:`repro_torch.launch.speed` (``--out`` writes them as
 JSON, by default ``build/bench_serving.json`` at the repo root, with the
@@ -67,9 +72,13 @@ def _items(cfg, requests, max_new, *, mix, chunk=16, seed=0, rate=0.0):
     return trace_lib.generate(spec, cfg.vocab_size)
 
 
-def _drain(engine, prompts, max_new):
+def _drain(engine, prompts, max_new, xrng):
+    """Serve ``prompts`` to the end; a frontend arch's requests carry stub
+    inputs from ``xrng`` (:func:`repro_torch.serve.trace.stub_extras`)."""
     from repro_torch.serve import Request
-    futs = [engine.submit(Request(prompt=p, max_new_tokens=max_new))
+    from repro_torch.serve.trace import stub_extras
+    futs = [engine.submit(Request(prompt=p, max_new_tokens=max_new,
+                                  extras=stub_extras(engine.cfg, xrng)))
             for p in prompts]
     engine.run_until_idle()
     for f in futs:
@@ -86,9 +95,9 @@ def _warm(engine, cfg, rng) -> None:
     key the trace takes; on the dense pool a prompt per bucket runs each
     bucket's prefill once, as the reference's burn-in compiles each; then
     the metrics (tick clock, trace ring) reset."""
-    burn = (8,) if engine.pool.kind == "paged" else (8, 16, 32, 48)
+    burn = (8,) if engine.prefill_chunk else (8, 16, 32, 48)
     _drain(engine, [rng.integers(0, cfg.vocab_size, size=n)
-                    for n in (*burn, 48)], 2)
+                    for n in (*burn, 48)], 2, rng)
     engine.reset_metrics()
 
 
@@ -107,11 +116,12 @@ def _run_engine(dev, slots: int, requests: int, max_new: int, seed: int = 0,
     warm = engine.compile_stats["compiles"]
     if pool == "paged":
         items = _items(cfg, requests, max_new, mix="bimodal",
-                       chunk=engine.prefill_chunk, seed=seed)
+                       chunk=engine.prefill_chunk or 16, seed=seed)
     else:
         items = _items(cfg, requests, max_new, mix="uniform", seed=seed)
     t0 = time.perf_counter()
-    _drain(engine, [it.prompt for it in items], max_new)
+    _drain(engine, [it.prompt for it in items], max_new,
+           np.random.default_rng([seed, 2]))
     wall = time.perf_counter() - t0
     if engine.compile_stats["compiles"] != warm:
         raise RuntimeError("bench trace built a graph key; widen the "
@@ -145,10 +155,14 @@ def _run_router(dev, replicas: int, requests: int, max_new: int,
         engines.append(e)
     warm = [e.compile_stats["compiles"] for e in engines]
     items = _items(cfg, requests, max_new, mix="bimodal",
-                   chunk=engines[0].prefill_chunk, seed=seed, rate=rate)
+                   chunk=engines[0].prefill_chunk or 16, seed=seed,
+                   rate=rate)
+    xrng = np.random.default_rng([seed, 2])
     with Router(engines) as router:
         t0 = time.perf_counter()
-        futs, shed = trace_lib.replay(router.submit, items)
+        futs, shed = trace_lib.replay(
+            router.submit, items,
+            request_kw={"extras": lambda: trace_lib.stub_extras(cfg, xrng)})
         for f in futs:
             f.result(timeout=600)
         wall = time.perf_counter() - t0
@@ -164,12 +178,19 @@ def _engine_derived(snap) -> str:
 
 
 def run(dev: torch.device, requests: int = 24, max_new: int = 8,
-        trace_path: Optional[Path] = None) -> List[Dict]:
-    """Every row, in the reference bench's order."""
+        trace_path: Optional[Path] = None, arch: str = ARCH) -> List[Dict]:
+    """Every row, in the reference bench's order; ``arch`` serves every
+    row but the speculative ones (:data:`SPEC_ARCH`), and an arch that
+    cannot chunk its prefill (rings, recurrent state, a frontend or an
+    encoder) skips ``serve/preempt_overload``, whose preemptions recompute
+    through the chunk path."""
+    from repro_torch.configs import registry
     from repro_torch.obs import Tracer
     from repro_torch.obs.validate import validate_chrome_trace
+    from repro_torch.serve.cache import chunked_prefill_supported
 
-    snap, wall = _run_engine(dev, 4, requests, max_new, pool="dense")
+    snap, wall = _run_engine(dev, 4, requests, max_new, pool="dense",
+                             arch=arch)
     rows = [row(
         "serve/trace_e2e", wall * 1e6, _engine_derived(snap)
         + f"p50_ttft_ms={snap['ttft_ms']['p50']};"
@@ -178,7 +199,7 @@ def run(dev: torch.device, requests: int = 24, max_new: int = 8,
         f"requests={snap['requests_finished']};"
         f"tokens={snap['total_tokens']}", 1)]
 
-    snap, wall = _run_engine(dev, 4, requests, max_new)
+    snap, wall = _run_engine(dev, 4, requests, max_new, arch=arch)
     rows.append(row(
         "serve/paged_e2e", wall * 1e6, _engine_derived(snap)
         + f"p50_ttft_ms={snap['ttft_ms']['p50']};"
@@ -191,18 +212,23 @@ def run(dev: torch.device, requests: int = 24, max_new: int = 8,
 
     # 8 usable 16-token pages across 4 slots cannot hold every admitted
     # request's budget: incremental admission grows, preempts, recomputes
-    snap, wall = _run_engine(dev, 4, requests, max_new,
-                             admission="incremental", num_pages=9)
-    rows.append(row(
-        "serve/preempt_overload", wall * 1e6, _engine_derived(snap)
-        + f"preempted={snap['preempted']};"
-        f"recompute_tokens={snap['recompute_tokens']};"
-        f"exhausted={snap['pool']['exhausted_events']};"
-        f"max_concurrent={snap['max_concurrent_slots']};"
-        f"pages_hwm={snap['pool']['pages_hwm']};"
-        f"p95_ttft_ms={snap['ttft_ms']['p95']};"
-        f"requests={snap['requests_finished']};"
-        f"tokens={snap['total_tokens']}", 1))
+    if not chunked_prefill_supported(registry.get(arch)):
+        rows.append(skipped("serve/preempt_overload",
+                            f"{arch} admits whole prompts: no chunked "
+                            f"recompute"))
+    else:
+        snap, wall = _run_engine(dev, 4, requests, max_new, arch=arch,
+                                 admission="incremental", num_pages=9)
+        rows.append(row(
+            "serve/preempt_overload", wall * 1e6, _engine_derived(snap)
+            + f"preempted={snap['preempted']};"
+            f"recompute_tokens={snap['recompute_tokens']};"
+            f"exhausted={snap['pool']['exhausted_events']};"
+            f"max_concurrent={snap['max_concurrent_slots']};"
+            f"pages_hwm={snap['pool']['pages_hwm']};"
+            f"p95_ttft_ms={snap['ttft_ms']['p95']};"
+            f"requests={snap['requests_finished']};"
+            f"tokens={snap['total_tokens']}", 1))
 
     snap, wall = _run_engine(dev, 4, requests, max_new, spec_k=3,
                              arch=SPEC_ARCH)
@@ -220,7 +246,8 @@ def run(dev: torch.device, requests: int = 24, max_new: int = 8,
         f"requests={snap['requests_finished']};"
         f"tokens={snap['total_tokens']}", 1))
 
-    rsnap, shed, wall = _run_router(dev, 2, requests, max_new, rate=100.0)
+    rsnap, shed, wall = _run_router(dev, 2, requests, max_new, rate=100.0,
+                                    arch=arch)
     rows.append(row(
         "serve/router_slo", wall * 1e6,
         f"p50_ttft_ms={rsnap['ttft_ms']['p50']};"
@@ -260,7 +287,7 @@ def run(dev: torch.device, requests: int = 24, max_new: int = 8,
         f"requests={esnap['requests_finished']}"})
 
     if dev.type == "cuda":
-        snap, wall = _run_engine(dev, 16, 4 * requests, max_new)
+        snap, wall = _run_engine(dev, 16, 4 * requests, max_new, arch=arch)
         tok_s = snap["decode_tok_per_s"]
         rows.append(row("serve/large_pool", 1e6 / tok_s if tok_s else None,
                         f"tok_s={tok_s:.1f};"
@@ -279,6 +306,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions)")
+    ap.add_argument("--arch", default=ARCH,
+                    help="the arch of every row but the speculative ones")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--out", default=str(DEFAULT_OUT),
@@ -289,7 +318,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     out = Path(args.out)
     sys.stdout.write("name,us_per_call,derived\n")
     rows = run(dev, args.requests, args.max_new,
-               trace_path=out.parent / "serve_trace.json")
+               trace_path=out.parent / "serve_trace.json", arch=args.arch)
     for r in rows:
         sys.stdout.write(line(r) + "\n")
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -38,10 +38,13 @@ admits whole prompts (power-of-two buckets; exact lengths for archs with
 sliding-window rings, which never chunk). Not ported yet, and refused
 with a message rather than ignored: ``--mesh-shape`` and
 ``--simulated-devices`` (multi-device serving; ROADMAP queue 1, item 6).
-``--arch`` takes every registry name whose blocks the port builds
-(``attn``, ``local``, ``global``, ``moe``, ``rec``, ``mlstm``, ``slstm``;
-the recurrent archs serve on the dense pool, whole prompts at their exact
-lengths); any other exits naming its sub-item (5d).
+``--arch`` takes every registry name (the recurrent archs serve on the
+dense pool, whole prompts at their exact lengths; the frontend and encoder
+archs admit whole prompts in power-of-two buckets). A frontend arch's
+requests carry their stub inputs, drawn as the reference's CLI draws them
+from ``np.random.default_rng([seed, 2])``, a stream apart from the
+trace's: ``frontend_embeds`` (1, frontend_tokens, d_model) for
+internvl2-1b, ``frames`` (1, enc_seq, d_model) for seamless-m4t-medium.
 
 :func:`main` takes ``argv`` and returns the document ``--metrics-json``
 writes, so it can be called in-process.
@@ -165,6 +168,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.replicas < 1:
         raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
 
+    import numpy as np
+
     from repro_torch.kernels import build
     from repro_torch.launch import ported_config
     from repro_torch.kernels.context import resolve_device
@@ -229,6 +234,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         raise SystemExit(f"invalid trace: {e}")
     items = trace.generate(spec, cfg.vocab_size)
 
+    # a frontend arch's per-request inputs, the reference's stubs: off a
+    # stream of their own ([seed, 2]; the trace owns 0 and 1), so arming
+    # a frontend leaves the token workload as it was
+    xrng = np.random.default_rng([args.seed, 2])
+
+    def extras():
+        return trace.stub_extras(cfg, xrng)
+
     def show(fut):
         r = fut.result(timeout=600)
         m = r.metrics
@@ -258,7 +271,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         with ServeClient(engine) as client:
             flusher = start_flusher(engine.telemetry)
             try:
-                futs, shed = trace.replay(client.submit, items)
+                futs, shed = trace.replay(client.submit, items,
+                                          request_kw={"extras": extras})
                 for fut in futs:
                     show(fut)
             finally:
@@ -294,7 +308,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         with router:
             flusher = start_flusher(router.telemetry)
             try:
-                futs, shed = trace.replay(router.submit, items)
+                futs, shed = trace.replay(router.submit, items,
+                                          request_kw={"extras": extras})
                 for fut in futs:
                     show(fut)
             finally:

@@ -14,11 +14,9 @@ The reference's multi-device flags (``--mesh-shape``,
 ``--simulated-devices``, ``--distributed``) exit with a message naming
 ROADMAP queue 1, item 6; ``--xla-perf-flags`` exits too, since XLA's flags
 have no torch meaning. ``--arch`` takes every
-registry name whose blocks the port builds (``attn``, ``local``,
-``global``, ``moe``, ``rec``, ``mlstm``, ``slstm``: smollm-135m,
-olmoe-1b-7b, dbrx-132b, gemma-7b, gemma3-27b, mistral-large-123b,
-recurrentgemma-2b, xlstm-125m and their variants); any other exits naming
-the ROADMAP sub-item (5d) that brings it.
+registry name; the frontend archs' batches carry the reference trainer's
+stub inputs (``frontend_embeds`` for internvl2-1b, ``frames`` for
+seamless-m4t-medium; :class:`~repro_torch.train.trainer.Trainer`).
 
 :func:`main` returns the :class:`~repro_torch.train.trainer.TrainResult`,
 so that scripts and tests drive the CLI in process.

@@ -1,14 +1,15 @@
 """GQA attention: over the paged KV pool and over dense rows and
-sliding-window rings (serving), and over whole sequences without a cache
-(training).
+sliding-window rings (serving), over whole sequences without a cache
+(training), bidirectional over an encoder's frames, and across to an
+encoder's output.
 
-Counterpart of ``repro.models.attention.attention`` for its self-attention
-branches.
+Counterpart of ``repro.models.attention.attention``.
 
 * **Training** (no cache): the masked path :func:`_attend_masked`, or the
   online-softmax blockwise path :func:`_attend_blockwise` from
   ``cfg.blockwise_threshold`` on, both with the sliding ``window`` of a
-  ``local`` block. Training's blockwise loop visits every KV block and
+  ``local`` block, and without the causal mask for an ``enc`` block
+  (``causal=False``). Training's blockwise loop visits every KV block and
   masks; a block outside the causal window contributes exactly zero
   through ``corr = exp(m - m_new)``.
 * **Prefill** (``prefill=True``): the whole prompt at once, the blockwise
@@ -21,12 +22,18 @@ branches.
   table's reach go to the trash page — and read back through the page
   table. One query position goes to the CUDA kernel; a prompt chunk
   (``Sq > 1``) goes to the plain gather :func:`paged_attend_ref`, as the
-  reference does.
+  reference does. An ``xdec`` block's self-attention takes this branch as
+  an ``attn`` block's does.
 * **Dense decode** (otherwise): one query position per row, written at
   ``cur_pos % ring`` into a ring or at ``cur_pos`` into a full row, read
   back under a validity mask that rebuilds each ring entry's absolute
   position. Plain PyTorch, as the reference's is plain jnp: the reference
   has no ring-decode kernel.
+* **Cross-attention** (:func:`cross_attention`, an ``xdec`` block's second
+  attention): keys and values from the encoder's output, no RoPE, no mask.
+  A prefill writes the layer's cross rows (the slot's ``enc_seq`` rows) in
+  place; a decode step reads all of them and writes nothing. Plain
+  PyTorch, as the reference's is plain jnp.
 
 Every cache is updated in place and no branch synchronises with the host,
 so a decode tick captures as one CUDA graph.
@@ -71,32 +78,39 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_pos: torch.Tensor, k_pos: torch.Tensor,
-                   window: int = 0) -> torch.Tensor:
-    """Causal grouped-query attention without KV expansion: q (B,Sq,KV,G,D),
-    k/v (B,Skv,KV,D), positions (B,S); ``window > 0`` also masks keys
-    ``window`` or more positions back. Scores and softmax in float32."""
+                   q_pos: Optional[torch.Tensor],
+                   k_pos: Optional[torch.Tensor], window: int = 0,
+                   causal: bool = True) -> torch.Tensor:
+    """Grouped-query attention without KV expansion: q (B,Sq,KV,G,D),
+    k/v (B,Skv,KV,D), positions (B,S); ``causal`` masks keys after the
+    query, ``window > 0`` keys ``window`` or more positions back. Without
+    either nothing is masked and the positions may be ``None``. Scores and
+    softmax in float32."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
-    kp = k_pos[:, None, None, None, :]
-    qp = q_pos[:, None, None, :, None]
-    mask = kp <= qp
-    if window > 0:
-        mask &= kp > qp - window
-    logits = logits.masked_fill(~mask, NEG_INF)
+    if causal or window > 0:
+        kp = k_pos[:, None, None, None, :]
+        qp = q_pos[:, None, None, :, None]
+        mask = kp <= qp if causal else kp > qp - window
+        if causal and window > 0:
+            mask &= kp > qp - window
+        logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
 
 
 def _attend_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       block_q: int, block_kv: int, window: int = 0,
+                      causal: bool = True,
                       dynamic_bounds: bool = False) -> torch.Tensor:
-    """Online-softmax causal GQA attention over (block_q, block_kv) tiles.
-    q (B,S,KV,G,D), k/v (B,S,KV,D); S divides both blocks; ``window > 0``
-    is a sliding window. Training (``dynamic_bounds=False``) visits every
-    KV block of every query block and masks; prefill visits only the
-    blocks that intersect ``[qi*bq - window, (qi+1)*bq)``, the reference's
-    block skipping. The bounds are Python ints: no host sync."""
+    """Online-softmax GQA attention over (block_q, block_kv) tiles.
+    q (B,S,KV,G,D), k/v (B,S,KV,D); S divides both blocks; ``causal``
+    masks keys after the query, ``window > 0`` is a sliding window.
+    Training (``dynamic_bounds=False``) visits every KV block of every
+    query block and masks; prefill visits only the blocks that intersect
+    ``[qi*bq - window, (qi+1)*bq)`` (every block past it too when not
+    ``causal``), the reference's block skipping. The bounds are Python
+    ints: no host sync."""
     B, S, KV, G, D = q.shape
     scale = D ** -0.5
     dev = q.device
@@ -105,7 +119,8 @@ def _attend_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for qi in range(S // block_q):
         lo, hi = 0, nkv
         if dynamic_bounds:
-            hi = (qi * block_q + block_q + block_kv - 1) // block_kv
+            if causal:
+                hi = (qi * block_q + block_q + block_kv - 1) // block_kv
             if window > 0:
                 lo = max(0, (qi * block_q - window) // block_kv)
         qblk = q[:, qi * block_q:(qi + 1) * block_q].permute(0, 2, 3, 1, 4)
@@ -119,7 +134,10 @@ def _attend_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             vblk = v[:, sl].permute(0, 2, 1, 3)
             k_ids = j * block_kv + torch.arange(block_kv, device=dev)
             s = torch.einsum("bkgqd,bkcd->bkgqc", qblk, kblk).float() * scale
-            msk = k_ids[None, :] <= q_ids[:, None]
+            msk = torch.ones((block_q, block_kv), dtype=torch.bool,
+                             device=dev)
+            if causal:
+                msk &= k_ids[None, :] <= q_ids[:, None]
             if window > 0:
                 msk &= k_ids[None, :] > q_ids[:, None] - window
             s = s.masked_fill(~msk, NEG_INF)
@@ -139,10 +157,11 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
               positions: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               page_table: Optional[torch.Tensor] = None,
-              window: int = 0, prefill: bool = False,
+              window: int = 0, prefill: bool = False, causal: bool = True,
               context: ContextLike = None) -> torch.Tensor:
     """x (B, Sq, E); positions (B, Sq) int32 absolute positions; ``window``
-    the sliding window of a ``local`` block (0 = full attention).
+    the sliding window of a ``local`` block (0 = full attention);
+    ``causal=False`` for an ``enc`` block, which runs without a cache.
 
     Without ``cache``: attention over the whole sequence (training). With
     ``cache``, this layer's ``(k, v)``, written in place: under ``prefill``
@@ -164,9 +183,11 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
                 and Sq % cfg.attn_block_kv == 0):
             att = _attend_blockwise(q, k, v, block_q=cfg.attn_block_q,
                                     block_kv=cfg.attn_block_kv,
-                                    window=window, dynamic_bounds=prefill)
+                                    window=window, causal=causal,
+                                    dynamic_bounds=prefill)
         else:
-            att = _attend_masked(q, k, v, positions, positions, window)
+            att = _attend_masked(q, k, v, positions, positions, window,
+                                 causal)
         return _proj_out(cfg, attn, att)
 
     if page_table is None or window > 0:
@@ -189,6 +210,31 @@ def attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
     else:
         att = pa.paged_attend_ref(q, k_pool, v_pool, page_table, positions)
     return _proj_out(cfg, attn, att)
+
+
+def cross_attention(cfg: ModelConfig, attn: Attention, x: torch.Tensor, *,
+                    enc_out: Optional[torch.Tensor] = None,
+                    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    prefill: bool = False) -> torch.Tensor:
+    """An ``xdec`` block's attention across to the encoder: x (B, Sq, E)
+    queries without RoPE; keys and values projected from ``enc_out`` (B,
+    S_enc, E), unmasked. ``cache`` is the layer's cross rows (B, enc_seq,
+    KV, D): under ``prefill`` they are written from ``enc_out`` in place
+    (zeros past ``S_enc``, as the reference pads them); with a cache and no
+    ``prefill`` (decode) the step reads all ``enc_seq`` rows, as the
+    reference reads them, and writes nothing. Plain PyTorch: the
+    reference's cross-attention is plain jnp."""
+    B, Sq, E = x.shape
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = _project(x, attn.wq).view(B, Sq, KV, H // KV, D)
+    if cache is not None and not prefill:
+        k, v = (c.to(q.dtype) for c in cache)
+    else:
+        k, v = _project(enc_out, attn.wk), _project(enc_out, attn.wv)
+        if cache is not None:
+            _write_prefill(cache, k, v, 0)
+    return _proj_out(cfg, attn, _attend_masked(q, k, v, None, None,
+                                               causal=False))
 
 
 def _write_prefill(cache: Tuple[torch.Tensor, torch.Tensor],

@@ -1,6 +1,6 @@
-"""The decoder-only LM for units of ``attn``, ``local``, ``global``,
-``moe``, ``rec``, ``mlstm`` and ``slstm`` blocks, with a tail: serving and
-training entry points.
+"""The LM for units of ``attn``, ``local``, ``global``, ``moe``, ``rec``,
+``mlstm``, ``slstm`` and ``xdec`` blocks, with a tail, an ``enc`` encoder
+stack and the frontends' projection: serving and training entry points.
 
 Counterpart of ``repro.models.lm`` for the port's serving and training
 paths. The reference scans a stacked layer unit ``unit_repeats`` times with
@@ -12,23 +12,38 @@ the reference's scan carry does. ``global`` is ``attn`` with window 0 and
 ``moe`` swaps the MLP for :class:`repro_torch.models.moe.MoE`; ``rec`` is
 the Griffin recurrent block and an MLP (:mod:`repro_torch.models.rglru`),
 ``mlstm`` and ``slstm`` the xLSTM blocks alone (:mod:`repro_torch.models.
-xlstm`).
+xlstm`); ``xdec`` is self-attention, then attention across to the
+encoder's output (:func:`repro_torch.models.attention.cross_attention`),
+then the MLP.
+
+The frontends are the reference's stubs: their inputs are precomputed
+embeddings. A ``vision`` config (internvl2-1b) projects each request's
+``frontend_embeds`` (B, frontend_tokens, E) through ``frontend_proj`` and
+prepends them to the text (:func:`embed_inputs`); the loss reads the
+logits after them and a prefill reads out at ``last_pos + n_front``. An
+encoder config (seamless-m4t-medium) runs ``frames`` (B, S_enc, E)
+through ``n_enc_layers`` bidirectional ``enc`` blocks and ``enc_norm``
+(:func:`run_encoder`, no checkpointing, as the reference's scan has
+none), whose output the ``xdec`` blocks attend to. Every config with a
+``frontend`` has a ``frontend_proj``, as the reference's tree does; an
+``audio`` one never uses it.
 
 Serving: the caches are one flat dict of stacked tensors, updated in place
 (:mod:`repro_torch.serve.cache`): ``"k"``/``"v"`` for the full-attention
-layers (pages of the paged pool with a page table, one full row per slot
-without), ``"ring_k"``/``"ring_v"`` for the ``local`` layers' rings, and
-per-type state stacks for the recurrent blocks (``"rec_h"``,
-``"rec_conv"``, ``"mlstm_C"``, ..., ``"slstm_h"``: :data:`STATE_FIELDS`);
-:func:`cache_index` names each layer's entry and :func:`layer_cache`
-takes its views. The entry points return no caches and drop the aux
-loss. Training: :func:`loss_fn` runs the stack without caches; with
-``cfg.remat`` each layer is checkpointed (``torch.utils.checkpoint``, the
-counterpart of the reference's ``jax.checkpoint`` of the scan body) and
-runs again in the backward pass.
+layers, ``xdec``'s self-attention among them (pages of the paged pool with
+a page table, one full row per slot without), ``"ring_k"``/``"ring_v"``
+for the ``local`` layers' rings, ``"cross_k"``/``"cross_v"`` for the
+``xdec`` layers' encoder rows, and per-type state stacks for the recurrent
+blocks (``"rec_h"``, ``"rec_conv"``, ``"mlstm_C"``, ..., ``"slstm_h"``:
+:data:`STATE_FIELDS`); :func:`cache_index` names each layer's entry and
+:func:`layer_cache` takes its views. The entry points return no caches
+and drop the aux loss. Training: :func:`loss_fn` runs the stack without
+caches; with ``cfg.remat`` each decoder layer is checkpointed
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` of the scan body) and runs again in the backward pass.
 
-The rest of the zoo is refused with a ``ValueError`` naming the ROADMAP
-sub-item that brings it (:func:`unported_reason`).
+A block type the reference does not know raises ``ValueError``, as the
+reference's ``layer_specs`` does.
 """
 
 from __future__ import annotations
@@ -47,37 +62,11 @@ from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import rglru as rgm
 from repro_torch.models import xlstm as xm
+from repro_torch.nn.linear import scaled_normal
 
-#: the ROADMAP sub-item (queue 1, item 5) that brings each unported piece
-_SUB_ITEMS = {
-    "xdec": "5d (frontends and the encoder)",
-    "enc": "5d (frontends and the encoder)",
-}
-
-
-def unported_reason(cfg: ModelConfig) -> Optional[str]:
-    """``None`` when the port builds, serves and trains ``cfg``; else why
-    not, naming the ROADMAP sub-item (queue 1, item 5d) that brings it."""
-    def refuse(what: str, item: str) -> str:
-        return (f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1, "
-                f"item {item})")
-
-    for t in tuple(cfg.block_unit) + tuple(cfg.tail_layers):
-        if t in _SUB_ITEMS:
-            return refuse(f"block type {t!r}", _SUB_ITEMS[t])
-    if cfg.frontend or cfg.n_enc_layers:
-        return refuse(f"the {cfg.frontend or 'encoder'} frontend",
-                      _SUB_ITEMS["enc"])
-    return None
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` with :func:`unported_reason` when ``cfg`` is
-    not ported."""
-    reason = unported_reason(cfg)
-    if reason is not None:
-        raise ValueError(reason)
-
+#: the block types of the reference's ``layer_specs``
+BLOCK_TYPES = ("attn", "local", "global", "moe", "rec", "mlstm", "slstm",
+               "xdec", "enc")
 
 def layer_types(cfg: ModelConfig) -> Tuple[str, ...]:
     """Each layer's block type in the reference's order: the unit
@@ -94,15 +83,17 @@ STATE_FIELDS = {"rec": ("h", "conv"), "mlstm": ("C", "n", "m", "conv"),
 #: the cache-entry prefix of each block type besides full attention's ""
 _PREFIXES = {"local": "ring_", **{t: t + "_" for t in STATE_FIELDS}}
 
-LayerCache = Union[Tuple[torch.Tensor, torch.Tensor],
-                   Dict[str, torch.Tensor]]
+KVPair = Tuple[torch.Tensor, torch.Tensor]
+LayerCache = Union[KVPair, Tuple[KVPair, KVPair], Dict[str, torch.Tensor]]
 
 
 def cache_index(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """Per layer, the prefix of its serving cache entries (``""`` for
-    ``"k"``/``"v"``, ``"ring_"`` for a ``local`` layer's ring, ``"rec_"``,
-    ``"mlstm_"`` or ``"slstm_"`` for a recurrent block's state) and its
-    index in those stacks."""
+    ``"k"``/``"v"``, an ``xdec`` layer's self-attention included,
+    ``"ring_"`` for a ``local`` layer's ring, ``"rec_"``, ``"mlstm_"`` or
+    ``"slstm_"`` for a recurrent block's state) and its index in those
+    stacks. An ``xdec`` layer's cross rows sit at its index among the
+    ``xdec`` layers in ``"cross_k"``/``"cross_v"``."""
     seen: Dict[str, int] = {}
     out = []
     for t in layer_types(cfg):
@@ -116,27 +107,35 @@ def layer_cache(cfg: ModelConfig, caches: Mapping[str, torch.Tensor],
                 layer: int, index: Optional[List[Tuple[str, int]]] = None
                 ) -> LayerCache:
     """Layer ``layer``'s views into the stacked ``caches``: ``(k, v)`` for
-    an attention block, ``{field: tensor}`` for a recurrent one; writing
-    them writes the pool. ``index`` is :func:`cache_index` (computed when
-    not given)."""
+    an attention block, ``((k, v), (cross_k, cross_v))`` for an ``xdec``
+    one, ``{field: tensor}`` for a recurrent one; writing them writes the
+    pool. ``index`` is :func:`cache_index` (computed when not given)."""
     pre, j = (index or cache_index(cfg))[layer]
-    btype = layer_types(cfg)[layer]
+    types = layer_types(cfg)
+    btype = types[layer]
     if btype in STATE_FIELDS:
         return {f: caches[pre + f][j] for f in STATE_FIELDS[btype]}
-    return caches[pre + "k"][j], caches[pre + "v"][j]
+    kv = caches[pre + "k"][j], caches[pre + "v"][j]
+    if btype == "xdec":
+        jx = types[:layer].count("xdec")
+        return kv, (caches["cross_k"][jx], caches["cross_v"][jx])
+    return kv
 
 
 class Layer(nn.Module):
     """One block, with the reference's per-type parameters: an
-    ``attn``/``local``/``global``/``moe`` block is norm → attention →
-    residual, norm → MLP or MoE → residual; ``rec`` the same with the
-    recurrent block in attention's place; ``mlstm`` and ``slstm`` are norm
-    → block → residual."""
+    ``attn``/``local``/``global``/``moe``/``enc`` block is norm → attention
+    → residual, norm → MLP or MoE → residual; ``rec`` the same with the
+    recurrent block in attention's place; ``xdec`` adds norm (``norm_x``)
+    → cross-attention (``xattn``) → residual before the MLP; ``mlstm`` and
+    ``slstm`` are norm → block → residual."""
 
     def __init__(self, cfg: ModelConfig, btype: str, *,
                  generator: Optional[torch.Generator] = None,
                  site_specs: cm.SiteSpecs = None):
         super().__init__()
+        if btype not in BLOCK_TYPES:
+            raise ValueError(f"unknown block type {btype!r}")
         E = cfg.d_model
         self.btype = btype
 
@@ -154,6 +153,9 @@ class Layer(nn.Module):
             self.rec = rgm.RGLRU(cfg, generator=generator)
         else:
             self.attn = attn.Attention(cfg, generator=generator)
+        if btype == "xdec":
+            self.norm_x = norm()
+            self.xattn = attn.Attention(cfg, generator=generator)
         self.norm2 = norm()
         self.ffn = (moem.MoE(cfg, generator=generator) if btype == "moe"
                     else mlpm.MLP(cfg, generator=generator,
@@ -163,17 +165,27 @@ class Layer(nn.Module):
 class LM(nn.Module):
     """Parameters named after the reference's param tree (``embed.table``,
     ``layers.<i>.attn.wq``, ``layers.<i>.ffn.up.b_in``,
-    ``layers.<i>.ffn.router``, ``head.core``, ...), initialised from
-    ``generator``. A ``tie_embeddings`` config has no head parameters
+    ``layers.<i>.ffn.router``, ``head.core``, ...; the encoder's
+    ``enc_layers.<i>.*`` for its stacked ``enc_unit[0]``, ``enc_norm``,
+    ``frontend_proj`` (E, E)), initialised from ``generator``. A
+    ``tie_embeddings`` config has no head parameters
     (:class:`repro_torch.models.common.TiedHead`)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None,
                  site_specs: cm.SiteSpecs = None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
+        E = cfg.d_model
         self.embed = cm.Embed(cfg, generator=generator)
+        if cfg.frontend:
+            self.frontend_proj = nn.Parameter(
+                scaled_normal(generator, (E, E), E).to(cfg.pdtype()))
+        if cfg.n_enc_layers:
+            self.enc_layers = nn.ModuleList(
+                Layer(cfg, "enc", generator=generator, site_specs=site_specs)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = nn.Parameter(torch.ones(E, dtype=cfg.pdtype()))
         self.layers = nn.ModuleList(
             Layer(cfg, t, generator=generator, site_specs=site_specs)
             for t in layer_types(cfg))
@@ -192,17 +204,20 @@ _RECURRENT = {"rec": rgm.rglru_block, "mlstm": xm.mlstm_block,
 def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[LayerCache] = None,
                 page_table: Optional[torch.Tensor] = None,
-                prefill: bool = False, context: ContextLike = None
+                prefill: bool = False, context: ContextLike = None,
+                enc_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, moem.AuxLoss]:
     """One layer; returns ``(x, aux)`` with ``aux`` the MoE's aux loss,
     0.0 for other blocks and when serving (``cache`` given: the entry
     points drop it). ``cache`` is the layer's :func:`layer_cache`. Without
-    it the block runs over the whole sequence (training); ``prefill``
-    fills it from the whole prompt; else one decode position updates it,
-    all in place (:func:`repro_torch.models.attention.attention`,
+    it the block runs over the whole sequence (training, and the encoder);
+    ``prefill`` fills it from the whole prompt; else one decode position
+    updates it, all in place (:func:`repro_torch.models.attention.
+    attention`, :func:`repro_torch.models.attention.cross_attention`,
     :func:`repro_torch.models.rglru.rglru_block`, :func:`repro_torch.
     models.xlstm.mlstm_block`, :func:`repro_torch.models.xlstm.
-    slstm_block`)."""
+    slstm_block`). ``enc_out`` is the encoder's output, which an ``xdec``
+    block attends to in training and at prefill."""
     h = cm.rmsnorm(x, layer.norm1, cfg.norm_eps)
     if layer.btype in _RECURRENT:
         mode = ("train" if cache is None
@@ -213,10 +228,17 @@ def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
             return x, 0.0
     else:
         window = cfg.sliding_window if layer.btype == "local" else 0
+        self_cache, cross_cache = (cache if layer.btype == "xdec"
+                                   and cache is not None else (cache, None))
         x = x + attn.attention(cfg, layer.attn, h, positions=positions,
-                               cache=cache, page_table=page_table,
+                               cache=self_cache, page_table=page_table,
                                window=window, prefill=prefill,
-                               context=context)
+                               causal=layer.btype != "enc", context=context)
+        if layer.btype == "xdec":
+            h = cm.rmsnorm(x, layer.norm_x, cfg.norm_eps)
+            x = x + attn.cross_attention(cfg, layer.xattn, h,
+                                         enc_out=enc_out, cache=cross_cache,
+                                         prefill=prefill)
     h = cm.rmsnorm(x, layer.norm2, cfg.norm_eps)
     if layer.btype == "moe":
         f, aux = moem.moe_apply(cfg, layer.ffn, h, with_aux=cache is None)
@@ -227,15 +249,17 @@ def layer_apply(cfg: ModelConfig, layer: Layer, x: torch.Tensor, *,
 def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
              caches: Optional[Dict[str, torch.Tensor]] = None,
              page_table: Optional[torch.Tensor] = None,
-             prefill: bool = False, context: ContextLike = None
+             prefill: bool = False, context: ContextLike = None,
+             enc_out: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, moem.AuxLoss]:
     """Run the layer stack; returns ``(x, aux)``, the blocks' aux losses
     summed in layer order (0.0 without MoE blocks, and when serving).
     Serving: ``caches`` holds the stacked ``"k"``/``"v"``,
-    ``"ring_k"``/``"ring_v"`` and recurrent state caches (:func:`
-    cache_index`), written in place. Training (``caches=None``): with
-    ``cfg.remat`` and gradients on, each layer is checkpointed and
-    recomputed in the backward pass."""
+    ``"ring_k"``/``"ring_v"``, ``"cross_k"``/``"cross_v"`` and recurrent
+    state caches (:func:`cache_index`), written in place. Training
+    (``caches=None``): with ``cfg.remat`` and gradients on, each layer is
+    checkpointed and recomputed in the backward pass. ``enc_out`` is the
+    encoder's output (:func:`run_encoder`) for the ``xdec`` blocks."""
     cfg = model.cfg
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
     index = cache_index(cfg)
@@ -247,13 +271,60 @@ def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
         if remat:
             x, a = checkpoint(layer_apply, cfg, layer, x,
                               positions=positions, context=context,
-                              use_reentrant=False)
+                              enc_out=enc_out, use_reentrant=False)
         else:
             x, a = layer_apply(cfg, layer, x, positions=positions,
                                cache=cache, page_table=page_table,
-                               prefill=prefill, context=context)
+                               prefill=prefill, context=context,
+                               enc_out=enc_out)
         aux = aux + a
     return x, aux
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """Positions ``0..S-1`` (B, S) int32 of a whole sequence x (B, S, E)."""
+    B, S = x.shape[:2]
+    return torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+
+
+def run_encoder(model: LM, frames: torch.Tensor,
+                context: ContextLike = None) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings (the
+    reference's stub frontend): ``frames`` (B, S_enc, E) in the compute
+    dtype through every ``enc`` layer, then ``enc_norm``. No layer is
+    checkpointed, as the reference's scan is not."""
+    cfg = model.cfg
+    x = frames.to(cfg.cdtype())
+    positions = _positions(x)
+    for layer in model.enc_layers:
+        x, _ = layer_apply(cfg, layer, x, positions=positions,
+                           context=context)
+    return cm.rmsnorm(x, model.enc_norm, cfg.norm_eps)
+
+
+def embed_inputs(model: LM, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The token embedding (B, S, E); a ``vision`` config prepends
+    ``frontend_embeds`` (B, n_front, E) projected by ``frontend_proj``."""
+    cfg = model.cfg
+    x = cm.embed(cfg, model.embed, tokens)
+    if cfg.frontend == "vision" and frontend_embeds is not None:
+        fe = frontend_embeds.to(x.dtype) @ model.frontend_proj.to(x.dtype)
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
+def _encode(model: LM, frames: Optional[torch.Tensor],
+            context: ContextLike) -> Optional[torch.Tensor]:
+    """The encoder's output for an encoder config (``frames`` required),
+    ``None`` for any other."""
+    if not model.cfg.n_enc_layers:
+        return None
+    if frames is None:
+        raise ValueError(f"{model.cfg.name}: the encoder needs frames "
+                         f"(B, S_enc, {model.cfg.d_model})")
+    return run_encoder(model, frames, context)
 
 
 def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
@@ -261,16 +332,18 @@ def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
     """Training loss, the mean next-token CE over ``batch`` ``tokens``
     (B, S), ``targets`` (B, S) and optional ``mask`` (B, S), plus metrics
     ``{"ce", "aux"}``; the loss is ``ce + aux``, ``aux`` the MoE blocks'
-    summed aux losses (0 without MoE)."""
+    summed aux losses (0 without MoE). A ``vision`` config's batch may
+    carry ``frontend_embeds`` (B, n_front, E), prepended, the logits read
+    after them; an encoder config's carries ``frames`` (B, S_enc, E)."""
     cfg = model.cfg
     tokens = batch["tokens"]
-    x = cm.embed(cfg, model.embed, tokens)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
-    x, aux = backbone(model, x, positions=positions, context=context)
+    x = embed_inputs(model, tokens, batch.get("frontend_embeds"))
+    enc_out = _encode(model, batch.get("frames"), context)
+    x, aux = backbone(model, x, positions=_positions(x), context=context,
+                      enc_out=enc_out)
     x = cm.rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = cm.head_apply(cfg, model.head, x, context)
+    logits = logits[:, x.shape[1] - tokens.shape[1]:]     # after the prefix
     mask = batch.get("mask")
     ce = cm.cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
                           None if mask is None else mask[:, 1:])
@@ -280,37 +353,44 @@ def loss_fn(model: LM, batch: Mapping[str, torch.Tensor],
 
 def prefill_at(model: LM, tokens: torch.Tensor,
                caches: Dict[str, torch.Tensor], last_pos: torch.Tensor,
-               context: ContextLike = None) -> torch.Tensor:
-    """Whole-prompt prefill: ``tokens`` (B, S) right-padded prompts at
-    positions ``0..S-1``, ``last_pos`` (B,) each prompt's last real token,
-    whose logits (B, V) are returned. Fills the dense-layout ``caches``
-    (full rows of length >= S, rings and recurrent state, :func:`
-    repro_torch.serve.cache.init_caches`) in place. Causality keeps the pad
-    tail inert for every real position, so the caches serve decode as they
-    are; not for rings, where pads would push real positions out, nor for
-    recurrent state, which would fold the pads in: the engine prefills
-    archs with ``local`` or recurrent blocks at their exact prompt
+               context: ContextLike = None, *,
+               frontend_embeds: Optional[torch.Tensor] = None,
+               frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whole-prompt prefill: ``tokens`` (B, S) right-padded prompts,
+    ``last_pos`` (B,) each prompt's last real token, whose logits (B, V)
+    are returned. A ``vision`` config's ``frontend_embeds`` (B, n_front, E)
+    take positions ``0..n_front-1`` and the text follows, read out at
+    ``last_pos + n_front``; an encoder config's ``frames`` (B, S_enc, E)
+    run through the encoder, whose output the ``xdec`` layers project into
+    their cross rows. Fills the dense-layout ``caches`` (full rows of
+    length >= n_front + S, rings, cross rows and recurrent state,
+    :func:`repro_torch.serve.cache.init_caches`) in place. Causality keeps
+    the pad tail inert for every real position, so the caches serve decode
+    as they are; not for rings, where pads would push real positions out,
+    nor for recurrent state, which would fold the pads in: the engine
+    prefills archs with ``local`` or recurrent blocks at their exact prompt
     lengths."""
     cfg = model.cfg
-    x = cm.embed(cfg, model.embed, tokens)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
-    x, _ = backbone(model, x, positions=positions, caches=caches,
-                    prefill=True, context=context)
-    rows = torch.arange(B, device=x.device)
-    x_last = x[rows, torch.as_tensor(last_pos, device=x.device).long()]
+    x = embed_inputs(model, tokens, frontend_embeds)
+    enc_out = _encode(model, frames, context)
+    x, _ = backbone(model, x, positions=_positions(x), caches=caches,
+                    prefill=True, context=context, enc_out=enc_out)
+    n_front = x.shape[1] - tokens.shape[1]
+    rows = torch.arange(x.shape[0], device=x.device)
+    x_last = x[rows, torch.as_tensor(last_pos, device=x.device).long()
+               + n_front]
     h = cm.rmsnorm(x_last[:, None], model.final_norm, cfg.norm_eps)
     return cm.head_apply(cfg, model.head, h, context)[:, 0]
 
 
 def prefill(model: LM, tokens: torch.Tensor,
-            caches: Dict[str, torch.Tensor], context: ContextLike = None
-            ) -> torch.Tensor:
-    """:func:`prefill_at` read at the last position of ``tokens`` (B, S)."""
+            caches: Dict[str, torch.Tensor], context: ContextLike = None,
+            **extras: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`prefill_at` read at the last position of ``tokens`` (B, S);
+    ``extras`` are its ``frontend_embeds`` and ``frames``."""
     last = torch.full((tokens.shape[0],), tokens.shape[1] - 1,
                       dtype=torch.int32, device=tokens.device)
-    return prefill_at(model, tokens, caches, last, context)
+    return prefill_at(model, tokens, caches, last, context, **extras)
 
 
 def decode_step(model: LM, token: torch.Tensor,
@@ -319,7 +399,9 @@ def decode_step(model: LM, token: torch.Tensor,
                 context: ContextLike = None) -> torch.Tensor:
     """One decode step: ``token`` (B,) at absolute positions ``cur_pos``
     (B,) (or a scalar for the whole batch), through the paged pool with
-    ``page_table`` or the dense one without. Returns logits (B, V)."""
+    ``page_table`` or the dense one without; a ``vision`` request's
+    positions count its prefix, and an ``xdec`` layer reads its cross rows.
+    Returns logits (B, V)."""
     cfg = model.cfg
     x = cm.embed(cfg, model.embed, token[:, None])
     B = x.shape[0]

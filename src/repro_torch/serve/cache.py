@@ -10,6 +10,11 @@ attn/global/moe    ``"k"``/``"v"`` (n, ...): a full row per slot on
                    :class:`DenseCachePool`, pages of one shared pool on
                    :class:`PagedCachePool` (the reference's
                    ``_PAGED_KEYS``)
+xdec               its self-attention in ``"k"``/``"v"`` as above; its
+                   encoder rows in ``"cross_k"``/``"cross_v"`` (n_xdec,
+                   slots, enc_seq, KV, D), dense on either pool: a
+                   prefill writes them, decode only reads them
+enc                no cache: the encoder runs at prefill only
 local              ``"ring_k"``/``"ring_v"`` (n_local, slots, ring, KV,
                    D): a dense ring of ``min(window, total_seq)``
                    positions per slot, on either pool
@@ -31,10 +36,8 @@ caches, and the batch-1 tree a whole-prompt prefill fills before
 ``write_slot`` splices it into a slot. :func:`paged_supported` and
 :func:`chunked_prefill_supported` are the reference's predicates;
 :func:`make_pool` picks a pool as the reference's does. A pool can be
-built without a model, so it refuses, as ``LM`` does, an arch whose blocks
-the port does not build yet, naming its ROADMAP sub-item
-(:func:`repro_torch.models.lm.check_ported`); the engine's refusal is its
-pool's.
+built without a model. ``total_seq`` counts a ``vision`` config's prefix
+tokens: a row, a page table and a request's page budget hold them.
 
 Physical **page 0 is the trash page**: never allocated, the target of every
 unallocated page-table entry, and the engine redirects inactive slots'
@@ -71,7 +74,7 @@ from repro_torch.models import xlstm as xm
 SEQUENTIAL_STATE_BLOCKS = ("rec", "mlstm", "slstm")
 
 #: the block types whose ``self`` KV the paged pool pages
-_PAGED_BLOCKS = ("attn", "global", "moe")
+_PAGED_BLOCKS = ("attn", "global", "moe", "xdec")
 
 Caches = Dict[str, torch.Tensor]
 
@@ -121,14 +124,18 @@ def layer_cache_spec(cfg: ModelConfig, btype: str, batch: int,
     dtype, ``length`` the whole ``seq_len`` for full attention and
     ``min(sliding_window, seq_len)`` for a ``local`` ring; a recurrent
     block's state as the reference's ``rglru_cache_spec``,
-    ``mlstm_cache_spec`` and ``slstm_cache_spec``."""
+    ``mlstm_cache_spec`` and ``slstm_cache_spec``; ``"cross"`` the ``k``
+    and ``v`` of an ``xdec`` layer's ``enc_seq`` encoder rows."""
+    if btype == "cross":
+        shape = (batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim_)
+        return {kv: (shape, cfg.cdtype(), 0.0) for kv in ("k", "v")}
     if btype == "rec":
         return rgm.cache_spec(cfg, batch)
     if btype == "mlstm":
         return xm.mlstm_cache_spec(cfg, batch)
     if btype == "slstm":
         return xm.slstm_cache_spec(cfg, batch)
-    if btype not in ("attn", "local", "global", "moe"):
+    if btype not in ("attn", "local", "global", "moe", "xdec"):
         raise ValueError(f"{cfg.name}: no port cache for block type "
                          f"{btype!r}")
     length = (min(cfg.sliding_window, seq_len) if btype == "local"
@@ -139,10 +146,15 @@ def layer_cache_spec(cfg: ModelConfig, btype: str, batch: int,
 
 def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[str, int]]:
     """``{prefix: (a block type of the stack, layers in it)}`` for the
-    prefixes of :func:`repro_torch.models.lm.cache_index` in use."""
+    prefixes of :func:`repro_torch.models.lm.cache_index` in use, and
+    ``"cross_"`` (type ``"cross"``) for the ``xdec`` layers' encoder
+    rows."""
     out: Dict[str, Tuple[str, int]] = {}
-    for t, (pre, _) in zip(lm.layer_types(cfg), lm.cache_index(cfg)):
+    types = lm.layer_types(cfg)
+    for t, (pre, _) in zip(types, lm.cache_index(cfg)):
         out[pre] = (t, out.get(pre, (t, 0))[1] + 1)
+    if "xdec" in types:
+        out["cross_"] = ("cross", types.count("xdec"))
     return out
 
 
@@ -150,8 +162,9 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                 device: Union[str, torch.device, None] = None) -> Caches:
     """The caches in the dense layout at their init values: ``"k"``/``"v"``
     (n_full, batch, total_seq, KV, D), ``"ring_k"``/``"ring_v"`` (n_local,
-    batch, ring, KV, D) and each recurrent state stack (n, batch, ...),
-    each present when some layer uses it (:func:`layer_cache_spec`)."""
+    batch, ring, KV, D), ``"cross_k"``/``"cross_v"`` (n_xdec, batch,
+    enc_seq, KV, D) and each recurrent state stack (n, batch, ...), each
+    present when some layer uses it (:func:`layer_cache_spec`)."""
     dev = resolve_device(device)
     seq_len = total_seq(cfg, seq_len)
     out = {}
@@ -189,7 +202,8 @@ def state_keys(caches: Caches) -> Tuple[str, ...]:
 
 class DenseCachePool:
     """One full ``max_len`` row per slot (a ring per slot for ``local``
-    layers, a state per slot for recurrent ones): the reference's
+    layers, cross rows per slot for ``xdec`` ones, a state per slot for
+    recurrent ones): the reference's
     ``DenseCachePool``, simple and exact. No pages: the allocator only
     checks that a request fits a row, and there is nothing to gather."""
 
@@ -198,7 +212,6 @@ class DenseCachePool:
 
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
                  device: Union[str, torch.device, None] = None):
-        lm.check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.slots = slots
@@ -253,7 +266,8 @@ class DenseCachePool:
 
 class PagedCachePool:
     """Fixed-size pages in one preallocated pool + per-slot page tables,
-    with the ``local`` layers' rings beside the pages.
+    with the ``local`` layers' rings and the ``xdec`` layers' cross rows
+    beside the pages.
 
     ``num_pages`` counts physical pages including the trash page; the
     default matches a dense pool of the same ``slots``/``max_len`` plus the
@@ -272,7 +286,6 @@ class PagedCachePool:
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  device: Union[str, torch.device, None] = None):
-        lm.check_ported(cfg)
         if not paged_supported(cfg):
             raise ValueError(
                 f"{cfg.name}: sequential-state blocks "
@@ -384,8 +397,10 @@ class PagedCachePool:
     def init(self) -> Caches:
         """Zeroed caches in the compute dtype on the pool's device:
         ``"k"``/``"v"`` (n_paged, N, ps, KV, D) pages of the
-        full-attention layers and, for ``local`` layers, ``"ring_k"``/
-        ``"ring_v"`` (n_local, slots, ring, KV, D)."""
+        full-attention layers and, per slot, the ``local`` layers'
+        ``"ring_k"``/``"ring_v"`` (n_local, slots, ring, KV, D) and the
+        ``xdec`` layers' ``"cross_k"``/``"cross_v"`` (n_xdec, slots,
+        enc_seq, KV, D)."""
         cfg = self.cfg
         out = {}
         for pre, (t, n) in _stacks(cfg).items():
@@ -402,31 +417,33 @@ class PagedCachePool:
         """Splice a batch-1 dense tree (:func:`init_caches` at ``max_len``,
         filled by a whole-prompt prefill) into ``slot`` in place: its full
         rows scatter through the slot's page row (positions past its pages
-        land on the trash page), its rings replace the slot's rings whole,
-        zero tail included."""
+        land on the trash page), its rings and cross rows replace the
+        slot's whole, a ring's zero tail included."""
         row = self.page_row(slot).long()
         pos = torch.arange(self.max_len_total, device=self.device)
         pages, offs = row[pos // self.page_size], pos % self.page_size
         for kv in ("k", "v"):
             if kv in caches:
                 caches[kv][:, pages, offs] = sub[kv][:, 0]
-        write_cache_slot(caches, sub, slot, self._ring_keys(caches))
+        write_cache_slot(caches, sub, slot, self._slot_keys(caches))
 
     def reset_slot(self, caches: Caches, slot: int) -> None:
         """Zero the slot's cache state in place: its pages through its page
         row, in every layer, and for the row's unallocated entries the
         trash page (as the reference's scatter of a fresh cache does), and
-        its rings. Call before :meth:`free`, which sends the row to the
-        trash page."""
+        its rings and cross rows. Call before :meth:`free`, which sends the
+        row to the trash page."""
         row = self.page_row(slot).long()
         for kv in ("k", "v"):
             if kv in caches:
                 caches[kv][:, row] = 0
-        reset_cache_slot(caches, slot, self._ring_keys(caches))
+        reset_cache_slot(caches, slot, self._slot_keys(caches))
 
     @staticmethod
-    def _ring_keys(caches: Caches) -> Tuple[str, ...]:
-        return tuple(k for k in caches if k.startswith("ring_"))
+    def _slot_keys(caches: Caches) -> Tuple[str, ...]:
+        """The entries held per slot beside the pages: every one but the
+        paged ``"k"``/``"v"`` (rings and cross rows)."""
+        return tuple(k for k in caches if k not in ("k", "v"))
 
 
 def make_pool(cfg: ModelConfig, slots: int, max_len: int, *,

@@ -17,7 +17,8 @@ and runs a strict tick loop:
      under ``admission="incremental"`` only the prompt's pages. A pool that
      cannot cover the reservation leaves the request queued (backpressure).
      Without chunked prefill (the dense pool, ``prefill_chunk=None``/0,
-     or an arch with rings) the whole prompt is prefilled here, right-padded
+     or an arch with rings, a frontend or an encoder) the whole prompt is
+     prefilled here with the request's ``extras``, right-padded
      to a power-of-two bucket (:meth:`ServeEngine.bucket_for`; exact
      lengths for archs in :data:`SEQUENTIAL_STATE_BLOCKS`), eagerly (a
      length is seen once: a graph would cost more than it saves), into a
@@ -159,8 +160,10 @@ class Request:
     ``sampling=None`` means the engine-wide policy; a non-None value must
     equal it. ``rid=None`` lets the engine assign its sequence number.
     Deadlines count from submission: ``deadline_ticks`` in engine ticks,
-    ``deadline_s`` in wall seconds. ``extras`` (a frontend's inputs) must
-    be ``None``: the port serves token-only archs."""
+    ``deadline_s`` in wall seconds. ``extras`` holds a frontend's inputs,
+    each (1, n, d_model): a ``vision`` arch's ``frontend_embeds`` and an
+    encoder arch's ``frames``, stored as float32 numpy arrays;
+    :meth:`ServeEngine.submit` checks them against its arch."""
 
     prompt: Tuple[int, ...]
     max_new_tokens: int = 16
@@ -181,12 +184,35 @@ class Request:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{self.max_new_tokens}")
         if self.extras is not None:
-            raise ValueError("extras must be None: the port serves "
-                             "token-only archs (no frontends yet)")
+            object.__setattr__(self, "extras", _checked_extras(self.extras))
         for name in ("deadline_ticks", "deadline_s"):
             v = getattr(self, name)
             if v is not None and v <= 0:
                 raise ValueError(f"{name} must be positive, got {v}")
+
+
+#: the inputs a request's ``extras`` may carry
+EXTRAS_KEYS = ("frontend_embeds", "frames")
+
+
+def _checked_extras(extras: Mapping) -> Dict[str, np.ndarray]:
+    """``extras`` as float32 arrays of shape (1, n, d), or ``ValueError``."""
+    if not isinstance(extras, Mapping):
+        raise ValueError(f"extras must be a mapping of "
+                         f"{'/'.join(EXTRAS_KEYS)}, got "
+                         f"{type(extras).__name__}")
+    unknown = set(extras) - set(EXTRAS_KEYS)
+    if unknown:
+        raise ValueError(f"extras: unknown inputs {sorted(unknown)}; a "
+                         f"request takes {'/'.join(EXTRAS_KEYS)}")
+    out = {}
+    for k, v in extras.items():
+        a = np.asarray(v, np.float32)
+        if a.ndim != 3 or a.shape[0] != 1:
+            raise ValueError(f"extras[{k!r}] must be (1, n, d_model), got "
+                             f"shape {a.shape}")
+        out[k] = a
+    return out
 
 
 @dataclass
@@ -337,6 +363,9 @@ class ServeEngine:
                 "this arch/pool")
         types = set(cfg.block_unit) | set(cfg.tail_layers)
         self._exact_buckets = bool(types & set(SEQUENTIAL_STATE_BLOCKS))
+        # a vision request's prefix tokens sit in its cache before its text
+        self._n_front = (cfg.frontend_tokens if cfg.frontend == "vision"
+                         else 0)
         self.min_bucket = int(min_bucket)
         self.context = exctx.resolve_for_device(
             context, self.device,
@@ -583,7 +612,8 @@ class ServeEngine:
             raise ValueError(
                 "per-request sampling must match the engine-wide policy "
                 f"(engine: {self.sampling}, request: {request.sampling})")
-        self.pool.check_fits(plen + request.max_new_tokens)
+        self._check_extras(request.extras)
+        self.pool.check_fits(self._n_front + plen + request.max_new_tokens)
         with self._lock:
             if (self.queue_limit is not None
                     and len(self._queue) >= self.queue_limit):
@@ -605,6 +635,33 @@ class ServeEngine:
             self.metrics.on_submit(rid, slot.prompt.size)
             self._queue.append(slot)
         return slot.future
+
+    def _check_extras(self, extras: Optional[Mapping]) -> None:
+        """Raise ``ValueError`` unless ``extras`` are exactly the inputs
+        this arch's prefill reads, at their shapes: a ``vision`` arch's
+        ``frontend_embeds`` (1, frontend_tokens, d_model) and an encoder
+        arch's ``frames`` (1, enc_seq, d_model). Two inputs are refused
+        where the reference would serve a decode that disagrees with its
+        own full forward: a vision request without embeddings (its decode
+        positions would count a prefix never written) and frames other
+        than ``enc_seq`` rows (decode would attend to the zero rows that
+        pad the cross cache)."""
+        cfg, extras = self.cfg, extras or {}
+        want = {}
+        if cfg.frontend == "vision":
+            want["frontend_embeds"] = (1, cfg.frontend_tokens, cfg.d_model)
+        if cfg.n_enc_layers:
+            want["frames"] = (1, cfg.enc_seq, cfg.d_model)
+        for k in extras:
+            if k not in want:
+                raise ValueError(f"{cfg.name} takes no {k!r} in extras")
+        for k, shape in want.items():
+            if k not in extras:
+                raise ValueError(f"{cfg.name}: a request needs extras[{k!r}]"
+                                 f" {shape}")
+            if extras[k].shape != shape:
+                raise ValueError(f"{cfg.name}: extras[{k!r}] must be "
+                                 f"{shape}, got {extras[k].shape}")
 
     def has_work(self) -> bool:
         with self._lock:
@@ -935,7 +992,7 @@ class ServeEngine:
                 if not self._queue:
                     return
                 slot = self._queue[0]
-            budget = int(slot.prefill_seq.size)
+            budget = self._n_front + int(slot.prefill_seq.size)
             if self.admission == "eager":
                 budget += slot.req.max_new_tokens
             try:
@@ -979,20 +1036,26 @@ class ServeEngine:
     def _admit_bucketed(self, slot: _Slot, idx: int) -> None:
         """Whole-prompt admission: right-pad ``prefill_seq`` (the prompt,
         or prompt + generated tokens after a preemption: the recompute) to
-        its bucket, prefill it at batch 1 into a fresh dense cache tree,
-        splice the tree into the slot, sample the first token. Eager: each
-        bucket's launches count as the kernels' counters count them."""
+        its bucket, prefill it at batch 1 with the request's ``extras`` into
+        a fresh dense cache tree, splice the tree into the slot, sample the
+        first token. Eager: each bucket's launches count as the kernels'
+        counters count them."""
+        # the slot owns the lane before its prefill runs, so that a prefill
+        # that raises leaves the request to abort_all, not stranded
+        self._slots[idx] = slot
         plen = int(slot.prefill_seq.size)
         bucket = self.bucket_for(plen)
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :plen] = slot.prefill_seq
         step = steps_lib.make_bucket_prefill_step(self.model, self.max_len,
                                                   self.context)
+        extras = {k: torch.from_numpy(v).to(self.device)
+                  for k, v in (slot.req.extras or {}).items()}
         t0 = time.monotonic()
         tt0 = self.tracer.now()
         logits, sub = step(torch.from_numpy(tokens).to(self.device),
                            torch.tensor([plen - 1], dtype=torch.int32,
-                                        device=self.device))
+                                        device=self.device), **extras)
         self.pool.write_slot(self._caches, sub, idx)
         del sub
         tok = int(self._sample_fn(logits, self._gen)[0])
@@ -1014,9 +1077,8 @@ class ServeEngine:
                                 tick=self.metrics.ticks)
         slot.tokens.append(tok)
         slot.last_token = tok
-        slot.cur_pos = plen
+        slot.cur_pos = self._n_front + plen
         slot.prefilled = -1                  # decode phase
-        self._slots[idx] = slot
         if self._finished(slot):
             self._finish(idx)
 
@@ -1137,10 +1199,10 @@ class ServeEngine:
             # a speculative tick writes spec_k draft positions past the
             # committed one; never grow past the request's own budget
             # (writes beyond it go to the trash page)
-            budget = int(s.prompt.size) + s.req.max_new_tokens
+            budget = self._n_front + int(s.prompt.size) + s.req.max_new_tokens
             if s.prefilling:
                 end = min(s.prefilled + C, int(s.prefill_seq.size))
-                need = end
+                need = self._n_front + end
                 if end == s.prefill_seq.size:
                     # the final chunk lands: this tick's decode writes too
                     need = min(need + 1 + self.spec_k, budget)
@@ -1233,7 +1295,7 @@ class ServeEngine:
                                     tick=self.metrics.ticks)
             s.tokens.append(int(first[i]))
             s.last_token = int(first[i])
-            s.cur_pos = int(s.prefill_seq.size)
+            s.cur_pos = self._n_front + int(s.prefill_seq.size)
             s.prefilled = -1                # decode phase
             if anchors is not None:
                 s.anchor = anchors[i]

@@ -67,18 +67,20 @@ def make_pool_decode_step(model: lm.LM, caches,
 
 def make_bucket_prefill_step(model: lm.LM, max_len: int,
                              context: ContextLike = None) -> Callable:
-    """``step(tokens, last_pos) -> (logits, sub)``: the whole-prompt
-    prefill of the engine's bucketed admission. ``tokens (B, bucket)`` are
-    right-padded prompts, ``last_pos (B,)`` each one's last real token;
-    ``sub`` is a fresh dense cache tree at the pool's length ``max_len``
-    (:func:`repro_torch.serve.cache.init_caches`), filled, for the pool's
+    """``step(tokens, last_pos, **extras) -> (logits, sub)``: the
+    whole-prompt prefill of the engine's bucketed admission. ``tokens (B,
+    bucket)`` are right-padded prompts, ``last_pos (B,)`` each one's last
+    real token, ``extras`` a request's ``frontend_embeds`` and ``frames``
+    (:func:`repro_torch.models.lm.prefill_at`); ``sub`` is a fresh dense
+    cache tree at the pool's length ``max_len`` (its prefix included,
+    :func:`repro_torch.serve.cache.init_caches`), filled, for the pool's
     ``write_slot``."""
-    def step(tokens, last_pos):
+    def step(tokens, last_pos, **extras):
         with torch.no_grad():
             sub = cache_lib.init_caches(model.cfg, tokens.shape[0], max_len,
                                         tokens.device)
             return lm.prefill_at(model, tokens, sub, last_pos,
-                                 context=context), sub
+                                 context=context, **extras), sub
     return step
 
 

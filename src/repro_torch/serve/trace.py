@@ -32,6 +32,11 @@ Prompt-length mixes:
   prefill chunk) and long (``[chunk + 1, max_prompt]``, spans several)
   prompts, exercising chunked-prefill/decode interleaving (the paged
   bench rows' workload).
+
+A frontend arch's requests also carry their stub inputs
+(:func:`stub_extras`), which the CLIs draw from a third stream,
+``default_rng([seed, 2])``, as the reference's CLI does: arming a
+frontend leaves the token workload as it was.
 """
 
 from __future__ import annotations
@@ -137,6 +142,22 @@ def generate(spec: TraceSpec, vocab_size: int) -> List[TraceItem]:
         if spec.rate > 0:
             t += float(arrival.exponential(1.0 / spec.rate))
     return items
+
+
+def stub_extras(cfg, rng: np.random.Generator) -> Optional[dict]:
+    """One request's frontend inputs, float32 normals from ``rng``, as the
+    reference's CLI and demo draw them: ``frontend_embeds`` (1,
+    frontend_tokens, d_model) for a ``vision`` config, then ``frames`` (1,
+    enc_seq, d_model) for an encoder one; ``None`` for a text-only
+    config, which draws nothing."""
+    out = {}
+    if cfg.frontend == "vision":
+        out["frontend_embeds"] = rng.normal(
+            size=(1, cfg.frontend_tokens, cfg.d_model)).astype("float32")
+    if cfg.n_enc_layers:
+        out["frames"] = rng.normal(
+            size=(1, cfg.enc_seq, cfg.d_model)).astype("float32")
+    return out or None
 
 
 def replay(submit: Callable[[Request], Future], items: List[TraceItem],

@@ -66,6 +66,16 @@ def loss_and_grads(model: lm.LM, batch: Mapping[str, torch.Tensor],
     return loss, grads
 
 
+def _grad(loss: torch.Tensor, leaves) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``loss`` for each leaf; zeros for a leaf the loss
+    does not reach (an ``audio`` config's ``frontend_proj``), as
+    ``jax.grad`` gives, so that Adam's weight decay still moves it as the
+    reference's step does."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return tuple(torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads))
+
+
 def _loss_grads_metrics(model, batch, microbatches, context):
     """:func:`loss_and_grads` and the loss's metrics (``{"ce", "aux"}``,
     detached; empty when microbatched, as in the reference's step)."""
@@ -73,7 +83,7 @@ def _loss_grads_metrics(model, batch, microbatches, context):
     names = list(params)
     if microbatches == 1:
         loss, metrics = lm.loss_fn(model, batch, context)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        grads = _grad(loss, [params[n] for n in names])
         return (loss.detach(), dict(zip(names, grads)),
                 {k: v.detach() for k, v in metrics.items()})
     B = batch["tokens"].shape[0]
@@ -88,7 +98,7 @@ def _loss_grads_metrics(model, batch, microbatches, context):
     for i in range(microbatches):
         mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
         loss, _ = lm.loss_fn(model, mb, context)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        grads = _grad(loss, [params[n] for n in names])
         for n, g in zip(names, grads):
             gsum[n] += g.float()
         lsum = lsum + loss.detach()

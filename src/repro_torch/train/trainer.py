@@ -136,8 +136,23 @@ class Trainer:
         return model, self.tx.init(steps_lib.trainable(model))
 
     def _batch(self, raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """``raw`` on the trainer's device, with the frontends' stub inputs
+        the reference's trainer adds to every batch: ``frontend_embeds``
+        (B, frontend_tokens, E) for a ``vision`` config, then ``frames``
+        (B, enc_seq, E) for an encoder one, float32 normals from
+        ``np.random.default_rng(1234)``, drawn anew (the same) each batch."""
+        out = dict(raw)
+        cfg, B = self.cfg, raw["tokens"].shape[0]
+        rng = np.random.default_rng(1234)
+        if cfg.frontend == "vision":
+            out["frontend_embeds"] = rng.normal(
+                size=(B, cfg.frontend_tokens, cfg.d_model)).astype(
+                    np.float32)
+        if cfg.n_enc_layers:
+            out["frames"] = rng.normal(
+                size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
         return {k: torch.from_numpy(v).to(self.device)
-                for k, v in raw.items()}
+                for k, v in out.items()}
 
     def _restore(self, model, opt_state):
         params = steps_lib.trainable(model)

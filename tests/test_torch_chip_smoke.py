@@ -15,7 +15,8 @@ the sandwich at a small zoo site, the OLMoE and Gemma butterfly smoke
 configs served, the MoE trained one step and its greedy tokens, gemma3's
 rings served, trained and its tokens, and the recurrent archs' smoke
 configs served on the dense pool, trained and their tokens with 1- and
-2-token prompts) runs on the smoke-sized butterfly config with the plain
+2-token prompts, and the frontend and encoder archs' smoke configs served
+with their stub inputs, trained and their tokens on both pools) runs on the smoke-sized butterfly config with the plain
 PyTorch versions in place of the kernels, so wrong paths, shapes and
 control flow show up before the script reaches a card. Also the script's refusals: no result
 and a non-zero exit without a CUDA device, or alone in a directory."""
@@ -38,7 +39,8 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SCRIPT = os.path.join(ROOT, "chip_smoke.py")
 # the zoo phases at smoke size; the paged kernel's shapes are the zoo's own
 ZOO_SMOKE = dict(
-    paged=("olmoe-1b-7b", "dbrx-132b", "mistral-large-123b", "gemma-7b"),
+    paged=("olmoe-1b-7b", "dbrx-132b", "mistral-large-123b", "gemma-7b",
+           "internvl2-1b", "seamless-m4t-medium"),
     sites=(("zoo", 48, 500),), rows=(8, 20),
     serve=("olmoe-1b-7b-butterfly-smoke", "gemma-7b-butterfly-smoke"),
     train=("olmoe-1b-7b-butterfly-smoke", 1, (32, 2), (1, 1)),
@@ -57,7 +59,17 @@ ZOO_SMOKE = dict(
                      ("xlstm-125m-butterfly-smoke", 6, (32, 2), (1, 1))),
     profiled_train=("recurrentgemma-2b-butterfly-smoke",),
     recurrent_tokens=(("recurrentgemma-2b-butterfly-smoke",
-                       "xlstm-125m-butterfly-smoke"), (1, 2, 3, 20), 64))
+                       "xlstm-125m-butterfly-smoke"), (1, 2, 3, 20), 64),
+    frontends=tuple((arch, dict(pool="paged", max_len=256, long=(),
+                                probe=None))
+                    for arch in ("internvl2-1b-butterfly-smoke",
+                                 "seamless-m4t-medium-butterfly-smoke")),
+    frontend_train=(("internvl2-1b-butterfly-smoke", 2, (16, 2), (1, 1)),
+                    ("seamless-m4t-medium-butterfly-smoke", 2, (16, 2),
+                     (1, 1))),
+    frontend_tokens=(("internvl2-1b-butterfly-smoke",
+                      "seamless-m4t-medium-butterfly-smoke"),
+                     (5, 23, 11, 3), 48))
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -118,15 +130,17 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
     for mode in ("eager", "incremental", "spec", "router"):
         assert f"serve tokens {mode}: " in out
     # smollm's and the MoE's three cases each, gemma3's, smollm's dense,
-    # the two recurrent archs'
-    assert out.count("give the same greedy tokens (64 tokens") == 10
+    # the two recurrent archs', the two frontend archs' two each
+    assert out.count("give the same greedy tokens (64 tokens") == 14
     assert out.count("olmoe-1b-7b-butterfly-smoke float32, 4 prompts") == 3
     # the zoo: the paged kernel at its four shapes, the sandwich at its
     # sites, both archs served, the MoE trained, the new shapes timed
     for arch, kv, g, d in (("olmoe-1b-7b", 16, 1, 128),
                            ("dbrx-132b", 8, 6, 128),
                            ("mistral-large-123b", 8, 12, 128),
-                           ("gemma-7b", 16, 1, 256)):
+                           ("gemma-7b", 16, 1, 256),
+                           ("internvl2-1b", 2, 7, 64),
+                           ("seamless-m4t-medium", 16, 1, 64)):
         for dtype in ("float32", "bfloat16"):
             assert f"paged {arch} KV={kv} G={g} D={d} B=8 " \
                 f"{(8, kv, g, d)} ps=16 P=32 {dtype}" in out
@@ -206,6 +220,29 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
         assert f"serve tokens {arch}: phase " in out
         assert {f"serve {arch}", f"train {arch}"} <= \
             kernels[0]["launches_by_path"].keys()
+    # phases 33-35: the vision prefix and the encoder-decoder served on the
+    # paged pool with their stub inputs, trained, and their token cases
+    for arch, sites_, enc, paged, rows in (
+            ("internvl2-1b-butterfly-smoke", 7, "", 2, 48),
+            ("seamless-m4t-medium-butterfly-smoke", 5,
+             " + 2 x 4 encoder sites x whole prefills", 2, 32)):
+        head = f"serve {arch}:"
+        assert f"{head} 16 requests, prompts 5-200 tokens" in out
+        assert "pool paged, max_len 256, whole-prompt prefill" in out
+        assert (f"= 2 x {sites_}/tick x (decode + chunk + whole prefills "
+                f"16){enc}, 2 x {paged}/decode tick") in out
+        assert f"graph decode | {arch} | 8 | paged | " in out
+        assert f"profile {arch} graphed: device time not measured" in out
+        assert f"train site {arch} up_gate 64->128 rows={rows}" in out
+        assert f"train: {arch}, 2 layers, seq_len 16 x batch 2" in out
+        for pool in ("paged", "dense"):
+            assert (f"{arch} float32, 4 prompts of (5, 23, 11, 3) tokens "
+                    f"into 2 slots, whole prompts on the {pool} pool") in out
+        for what in ("incremental", "spec_k"):
+            assert f"serve tokens {arch} {what}: refused" in out
+        assert {f"serve {arch}", f"train {arch}"} <= \
+            kernels[0]["launches_by_path"].keys()
+        assert f"serve {arch}" in kernels[1]["launches_by_path"]
     assert ("train site xlstm-125m-butterfly-smoke lm_head 64->512 rows=64 "
             "float32   forward") in out
     assert "train site xlstm-125m-butterfly-smoke up_gate" not in out
@@ -304,7 +341,9 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
             "train olmoe-1b-7b-butterfly-smoke",
             "train gemma3-27b-butterfly-smoke",
             "train recurrentgemma-2b-butterfly-smoke",
-            "train xlstm-125m-butterfly-smoke"} == \
+            "train xlstm-125m-butterfly-smoke",
+            "train internvl2-1b-butterfly-smoke",
+            "train seamless-m4t-medium-butterfly-smoke"} == \
         kernels[2]["launches_by_path"].keys()
     assert {"serve olmoe-1b-7b-butterfly-smoke",
             "serve gemma-7b-butterfly-smoke",
@@ -326,7 +365,9 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
             "named gives the unset field's bits; 1 and 6 refused") in out
     assert set(kernels[1]["launches_by_path"]) == {
         "serve", "router", "serve olmoe-1b-7b-butterfly-smoke",
-        "serve gemma-7b-butterfly-smoke", "serve gemma3-27b-butterfly-smoke"}
+        "serve gemma-7b-butterfly-smoke", "serve gemma3-27b-butterfly-smoke",
+        "serve internvl2-1b-butterfly-smoke",
+        "serve seamless-m4t-medium-butterfly-smoke"}
     assert kernels[3]["library_ms"] == 0.0 and kernels[4]["library_ms"] is None
     # sdpa's backward stands once, on dq, for the dq/dkv pair
     assert [k["library_ms"] for k in kernels[5:]] == [0.0, 0.0, None]
@@ -348,6 +389,10 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch,sites,per_tick,train", [
+    ("internvl2-1b-butterfly", ("up_gate", "down", "lm_head"), (73, 72),
+     (2 * 145, 6 * 73)),
+    ("seamless-m4t-medium-butterfly", ("up_gate", "down", "lm_head"),
+     (25, 24), (2 * 73, 6 * 49)),
     ("recurrentgemma-2b-butterfly", ("up_gate", "down", "lm_head"),
      (79, 78), (2 * 157, 6 * 79)),
     ("xlstm-125m-butterfly", ("lm_head",), (1, 0), (2 * 1, 6 * 1)),
@@ -357,9 +402,10 @@ def test_rehearsal_runs_every_phase_on_cpu(capsys):
 def test_site_and_launch_counts_of_the_full_width_archs(arch, sites,
                                                         per_tick, train):
     """The sandwich sites a forward pass of the full-width arch calls and
-    the launch counts phases 24-31 hold: every layer with an MLP (the
-    `rec` and `local` ones, not the MoE or xLSTM blocks) runs up, gate
-    and down; the head is one site."""
+    the launch counts phases 24-34 hold: every layer with an MLP (the
+    `rec`, `local` and `xdec` ones, not the MoE or xLSTM blocks) runs up,
+    gate and down (up and down for GeLU); the head is one site; the
+    encoder's 24 sites run once a step, outside remat."""
     smoke = _load_script()
     cfg = registry.get(arch)
     assert smoke.called_sites(cfg) == sites

@@ -128,7 +128,17 @@ def test_example_runs_on_cpu(name, tmp_path, capsys):
         assert want in out, (want, out)
 
 
-def test_serve_lm_refuses_archs_the_port_lacks():
+def test_serve_lm_refuses_archs_the_port_lacks(capsys):
+    """The serving demo's three acts on the vision frontend's smoke arch,
+    its requests carrying stub embeddings: whole prompts (no chunks) and
+    eager admission on the tiny pool; an unknown name exits."""
     from repro_torch.examples import serve_lm
-    with pytest.raises(SystemExit, match="item 5d"):
-        serve_lm.main(["--arch", "internvl2-1b-smoke", "--device", "cpu"])
+    assert serve_lm.main(["--arch", "internvl2-1b-smoke", "--device", "cpu",
+                          "--requests", "3", "--gen-len", "4"]) == 0
+    out = capsys.readouterr().out
+    for want in ("whole-prompt prefill runs eagerly",
+                 "lifecycle demo: tiny pool, eager admission",
+                 "swapped replica 0 to checkpoint step 1"):
+        assert want in out, (want, out)
+    with pytest.raises(SystemExit, match="unknown architecture"):
+        serve_lm.main(["--arch", "internvl2-1b-tiny", "--device", "cpu"])

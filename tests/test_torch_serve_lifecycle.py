@@ -373,8 +373,8 @@ def test_deadlines(models, case):
 
 
 def test_request_validation():
-    """Deadlines must be positive, as in the reference; ``extras`` must be
-    None until frontends are ported."""
+    """Deadlines must be positive, as in the reference; ``extras`` takes
+    ``frontend_embeds`` and ``frames``, each (1, n, d), kept as float32."""
     for kw in (dict(deadline_ticks=0), dict(deadline_s=-1.0)):
         name = next(iter(kw))
         with pytest.raises(ValueError, match=name):
@@ -383,6 +383,12 @@ def test_request_validation():
             Request(prompt=[1], **kw)
     with pytest.raises(ValueError, match="extras"):
         Request(prompt=[1], extras={"frontend_embeds": np.zeros(3)})
+    with pytest.raises(ValueError, match="unknown inputs"):
+        Request(prompt=[1], extras={"pixels": np.zeros((1, 2, 3))})
+    with pytest.raises(ValueError, match="mapping"):
+        Request(prompt=[1], extras=[np.zeros((1, 2, 3))])
+    req = Request(prompt=[1], extras={"frames": np.zeros((1, 2, 3))})
+    assert req.extras["frames"].dtype == np.float32
 
 
 def test_queue_full_sheds_typed(models):

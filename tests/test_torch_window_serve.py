@@ -39,6 +39,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro.serve import cache as jcache
 from repro.serve import engine as jengine
 from repro_torch.configs import registry as treg
+from repro_torch.models import lm as tlm
 from repro_torch.obs import Tracer
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve import cache as tcache
@@ -164,7 +165,8 @@ def test_exact_buckets_for_sequential_state_archs(archs):
     pads to power-of-two buckets; recurrentgemma's state takes the dense
     pool at exact lengths; all as the reference's engines (the engine's
     own list of sequential-state blocks adds `local` to the cache's). An
-    arch with a frontend is refused, naming ROADMAP item 5d."""
+    arch with a frontend admits whole prompts in power-of-two buckets, as
+    the reference's does."""
     for arch, kind in ((GEMMA3, "exact"), (SMOLLM, "pow2"),
                        (RECURRENT, "exact")):
         jcfg, params, tcfg, model = (archs[arch] if arch in archs
@@ -182,9 +184,12 @@ def test_exact_buckets_for_sequential_state_archs(archs):
     assert tcache.SEQUENTIAL_STATE_BLOCKS == jcache.SEQUENTIAL_STATE_BLOCKS
     assert tengine.SEQUENTIAL_STATE_BLOCKS == jengine.SEQUENTIAL_STATE_BLOCKS
     assert "local" in tengine.SEQUENTIAL_STATE_BLOCKS
-    with pytest.raises(ValueError, match="item 5d"):
-        ServeEngine(treg.get("internvl2-1b-smoke"), model, slots=1,
-                    max_len=64, device="cpu")
+    vision = treg.get("internvl2-1b-smoke")
+    t = ServeEngine(vision, tlm.LM(vision), slots=1, max_len=64,
+                    device="cpu")
+    assert t.pool.kind == "paged" and t.prefill_chunk is None
+    assert [t.bucket_for(n) for n in (1, 8, 9, 33, 64)] == [8, 8, 16, 64,
+                                                            64]
 
 
 def test_write_slot_equals_reference(archs):
