@@ -374,6 +374,22 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     ``seamless-m4t-medium-butterfly-smoke`` in float32 with their stub
     inputs: the card's tokens equal to the CPU's; incremental admission
     and ``spec_k=3`` are refused, as the reference refuses them.
+36. The launch tooling (ROADMAP item 7): ``repro_torch.launch.dryrun``
+    over every registry arch x shape for one H100 (each step built and
+    tallied on meta tensors, no allocation, no launch) into a temporary
+    directory, its tables rendered by ``repro_torch.launch.report`` and
+    printed (``dryrun |`` lines), its wall held under 60 s; its
+    ``param_counts`` equal to the parameters of every full-width model the
+    phases before built, its argument bytes no more than each of their
+    runs' measured peak; the tile rule (``repro_torch.kernels.tuning``):
+    every (kernel, n, dtype, mode) the phases launched (recorded from the
+    libraries' entry points) named in ``cache_entries()``, each modeled
+    shared-memory footprint within the device's opt-in limit, the
+    butterfly backward's launched tiles and the flash backward's owned
+    rows as the rule models them, a ``block_b`` the rule honours giving the
+    default's bits and refused ones raising before any launch, and the
+    Trainer's ``ExecutionRecord.tuning`` filled. Every bound the script
+    prints comes from ``repro_torch.launch.roofline``.
 
 The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
 but ``auto`` or ``cuda``: the plain versions would stand in for the
@@ -395,11 +411,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 TC / fp32
-# a float32 route on the tensor cores in 3xTF32 (three TF32 products for
-# each float32 one): the TF32 peak over three
-PEAK_3XTF32 = 495e12 / 3
 PROFILE_TRIES = 3         # device_ms: profiler windows read before events
 # the times that device_ms took by CUDA events, the profiler having seen
 # no device time
@@ -805,6 +816,15 @@ def phase_paged(torch, cfg, dev, kernel: str, zoo_archs=(),
 
 
 _MODELS = {}
+# phase 36's records: each full-width model the phases built (name ->
+# (config, parameters)) and each run's measured peak (kind, config,
+# (seq_len, batch), peak bytes)
+BUILT: dict = {}
+PEAKS: list = []
+
+
+def built(cfg, model) -> None:
+    BUILT[cfg.name] = (cfg, sum(p.numel() for p in model.parameters()))
 
 
 def model_of(cfg, dev):
@@ -813,6 +833,7 @@ def model_of(cfg, dev):
     if (cfg, dev) not in _MODELS:
         _MODELS.clear()
         _MODELS[cfg, dev] = loader.init_params(cfg, seed=0, device=dev)
+        built(cfg, _MODELS[cfg, dev])
     return _MODELS[cfg, dev]
 
 
@@ -1106,6 +1127,7 @@ def phase_serve(torch, np, cfg, dev, kernel: str, tag: str = "",
         if not bool(torch.isfinite(pool).all()):
             raise AssertionError(f"non-finite values in the {name} pool")
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    PEAKS.append(("serve", cfg, (sizes["max_len"], SLOTS), peak))
     say(f"{head} {N_REQUESTS} requests, prompts {int(lens.min())}-"
         f"{int(lens.max())} tokens, {snap['ticks']} ticks "
         f"({snap['chunk_ticks']} chunk, {snap['decode_steps']} decode), "
@@ -1641,86 +1663,6 @@ def phase_window_refusals(dev, arch: str) -> None:
                              f"prefill")
 
 
-def sandwich_ops(spec) -> tuple:
-    """(forward, backward) operations per row of one sandwich site, counted
-    on the support the function needs, not densely.
-
-    Input side (stage s, stride 2^s, applied s-th): X[s] holds the nonzeros
-    of stage s's input (x is n_in wide in n1), D[s] the positions there
-    that reach the k1 selected outputs. Output side (stage p2-1-j applied
-    j-th): V[j] holds the nonzeros of its input (from the k2 scattered
-    values), G[j] the positions that reach the n_out live columns. The
-    forward computes stage outputs on D and on V ∩ G. The backward
-    recomputes the stage inputs it reads, takes each dual stage on the same
-    sets (the cotangent of the output chain is needed on V, of the input
-    chain it is nonzero on D) and forms a weight product, a multiply and an
-    add into the sum over rows, wherever a nonzero cotangent meets a
-    nonzero stage input. The core: 2·k1·k2 forward, 4·k1·k2 backward, and
-    the scales."""
-    import numpy as np
-
-    def stage_ops(src, need, stride: int) -> int:
-        """One stage (either direction) producing the elements ``need``
-        from an input whose nonzeros are ``src`` (boolean masks): a
-        multiply for each nonzero term, an add where an element has two."""
-        partner = src[np.arange(src.size) ^ stride]
-        return int((need & src).sum() + (need & partner).sum()
-                   + (need & src & partner).sum())
-
-    n1, n2 = spec.pad_in, spec.pad_out
-    p1, p2 = int(math.log2(n1)), int(math.log2(n2))
-    a1, a2 = np.arange(n1), np.arange(n2)
-    X = [a1 < spec.n_in]
-    for s in range(p1):
-        X.append(X[-1] | X[-1][a1 ^ (1 << s)])
-    D = [np.isin(a1, spec.idx_in)]
-    for s in reversed(range(p1)):
-        D.insert(0, D[0] | D[0][a1 ^ (1 << s)])
-    st = [1 << (p2 - 1 - j) for j in range(p2)]
-    V = [np.isin(a2, spec.idx_out)]
-    for j in range(p2):
-        V.append(V[-1] | V[-1][a2 ^ st[j]])
-    G = [a2 < spec.n_out]
-    for j in reversed(range(p2)):
-        G.insert(0, G[0] | G[0][a2 ^ st[j]])
-    k1, k2 = spec.k_in, spec.k_out
-    in_fwd = sum(stage_ops(X[s], D[s + 1], 1 << s) for s in range(p1))
-    out_fwd = [stage_ops(V[j], V[j + 1] & G[j + 1], st[j])
-               for j in range(p2)]
-    fwd = in_fwd + 2 * k1 * k2 + k1 + k2 + sum(out_fwd)
-    live = D[0] & X[0]                           # dx on the n_in columns
-    bwd = (in_fwd + 2 * k1 * k2 + k1 + k2 + sum(out_fwd[:-1])
-           + 4 * k1 * k2 + k1 + k2)
-    for j in range(p2):
-        bwd += stage_ops(G[j + 1], V[j] & G[j], st[j])
-        bwd += 2 * int((V[j] & G[j + 1]).sum()
-                       + (V[j] & G[j + 1][a2 ^ st[j]]).sum())
-    for s in range(p1):
-        bwd += stage_ops(D[s + 1], live if s == 0 else D[s], 1 << s)
-        bwd += 2 * int((D[s + 1] & X[s]).sum()
-                       + (D[s + 1] & X[s][a1 ^ (1 << s)]).sum())
-    return fwd, bwd
-
-
-def sandwich_bound(spec, rows: int, dtype: str):
-    """(bytes, ops) of one sandwich call: activations in and out once,
-    float32 weights once; :func:`sandwich_ops` per row."""
-    itemsize = 2 if dtype == "bfloat16" else 4
-    n1, n2 = spec.pad_in, spec.pad_out
-    p1, p2 = int(math.log2(n1)), int(math.log2(n2))
-    nbytes = (rows * (spec.n_in + spec.n_out) * itemsize
-              + 4 * (2 * p1 * n1 + 2 * p2 * n2 + spec.k_in * spec.k_out
-                     + spec.k_in + spec.k_out))
-    return nbytes, rows * sandwich_ops(spec)[0]
-
-
-def bound_ms(nbytes: float, ops: float, peak_ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def phase_timing(torch, cfg, dev, kernel, time_fn, device_fn, launches,
                  errs, train_rows: int) -> list:
     """Times of the forward kernels. The sandwich: its two
@@ -1733,6 +1675,7 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, device_fn, launches,
     SDPA's, which the kernels line carries, beside their event figures."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sandwich as ks
+    from repro_torch.launch import roofline as rl
     dt = cfg.compute_dtype
     gen = torch.Generator().manual_seed(3)
     mix = {"up_gate": 2 * cfg.n_layers, "down": cfg.n_layers, "lm_head": 1}
@@ -1763,10 +1706,10 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, device_fn, launches,
                 torch, spec, layer, xt, kernel), reps=5)
             lib_t = time_fn(torch, lambda: torch.matmul(xt, dense), reps=5)
             del eye, dense, xt
-            nbytes, ops = sandwich_bound(spec, SLOTS, dt)
-            bnd, _ = bound_ms(nbytes, ops, PEAK_OPS["float32"])
-            t_bytes, t_ops = sandwich_bound(spec, train_rows, dt)
-            t_bnd, t_by = bound_ms(t_bytes, t_ops, PEAK_OPS["float32"])
+            nbytes, ops = rl.sandwich_fwd_work(spec, SLOTS, dt)
+            bnd, _ = rl.bound_ms(nbytes, ops, rl.PEAK_FP32)
+            t_bytes, t_ops = rl.sandwich_fwd_work(spec, train_rows, dt)
+            t_bnd, t_by = rl.bound_ms(t_bytes, t_ops, rl.PEAK_FP32)
             say(f"time sandwich {site:8s} rows={SLOTS} {dt}: kernels "
                 f"{ms:.4f} ms (factors alone {fac:.4f}), plain {plain:.4f} "
                 f"ms, matmul by the dense matrix {lib:.4f} ms, bound "
@@ -1784,9 +1727,9 @@ def phase_timing(torch, cfg, dev, kernel, time_fn, device_fn, launches,
             tick["ops"] += count * ops
             tick["train_bytes"] += count * t_bytes
             tick["train_ops"] += count * t_ops
-        _, by = bound_ms(tick["bytes"], tick["ops"], PEAK_OPS["float32"])
-        _, t_by = bound_ms(tick["train_bytes"], tick["train_ops"],
-                           PEAK_OPS["float32"])
+        _, by = rl.bound_ms(tick["bytes"], tick["ops"], rl.PEAK_FP32)
+        _, t_by = rl.bound_ms(tick["train_bytes"], tick["train_ops"],
+                              rl.PEAK_FP32)
         say(f"time sandwich per decode tick ({sum(mix.values())} calls of "
             f"{ks.FWD_KERNELS} launches): kernels {tick['ms']:.4f} ms "
             f"(factors alone {tick['factors_ms']:.4f}), plain "
@@ -1845,6 +1788,7 @@ def time_paged(torch, cfg, dev, kernel, time_fn, device_fn, shape) -> dict:
     over KV gathered and head-expanded beforehand (not timed); the plain
     twin by events; the bound from the live rows' bytes."""
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import roofline as rl
     dt = cfg.compute_dtype
     q, k_pool, v_pool, ids, cur = paged_inputs(
         torch, cfg, getattr(torch, dt), dev, shape=shape)
@@ -1874,11 +1818,8 @@ def time_paged(torch, cfg, dev, kernel, time_fn, device_fn, shape) -> dict:
     r["library_event_ms"] = time_fn(torch, lambda: sdpa(
         qh, kg, vg, attn_mask=mask), reps=500)
     live = int((cur.long() + 1).sum())
-    itemsize = q.element_size()
-    nbytes = (2 * q.numel() * itemsize + 2 * live * KV * D * itemsize
-              + ids.numel() * 4 + cur.numel() * 4)
-    ops = 4 * live * KV * G * D
-    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, PEAK_OPS[dt])
+    nbytes, ops = rl.paged_decode_work(B, KV, G, D, live, ids.shape[1], dt)
+    r["bound_ms"], r["bound_by"] = rl.bound_ms(nbytes, ops, rl.PEAK_OPS[dt])
     r["live"] = live
     say(f"time paged {shape[0]} B={B} P={ids.shape[1]} live positions={live}"
         f" {dt}: kernel {r['ms']:.5f} ms device ({r['event_ms']:.5f} ms by "
@@ -2290,6 +2231,7 @@ def phase_train(torch, np, cfg, dev, seq_len: int, batch: int,
     trainer = Trainer(cfg, TrainConfig(warmup_steps=2), seq_len=seq_len,
                       global_batch=batch, device=dev)
     model, opt_state = trainer.init_state(seed=0)
+    built(cfg, model)
     on_card = dev.type == "cuda"
     sync(torch, dev)
     init_s = time.monotonic() - t0
@@ -2314,6 +2256,7 @@ def phase_train(torch, np, cfg, dev, seq_len: int, batch: int,
     p50 = ms[len(ms) // 2]
     tokens = seq_len * batch
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    PEAKS.append(("train", cfg, (seq_len, batch), peak))
     say(f"train: {cfg.name}, {cfg.n_layers} layers, seq_len {seq_len} x "
         f"batch {batch} = {tokens} tokens/step, remat {cfg.remat}, init "
         f"{init_s:.1f} s, "
@@ -2768,19 +2711,6 @@ def phase_train_cli(torch, np, cfg, dev, kernel: str, seq_len: int,
                       "train_cli_compression_bytes": wire}
 
 
-def sandwich_bwd_bound(spec, rows: int, dtype: str):
-    """(bytes, ops) of one backward call: x, g read and dx written once,
-    float32 weights read and their gradients written once; per row the
-    recompute and the VJP on the support they need (:func:`sandwich_ops`)."""
-    itemsize = 2 if dtype == "bfloat16" else 4
-    n1, n2 = spec.pad_in, spec.pad_out
-    p1, p2 = int(math.log2(n1)), int(math.log2(n2))
-    weights = 2 * p1 * n1 + 2 * p2 * n2 + spec.k_in * spec.k_out
-    nbytes = (rows * (2 * spec.n_in + spec.n_out) * itemsize
-              + 4 * 2 * weights + 4 * (spec.k_in + spec.k_out))
-    return nbytes, rows * sandwich_ops(spec)[1]
-
-
 def phase_timing_bwd(torch, cfg, dev, kernel, time_fn, launches, err,
                      train_rows: int) -> dict:
     """CUDA-event times of the backward over one train step's site mix: the
@@ -2793,6 +2723,7 @@ def phase_timing_bwd(torch, cfg, dev, kernel, time_fn, launches, err,
     outside the timed window. ``launches`` counts kernels, BWD_KERNELS per
     call."""
     from repro_torch.kernels import sandwich as ks
+    from repro_torch.launch import roofline as rl
     dt = cfg.compute_dtype
     gen = torch.Generator().manual_seed(13)
     mix = {"up_gate": 2 * cfg.n_layers, "down": cfg.n_layers, "lm_head": 1}
@@ -2824,14 +2755,14 @@ def phase_timing_bwd(torch, cfg, dev, kernel, time_fn, launches, err,
             plain = time_fn(torch, lambda: sandwich_bwd_call(
                 torch, spec, layer, x, g, "torch"), reps=5)
             lib = time_fn(torch, lambda: dense(x, g), reps=20)
-            nbytes, ops = sandwich_bwd_bound(spec, BWD_ROWS, dt)
-            bnd, by = bound_ms(nbytes, ops, PEAK_OPS["float32"])
+            nbytes, ops = rl.sandwich_bwd_work(spec, BWD_ROWS, dt)
+            bnd, by = rl.bound_ms(nbytes, ops, rl.PEAK_FP32)
             xf, gf = inputs(train_rows)
             full = time_fn(torch, lambda: sandwich_bwd_call(
                 torch, spec, layer, xf, gf, kernel), reps=10)
             lib_t = time_fn(torch, lambda: dense(xf, gf), reps=10)
-            fbytes, fops = sandwich_bwd_bound(spec, train_rows, dt)
-            fbnd, fby = bound_ms(fbytes, fops, PEAK_OPS["float32"])
+            fbytes, fops = rl.sandwich_bwd_work(spec, train_rows, dt)
+            fbnd, fby = rl.bound_ms(fbytes, fops, rl.PEAK_FP32)
             del xf, gf, w
             say(f"time sandwich_bwd {site:8s} {dt}: rows={BWD_ROWS} kernels "
                 f"{ms:.4f} ms, plain {plain:.4f} ms, dense backward "
@@ -2848,9 +2779,9 @@ def phase_timing_bwd(torch, cfg, dev, kernel, time_fn, launches, err,
             step["ops"] += count * ops
             step["train_bytes"] += count * fbytes
             step["train_ops"] += count * fops
-    _, by = bound_ms(step["bytes"], step["ops"], PEAK_OPS["float32"])
-    _, t_by = bound_ms(step["train_bytes"], step["train_ops"],
-                       PEAK_OPS["float32"])
+    _, by = rl.bound_ms(step["bytes"], step["ops"], rl.PEAK_FP32)
+    _, t_by = rl.bound_ms(step["train_bytes"], step["train_ops"],
+                          rl.PEAK_FP32)
     say(f"time sandwich_bwd per train step ({sum(mix.values())} calls of "
         f"{ks.BWD_KERNELS} launches): rows={BWD_ROWS} kernels "
         f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, dense "
@@ -3133,21 +3064,6 @@ def phase_encdec_vs_plain(torch, dev, kernel, spec, params, X) -> None:
         raise AssertionError(f"encdec 10-step losses differ: {hist}")
 
 
-def butterfly_bound(rows: int, n: int, itemsize: int, backward: bool,
-                    need_dx: bool = False):
-    """(bytes, ops) of one butterfly call: the activations in and out once,
-    float32 weights read once (and dw written once); 3 operations per
-    element and stage application, and in the backward 4 per element and
-    stage for the two weight products, :func:`stage_applies` stages."""
-    from repro_torch.kernels import butterfly as kb
-    p = int(math.log2(n))
-    wbytes = 4 * 2 * p * n
-    if not backward:
-        return 2 * rows * n * itemsize + wbytes, rows * 3 * n * p
-    nbytes = (2 + need_dx) * rows * n * itemsize + 2 * wbytes
-    return nbytes, rows * (3 * n * kb.stage_applies(p) + 4 * n * p)
-
-
 def phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn, launches,
                            errs, shape, shapes) -> list:
     """Times at the encoder's product, float32, as the path calls them (B x
@@ -3159,6 +3075,7 @@ def phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn, launches,
     time at every shape of ``shapes`` (float32, B x, without dx)."""
     from repro_torch.core import butterfly as bf
     from repro_torch.kernels import butterfly as kb
+    from repro_torch.launch import roofline as rl
     n = 1 << (shape[0] - 1).bit_length()
     rows = shape[1]
     x, w, g = butterfly_case(torch, rows, n, "float32", dev, seed=40)
@@ -3179,10 +3096,10 @@ def phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn, launches,
                        time_fn(torch, fn, reps=reps))
     clk = clocks(dev)
     del Bm
-    fb, fo = butterfly_bound(rows, n, 4, backward=False)
-    bb, bo = butterfly_bound(rows, n, 4, backward=True)
-    bnd_f, by_f = bound_ms(fb, fo, PEAK_OPS["float32"])
-    bnd_b, by_b = bound_ms(bb, bo, PEAK_OPS["float32"])
+    fb, fo = rl.butterfly_fwd_work(rows, n, "float32")
+    bb, bo = rl.butterfly_bwd_work(rows, n, "float32")
+    bnd_f, by_f = rl.bound_ms(fb, fo, rl.PEAK_FP32)
+    bnd_b, by_b = rl.bound_ms(bb, bo, rl.PEAK_FP32)
     (ms_f, ev_f), (plain_f, plain_ev_f), (lib_f, lib_ev_f) = (
         t["fwd"], t["fwd_plain"], t["matmul"])
     (ms_b, ev_b), (plain_b, plain_ev_b) = t["bwd"], t["bwd_plain"]
@@ -3501,29 +3418,6 @@ def phase_bench(torch, dev, kernel: str, bench: dict) -> dict:
     return launches
 
 
-def flash_pairs(S: int, causal: bool, window: int) -> int:
-    """Visible (q, k) pairs of one head under the mask."""
-    total = 0
-    for q in range(S):
-        hi = q + 1 if causal else S
-        lo = max(0, q - window + 1) if window > 0 else 0
-        total += max(0, hi - lo)
-    return total
-
-
-def flash_bound(shape, dtype: str):
-    """{kernel: (bytes, ops)} of one call of each flash kernel: its inputs
-    read once and outputs written once; 4·D (forward), 6·D (dq) and 8·D
-    (dkv) operations per visible pair."""
-    _, B, H, S, D, _, causal, window = shape
-    item = 2 if dtype == "bfloat16" else 4
-    arr, rows = B * H * S * D * item, B * H * S * 4
-    pairs = B * H * flash_pairs(S, causal, window)
-    return {"flash_fwd": (4 * arr + rows, 4 * D * pairs),
-            "flash_bwd_dq": (5 * arr + 2 * rows, 6 * D * pairs),
-            "flash_bwd_dkv": (6 * arr + 2 * rows, 8 * D * pairs)}
-
-
 def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
                        errs, shapes, entry: str, kv_heads: int) -> list:
     """Times of the three flash kernels at ``shapes`` (the training
@@ -3543,7 +3437,10 @@ def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
     computes dq, dk and dv in one: it stands as ``library_ms`` of the dq
     entry, for the pair, and the dkv entry has none."""
     from repro_torch.kernels import flash as kf
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.attention import _attend_masked
+    work = {"flash_fwd": rl.flash_fwd_work, "flash_bwd_dq": rl.flash_dq_work,
+            "flash_bwd_dkv": rl.flash_dkv_work}
     on_card = dev.type == "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dq_k = kf.dq_cuda if on_card else kf.flash_dq_plain
@@ -3592,17 +3489,16 @@ def phase_timing_flash(torch, dev, kernel, time_fn, device_fn, launches,
         lib = {"flash_fwd": (lib_f, lib_f_event),
                "flash_bwd_dq": (lib_fb - lib_f, lib_fb_event - lib_f_event),
                "flash_bwd_dkv": (lib_fb - lib_f, lib_fb_event - lib_f_event)}
-        bounds = flash_bound(shape, dtype)
         res = {}
         for kname, (ms, event, clk, plain) in t.items():
-            nbytes, ops = bounds[kname]
-            bnd, by = bound_ms(nbytes, ops, PEAK_OPS[dtype])
+            nbytes, ops = work[kname](B, H, S, D, dtype, causal, window)
+            bnd, by = rl.bound_ms(nbytes, ops, rl.PEAK_OPS[dtype])
             tf32 = ""
             if dtype == "float32":
                 # the float32 route runs in 3xTF32: its bound is at that
                 # rate, the CUDA-core bound printed beside it
                 tf32 = f" (CUDA-core float32 bound {bnd:.5f} ms)"
-                bnd, by = bound_ms(nbytes, ops, PEAK_3XTF32)
+                bnd, by = rl.bound_ms(nbytes, ops, rl.PEAK_3XTF32)
             res[kname] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                               bound_by=by, library_ms=lib[kname][0],
                               event_ms=event,
@@ -4072,7 +3968,7 @@ def phase_paper_rows(torch, np, dev, kernel: str, shapes=GATED_SHAPES,
                  "lm_butterfly_s": t_lm}
 
 
-def phase_paper(torch, np, dev, kernel: str, kernels: list, layers,
+def phase_paper(torch, np, dev, kernel: str, kernels: dict, layers,
                 fit, sketch_run, gated, nonlinear_steps, lm_steps) -> dict:
     """Phases 20 to 22; each path's launches join its kernels' entries in
     ``kernels``. Returns the summary."""
@@ -4085,11 +3981,7 @@ def phase_paper(torch, np, dev, kernel: str, kernels: list, layers,
     paths.update(rows)
     summary.update(rs)
     for path, counters in PAPER_PATHS.items():
-        for k in kernels:
-            counter = k.get("counter", k["name"])
-            if counter in counters:
-                k["launches_by_path"][path] = paths[path][counter]
-                k["launches"] += paths[path][counter]
+        add_launches(kernels, path, {c: paths[path][c] for c in counters})
     return summary
 
 
@@ -4199,6 +4091,7 @@ def phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo) -> dict:
     a ``torch.matmul`` by the dense matrix, bound, by ``time_fn``)."""
     from repro_torch.configs import registry
     from repro_torch.core import layers as blayers
+    from repro_torch.launch import roofline as rl
     from repro_torch.nn import ButterflyLinear
     out = {"paged": {}, "sandwich": {}}
     shapes = [(arch, PAGED_SHAPES[0]) for arch in zoo["paged"]] + [
@@ -4226,8 +4119,8 @@ def phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo) -> dict:
             del eye
             lib = time_fn(torch, lambda: torch.matmul(x, dense), reps=100)
             del dense
-            nbytes, ops = sandwich_bound(spec, SLOTS, "bfloat16")
-            bnd, by = bound_ms(nbytes, ops, PEAK_OPS["float32"])
+            nbytes, ops = rl.sandwich_fwd_work(spec, SLOTS, "bfloat16")
+            bnd, by = rl.bound_ms(nbytes, ops, rl.PEAK_FP32)
             say(f"time sandwich {name} {n_in}->{n_out} rows={SLOTS} "
                 f"bfloat16: kernels {ms:.4f} ms, plain {plain:.4f} ms, "
                 f"matmul by the dense matrix {lib:.4f} ms, bound {bnd:.5f} ms "
@@ -4237,7 +4130,7 @@ def phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo) -> dict:
     return out
 
 
-def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
+def phase_zoo(torch, np, dev, kernel: str, kernels: dict, time_fn,
               device_fn, zoo=ZOO) -> dict:
     """The zoo phases, each main path with the counts set to 0 just before
     and read just after: serving each of ``zoo["serve"]`` at full width
@@ -4267,11 +4160,9 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
         s["phase_s"] = time.monotonic() - t0
         say(f"serve {arch}: phase {s['phase_s']:.1f} s")
         summary[f"serve {arch}"] = s
-        for k, counter in ((kernels[0], "sandwich_fwd"),
-                           (kernels[1], "paged_decode_attention")):
-            if counter == "sandwich_fwd" or sizes["pool"] == "paged":
-                k["launches_by_path"][f"serve {arch}"] = launches[counter]
-                k["launches"] += launches[counter]
+        add_launches(kernels, f"serve {arch}", {
+            c: launches[c] for c in ("sandwich_fwd", "paged_decode_attention")
+            if c == "sandwich_fwd" or sizes["pool"] == "paged"})
     trained = ((zoo["train"], zoo["windowed_train"])
                + tuple(zoo["recurrent_train"]) + tuple(zoo["frontend_train"]))
     for arch, layers, (seq_len, batch), steps in trained:
@@ -4292,10 +4183,8 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
         s["phase_s"] = time.monotonic() - t0
         say(f"train {arch}: phase {s['phase_s']:.1f} s")
         summary[f"train {arch}"] = s
-        for k, counter in ((kernels[0], "sandwich_fwd"),
-                           (kernels[2], "sandwich_bwd")):
-            k["launches_by_path"][f"train {arch}"] = launches[counter]
-            k["launches"] += launches[counter]
+        add_launches(kernels, f"train {arch}", {
+            c: launches[c] for c in ("sandwich_fwd", "sandwich_bwd")})
     phase_serve_tokens(torch, np, dev, zoo["tokens"],
                        modes=("eager", "incremental", "spec"))
     warch, wlens, wmax = zoo["windowed_tokens"]
@@ -4318,9 +4207,278 @@ def phase_zoo(torch, np, dev, kernel: str, kernels: list, time_fn,
         phase_window_refusals(dev, arch)
         say(f"serve tokens {arch}: phase {time.monotonic() - t0:.1f} s")
     timing = phase_zoo_timing(torch, dev, kernel, time_fn, device_fn, zoo)
-    kernels[0]["zoo"] = timing["sandwich"]
-    kernels[1]["zoo"] = timing["paged"]
+    entry(kernels, "sandwich_fwd")["zoo"] = timing["sandwich"]
+    entry(kernels, "paged_decode_attention")["zoo"] = timing["paged"]
     return summary
+
+
+# phase 36: the launch tooling (ROADMAP item 7): the dry-run over every
+# registry arch x shape on one H100 (tallied on meta tensors, the card
+# idle), held against the models and runs of the phases before it, and the
+# tile rule held against the launches they made
+LAUNCH = dict(archs=None, shapes=None, limit_s=60.0)
+# the cells each kernel's launch names in the tile rule's record, from the
+# C calls themselves (kernel, mode) -> a function of the call's arguments
+# giving (n, dtype code)
+TUNED_CALLS = {
+    ("sandwich", "sandwich_fwd", "fwd"): lambda a: (max(a[10], a[12]), a[-2]),
+    ("sandwich_bwd", "sandwich_bwd", "bwd"):
+        lambda a: (max(a[14], a[17]), a[-2]),
+    ("butterfly", "butterfly_fwd", "fwd"): lambda a: (a[4], a[6]),
+    ("butterfly_bwd", "butterfly_bwd", "bwd"): lambda a: (a[9], a[14]),
+    ("flash", "flash_fwd", "fwd"): lambda a: (a[7], a[11]),
+    ("flash_bwd", "flash_bwd_dq", "bwd"): lambda a: (a[9], a[13]),
+    ("flash_bwd", "flash_bwd_dkv", "bwd"): lambda a: (a[10], a[14]),
+}
+LAUNCHED: set = set()
+# the butterfly backward's launches: (n, dtype, tile rows, tiles in device
+# memory), held against the rule's model of its plans
+BFLY_TILES: set = set()
+
+
+def record_launches() -> None:
+    """Wrap the built libraries' launch entry points so that every launch
+    adds its (kernel, n, dtype, mode) cell to LAUNCHED: the record the tile
+    rule's is held against, taken from the C calls and not from the rule.
+    A CUDA graph's capture runs them once, its replays not at all."""
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import flash as kf
+    from repro_torch.kernels import sandwich as ks
+    libs = {"sandwich": ks._lib, "sandwich_bwd": ks._bwd_lib,
+            "butterfly": kb._lib, "butterfly_bwd": kb._bwd_lib,
+            "flash": kf._lib, "flash_bwd": kf._bwd_lib}
+    codes = {0: "float32", 1: "bfloat16"}
+    for (lib, fn, mode), key in TUNED_CALLS.items():
+        cdll = libs[lib]()            # the wrappers' own handle
+        real = getattr(cdll, fn)
+        kernel = lib.split("_")[0]
+
+        def wrapped(*a, _real=real, _key=key, _kernel=kernel, _mode=mode,
+                    _fn=fn):
+            n, dtype = _key(a)
+            LAUNCHED.add((_kernel, int(n), codes[int(dtype)], _mode))
+            if _fn == "butterfly_bwd":
+                BFLY_TILES.add((int(n), codes[int(dtype)], int(a[12]),
+                                a[6] is not None))
+            return _real(*a)
+        setattr(cdll, fn, wrapped)
+
+
+def phase_launch_tools(torch, np, dev, kernel: str, sizes=LAUNCH) -> dict:
+    """Phase 36. The dry-run (``repro_torch.launch.dryrun``) over
+    ``sizes``' archs x shapes (every registry arch and shape by default)
+    into a temporary directory, its tables rendered by
+    ``repro_torch.launch.report``, its wall held under ``limit_s``; its
+    ``param_counts`` equal to the parameters of every full-width model the
+    phases before built, and its argument bytes no more than the peak each
+    of their runs measured. The tile rule: ``cache_entries()`` names every
+    (kernel, n, dtype, mode) the phases launched (:func:`record_launches`)
+    and each choice's modeled shared memory fits the device's opt-in limit;
+    the butterfly backward's plans agree with the rule's model of them and
+    the flash backward's owned rows with the library's; an honoured
+    ``block_b`` gives the default's bits and a refused one raises before any
+    launch; the Trainer's ``ExecutionRecord.tuning`` is filled on the card
+    (on the CPU nothing is queried and it stays empty)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES, ShapeConfig, TrainConfig
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import context as exctx
+    from repro_torch.kernels import flash as kf
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.kernels import tuning
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import specs
+    from repro_torch.train.trainer import Trainer
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    archs = sizes["archs"] or registry.names()
+    shapes = sizes["shapes"] or [s.name for s in SHAPES]
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        run_ = dryrun.run(archs, shapes, out, verbose=False)
+        wall = run_["seconds"]
+        if run_["failures"]:
+            raise AssertionError(f"dry-run: {run_['failures']} cells failed")
+        records = report.load(out)
+        if len(records) != len(archs) * len(shapes):
+            raise AssertionError(f"dry-run: {len(records)} JSONs for "
+                                 f"{len(archs)} x {len(shapes)} cells")
+        for line in report.render(records).splitlines():
+            say(f"dryrun | {line}" if line else "dryrun |")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ok = sum(r["status"] == "ok" for r in records)
+    say(f"dryrun: {ok} tallied, {len(records) - ok} skipped, 0 failed over "
+        f"{len(archs)} archs x {len(shapes)} shapes in {wall:.1f} s "
+        f"(limit {sizes['limit_s']} s); {rl.CARD} bounds")
+    if sizes["limit_s"] and wall > sizes["limit_s"]:
+        raise AssertionError(f"dry-run took {wall:.1f} s, over "
+                             f"{sizes['limit_s']} s")
+
+    # the dry-run's counts against the models and runs the phases made
+    for name, (cfg, numel) in sorted(BUILT.items()):
+        total, active = specs.param_counts(cfg)
+        if total != numel:
+            raise AssertionError(f"{name}: param_counts {total} != the "
+                                 f"built model's {numel} parameters")
+        say(f"dryrun params {name} ({cfg.n_layers} layers): param_counts "
+            f"{total} (active {active}) = the model built on "
+            f"{dev.type}")
+    for kind, cfg, (seq_len, batch), peak in PEAKS:
+        shape = ShapeConfig(kind, seq_len, batch,
+                            "train" if kind == "train" else "decode")
+        args = dryrun.argument_bytes(cfg, shape)["total"]
+        if on_card and args > peak:
+            raise AssertionError(f"{kind} {cfg.name}: the dry-run's "
+                                 f"argument bytes {args} exceed the run's "
+                                 f"measured peak {peak}")
+        say(f"dryrun args {kind} {cfg.name} {seq_len} x {batch}: "
+            f"{args / 2**20:.1f} MiB <= measured peak "
+            + (f"{peak / 2**20:.1f} MiB" if on_card else "not measured "
+               "(no card)"))
+
+    # the tile rule against the launches
+    entries = tuning.cache_entries()
+    choices = tuning.choices()
+    limit = rl.smem_optin_bytes()
+    for k, n, dtype, mode in sorted(LAUNCHED):
+        key = f"{k}/{mode}/n{n}/{dtype}"
+        if key not in entries:
+            raise AssertionError(f"tile rule: no choice recorded for the "
+                                 f"launched {key}")
+    for key, c in sorted(choices.items()):
+        if c.smem_bytes > limit or c.smem_limit != limit:
+            raise AssertionError(f"tile rule {key}: modeled shared memory "
+                                 f"{c.smem_bytes} over the opt-in {limit}")
+        if c.kernel == "flash" and c.mode == "bwd" and on_card:
+            lib = kf.tile_rows(c.n, getattr(torch, c.dtype))
+            if lib != (c.block_q, c.block_kv):
+                raise AssertionError(f"tile rule {key}: flash rows "
+                                     f"{(c.block_q, c.block_kv)}, library "
+                                     f"{lib}")
+    for n, dtype, tile, in_device in sorted(BFLY_TILES):
+        c = tuning.choice("butterfly", n, dtype, "bwd")
+        if tile not in c.takes or in_device != c.tiles_in_device_memory:
+            raise AssertionError(f"tile rule butterfly/bwd n={n} {dtype}: "
+                                 f"launched tile {tile} (in device memory "
+                                 f"{in_device}), the rule's model takes "
+                                 f"{c.takes[0]}..{c.takes[-1]} (in device "
+                                 f"memory {c.tiles_in_device_memory})")
+    say(f"tuning: {len(entries)} choices, every one of the {len(LAUNCHED)} "
+        f"launched cells named; modeled shared memory within the opt-in "
+        f"{limit} B: " + (tuning.describe() if entries else
+                          "no kernel tuning queried (plain versions)"))
+    if not on_card and entries:
+        raise AssertionError("the plain versions queried the tile rule")
+
+    # overrides: honoured (the same bits) or refused before any launch
+    n, rows = 1024, 300
+    x, w, g = butterfly_case(torch, rows, n, "float32", dev, seed=50)
+    fwd_b = tuning.choice("butterfly", n, "float32", "fwd").block_b
+    bwd = tuning.choice("butterfly", n, "float32", "bwd")
+    base_y = kb.butterfly_forward(x, w, context=kernel)
+    base = kb.butterfly_backward(x, w, g, context=kernel)
+    plan_tile = (tuning.butterfly_bwd_plan(rows, n, False, "float32",
+                                           dev.index or 0)[3]
+                 if on_card else None)
+    honoured = next(b for b in bwd.takes if b != plan_tile and b != fwd_b)
+    for b, what in ((fwd_b, "fwd"), (honoured, "bwd")):
+        ctx = exctx.ExecutionContext(backend=kernel, block_b=b)
+        if what == "fwd":
+            same = torch.equal(kb.butterfly_forward(x, w, context=ctx),
+                               base_y)
+        else:
+            if on_card:
+                tile = tuning.butterfly_bwd_plan(rows, n, False, "float32",
+                                                 dev.index or 0, b)[3]
+                if tile != b:
+                    raise AssertionError(f"block_b={b}: launch tile {tile}")
+            got = kb.butterfly_backward(x, w, g, context=ctx)
+            same = all(torch.equal(u, v) for u, v in zip(got, base))
+        if not same:
+            raise AssertionError(f"butterfly {what} at block_b={b}: not the "
+                                 f"default's bits")
+    counts = (kb.butterfly_forward.launches, kb.butterfly_backward.launches,
+              ks.sandwich_forward.launches)
+    refused = []
+    for b, call in ((honoured + 1, lambda c: kb.butterfly_backward(
+            x, w, g, context=c)), (fwd_b * 2, lambda c: kb.butterfly_forward(
+            x, w, context=c))):
+        try:
+            call(exctx.ExecutionContext(backend=kernel, block_b=b))
+        except ValueError as e:
+            refused.append(str(e).split(" (")[0])
+            continue
+        raise AssertionError(f"block_b={b} was not refused")
+    spec, layer = sandwich_site(torch, registry.get(
+        "smollm-135m-butterfly-smoke"), "up_gate", dev)
+    xs = torch.randn(8, spec.n_in, device=dev)
+    try:
+        with torch.no_grad():
+            sandwich_call(torch, spec, layer, xs, exctx.ExecutionContext(
+                backend=kernel, block_b=32))
+        raise AssertionError("sandwich block_b=32 was not refused")
+    except ValueError as e:
+        refused.append(str(e).split(" (")[0])
+    if (kb.butterfly_forward.launches, kb.butterfly_backward.launches,
+            ks.sandwich_forward.launches) != counts:
+        raise AssertionError("a refused block_b launched a kernel")
+    say(f"tuning overrides: butterfly {rows}x{n} float32 forward block_b="
+        f"{fwd_b} and backward block_b={honoured} (plan tile {plan_tile}) "
+        f"give the default's bits; refused before any launch: "
+        + "; ".join(refused))
+    del x, w, g, base, base_y
+
+    # the Trainer's record
+    tcfg = registry.get("smollm-135m-butterfly-smoke")
+    trainer = Trainer(tcfg, TrainConfig(warmup_steps=2, checkpoint_every=0),
+                      seq_len=16, global_batch=2, device=dev)
+    tuned = trainer.run(1).execution.tuning
+    if on_card != bool(tuned):
+        raise AssertionError(f"ExecutionRecord.tuning {tuned!r} on "
+                             f"{dev.type}")
+    say(f"tuning record: Trainer on {dev.type}: "
+        f"{tuned[:160] if tuned else repr(tuned)}")
+    phase_s = time.monotonic() - t_phase
+    say(f"launch tools: phase {phase_s:.1f} s")
+    return {"dryrun_s": wall, "dryrun_cells": len(records),
+            "launch_tools_s": phase_s, "tuning_choices": len(entries)}
+
+
+# the kernels line's entries, in its order; the timing phases fill them in
+KERNEL_ORDER = ("sandwich_fwd (sandwich_factors + sandwich_rows)",
+                "paged_decode_attention", "sandwich_bwd", "butterfly_fwd",
+                "butterfly_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+COUNTER_ENTRY = {"sandwich_fwd": KERNEL_ORDER[0],
+                 **{n: n for n in KERNEL_ORDER[1:]}}
+# run()'s phases by group, in order (the CPU rehearsal runs them a group
+# at a time): the kernels' checks (phases 3-5, the wide and zoo sites, the
+# butterfly and flash kernels), serving (6-8, 6a-6e), training (9-11, the
+# CLI), the encoder-decoder and benches, the paper's layers (20-22), the
+# zoo (24-35) and the launch tooling (36)
+GROUPS = ("kernels", "serve", "train", "encdec", "paper", "zoo", "launch")
+
+
+def entry(kernels: dict, counter: str) -> dict:
+    """The kernels line's entry of ``counter`` (a launch counter's name): a
+    stub without launches until its timing phase fills it in, which a
+    group run alone leaves as it is."""
+    name = COUNTER_ENTRY[counter]
+    return kernels.setdefault(name, {"name": name, "launches": 0,
+                                     "launches_by_path": {}})
+
+
+def add_launches(kernels: dict, path: str, launches: dict) -> None:
+    """``launches`` (counter -> launches of ``path``'s run) into the
+    entries' totals and ``launches_by_path``."""
+    for counter, n in launches.items():
+        e = entry(kernels, counter)
+        e["launches_by_path"][path] = n
+        e["launches"] += n
 
 
 def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
@@ -4329,8 +4487,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         flash_shapes=FLASH_SHAPES, flash_timed=FLASH_TIMED,
         bench=None, wide=WIDE, cli=CLI_SERVE, layers=LAYER_API_LAYERS,
         fit=QUICKSTART_FIT, sketch_run=SKETCH_RUN, gated=GATED_SHAPES,
-        nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS, zoo=ZOO) -> list:
-    """Phases 3 to 22 on ``cfg`` and ``dev``; ``kernel`` is the backend
+        nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS, zoo=ZOO,
+        launch=LAUNCH, groups=GROUPS) -> list:
+    """Phases 3 to 36 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
     ``encdec_shape`` the encoder-decoder's (n, d, k), ``encdec_steps`` its
@@ -4343,102 +4502,115 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     :func:`phase_wide` and ``cli`` the serving tier's sizes of
     :func:`phase_serve_cli`; ``layers``, ``fit``, ``sketch_run``,
     ``gated``, ``nonlinear_steps`` and ``lm_steps`` size phases 20 to 22,
-    and ``zoo`` the zoo's phases (:data:`ZOO`).
+    ``zoo`` the zoo's phases (:data:`ZOO`) and ``launch`` phase 36's
+    (:data:`LAUNCH`). ``groups`` (of :data:`GROUPS`; all on the card) picks
+    the phases run; a group run without the one before it takes no error
+    from it and adds its launches to stub entries.
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     device_fn = device_fn or time_fn
     train_rows = train_shape[0] * train_shape[1]
-    errs = {"sandwich_fwd": max(phase_sandwich_factors(torch, cfg, dev,
-                                                       kernel),
-                                phase_sandwich(torch, cfg, dev, kernel,
-                                               train_rows)),
-            "paged_decode_attention": phase_paged(torch, cfg, dev, kernel,
-                                                  zoo["paged"],
-                                                  zoo["paged_long"]),
-            "sandwich_bwd": phase_sandwich_bwd(torch, cfg, dev, kernel,
-                                               train_rows)}
-    phase_wide(torch, dev, kernel, wide)
-    for site in zoo["sites"]:
-        for rows in zoo["rows"]:
-            phase_wide(torch, dev, kernel, site, rows)
-    errs.update(phase_butterfly(torch, dev, kernel, bfly_shapes))
-    from repro_torch.launch import speed
-    phase_sandwich_bwd_bench(torch, dev, kernel,
-                             max((bench or {}).get("ns") or speed.BACKWARD_NS))
+    kernels: dict = {}
+    summary: dict = {}
+    errs: dict = {}
+    flash_errs: dict = {}
     train_attn = ("train", train_shape[1], cfg.n_heads, train_shape[0],
                   cfg.head_dim_, (cfg.compute_dtype,), True, 0)
     flash_shapes = (train_attn, *flash_shapes)
-    flash_errs = phase_flash(torch, dev, kernel, flash_shapes)
-    launches, summary, eager_tokens = phase_serve(torch, np, cfg, dev,
-                                                  kernel)
-    dense_launches, summary["serve dense"], _ = phase_serve(
-        torch, np, cfg, dev, kernel, tag=f"{cfg.name} dense",
-        sizes=SERVE_DENSE)
-    phase_serve_tokens(torch, np, dev)
-    summary.update(phase_serve_incremental(torch, np, cfg, dev,
-                                           eager_tokens))
-    summary.update(phase_serve_spec(torch, np, cfg, dev, kernel,
-                                    eager_tokens))
-    router_launches, cli_summary = phase_serve_cli(torch, cfg, dev, cli)
-    summary.update(cli_summary)
-    kernels = phase_timing(torch, cfg, dev, kernel, time_fn, device_fn,
-                           launches, errs, train_rows)
-    paged = kernels[1]
-    paged["launches_by_path"] = {
-        "serve": paged["launches"],
-        "router": router_launches["paged_decode_attention"]}
-    paged["launches"] += router_launches["paged_decode_attention"]
-    summary.update(phase_profile(torch, np, cfg, dev))
-    train_launches, train_summary = phase_train(torch, np, cfg, dev,
-                                                *train_shape)
-    summary.update(train_summary)
-    phase_train_gradcheck(torch, np, cfg, dev, kernel)
-    phase_train_step_f32(torch, cfg, dev, kernel)
-    cli_launches, cli_summary = phase_train_cli(
-        torch, np, cfg, dev, kernel, *train_shape, bfly_shapes[0])
-    summary.update(cli_summary)
-    kernels.append(phase_timing_bwd(
-        torch, cfg, dev, kernel, time_fn, train_launches["sandwich_bwd"],
-        errs["sandwich_bwd"], train_rows))
-    fwd = kernels[0]
-    fwd["launches_by_path"] = {"serve": fwd["launches"],
-                               "router": router_launches["sandwich_fwd"],
-                               "train": train_launches["sandwich_fwd"],
-                               "train_cli": cli_launches["sandwich_fwd"]}
-    fwd["launches"] += (train_launches["sandwich_fwd"]
-                        + router_launches["sandwich_fwd"]
-                        + cli_launches["sandwich_fwd"])
-    fwd["launches_by_path"]["serve dense"] = dense_launches["sandwich_fwd"]
-    fwd["launches"] += dense_launches["sandwich_fwd"]
-    kernels[-1]["launches_by_path"] = {
-        "train": kernels[-1]["launches"],
-        "train_cli": cli_launches["sandwich_bwd"]}
-    kernels[-1]["launches"] += cli_launches["sandwich_bwd"]
-    encdec_launches, encdec_summary, problem = phase_encdec(
-        torch, dev, encdec_shape, encdec_steps)
-    summary.update(encdec_summary)
-    phase_encdec_vs_plain(torch, dev, kernel, *problem)
-    del problem
-    kernels += phase_timing_butterfly(torch, dev, kernel, time_fn, device_fn,
-                                      encdec_launches, errs, encdec_shape,
-                                      bfly_shapes)
-    bench_launches = phase_bench(torch, dev, kernel, bench or {})
-    phase_flash_autograd(torch, dev, kernel, flash_shapes[0])
-    for k in kernels:
-        n = bench_launches.get(k.get("counter", k["name"]), 0)
-        if n:
-            k["launches_by_path"]["bench"] = n
-            k["launches"] += n
-    kernels += phase_timing_flash(
-        torch, dev, kernel, time_fn, device_fn, bench_launches, flash_errs,
-        [train_attn] + [s for s in flash_shapes if s[0] in flash_timed],
-        flash_timed[0], cfg.n_kv_heads)
-    summary.update(phase_paper(torch, np, dev, kernel, kernels, layers, fit,
-                               sketch_run, gated, nonlinear_steps, lm_steps))
-    summary.update(phase_zoo(torch, np, dev, kernel, kernels, time_fn,
-                             device_fn, zoo))
+    if "kernels" in groups:
+        errs["sandwich_fwd"] = max(
+            phase_sandwich_factors(torch, cfg, dev, kernel),
+            phase_sandwich(torch, cfg, dev, kernel, train_rows))
+        errs["paged_decode_attention"] = phase_paged(
+            torch, cfg, dev, kernel, zoo["paged"], zoo["paged_long"])
+        errs["sandwich_bwd"] = phase_sandwich_bwd(torch, cfg, dev, kernel,
+                                                  train_rows)
+        phase_wide(torch, dev, kernel, wide)
+        for site in zoo["sites"]:
+            for rows in zoo["rows"]:
+                phase_wide(torch, dev, kernel, site, rows)
+        errs.update(phase_butterfly(torch, dev, kernel, bfly_shapes))
+        from repro_torch.launch import speed
+        phase_sandwich_bwd_bench(
+            torch, dev, kernel,
+            max((bench or {}).get("ns") or speed.BACKWARD_NS))
+        flash_errs = phase_flash(torch, dev, kernel, flash_shapes)
+    for name in ("sandwich_fwd", "paged_decode_attention", "sandwich_bwd",
+                 "butterfly_fwd", "butterfly_bwd"):
+        errs.setdefault(name, 0.0)
+    if "serve" in groups:
+        launches, summary, eager_tokens = phase_serve(torch, np, cfg, dev,
+                                                      kernel)
+        dense_launches, summary["serve dense"], _ = phase_serve(
+            torch, np, cfg, dev, kernel, tag=f"{cfg.name} dense",
+            sizes=SERVE_DENSE)
+        phase_serve_tokens(torch, np, dev)
+        summary.update(phase_serve_incremental(torch, np, cfg, dev,
+                                               eager_tokens))
+        summary.update(phase_serve_spec(torch, np, cfg, dev, kernel,
+                                        eager_tokens))
+        router_launches, cli_summary = phase_serve_cli(torch, cfg, dev, cli)
+        summary.update(cli_summary)
+        for e in phase_timing(torch, cfg, dev, kernel, time_fn, device_fn,
+                              launches, errs, train_rows):
+            e["launches_by_path"] = {"serve": e["launches"]}
+            kernels[e["name"]] = e
+        add_launches(kernels, "router", router_launches)
+        add_launches(kernels, "serve dense",
+                     {"sandwich_fwd": dense_launches["sandwich_fwd"]})
+        summary.update(phase_profile(torch, np, cfg, dev))
+    if "train" in groups:
+        train_launches, train_summary = phase_train(torch, np, cfg, dev,
+                                                    *train_shape)
+        summary.update(train_summary)
+        phase_train_gradcheck(torch, np, cfg, dev, kernel)
+        phase_train_step_f32(torch, cfg, dev, kernel)
+        cli_launches, cli_summary = phase_train_cli(
+            torch, np, cfg, dev, kernel, *train_shape, bfly_shapes[0])
+        summary.update(cli_summary)
+        e = phase_timing_bwd(torch, cfg, dev, kernel, time_fn,
+                             train_launches["sandwich_bwd"],
+                             errs["sandwich_bwd"], train_rows)
+        e["launches"] = 0
+        e["launches_by_path"] = {}
+        kernels[e["name"]] = e
+        add_launches(kernels, "train", train_launches)
+        add_launches(kernels, "train_cli", cli_launches)
+    if "encdec" in groups:
+        encdec_launches, encdec_summary, problem = phase_encdec(
+            torch, dev, encdec_shape, encdec_steps)
+        summary.update(encdec_summary)
+        phase_encdec_vs_plain(torch, dev, kernel, *problem)
+        del problem
+        for e in phase_timing_butterfly(torch, dev, kernel, time_fn,
+                                        device_fn, encdec_launches, errs,
+                                        encdec_shape, bfly_shapes):
+            kernels[e["name"]] = e
+        bench_launches = phase_bench(torch, dev, kernel, bench or {})
+        phase_flash_autograd(torch, dev, kernel, flash_shapes[0])
+        add_launches(kernels, "bench", {
+            c: n for c, n in bench_launches.items()
+            if n and c in ("sandwich_fwd", "sandwich_bwd", "butterfly_fwd",
+                           "butterfly_bwd")})
+        for e in phase_timing_flash(
+                torch, dev, kernel, time_fn, device_fn, bench_launches,
+                flash_errs or {flash_timed[0]: dict.fromkeys(
+                    KERNEL_ORDER[5:], 0.0)},
+                [train_attn] + [s for s in flash_shapes
+                                if s[0] in flash_timed],
+                flash_timed[0], cfg.n_kv_heads):
+            kernels[e["name"]] = e
+    if "paper" in groups:
+        summary.update(phase_paper(torch, np, dev, kernel, kernels, layers,
+                                   fit, sketch_run, gated, nonlinear_steps,
+                                   lm_steps))
+    if "zoo" in groups:
+        summary.update(phase_zoo(torch, np, dev, kernel, kernels, time_fn,
+                                 device_fn, zoo))
+    if "launch" in groups:
+        summary.update(phase_launch_tools(torch, np, dev, kernel, launch))
     say("summary: " + json.dumps(summary))
-    return kernels
+    return [kernels[n] for n in KERNEL_ORDER if n in kernels]
 
 
 def main() -> int:
@@ -4469,6 +4641,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
+    record_launches()
     kernels = run(torch, np, registry.get("smollm-135m-butterfly"), dev,
                   kernel="cuda", time_fn=cuda_ms, device_fn=device_ms)
     say(f"total: {time.monotonic() - t_start:.1f} s")

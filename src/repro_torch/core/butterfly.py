@@ -135,6 +135,9 @@ def fjlt_weights(generator: Optional[torch.Generator], n: int,
     transform after a random ±1 diagonal ``D`` absorbed into stage 0
     (paper footnote 5). The result is orthogonal."""
     p = num_stages(n)
+    if torch.get_default_device().type == "meta":
+        # an abstract model (``repro_torch.launch.specs``) draws nothing
+        return torch.empty(p, 2, n, dtype=dtype)
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
     a = _hadamard_signs(n) * inv_sqrt2
     b = np.full((p, n), inv_sqrt2)
@@ -170,7 +173,7 @@ def truncation_indices(generator: Optional[torch.Generator], n: int,
     (fixed for the lifetime of the layer, §3.1)."""
     if ell > n:
         raise ValueError(f"truncation {ell} > dim {n}")
-    idx = torch.randperm(n, generator=generator)[:ell]
+    idx = torch.randperm(n, generator=generator, device="cpu")[:ell]
     return tuple(sorted(int(i) for i in idx))
 
 

@@ -18,53 +18,37 @@ The backward kernel takes the reference's default schedule, segmented
 stage checkpointing with ``segment = ⌈√p⌉``; :func:`stage_applies` counts
 its stage applications per row, the counterpart of the reference's
 ``count_stage_applies``. Its register schedule fixes that segment: an
-execution context that names another is refused with ``ValueError``
-(:func:`check_segment`; a choice of segment comes with the tuner, ROADMAP
-queue 1, item 7). A segment changes which stage inputs are kept and
-which recomputed, never a value. It sums ``dw`` in a fixed order: each
-thread over its rows in row order, each block over its row slots
-(:func:`row_slots`), then over blocks in block order;
-:func:`butterfly_bwd_tiled_plain` is the plain twin of that order, bit
-for bit.
+execution context that names another is refused with ``ValueError`` by
+the tile rule (:func:`repro_torch.kernels.tuning.resolve_segment`). A
+segment changes which stage inputs are kept and which recomputed, never a
+value. It sums ``dw`` in a fixed order: each thread over its rows in row
+order, each block over its row slots (:func:`tuning.row_slots`), then over
+blocks in block order; :func:`butterfly_bwd_tiled_plain` is the plain twin
+of that order, bit for bit. The tiles come from the rule
+(:mod:`repro_torch.kernels.tuning`): the forward's rows a block are
+compiled in, and a context's ``block_b`` must name them; the backward's
+tile rows are a launch parameter, and an honoured ``block_b`` replaces the
+plan's with the same blocks, so the bits stay.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core import butterfly as bf
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 from repro_torch.kernels.context import (ContextLike, resolve_execution,
                                          tensor_route)
+from repro_torch.kernels.tuning import default_segment, row_slots
 from repro_torch.obs.profiling import annotate
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 32768             # one float32 row in shared memory (128 KB)
 BWD_KERNELS = 2           # the row-tile VJP, the reduction of dw over blocks
-BWD_THREADS = 512         # backward kernel: threads a block, 2 elements each
-
-
-def default_segment(stages: int) -> int:
-    """⌈√p⌉, the reference's default checkpoint interval."""
-    if stages <= 1:
-        return 1
-    return math.isqrt(stages - 1) + 1
-
-
-def check_segment(p: int, segment: Optional[int]) -> None:
-    """Refuse a context's ``segment`` other than ⌈√p⌉ for a ``p``-stage
-    butterfly: the backward kernel's register schedule takes that one
-    alone, and the plain route follows it."""
-    if segment is not None and segment != default_segment(p):
-        raise ValueError(
-            f"segment={segment}: the butterfly backward runs segment "
-            f"⌈√p⌉ = {default_segment(p)} for p = {p}; a choice of segment "
-            f"comes with the tuner, ROADMAP queue 1, item 7")
 
 
 def stage_applies(p: int, segment: Optional[int] = None) -> int:
@@ -106,12 +90,6 @@ def butterfly_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     if need_dx:
         return grads[0].to(dt), grads[1]
     return None, grads[0]
-
-
-def row_slots(n: int) -> int:
-    """Rows the backward kernel's block works side by side, each slot with
-    its own ``dw`` sums: ``BWD_THREADS`` threads of 2 elements a row."""
-    return max(1, 2 * BWD_THREADS // n)
 
 
 def butterfly_bwd_tiled_plain(x: torch.Tensor, w: torch.Tensor,
@@ -193,22 +171,6 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_plan(rows: int, n: int, transpose: bool, dtype: int,
-              device: int) -> tuple:
-    """The backward's launch plan for one shape on one device, asked once:
-    (blocks, partial floats, tile-workspace floats, tile rows)."""
-    sizes = (ctypes.c_longlong * 4)()
-    with torch.cuda.device(device):
-        err = _bwd_lib().butterfly_bwd_plan(
-            rows, n, default_segment(n.bit_length() - 1), int(transpose),
-            dtype, sizes)
-    if err != 0:
-        raise RuntimeError(f"butterfly_bwd_plan failed with cudaError {err} "
-                           f"(rows={rows}, n={n})")
-    return tuple(int(v) for v in sizes)
-
-
 def _check_args(x: torch.Tensor, w: torch.Tensor) -> int:
     """Validate the kernels' common arguments; returns n."""
     if x.dtype not in _DTYPES:
@@ -236,6 +198,7 @@ def _check_args(x: torch.Tensor, w: torch.Tensor) -> int:
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, transpose: bool
               ) -> torch.Tensor:
     n = _check_args(x, w)
+    tuning.tune("butterfly", n, x.dtype, "fwd")
     rows = x.numel() // n
     out = torch.empty_like(x)
     if rows == 0:
@@ -252,8 +215,9 @@ def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, transpose: bool
 
 def _bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
               transpose: bool, need_dx: bool,
-              applied: Optional[torch.Tensor]):
+              applied: Optional[torch.Tensor], block_b: Optional[int]):
     n = _check_args(x, w)
+    tuning.tune("butterfly", n, x.dtype, "bwd")
     if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -269,8 +233,8 @@ def _bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     dw = torch.empty(w.shape, dtype=torch.float32, device=dev)
     if rows == 0:
         return dx, dw.zero_()
-    blocks, n_part, n_tiles, tile = _bwd_plan(
-        rows, n, bool(transpose), _DTYPES[x.dtype], dev.index)
+    blocks, n_part, n_tiles, tile = tuning.butterfly_bwd_plan(
+        rows, n, bool(transpose), x.dtype, dev.index, block_b)
     partial = torch.empty(n_part, dtype=torch.float32, device=dev)
     tiles = (torch.empty(n_tiles, dtype=torch.float32, device=dev)
              if n_tiles else None)
@@ -292,11 +256,15 @@ def butterfly_forward(x: torch.Tensor, w: torch.Tensor, *,
                       transpose: bool = False,
                       context: ContextLike = None) -> torch.Tensor:
     """``B x`` (or ``Bᵀ x``) over the last axis of ``x`` (..., n), without
-    autograd. ``context`` follows :mod:`repro_torch.kernels.context`; the
-    CUDA route takes contiguous float32 or bfloat16 ``x``, float32 ``w`` on
-    its device, ``2 <= n <= MAX_N`` (32,768), and counts each launch in
+    autograd. ``context`` follows :mod:`repro_torch.kernels.context`; a
+    ``block_b`` other than the kernel's rows a block is refused
+    (:func:`tuning.resolve_block_b`). The CUDA route takes contiguous
+    float32 or bfloat16 ``x``, float32 ``w`` on its device, ``2 <= n <=
+    MAX_N`` (32,768), and counts each launch in
     ``butterfly_forward.launches``."""
     ctx = resolve_execution(context)
+    tuning.launch_block_b(ctx.block_b, "butterfly", w.shape[-1], x.dtype,
+                          ("fwd",))
     with annotate("butterfly_matmul", ctx):
         if tensor_route(ctx.backend, x) == "torch":
             with torch.no_grad():     # no autograd on either route
@@ -314,16 +282,20 @@ def butterfly_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     """The butterfly's VJP: ``(dx, dw)`` for the cotangent ``g`` of the
     output, ``dx`` in ``x``'s dtype or ``None`` unless ``need_dx``, ``dw``
     float32. A context's ``segment`` other than ⌈√p⌉ is refused
-    (:func:`check_segment`). The CUDA route adds its two launches (the
-    row-tile VJP, the reduction of ``dw``) to ``butterfly_backward.launches``
-    and, given ``applied`` (one int32 on the card), writes there the number
-    of stage applications the kernel performed for the first row."""
+    (:func:`tuning.resolve_segment`); its ``block_b`` sets the tile rows of
+    the launch or is refused (:func:`tuning.resolve_block_b`), and changes
+    no bit. The CUDA route adds its two launches (the row-tile VJP, the
+    reduction of ``dw``) to ``butterfly_backward.launches`` and, given
+    ``applied`` (one int32 on the card), writes there the number of stage
+    applications the kernel performed for the first row."""
     ctx = resolve_execution(context)
-    check_segment(w.shape[0], ctx.segment)
+    tuning.resolve_segment(w.shape[0], ctx.segment)
+    block_b = tuning.launch_block_b(ctx.block_b, "butterfly", w.shape[-1],
+                                    x.dtype, ("bwd",))
     if tensor_route(ctx.backend, x) == "torch":
         return butterfly_bwd_plain(x, w, g, transpose=transpose,
                                    need_dx=need_dx)
-    return _bwd_cuda(x, w, g, transpose, need_dx, applied)
+    return _bwd_cuda(x, w, g, transpose, need_dx, applied, block_b)
 
 
 butterfly_backward.launches = 0
@@ -358,8 +330,12 @@ def butterfly_apply(x: torch.Tensor, w: torch.Tensor, *,
     """Fused butterfly product over the last axis of ``x`` (..., n),
     differentiable in ``x`` and ``w`` through :class:`ButterflyFn`;
     ``context`` follows :mod:`repro_torch.kernels.context`; a ``segment``
-    other than ⌈√p⌉ is refused here, before the forward
-    (:func:`check_segment`)."""
+    other than ⌈√p⌉, or a ``block_b`` that either direction does not take,
+    is refused here, before the forward (:mod:`repro_torch.kernels.
+    tuning`)."""
     ctx = resolve_execution(context)
-    check_segment(w.shape[0], ctx.segment)
+    tuning.resolve_segment(w.shape[0], ctx.segment)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        tuning.launch_block_b(ctx.block_b, "butterfly", w.shape[-1],
+                              x.dtype, ("bwd",))
     return ButterflyFn.apply(x, w, transpose, ctx)

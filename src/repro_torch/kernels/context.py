@@ -26,18 +26,20 @@ Backends (``Backend``):
 * ``"cuda"`` — the kernel; raises for a CPU tensor.
 
 Fields: ``backend`` and ``profile`` (:mod:`repro_torch.obs.profiling`'s
-gate) are honoured. ``segment`` (the butterfly backward's checkpoint
-interval, ``None`` = ⌈√p⌉) folds as the reference's does; the butterfly
-backward kernel's register schedule takes ⌈√p⌉ alone, so the butterfly
-entry points refuse another value where ``p`` is known
-(:func:`repro_torch.kernels.butterfly.check_segment`; a choice of segment
-comes with the tuner, item 7). ``block_b`` and ``mesh_shape``/
-``mesh_axes`` exist so that the reference's configs construct; a context
-that sets one is refused at resolution, naming the ROADMAP item that
-brings it (the tile rule of item 7, the multi-device path of item 6), as
-the serving CLI refuses ``--mesh-shape``. The reference's
-``vmem_budget``, ``flash_block_q`` and prebuilt jax ``Mesh`` have no torch
-meaning and are left out; a Hopper tile rule comes with item 7.
+gate) are honoured. ``block_b`` (the rows a block owns) and ``segment``
+(the butterfly backward's checkpoint interval, ``None`` = ⌈√p⌉) fold as
+the reference's do and go to the tile rule
+(:mod:`repro_torch.kernels.tuning`), which honours them in the launch or
+refuses them with ``ValueError`` before any launch: the butterfly
+backward's tile rows are a launch parameter, the other tiles are compiled
+in, and the backward's register schedule takes ⌈√p⌉ alone.
+``mesh_shape``/``mesh_axes`` exist so that the reference's configs
+construct; a context that sets one is refused at resolution, naming the
+ROADMAP item that brings it (the multi-device path of item 6), as the
+serving CLI refuses ``--mesh-shape``. The reference's ``vmem_budget``,
+``flash_block_q`` and prebuilt jax ``Mesh`` have no torch meaning and are
+left out: the tile rule's budget is the card's opt-in shared memory, and
+the flash kernels' tiles are their own.
 
 The ambient stack is per thread (``threading.local``): the router's driver
 thread and the async client run kernels off the main thread, and one
@@ -173,17 +175,19 @@ class ExecutionContext:
     """Execution policy for the port's kernels.
 
     * ``backend`` — ``"auto" | "torch" | "cuda"`` (``"auto"`` = unset).
+    * ``block_b`` — the rows a block owns; ``None`` = the tile rule's
+      choice (:func:`repro_torch.kernels.tuning.resolve_block_b`, which
+      honours or refuses it).
     * ``segment`` — the butterfly backward's checkpoint interval; ``None``
       = ⌈√p⌉, the only value its kernel takes (another is refused by the
-      butterfly entry points, ROADMAP item 7). The sandwich backward takes
-      products with the truncated factors and has no stage schedule, so it
-      does not read it.
+      tile rule). The sandwich backward takes products with the truncated
+      factors and has no stage schedule, so it does not read it.
     * ``profile`` — ``torch.profiler.record_function`` ranges around the
       kernel call sites (:mod:`repro_torch.obs.profiling`); ``None`` =
       unset: the ``REPRO_PROFILE`` variable, default off.
-    * ``block_b``, ``mesh_shape``, ``mesh_axes`` — carried so that the
-      reference's configs construct; refused by :func:`resolve_execution`
-      (ROADMAP items 7 and 6).
+    * ``mesh_shape``, ``mesh_axes`` — carried so that the reference's
+      configs construct; refused by :func:`resolve_execution` (ROADMAP
+      item 6).
 
     Hashable and frozen: safe to key caches on and to store on a module
     (:class:`repro_torch.nn.ButterflyLinear`).
@@ -341,11 +345,6 @@ def current_execution() -> Optional[ExecutionContext]:
 # ---------------------------------------------------------------------------
 
 def _refuse_unported(ctx: ExecutionContext) -> None:
-    if ctx.block_b is not None:
-        raise ValueError(
-            f"block_b={ctx.block_b}: the port has no batch-tile knob yet; "
-            f"a Hopper tile rule comes with ROADMAP queue 1, item 7 (launch "
-            f"tooling, kernels/tuning.py)")
     if ctx.mesh_shape is not None or ctx.mesh_axes is not None:
         raise ValueError(
             f"mesh_shape={ctx.mesh_shape}, mesh_axes={ctx.mesh_axes}: the "
@@ -360,11 +359,12 @@ def resolve_execution(context: ContextLike = None,
     ``context`` is the explicit per-call layer, ``default`` the layer/config
     layer (e.g. :meth:`ExecutionContext.from_butterfly_config`); this
     thread's ambient stack sits between them. The result has a validated
-    backend (``"auto"`` still routes by the tensor's device) and no
-    ``block_b`` or mesh (refused with ``ValueError``). Idempotent. A
+    backend (``"auto"`` still routes by the tensor's device) and no mesh
+    (refused with ``ValueError``). Idempotent. A
     finalized context passed as ``context`` keeps its backend, and comes
     back as it is unless an ambient block other than itself is open: then
-    the block, and then ``default``, fill its unset fields.
+    the block, and then ``default``, fill its unset fields. ``block_b`` and
+    ``segment`` go on to the tile rule at the call.
     """
     ctx = ExecutionContext.coerce(context)
     if ctx is not None and getattr(ctx, "_final", False):

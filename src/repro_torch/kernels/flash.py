@@ -28,7 +28,9 @@ of the reference do not carry over:
 * The reference's ``block_q``/``block_kv`` come from a TPU VMEM model
   (``tuning.flash_blocks``). The kernels' tiles are their own: 64 rows
   swept, and the rows a backward block owns from :func:`tile_rows`, as
-  the built library reports them.
+  the built library reports them. The tile rule records them
+  (:func:`repro_torch.kernels.tuning.flash_blocks`, its model of
+  ``BwdSplit``), and takes no override for them.
 * The reference asserts ``S % block == 0`` but its default blocks fall back
   to ``gcd(S, 8)``, so it takes any ``S``. The kernels take any
   ``S >= 1`` and mask the ragged last tile themselves, and head dims 8 to
@@ -42,7 +44,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 from repro_torch.kernels.context import (ContextLike, resolve_execution,
                                          route_context, tensor_route)
 from repro_torch.obs.profiling import annotate
@@ -229,6 +231,7 @@ def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
 def _fwd_cuda(q, k, v, causal, window):
     B, H, S, D = _check(q, k, v)
     _check_aligned("flash forward", q=q, k=k, v=v)
+    tuning.tune("flash", D, q.dtype, "fwd")
     out = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     err = _lib().flash_fwd(
@@ -247,6 +250,7 @@ def dq_cuda(q, k, v, do, lse, delta, causal=True, window=0):
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     _check_aligned("flash_bwd_dq", q=q, k=k, v=v, do=do)
+    tuning.tune("flash", D, q.dtype, "bwd")
     dq = torch.empty_like(q)
     err = _bwd_lib().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -264,6 +268,7 @@ def dkv_cuda(q, k, v, do, lse, delta, causal=True, window=0):
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     _check_aligned("flash_bwd_dkv", q=q, k=k, v=v, do=do)
+    tuning.tune("flash", D, q.dtype, "bwd")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _bwd_lib().flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

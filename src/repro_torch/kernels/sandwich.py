@@ -72,7 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import butterfly as bf
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 from repro_torch.kernels.context import (ContextLike, resolve_execution,
                                          route_context, tensor_route)
 from repro_torch.obs.profiling import annotate
@@ -154,20 +154,6 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _groups(rows: int, chunks: int, sms: int) -> int:
-    """Column groups of the row kernel (row tiles of 64 rows times groups
-    of 128-wide output chunks), about one block per SM where the chunks
-    allow. Every group of a row tile runs its input side again: narrow
-    outputs (the MLP's), where that side takes most of a block's time, round
-    the count down to one group per tile once there are about as many tiles
-    as SMs; wide ones (the head's), bound by their stores, round up, which
-    puts two blocks on an SM."""
-    tiles = -(-rows // 64)
-    if chunks >= 64:
-        return min(chunks, -(-sms // tiles))
-    return min(chunks, max(1, (sms + tiles // 2) // tiles))
 
 
 def _layout(k1: int, n_in: int, k2: int, n_out: int, dtype) -> tuple:
@@ -264,6 +250,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_block_b(ctx, dtype, b_in, core, b_out, modes) -> None:
+    """Refuse a context's ``block_b`` (or ``REPRO_TUNE_BLOCK_B``) that the
+    row kernel of each of ``modes`` does not take."""
+    n1, n2 = b_in.shape[-1], b_out.shape[-1]
+    k2, k1 = core.shape
+    tuning.launch_block_b(ctx.block_b, "sandwich", max(n1, n2), dtype, modes,
+                          k1=k1, k2=k2, n1=n1)
+
+
 def _check_args(x, b_in, core, b_out, idx_in, idx_out, n_out):
     """Validate the kernels' common arguments; returns (n1, k1, k2, n2)."""
     if x.dtype not in _DTYPES:
@@ -312,6 +307,7 @@ def _sandwich_cuda(x, b_in, core, b_out, idx_in, idx_out, scale_in,
     out = torch.empty(x.shape[:-1] + (n_out,), dtype=x.dtype, device=dev)
     if rows == 0:
         return out
+    tuning.tune("sandwich", max(n1, n2), x.dtype, "fwd", k1=k1, k2=k2, n1=n1)
     kp1, ld1, kp2, ld2, nbytes = _layout(k1, n_in, k2, n_out, x.dtype)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     index = dev.index
@@ -319,7 +315,8 @@ def _sandwich_cuda(x, b_in, core, b_out, idx_in, idx_out, scale_in,
         x.data_ptr(), b_in.data_ptr(), core.data_ptr(), b_out.data_ptr(),
         idx_in.data_ptr(), idx_out.data_ptr(), out.data_ptr(),
         ws.data_ptr(), rows, n_in, n1, k1, n2, k2, n_out, kp1, ld1, kp2, ld2,
-        _groups(rows, ld2 // _PAD_N, _sm_count(index)), float(scale_in),
+        tuning.sandwich_groups(rows, ld2 // _PAD_N, _sm_count(index)),
+        float(scale_in),
         float(scale_out), _DTYPES[x.dtype],
         torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
@@ -436,6 +433,7 @@ def _sandwich_bwd_cuda(x, b_in, core, b_out, idx_in, idx_out, g, scale_in,
     if g.shape != x.shape[:-1] + (n_out,):
         raise ValueError(f"g shape {tuple(g.shape)} does not match x "
                          f"{tuple(x.shape)} and n_out {n_out}")
+    tuning.tune("sandwich", max(n1, n2), x.dtype, "bwd", k1=k1, k2=k2, n1=n1)
     dev = x.device
     dx = torch.empty_like(x)
     # the three weight gradients in one allocation
@@ -525,8 +523,12 @@ def sandwich_backward(x: torch.Tensor, b_in: torch.Tensor,
     cotangent ``g`` (..., n_out). ``context`` follows
     :mod:`repro_torch.kernels.context`; the CUDA route adds its
     ``BWD_KERNELS`` launches (factors, rows, columns, their sum, factor-row
-    VJP, reduction) to ``sandwich_backward.launches``."""
-    if tensor_route(resolve_execution(context).backend, x) == "torch":
+    VJP, reduction) to ``sandwich_backward.launches``. A ``block_b`` other
+    than the row kernel's 32 rows is refused (:mod:`repro_torch.kernels.
+    tuning`)."""
+    ctx = resolve_execution(context)
+    _check_block_b(ctx, x.dtype, b_in, core, b_out, ("bwd",))
+    if tensor_route(ctx.backend, x) == "torch":
         return sandwich_bwd_plain(x, b_in, core, b_out, idx_in, idx_out, g,
                                   scale_in=scale_in, scale_out=scale_out,
                                   n_out=n_out)
@@ -581,13 +583,19 @@ def sandwich_forward(x: torch.Tensor, b_in: torch.Tensor, core: torch.Tensor,
     products with the factors, without a stage schedule). The CUDA route
     takes float32 or bfloat16 ``x`` and float32 weights, all contiguous on
     ``x``'s device, launches the factor and the row kernel and counts both
-    launches in ``sandwich_forward.launches``.
+    launches in ``sandwich_forward.launches``. The row kernels' tiles are
+    compiled in (64 rows forward, 32 backward): a ``block_b`` other than
+    the forward's, or any ``block_b`` where the call is differentiable, is
+    refused before any launch (:mod:`repro_torch.kernels.tuning`).
     """
     ctx = resolve_execution(context)
     route = tensor_route(ctx.backend, x)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, b_in, core, b_out))
+    _check_block_b(ctx, x.dtype, b_in, core, b_out,
+                   ("fwd", "bwd") if grad else ("fwd",))
     with annotate("sandwich_matmul", ctx):
-        if not (torch.is_grad_enabled()
-                and any(t.requires_grad for t in (x, b_in, core, b_out))):
+        if not grad:
             # nothing to differentiate (serving, no_grad): skip autograd's
             # bookkeeping, the host's share of a decode tick
             if route == "torch":

@@ -51,6 +51,7 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels.context import ContextLike
 from repro_torch.models import common as cm
 from repro_torch.nn.linear import scaled_normal
+from repro_torch.runtime import loops
 
 
 class Attention(nn.Module):
@@ -128,7 +129,8 @@ def _attend_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = torch.full((B, KV, G, block_q), NEG_INF, device=dev)
         l = torch.zeros((B, KV, G, block_q), device=dev)
         acc = torch.zeros((B, KV, G, block_q, D), device=dev)
-        for j in range(lo, hi):
+        for j in loops.steps(hi - lo):
+            j += lo
             sl = slice(j * block_kv, (j + 1) * block_kv)
             kblk = k[:, sl].permute(0, 2, 1, 3)          # (B,KV,bkv,D)
             vblk = v[:, sl].permute(0, 2, 1, 3)

@@ -63,6 +63,7 @@ from repro_torch.models import moe as moem
 from repro_torch.models import rglru as rgm
 from repro_torch.models import xlstm as xm
 from repro_torch.nn.linear import scaled_normal
+from repro_torch.runtime import loops
 
 #: the block types of the reference's ``layer_specs``
 BLOCK_TYPES = ("attn", "local", "global", "moe", "rec", "mlstm", "slstm",
@@ -264,7 +265,9 @@ def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
     index = cache_index(cfg)
     aux = 0.0
-    for i, layer in enumerate(model.layers):
+    for i in loops.layers(len(model.layers), len(cfg.block_unit),
+                          cfg.unit_repeats):
+        layer = model.layers[i]
         cache = None
         if caches is not None:
             cache = layer_cache(cfg, caches, i, index)

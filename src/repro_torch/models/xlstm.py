@@ -41,6 +41,7 @@ from repro_torch.models import common as cm
 from repro_torch.models.rglru import (StateSpec, _causal_conv, conv_history,
                                       write_state)
 from repro_torch.nn.linear import scaled_normal
+from repro_torch.runtime import loops
 
 #: the serving caches' init values besides zeros (the reference's
 #: ``init_mlstm_cache`` and ``init_slstm_cache``)
@@ -84,7 +85,7 @@ def mlstm_recurrent(q, k, v, igate, fgate, state: Optional[State] = None
     logf = F.logsigmoid(fgate.float())
     ig = igate.float()
     hs = []
-    for t in range(S):
+    for t in loops.steps(S):
         qt, kt, vt, ft, it = (qf[:, t], kf[:, t], vf[:, t], logf[:, t],
                               ig[:, t])
         m_new = torch.maximum(ft + m, it)
@@ -98,7 +99,7 @@ def mlstm_recurrent(q, k, v, igate, fgate, state: Optional[State] = None
                             torch.exp(-m_new))
         hs.append(num / den[..., None])
         m = m_new
-    return torch.stack(hs, dim=1), (C, n, m)
+    return loops.stack(hs, S, dim=1), (C, n, m)
 
 
 def mlstm_parallel(q, k, v, igate, fgate) -> torch.Tensor:
@@ -144,7 +145,7 @@ def mlstm_chunkwise(q, k, v, igate, fgate, chunk: int,
     neg_inf = qf.new_full((), float("-inf"))
     floor = qf.new_full((), -1e30)
     hs = []
-    for j in range(nc):
+    for j in loops.steps(nc):
         qc, kc, vc, fc, ic = (qf[:, j], kf[:, j], vf[:, j], logf[:, j],
                               ig[:, j])
         b = torch.cumsum(fc, dim=1)                           # (B,c,H)
@@ -174,7 +175,7 @@ def mlstm_chunkwise(q, k, v, igate, fgate, chunk: int,
             "bchv,bchk,bch->bhvk", vc, kc, w_new)
         n = w_old[..., None] * n + torch.einsum("bchk,bch->bhk", kc, w_new)
         m = m_next
-    hs = torch.stack(hs, dim=1).reshape(B, S, H, D)
+    hs = loops.stack(hs, nc, dim=1).reshape(B, S, H, D)
     if return_state:
         return hs, (C, n, m)
     return hs
@@ -352,7 +353,7 @@ def _slstm_scan(cfg: ModelConfig, blk: SLSTM, pre: torch.Tensor,
     c, n, m, h = (state[t] for t in ("c", "n", "m", "h"))
     floor = R.new_full((), 1e-6)
     hs = []
-    for t in range(S):
+    for t in loops.steps(S):
         z, i, f, o = torch.addmm(pre[:, t], h, R).chunk(4, dim=-1)
         z = torch.tanh(z)
         o = torch.sigmoid(o)
@@ -365,7 +366,7 @@ def _slstm_scan(cfg: ModelConfig, blk: SLSTM, pre: torch.Tensor,
         h = o * (c / torch.maximum(n, floor))
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1), {"c": c, "n": n, "m": m, "h": h}
+    return loops.stack(hs, S, dim=1), {"c": c, "n": n, "m": m, "h": h}
 
 
 def slstm_block(cfg: ModelConfig, blk: SLSTM, x: torch.Tensor, *,

@@ -43,6 +43,9 @@ kernel launches on the card.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -53,6 +56,10 @@ import torch
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sandwich as ks
 from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
+
+# the captures holding Python's collector off (:meth:`GraphCache._gc_paused`)
+_GC_LOCK = threading.Lock()
+_GC_PAUSES = 0
 
 #: the launch counters a replay advances, by the name chip_smoke.py prints
 COUNTED = (("sandwich_fwd", ks.sandwich_forward),
@@ -133,6 +140,30 @@ class GraphCache:
             counter.launches += e.launches[name]
         return e.outputs
 
+    @staticmethod
+    @contextlib.contextmanager
+    def _gc_paused():
+        """Python's collector held off while a capture runs: a collection
+        there can free an older engine's graphs, whose destruction is not
+        permitted while a stream captures and invalidates the capture
+        (``torch.cuda.graph`` collects once before it begins). Captures on
+        several threads share one count."""
+        with _GC_LOCK:
+            global _GC_PAUSES
+            if _GC_PAUSES == 0 and gc.isenabled():
+                gc.disable()
+                _GC_PAUSES = 1
+            elif _GC_PAUSES:
+                _GC_PAUSES += 1
+        try:
+            yield
+        finally:
+            with _GC_LOCK:
+                if _GC_PAUSES:
+                    _GC_PAUSES -= 1
+                    if _GC_PAUSES == 0:
+                        gc.enable()
+
     def _capture(self, e: GraphEntry) -> Tuple[torch.Tensor, ...]:
         dev, s = self.device, self._stream
         t0 = time.monotonic()
@@ -145,8 +176,9 @@ class GraphCache:
         before = {name: c.launches for name, c in COUNTED}
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=s,
-                                  capture_error_mode="thread_local"):
+            with self._gc_paused(), torch.cuda.graph(
+                    graph, pool=self._pool, stream=s,
+                    capture_error_mode="thread_local"):
                 outputs = e.fn(**e.inputs)
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture of {format_key(e.key)} "

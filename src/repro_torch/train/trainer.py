@@ -39,6 +39,7 @@ from repro_torch.checkpoint.checkpointing import CheckpointManager
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM, for_model
 from repro_torch.kernels import context as exctx
+from repro_torch.kernels import tuning
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
@@ -53,8 +54,12 @@ class ExecutionRecord:
       under (``None`` when the model has no butterfly sites).
     * ``backend`` — its backend, ``"cuda"`` or ``"torch"`` (``"dense"``
       without butterfly sites).
-    * ``tuning`` — the tile choices of the run: ``""`` until ROADMAP queue
-      1, item 7, brings a tuner for the port's kernels.
+    * ``tuning`` — the tile choices of the run
+      (:mod:`repro_torch.kernels.tuning`): the summaries of the choices the
+      run's launches added, or, where an earlier run in the process had
+      asked for them all, ``"process-wide: "`` and every choice; ``""``
+      where the plain twins ran (a CPU run, or a dense model): nothing was
+      queried.
     * ``mesh_layout`` — ``""``: the port runs on one device.
     """
 
@@ -189,6 +194,7 @@ class Trainer:
             if s is not None:
                 start_step = resumed_from = s
 
+        tuning_before = set(tuning.cache_entries())
         prefetch = Prefetcher(self.data, start_step=start_step)
         losses: List[float] = []
         step_times: List[float] = []
@@ -221,10 +227,23 @@ class Trainer:
                 self.ckpt.wait()
         self.model = model
         self.opt_state = opt_state
+        # the choices are made at the launches: report those this run
+        # added, or the whole registry, marked, where another run in the
+        # process had made them all; the plain twins query nothing
+        tuning_summary = ""
+        if self.kernel_backend == "cuda":
+            entries = tuning.cache_entries()
+            fresh = sorted(v for k, v in entries.items()
+                           if k not in tuning_before)
+            if fresh:
+                tuning_summary = "; ".join(fresh)
+            elif entries:
+                tuning_summary = "process-wide: " + tuning.describe()
         return TrainResult(steps_run=steps, losses=losses,
                            resumed_from=resumed_from, step_times=step_times,
                            step_time_ema=self.straggler.ema["host0"],
                            metrics=step_metrics,
                            execution=ExecutionRecord(
                                backend=self.kernel_backend,
+                               tuning=tuning_summary,
                                context=self.exec_ctx))

@@ -12,6 +12,7 @@ from repro.core import butterfly as jbf
 from repro.kernels import ref as jref
 from repro_torch.core import butterfly as tbf
 from repro_torch.kernels import ref as tref
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 NS = (8, 64, 1024)

@@ -1,14 +1,19 @@
-"""`repro_torch.kernels.butterfly` on the CPU against the reference's fused
-butterfly kernel `butterfly_matmul(..., interpret=True)`: the plain twin and
-`butterfly_apply(..., context="torch")` (through `ButterflyFn`), forward and
-gradients, both directions, at n in {8, 64, 256} with 1, 11 and 300 rows
-and a (2, 3, 5, n) batch. float32 within 1e-5·max|want| + 1e-5·|want|
+"""`repro_torch.kernels.butterfly` on the CPU against the reference: the
+plain twin and `butterfly_apply(..., context="torch")` (through
+`ButterflyFn`), forward and gradients, both directions, at n in {8, 64,
+256} with 1, 11 and 300 rows and a (2, 3, 5, n) batch. The smallest case
+of each dtype is held against the reference's fused kernel
+`butterfly_matmul(..., interpret=True)`, the others against its plain
+reference `repro.kernels.ref.butterfly_ref` (jitted once a shape), as the
+reference's own tests hold its kernel. float32 within 1e-5·max|want| + 1e-5·|want|
 (dw sums over up to 300 rows in another order than the reference);
 bfloat16 within 5% of max|want|, the reference's own bf16 tolerance
 (`tests/test_kernels_grad.py:_assert_close_bf16`). The twin of the backward
 kernel's summation order, `butterfly_bwd_tiled_plain`, is held the same way
 and against the plain twin. Also the port of the reference's CI gate on the
 backward's stage applications."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +23,9 @@ import torch
 
 from repro.kernels import butterfly as jkern
 from repro.kernels.butterfly import butterfly_matmul
+from repro.kernels.ref import butterfly_ref
 from repro_torch.kernels import butterfly as kb
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 # (n, leading shape): each row count and the batch once, n = 8 twice
 CASES = [(8, (1,)), (8, (2, 3, 5)), (64, (11,)), (256, (300,))]
@@ -33,6 +40,32 @@ def _inputs(n, lead, seed):
     x = rng.normal(size=(*lead, n)).astype(np.float32)
     c = rng.normal(size=(*lead, n)).astype(np.float32)
     return w, x, c
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(transpose, interpret):
+    """Jitted ``(x, w, c) -> (y, dx, dw)``: the reference's butterfly and
+    the gradients of ``vdot(c, y)``, through its fused kernel in interpret
+    mode or through its plain reference (weights rounded to x's dtype,
+    the chain in float32, as the kernel's precision points)."""
+    def fwd(x, w):
+        if interpret:
+            return butterfly_matmul(x, w, transpose=transpose,
+                                    interpret=True)
+        wr = w.astype(x.dtype).astype(jnp.float32)
+        return butterfly_ref(wr, x.astype(jnp.float32),
+                             transpose=transpose).astype(x.dtype)
+
+    def run(x, w, c):
+        y, vjp = jax.vjp(fwd, x, w)
+        return (y, *vjp(c.astype(y.dtype)))
+
+    return jax.jit(run)
+
+
+def _want(x, w, c, transpose, jdt, interpret):
+    return _reference(transpose, interpret)(
+        jnp.asarray(x).astype(jdt), jnp.asarray(w), jnp.asarray(c))
 
 
 def _close(got, want, dtype):
@@ -50,13 +83,8 @@ def test_forward_and_grads_match_reference_kernel(n, lead, transpose,
                                                   dtype):
     jdt, tdt = DTYPES[dtype]
     w, x, c = _inputs(n, lead, seed=n + len(lead))
-    jx = jnp.asarray(x).astype(jdt)
-    want = butterfly_matmul(jx, jnp.asarray(w), transpose=transpose,
-                            interpret=True)
-    gx_w, gw_w = jax.grad(lambda x_, w_: jnp.vdot(
-        jnp.asarray(c), butterfly_matmul(x_, w_, transpose=transpose,
-                                         interpret=True).astype(jnp.float32)),
-        argnums=(0, 1))(jx, jnp.asarray(w))
+    want, gx_w, gw_w = _want(x, w, c, transpose, jdt,
+                             interpret=(n, lead) == CASES[0])
 
     tx = torch.from_numpy(x).to(tdt).requires_grad_()
     tw = torch.from_numpy(w).requires_grad_()
@@ -84,14 +112,12 @@ def test_tiled_twin_matches_plain_and_reference(n, lead, blocks, transpose,
                                                 dtype):
     """`butterfly_bwd_tiled_plain` (the kernel's summation order) against
     the plain autograd twin (dx bit for bit, dw at the file's tolerance)
-    and against the reference kernel's `jax.grad`."""
+    and against the reference's gradients (its kernel's `jax.vjp` in
+    interpret mode at the smallest case, its plain reference's else)."""
     jdt, tdt = DTYPES[dtype]
     w, x, c = _inputs(n, lead, seed=n + len(lead) + 7)
-    jx = jnp.asarray(x).astype(jdt)
-    gx_w, gw_w = jax.grad(lambda x_, w_: jnp.vdot(
-        jnp.asarray(c), butterfly_matmul(x_, w_, transpose=transpose,
-                                         interpret=True).astype(jnp.float32)),
-        argnums=(0, 1))(jx, jnp.asarray(w))
+    _, gx_w, gw_w = _want(x, w, c, transpose, jdt,
+                          interpret=(n, lead) == CASES[0])
     tx, tw = torch.from_numpy(x).to(tdt), torch.from_numpy(w)
     g = torch.from_numpy(c).to(tdt)
     dx, dw = kb.butterfly_bwd_tiled_plain(tx, tw, g, transpose=transpose,

@@ -24,6 +24,7 @@ from repro_torch import convert
 from repro_torch.core import encdec as ted
 from repro_torch.data import synthetic
 from repro_torch.launch import encdec as launch
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 SHAPES = [(100, 40, 4), (64, 48, 6)]        # (n, d, k)
 
@@ -63,8 +64,8 @@ def test_apply_B_forward_loss_and_grads(n, d, k):
     _close(ted.apply_B(tspec, tparams["B"], tX),
            jed.apply_B(spec, params["B"], jX))
     _close(ted.forward(tspec, tparams, tX), jed.forward(spec, params, jX))
-    want_loss, want_g = jax.value_and_grad(
-        lambda p: jed.loss_fn(spec, p, jX, jX))(params)
+    want_loss, want_g = jax.jit(jax.value_and_grad(
+        lambda p: jed.loss_fn(spec, p, jX, jX)))(params)
     leaves = {k_: v.clone().requires_grad_() for k_, v in tparams.items()}
     loss = ted.loss_fn(tspec, leaves, tX, tX)
     loss.backward()

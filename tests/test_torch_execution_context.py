@@ -8,8 +8,9 @@ beats the config layer (``ButterflyConfig`` via
 per process); the resolved segment is the reference's on the same layers.
 Also: nested blocks merge field by field, resolution is idempotent and
 hashable, ``coerce`` takes backend strings, ``backend=`` is a
-``TypeError`` at every entry point, ``block_b`` and ``mesh_shape`` are
-refused naming their ROADMAP items, a finalized context refolded under
+``TypeError`` at every entry point, ``mesh_shape`` refused at resolution
+and a ``block_b`` the kernel does not take refused by the tile rule at the
+call, each naming its ROADMAP item, a finalized context refolded under
 another block, the stack is per thread, the profile gate's order, the
 butterfly backward's one segment (another refused, naming item 7), and an
 engine frozen against an ambient block entered after construction.
@@ -29,6 +30,7 @@ from repro_torch.kernels import flash as kf
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sandwich as ks
 from repro_torch.kernels.context import ExecutionContext, use_execution
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -98,16 +100,32 @@ def test_segment_resolves_as_the_reference_does():
     ("block_b", 64, "item 7"), ("mesh_shape", (2, 4), "item 6"),
     ("mesh_axes", ("data",), "item 6")])
 def test_unported_fields_merge_and_are_refused(field, value, item):
-    """block_b and the mesh fields ride the composition like the others,
-    and resolution refuses them, naming the ROADMAP item."""
+    """block_b and the mesh fields ride the composition like the others.
+    Resolution refuses the mesh fields, naming the ROADMAP item; it keeps
+    block_b, which the tile rule (item 7) refuses at a call whose kernel
+    does not take it, before any work (the butterfly forward at n = 64
+    owns 16 rows a block)."""
     ctx = ExecutionContext(**{field: value})
+
+    def call():
+        if field != "block_b":
+            return exctx.resolve_execution(None)
+        assert exctx.resolve_execution(None).block_b == value
+        return kb.butterfly_forward(torch.zeros(2, 64), torch.zeros(6, 2, 64))
+
     with use_execution(ctx):
         assert getattr(exctx.current_execution(), field) == \
             (tuple(value) if isinstance(value, tuple) else value)
         with pytest.raises(ValueError, match=item):
-            exctx.resolve_execution(None)
-    with pytest.raises(ValueError, match=item):
-        exctx.resolve_execution(ctx)
+            call()
+    if field == "block_b":
+        assert exctx.resolve_execution(ctx).block_b == value
+        with pytest.raises(ValueError, match=item):
+            kb.butterfly_forward(torch.zeros(2, 64), torch.zeros(6, 2, 64),
+                                 context=ctx)
+    else:
+        with pytest.raises(ValueError, match=item):
+            exctx.resolve_execution(ctx)
     assert ctx.local().mesh_shape is None and ctx.local().mesh_axes is None
 
 
@@ -116,8 +134,10 @@ def test_unported_fields_merge_and_are_refused(field, value, item):
 def test_butterfly_config_with_unported_field_is_refused(field, value,
                                                          item):
     """A ButterflyConfig with block_b or mesh_shape constructs (the
-    reference's configs do), and the Trainer, the engine and a layer
-    refuse it at resolution."""
+    reference's configs do). The Trainer, the engine and a layer refuse
+    mesh_shape at resolution; block_b = 8 resolves, and the tile rule
+    refuses it at the first sandwich call (its row kernels own 64 rows
+    forward and 32 backward), before any work."""
     from repro_torch.configs import registry
     from repro_torch.models.lm import LM
     from repro_torch.serve import ServeEngine
@@ -125,6 +145,17 @@ def test_butterfly_config_with_unported_field_is_refused(field, value,
     cfg = registry.get("smollm-135m-butterfly-smoke")
     bad = cfg.with_(butterfly=ButterflyConfig(
         sites=cfg.butterfly.sites, **{field: value}))
+    if field == "block_b":
+        trainer = Trainer(bad, TrainConfig(checkpoint_every=0), seq_len=16,
+                          global_batch=2, device="cpu")
+        assert trainer.exec_ctx.block_b == value
+        with pytest.raises(ValueError, match=item):
+            trainer.run(1)
+        model = LM(bad, generator=torch.Generator().manual_seed(0))
+        ServeEngine(bad, model, slots=1, max_len=32, device="cpu")
+        with pytest.raises(ValueError, match=item):
+            model.head(torch.zeros(1, bad.d_model))
+        return
     with pytest.raises(ValueError, match=item):
         Trainer(bad, TrainConfig(checkpoint_every=0), seq_len=16,
                 global_batch=2, device="cpu")
@@ -195,7 +226,9 @@ def test_finalized_context_refolds_under_an_ambient_block():
             assert exctx.resolve_execution(ctx) is ctx
         assert exctx.resolve_execution(ctx) is ctx
         with use_execution(ExecutionContext(block_b=8)):
-            with pytest.raises(ValueError, match="item 7"):
+            assert exctx.resolve_execution(ctx).block_b == 8
+        with use_execution(ExecutionContext(mesh_shape=(2,))):
+            with pytest.raises(ValueError, match="item 6"):
                 exctx.resolve_execution(ctx)
 
 

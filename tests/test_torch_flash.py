@@ -15,6 +15,8 @@ S 128, D 8; and a ragged S 77. Tolerances: forward 1e-5 in float32 and
 normals from a seed, handed to both.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash as kf
 from repro_torch.kernels import ref as tref
 from test_torch_gpu_kernels import cancel_floor
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 SHAPES = [(2, 3, 64, 16), (1, 2, 128, 8), (2, 3, 77, 16)]
 MASKS = [(True, 0), (True, 24), (False, 0), (False, 24)]
@@ -36,10 +39,25 @@ def _inputs(shape, n, seed):
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
 
 
+@functools.lru_cache(maxsize=None)
+def _oracle(causal, window):
+    """The reference's oracle under ``jax.jit``, once a mask (eager jax
+    costs seconds a call)."""
+    return jax.jit(functools.partial(jref.flash_attention_ref, causal=causal,
+                                     window=window))
+
+
+@functools.lru_cache(maxsize=None)
+def _oracle_vjp(causal, window):
+    """``(q, k, v, c) -> vjp of the oracle at c``, jitted once a mask."""
+    def vjp(q, k, v, c):
+        return jax.vjp(_oracle(causal, window), q, k, v)[1](c)
+    return jax.jit(vjp)
+
+
 def _jax_oracle(arrays, causal, window, dtype=jnp.float32):
     q, k, v = (jnp.asarray(a, dtype) for a in arrays)
-    return np.asarray(jref.flash_attention_ref(q, k, v, causal=causal,
-                                               window=window), np.float32)
+    return np.asarray(_oracle(causal, window)(q, k, v), np.float32)
 
 
 def _torch(arrays, dtype=torch.float32):
@@ -105,10 +123,8 @@ def test_grad_matches_reference_jax_grad(shape, causal, window):
     through ``FlashFn`` (the plain backward twin) against ``jax.grad`` of the
     reference oracle."""
     q, k, v, c = _inputs(shape, 4, seed=40)
-    want = jax.grad(lambda q, k, v: jnp.vdot(
-        jnp.asarray(c), jref.flash_attention_ref(q, k, v, causal=causal,
-                                                 window=window)),
-        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    want = _oracle_vjp(causal, window)(
+        *(jnp.asarray(a) for a in (q, k, v, c)))
     leaves = [t.requires_grad_() for t in _torch((q, k, v))]
     out = kf.flash_attention(*leaves, causal=causal, window=window)
     got = torch.autograd.grad((torch.from_numpy(c) * out).sum(), leaves)
@@ -424,10 +440,8 @@ def _emulated_dkv(q, k, v, do, lse, delta, causal, window, tile=64):
 
 def _jax_grads(arrays, causal, window):
     """jax.grad of vdot(dO, ref.flash_attention_ref(q, k, v)) in float32."""
-    q, k, v, do = (jnp.asarray(a) for a in arrays)
-    _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(
-        q, k, v, causal=causal, window=window), q, k, v)
-    return [torch.from_numpy(np.asarray(g).copy()) for g in vjp(do)]
+    grads = _oracle_vjp(causal, window)(*(jnp.asarray(a) for a in arrays))
+    return [torch.from_numpy(np.asarray(g).copy()) for g in grads]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

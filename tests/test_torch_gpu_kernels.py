@@ -31,6 +31,7 @@ from repro_torch.kernels import butterfly as kb
 from repro_torch.kernels import flash as kf
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sandwich as ks
+from repro_torch.kernels import tuning
 
 pytestmark = pytest.mark.gpu
 
@@ -503,7 +504,9 @@ BFLY_EDGES = ("R-1", "R", "R+1", "few")
 
 
 def _edge_rows(cuda, n, edge):
-    blocks, _, _, tile = kb._bwd_plan(1 << 20, n, False, 0, cuda.index or 0)
+    blocks, _, _, tile = tuning.butterfly_bwd_plan(1 << 20, n, False,
+                                                   torch.float32,
+                                                   cuda.index or 0)
     r = blocks * tile
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     return {"R-1": r - 1, "R": r, "R+1": r + 1, "few": sms // 2 + 1}[edge]
@@ -529,8 +532,8 @@ def test_butterfly_kernels_bits_at_tile_edges(cuda, n, edge):
                                        context="cuda")
             dx, dw = kb.butterfly_backward(x, w, g, transpose=transpose,
                                            context="cuda")
-            blocks = kb._bwd_plan(rows, n, transpose, kb._DTYPES[dtype],
-                                  cuda.index or 0)[0]
+            blocks = tuning.butterfly_bwd_plan(rows, n, transpose, dtype,
+                                               cuda.index or 0)[0]
             tdx, tdw = kb.butterfly_bwd_tiled_plain(
                 x.cpu(), w.cpu(), g.cpu(), transpose=transpose,
                 blocks=blocks)
@@ -545,6 +548,77 @@ def test_butterfly_kernels_bits_at_tile_edges(cuda, n, edge):
             torch.testing.assert_close(
                 dw, pdw, rtol=frac, atol=frac * float(pdw.abs().max()),
                 msg=lambda m: f"{what} dw: {m}")
+
+
+@pytest.mark.parametrize("rows,n,dtype", [
+    (300, 1024, torch.float32), (70000, 1024, torch.bfloat16),
+    (257, 8, torch.float32), (1237, 2048, torch.float32),
+    (9, 16384, torch.bfloat16)])
+def test_butterfly_block_b_is_honoured_or_refused(cuda, rows, n, dtype):
+    """The tile rule on the card: every tile rows the rule takes for the
+    backward replaces the plan's in the launch (``butterfly_bwd_plan``)
+    with the plan's blocks, and gives the default's bits, dx and dw; the
+    forward's compiled rows a block likewise; a value the kernels do not
+    take raises before any launch. The launched tile and where it lives
+    are the rule's model of the plan."""
+    from repro_torch.kernels.context import ExecutionContext
+    gen = torch.Generator().manual_seed(n + rows)
+    w = bf.random_weights(gen, n).to(cuda)
+    x = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    g = torch.randn(rows, n, generator=gen).to(cuda, dtype)
+    y = kb.butterfly_forward(x, w, context="cuda")
+    base = kb.butterfly_backward(x, w, g, context="cuda")
+    fwd = tuning.choice("butterfly", n, dtype, "fwd")
+    bwd = tuning.choice("butterfly", n, dtype, "bwd")
+    plan = tuning.butterfly_bwd_plan(rows, n, False, dtype, cuda.index or 0)
+    assert plan[3] in bwd.takes
+    assert bool(plan[2]) == bwd.tiles_in_device_memory
+    ctx = ExecutionContext(backend="cuda", block_b=fwd.block_b)
+    assert torch.equal(kb.butterfly_forward(x, w, context=ctx), y)
+    for b in bwd.takes[:4] + bwd.takes[-2:]:
+        got = tuning.butterfly_bwd_plan(rows, n, False, dtype,
+                                        cuda.index or 0, b)
+        assert got[0] == plan[0] and got[3] == b
+        dx, dw = kb.butterfly_backward(
+            x, w, g, context=ExecutionContext(backend="cuda", block_b=b))
+        torch.cuda.synchronize()
+        assert torch.equal(dx, base[0]) and torch.equal(dw, base[1]), b
+    before = (kb.butterfly_forward.launches, kb.butterfly_backward.launches)
+    for call, b in ((kb.butterfly_backward, bwd.takes[-1] + 1),
+                    (kb.butterfly_forward, fwd.block_b + 1)):
+        args = (x, w, g) if call is kb.butterfly_backward else (x, w)
+        with pytest.raises(ValueError, match="takes block_b"):
+            call(*args, context=ExecutionContext(backend="cuda", block_b=b))
+    assert (kb.butterfly_forward.launches,
+            kb.butterfly_backward.launches) == before
+
+
+def test_sandwich_block_b_takes_the_compiled_tiles(cuda):
+    """The sandwich's row kernels own 64 rows forward and 32 backward: the
+    forward under block_b = 64 gives the default's bits, anything else is
+    refused before any launch."""
+    from repro_torch.kernels.context import ExecutionContext
+    gen = torch.Generator().manual_seed(5)
+    spec = blayers.make_spec(gen, 576, 1536)
+    from repro_torch.nn import ButterflyLinear
+    layer = ButterflyLinear(spec, generator=gen).to(cuda)
+    x = torch.randn(8, 576, generator=gen).to(cuda, torch.bfloat16)
+    kw = dict(scale_in=spec.scale_in, scale_out=spec.scale_out,
+              n_out=spec.n_out)
+    args = (layer.b_in, layer.core, layer.b_out, layer.idx_in,
+            layer.idx_out)
+    with torch.no_grad():
+        base = ks.sandwich_forward(x, *args, **kw, context="cuda")
+        got = ks.sandwich_forward(x, *args, **kw, context=ExecutionContext(
+            backend="cuda", block_b=64))
+        assert torch.equal(got, base)
+        before = ks.sandwich_forward.launches
+        with pytest.raises(ValueError, match="block_b 64"):
+            ks.sandwich_forward(x, *args, **kw, context=ExecutionContext(
+                backend="cuda", block_b=32))
+        assert ks.sandwich_forward.launches == before
+    assert any(k.startswith("sandwich/fwd/n2048/bfloat16")
+               for k in tuning.cache_entries())
 
 
 @pytest.mark.parametrize("rows,n,transpose,dtype", [

@@ -17,6 +17,7 @@ import torch
 from repro.obs.validate import validate_chrome_trace as jvalidate
 from repro_torch.launch import bench_serving
 from repro_torch.launch import serve as serve_cli
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m-smoke"
 

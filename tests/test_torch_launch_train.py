@@ -30,6 +30,7 @@ from repro_torch.kernels.context import ExecutionContext, use_execution
 from repro_torch.launch import train as train_cli
 from repro_torch.optim import compression as tcomp
 from repro_torch.train.trainer import ExecutionRecord, Trainer
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SMOKE = "smollm-135m-butterfly-smoke"

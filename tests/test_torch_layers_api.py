@@ -31,6 +31,7 @@ from repro_torch.core import layers as tbl
 from repro_torch.launch import paper
 from repro_torch.models.lm import LM
 from repro_torch.runtime import pytree as tpt
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 SHAPES = [(300, 100), (64, 64)]
 TOL = 1e-5

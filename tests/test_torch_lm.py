@@ -21,6 +21,7 @@ from repro_torch import convert
 from repro_torch.configs import registry as treg
 from repro_torch.models import lm as tlm
 from repro_torch.serve.cache import PagedCachePool
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m-butterfly-smoke"
 TOL = 1e-4
@@ -89,7 +90,8 @@ def test_prefill_chunk_and_decode_match_reference(models):
             tokens[b, :len(seg)] = seg
             last[b] = max(len(seg) - 1, 0)
         start = np.full((SLOTS,), lo, np.int32)
-        jl, jh, jcaches = jlm.prefill_chunk(
+        # the reference under jax.jit: eager jax costs seconds a call
+        jl, jh, jcaches = jax.jit(jlm.prefill_chunk, static_argnums=0)(
             jcfg, params, jnp.asarray(tokens), jcaches, jnp.asarray(start),
             jnp.asarray(last), jnp.asarray(table))
         tl, th = tlm.prefill_chunk(
@@ -104,7 +106,7 @@ def test_prefill_chunk_and_decode_match_reference(models):
     tok = np.asarray([int(np.argmax(np.asarray(jl)[b])) for b in range(2)],
                      np.int32)
     for _ in range(3):
-        jlog, jcaches = jlm.decode_step(
+        jlog, jcaches = jax.jit(jlm.decode_step, static_argnums=0)(
             jcfg, params, jnp.asarray(tok), jcaches, jnp.asarray(cur),
             page_table=jnp.asarray(table))
         tlog = tlm.decode_step(model, torch.as_tensor(tok), tcaches,

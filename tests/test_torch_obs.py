@@ -42,6 +42,7 @@ from repro_torch.obs.validate import (TraceValidationError,
 from repro_torch.serve import (FaultInjector, Request, Router,
                                SamplingParams, ServeEngine)
 from test_torch_serve_lifecycle import carried
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m-smoke"
 MAX_PASSES = 400

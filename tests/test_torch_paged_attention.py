@@ -11,6 +11,7 @@ import torch
 
 from repro.kernels import paged_attention as jpa
 from repro_torch.kernels import paged_attention as tpa
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 B, P, PS, KV, G, D = 2, 3, 4, 2, 2, 8
 N = 1 + B * P

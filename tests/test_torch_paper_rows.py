@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.launch import paper
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SECTION_PREFIXES = ("params/", "nonlinear/", "sketch/", "lm_butterfly/")

@@ -38,6 +38,7 @@ from repro_torch.serve import (QueueFull, Request, RequestCancelled, Router,
                                ServeEngine)
 from repro_torch.serve import trace as trace_lib
 from test_torch_serve_lifecycle import carried
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m-smoke"
 MAX_PASSES = 400

@@ -5,6 +5,7 @@ own sandwich tolerances (float32 2e-4, bfloat16 5e-2), and the sandwich
 layer on the reference's spec and params with leading axes and ragged
 batches."""
 
+import functools
 import math
 
 import jax
@@ -20,6 +21,7 @@ from repro_torch.core import layers as tlayers
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sandwich as ks
 from repro_torch.nn import ButterflyLinear
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 TOLS = {"float32": 2e-4, "bfloat16": 5e-2}
 SHAPES = [(64, 128, 6, 7), (128, 64, 7, 6), (32, 512, 5, 9)]
@@ -57,14 +59,15 @@ def test_plain_matches_pallas_interpret_and_oracle(shape, dtype):
     sel_out = one_hot_select(a["idx_out"], n2).T
     scales = dict(scale_in=math.sqrt(n1 / k1), scale_out=math.sqrt(n2 / k2))
     x = jnp.asarray(a["x"], jdt)
-    kernel = sandwich_matmul(x, jnp.asarray(a["b_in"]), sel_in,
-                             jnp.asarray(a["core"]), sel_out,
-                             jnp.asarray(a["b_out"]), interpret=True,
-                             **scales)
-    oracle = jref.sandwich_ref(x, jnp.asarray(a["b_in"]),
-                               jnp.asarray(a["core"]),
-                               jnp.asarray(a["b_out"]), sel_in, sel_out,
-                               **scales)
+    # the reference's kernel and oracle under jax.jit: eager jax costs
+    # seconds a call
+    kernel = jax.jit(functools.partial(sandwich_matmul, interpret=True,
+                                       **scales))(
+        x, jnp.asarray(a["b_in"]), sel_in, jnp.asarray(a["core"]), sel_out,
+        jnp.asarray(a["b_out"]))
+    oracle = jax.jit(functools.partial(jref.sandwich_ref, **scales))(
+        x, jnp.asarray(a["b_in"]), jnp.asarray(a["core"]),
+        jnp.asarray(a["b_out"]), sel_in, sel_out)
     got = _plain(a, getattr(torch, dtype)).float().numpy()
     tol = TOLS[dtype]
     for want in (kernel, oracle):

@@ -26,6 +26,7 @@ from repro_torch.kernels import sandwich as ks
 
 from test_torch_sandwich_grad import (CASES, _case, _port_args,
                                       _reference_grads, assert_grad_close)
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 # (n_in, n_out): the smoke config's sites (smollm-135m-butterfly-smoke:
 # d_model 64, d_ff 128, vocab 512) and widths that are not powers of two
@@ -121,9 +122,10 @@ def test_factor_vjp_twin_matches_reference(n_in, n_out, dtype):
                               (t["b_out"], spec.idx_out, n_out, d_f_out,
                                got[1])):
         wr = w.to(dt).float().numpy()
-        _, vjp = jax.vjp(lambda v: jbf.materialize_truncated(
-            v, idx, jl_scale=False)[:, :n], jnp.asarray(wr))
-        (want,) = vjp(jnp.asarray(cot))
+        # under jax.jit: eager jax costs seconds a call
+        (want,) = jax.jit(lambda v, c, idx=idx, n=n: jax.vjp(
+            lambda v: jbf.materialize_truncated(v, idx, jl_scale=False)[
+                :, :n], v)[1](c))(jnp.asarray(wr), jnp.asarray(cot))
         assert_grad_close(a.numpy(), want, "float32")
 
 

@@ -23,6 +23,7 @@ bfloat16 4e-2, as atol = rtol.
   weights.
 """
 
+import functools
 import math
 
 import jax
@@ -37,6 +38,7 @@ from repro.kernels import ref as jref
 from repro.kernels.sandwich import one_hot_select
 from repro_torch.core import butterfly as tbf
 from repro_torch.kernels import sandwich as ks
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 TOLS = {"float32": 1e-5, "bfloat16": 4e-2}
 # (n_in, n_out, k): k None is the paper's log2 n on each side
@@ -45,7 +47,10 @@ SHAPES = [(48, 80, None), (100, 36, None), (576, 1536, None),
 DENSE_MAX = 2048          # widest butterfly materialized densely
 
 
+@functools.lru_cache(maxsize=None)
 def _case(shape, weights, rows=7):
+    """The reference's spec and weights for ``shape``, drawn once a case
+    for the file (eager jax draws them one program a leaf)."""
     n_in, n_out, k = shape
     spec = jlayers.make_spec(jax.random.PRNGKey(n_in + n_out), n_in, n_out,
                              k_in=k, k_out=k, use_bias=False)
@@ -74,13 +79,19 @@ def _reference_rows(w, idx, n, jdt):
     w = jnp.asarray(w).astype(jdt).astype(jnp.float32)
     width = w.shape[-1]
     if width <= DENSE_MAX:
-        m = jbf.materialize_truncated(w, [int(i) for i in idx],
-                                      jl_scale=False)
+        m = _materialize(w, tuple(int(i) for i in idx))
     else:
         onehot = jnp.zeros((len(idx), width), jnp.float32)
         onehot = onehot.at[jnp.arange(len(idx)), jnp.asarray(idx)].set(1.0)
-        m = jref.butterfly_ref(w, onehot, transpose=True)
+        m = _transposed(w, onehot)
     return np.asarray(m)[:, :n]
+
+
+# the reference's functions under jax.jit (eager jax costs seconds a call)
+_materialize = jax.jit(lambda w, idx: jbf.materialize_truncated(
+    w, list(idx), jl_scale=False), static_argnums=1)
+_transposed = jax.jit(lambda w, x: jref.butterfly_ref(w, x, transpose=True))
+_sandwich_ref = jax.jit(jref.sandwich_ref)
 
 
 @pytest.mark.parametrize("weights", ["layer", "gaussian"])
@@ -132,7 +143,7 @@ def test_rows_plain_matches_stage_twin_and_oracle(shape, dtype):
         return jnp.asarray(v).astype(jnp.dtype(dtype)).astype(jnp.float32)
 
     xo = rounded(np.pad(a["x"], ((0, 0), (0, n1 - spec.n_in))))
-    want = jref.sandwich_ref(
+    want = _sandwich_ref(
         xo, rounded(a["b_in"]), jnp.asarray(a["core"]), rounded(a["b_out"]),
         one_hot_select(a["idx_in"], n1), one_hot_select(a["idx_out"], n2).T,
         scales["scale_in"], scales["scale_out"])

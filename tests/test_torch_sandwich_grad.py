@@ -25,6 +25,7 @@ from repro.kernels import ref as jref
 from repro.kernels.sandwich import one_hot_select, sandwich_matmul
 from repro_torch.core import layers as tlayers
 from repro_torch.kernels import sandwich as ks
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 CASES = [(64, 64, 8, 8), (32, 128, 16, 12)]   # test_kernels_grad.py:113
 
@@ -67,7 +68,8 @@ def _reference_grads(spec, params, x, c, dtype, oracle):
                                   scale_in=si, scale_out=so, interpret=True)
         return jnp.vdot(jnp.asarray(c), out.astype(jnp.float32))
 
-    return jax.grad(loss, argnums=(0, 1, 2, 3))(
+    # under jax.jit: eager jax costs seconds a call
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
         xj, params["b_in"], params["core"], params["b_out"])
 
 
@@ -137,7 +139,8 @@ def test_layer_grads_non_power_of_two(dims):
         return jnp.vdot(jnp.asarray(c),
                         jlayers.butterfly_linear_apply(spec, p, x))
 
-    want_p, want_x = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    want_p, want_x = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        params, jnp.asarray(x))
     tspec = tlayers.ButterflySpec(
         n_in=n_in, n_out=n_out, k_in=spec.k_in, k_out=spec.k_out,
         idx_in=spec.idx_in, idx_out=spec.idx_out, use_bias=True)

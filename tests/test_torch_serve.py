@@ -30,6 +30,7 @@ from repro_torch.kernels.paged_attention import TRASH_PAGE
 from repro_torch.serve import (PagedCachePool, PoolExhausted, Request,
                                SamplingParams, ServeEngine, loader,
                                sample_logits)
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 

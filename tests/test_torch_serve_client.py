@@ -24,6 +24,7 @@ from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.serve import (EngineWedged, FaultInjector, InjectedFault,
                                Request, RequestCancelled, ServeClient,
                                ServeEngine, TickDriver, loader)
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m-smoke"
 TIMEOUT = 60

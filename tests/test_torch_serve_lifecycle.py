@@ -36,6 +36,7 @@ from repro_torch.serve import (DeadlineExceeded, FaultInjector, InjectedFault,
                                PoolExhausted, QueueFull, Request,
                                RequestCancelled, ServeEngine)
 from repro_torch.serve.faults import SITES, tear_checkpoint
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m-smoke"
 MAX_TICKS = 400

@@ -28,6 +28,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch.serve import Request, SamplingParams, ServeEngine
 from repro_torch.serve import steps as steps_lib
 from test_torch_serve_lifecycle import MAX_TICKS, STARVED_KW, Pair, carried
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 SPEC = ("ticks", "draft_tokens", "accepted_draft_tokens")
 

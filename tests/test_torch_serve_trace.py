@@ -14,6 +14,7 @@ from repro.serve import trace as jtrace
 from repro_torch.serve import QueueFull, Request
 from repro_torch.serve.trace import (MIXES, TraceItem, TraceSpec, generate,
                                      replay)
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 VOCAB = 128
 

@@ -30,6 +30,7 @@ from repro_torch.core import butterfly as tbf
 from repro_torch.core import sketch as tsk
 from repro_torch.data.synthetic import sketch_datasets
 from repro_torch.kernels import butterfly as kb
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 SHAPES = [(32, 24, 8, 4), (64, 48, 16, 8)]      # (n, d, ell, k)
 STEPS, BATCH, LR = 20, 4, 3e-3

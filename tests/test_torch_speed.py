@@ -31,6 +31,7 @@ from repro.core import layers as jbl
 from repro.kernels import ops, ref as jref
 from repro.kernels.sandwich import one_hot_select
 from repro_torch.launch import speed
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 

@@ -9,9 +9,7 @@ Tolerances: step-1 loss and per-leaf gradients at atol 1e-5, rtol 1e-4;
 orders); attention outputs at 1e-5.
 """
 
-import math
-import shutil
-import threading
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +40,7 @@ from repro_torch.optim import optimizer as topt
 from repro_torch.train import steps as tsteps
 from repro_torch.train.trainer import Trainer
 from test_torch_lm import reference_site_specs
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m-butterfly-smoke"
 TC = dict(learning_rate=3e-3, warmup_steps=2, total_steps=20,
@@ -53,9 +52,27 @@ def _configs():
             treg.get(ARCH).with_(compute_dtype="float32"))
 
 
-def _reference_params(jcfg, seed=0):
+@functools.lru_cache(maxsize=None)
+def _reference_init(seed):
+    """The reference's init of the file's config, drawn once a seed (it
+    runs one program a leaf), as host arrays."""
+    jcfg, _ = _configs()
     params = pt.init_params(jax.random.PRNGKey(seed), jlm.model_specs(jcfg))
-    return params, jax.tree_util.tree_map(np.asarray, params)
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _reference_params(jcfg, seed=0):
+    params_np = _reference_init(seed)
+    return jax.tree_util.tree_map(jnp.asarray, params_np), params_np
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_loss_and_grads():
+    """The reference's loss and gradients, jitted once (eager jax costs
+    seconds a call)."""
+    jcfg, _ = _configs()
+    return jax.jit(jax.value_and_grad(
+        lambda p, b: jlm.loss_fn(jcfg, p, b), has_aux=True))
 
 
 def _port_model(tcfg, jcfg, params_np):
@@ -79,10 +96,8 @@ def test_step1_loss_and_grads_match_reference(seq_len):
     assert (seq_len >= tcfg.blockwise_threshold) == (seq_len == 64)
     params, params_np = _reference_params(jcfg)
     batch = jfor_model(jcfg, seq_len, 2, seed=0).batch(0)
-    (loss, _), grads = jax.value_and_grad(
-        lambda p: jlm.loss_fn(jcfg, p, {k: jnp.asarray(v)
-                                        for k, v in batch.items()}),
-        has_aux=True)(params)
+    (loss, _), grads = _reference_loss_and_grads()(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
     model = _port_model(tcfg, jcfg, params_np)
     tloss, tgrads = tsteps.loss_and_grads(model, _torch_batch(batch))
     np.testing.assert_allclose(float(tloss), float(loss), atol=1e-5,
@@ -172,17 +187,39 @@ def test_optimizer_matches_reference():
 
 
 @pytest.fixture(scope="module")
-def reference_run(tmp_path_factory):
+def reference_runs(tmp_path_factory):
+    """``run(kind)``: the reference Trainer's 4 steps from the reference
+    init with gradient compression ``kind`` ("" for none) and a checkpoint
+    every 2 steps, run once a kind for the whole file: (losses, the
+    checkpoint directory)."""
+    jcfg, _ = _configs()
+    done = {}
+
+    def run(kind):
+        if kind not in done:
+            params, _ = _reference_params(jcfg)
+            ckdir = tmp_path_factory.mktemp("jax_run")
+            tc = dict(TC, checkpoint_every=2, grad_compression=kind)
+            trainer = JTrainer(jcfg, JTrainConfig(**tc,
+                                                  checkpoint_dir=str(ckdir)),
+                               seq_len=32, global_batch=4)
+            start = jax.tree_util.tree_map(jnp.array, params)
+            res = trainer.run(4, params=start,
+                              opt_state=trainer.tx.init(start))
+            done[kind] = (res.losses, ckdir)
+        return done[kind]
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def reference_run(reference_runs):
     """The reference Trainer: 4 steps from the reference init, a checkpoint
     at step 4."""
     jcfg, tcfg = _configs()
-    params, params_np = _reference_params(jcfg)
-    ckdir = str(tmp_path_factory.mktemp("jax_ckpt"))
-    jtc = JTrainConfig(**dict(TC, checkpoint_every=4), checkpoint_dir=ckdir)
-    trainer = JTrainer(jcfg, jtc, seq_len=32, global_batch=4)
-    start = jax.tree_util.tree_map(jnp.array, params)
-    res = trainer.run(4, params=start, opt_state=trainer.tx.init(start))
-    return jcfg, tcfg, params_np, res.losses, ckdir
+    _, params_np = _reference_params(jcfg)
+    losses, ckdir = reference_runs("")
+    return jcfg, tcfg, params_np, losses, str(ckdir)
 
 
 def test_trainer_losses_match_reference_over_4_steps(reference_run):
@@ -240,67 +277,6 @@ def test_microbatches_match_one_batch():
                                    rtol=2e-4, atol=2e-5, err_msg=name)
 
 
-def test_resume_from_own_checkpoint(tmp_path):
-    """A run cut after a checkpoint and resumed gives the losses of the
-    uncut run: params, Adam moments and step counts round-trip."""
-    _, tcfg = _configs()
-    tc = TrainConfig(**dict(TC, checkpoint_every=2),
-                     checkpoint_dir=str(tmp_path / "ck"))
-    whole = Trainer(tcfg, TrainConfig(**TC), seq_len=16, global_batch=2,
-                    device="cpu").run(4)
-    Trainer(tcfg, tc, seq_len=16, global_batch=2, device="cpu").run(2)
-    rest = Trainer(tcfg, tc, seq_len=16, global_batch=2,
-                   device="cpu").run(2)
-    assert rest.resumed_from == 2
-    np.testing.assert_allclose(rest.losses, whole.losses[2:], rtol=1e-6)
-    assert all(math.isfinite(v) for v in whole.losses)
-
-
-def test_async_checkpoint_holds_its_own_step(tmp_path):
-    """Step 1's checkpoint, written on its thread only after step 2 has
-    updated the params and Adam's moments in place, holds step 1's own
-    params and moments: the host snapshot shares no memory with them."""
-    _, tcfg = _configs()
-    tc = TrainConfig(**dict(TC, checkpoint_every=1),
-                     checkpoint_dir=str(tmp_path / "ck"))
-    trainer = Trainer(tcfg, tc, seq_len=16, global_batch=2, device="cpu")
-    steps_done, second = [], threading.Event()
-    step_fn, write = trainer.step_fn, trainer.ckpt._write
-
-    def step_and_signal(*args):
-        out = step_fn(*args)
-        steps_done.append(len(steps_done) + 1)
-        if len(steps_done) == 2:
-            second.set()
-        return out
-
-    def write_after_step_two(step, tree, extra):
-        if step == 1:
-            second.wait(timeout=120)
-        write(step, tree, extra)
-
-    trainer.step_fn = step_and_signal
-    trainer.ckpt._write = write_after_step_two
-    trainer.run(2)
-    assert second.is_set()
-    assert tckpt.CheckpointManager(tc.checkpoint_dir).steps() == [1, 2]
-    one = Trainer(tcfg, TrainConfig(**TC), seq_len=16, global_batch=2,
-                  device="cpu")
-    one.run(1)
-    want = {"params": convert.to_jax_params(
-                tsteps.trainable(one.model), tcfg),
-            "opt": convert.opt_state_to_jax(one.opt_state, tcfg)}
-    step, got, _ = tckpt.load_latest(tc.checkpoint_dir, want, step=1)
-    assert step == 1
-    leaves = jax.tree_util.tree_leaves_with_path(want)
-    assert any("embed" in jax.tree_util.keystr(p) for p, _ in leaves)
-    assert jax.tree_util.tree_structure(got) == \
-        jax.tree_util.tree_structure(want)
-    for (path, w), g in zip(leaves, jax.tree_util.tree_leaves(got)):
-        np.testing.assert_allclose(g, w, rtol=1e-6,
-                                   err_msg=jax.tree_util.keystr(path))
-
-
 def test_trainer_needs_a_card_unless_asked_for_cpu():
     _, tcfg = _configs()
     if torch.cuda.is_available():
@@ -318,90 +294,14 @@ def test_trainer_needs_a_card_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("kind", ["topk", "int8"])
-def test_trainer_with_compression_matches_reference_over_4_steps(kind):
+def test_trainer_with_compression_matches_reference_over_4_steps(
+        kind, reference_runs):
     """Gradient compression before Adam: the port's Trainer against the
     reference's over 4 steps, at the 4-step test's tolerance."""
     jcfg, tcfg = _configs()
-    params, params_np = _reference_params(jcfg)
-    jtc = JTrainConfig(**TC, grad_compression=kind)
-    trainer = JTrainer(jcfg, jtc, seq_len=32, global_batch=4)
-    start = jax.tree_util.tree_map(jnp.array, params)
-    want = trainer.run(4, params=start, opt_state=trainer.tx.init(start))
+    _, params_np = _reference_params(jcfg)
+    want, _ = reference_runs(kind)
     res = Trainer(tcfg, TrainConfig(**TC, grad_compression=kind), seq_len=32,
                   global_batch=4, device="cpu").run(
         4, model=_port_model(tcfg, jcfg, params_np))
-    np.testing.assert_allclose(res.losses, want.losses, rtol=1e-4)
-
-
-@pytest.fixture(scope="module", params=["", "topk"])
-def reference_resume_run(request, tmp_path_factory):
-    """The reference Trainer, 4 steps from the reference init with a
-    checkpoint every 2 (with and without the compression slot in the
-    optimizer's chain); returns its losses and a directory holding its
-    step-2 checkpoint alone."""
-    jcfg, tcfg = _configs()
-    params, params_np = _reference_params(jcfg)
-    tc = dict(TC, checkpoint_every=2, grad_compression=request.param)
-    ckdir = tmp_path_factory.mktemp("jax_resume")
-    trainer = JTrainer(jcfg, JTrainConfig(**tc, checkpoint_dir=str(ckdir)),
-                       seq_len=32, global_batch=4)
-    start = jax.tree_util.tree_map(jnp.array, params)
-    res = trainer.run(4, params=start, opt_state=trainer.tx.init(start))
-    step2 = tmp_path_factory.mktemp("jax_step2")
-    shutil.copytree(ckdir / "step_000000002", step2 / "step_000000002")
-    return jcfg, tcfg, params, params_np, tc, res.losses, step2
-
-
-def test_resumes_from_a_reference_checkpoint(reference_resume_run):
-    """The port resumes from the step-2 checkpoint the reference's Trainer
-    wrote, params and optimizer state, and its steps 3-4 match the
-    reference's continuous run."""
-    jcfg, tcfg, _, params_np, tc, want, step2 = reference_resume_run
-    res = Trainer(tcfg, TrainConfig(**tc, checkpoint_dir=str(step2)),
-                  seq_len=32, global_batch=4, device="cpu").run(
-        2, model=_port_model(tcfg, jcfg, params_np))
-    assert res.resumed_from == 2
-    np.testing.assert_allclose(res.losses, want[2:], rtol=1e-4)
-
-
-def test_reference_resumes_from_a_port_checkpoint(reference_resume_run,
-                                                  tmp_path):
-    """The reference resumes from the port's step-2 checkpoint and its
-    steps 3-4 match its own continuous run."""
-    jcfg, tcfg, params, params_np, tc, want, _ = reference_resume_run
-    tc = dict(tc, checkpoint_dir=str(tmp_path))
-    Trainer(tcfg, TrainConfig(**tc), seq_len=32, global_batch=4,
-            device="cpu").run(2, model=_port_model(tcfg, jcfg, params_np))
-    trainer = JTrainer(jcfg, JTrainConfig(**tc), seq_len=32, global_batch=4)
-    start = jax.tree_util.tree_map(jnp.array, params)
-    res = trainer.run(2, params=start, opt_state=trainer.tx.init(start))
-    assert res.resumed_from == 2
-    np.testing.assert_allclose(res.losses, want[2:], rtol=1e-4)
-
-
-def test_optimizer_state_round_trips_the_reference_layout():
-    """The optimizer state through the reference's layout and back is the
-    same state: counts int32, the empty ClipState() slots in the tuple,
-    the compression's error buffers stacked as ``unit`` like Adam's
-    moments."""
-    _, tcfg = _configs()
-    model = tlm.LM(tcfg, generator=torch.Generator().manual_seed(0))
-    tx = tsteps.make_optimizer(TrainConfig(**TC, grad_compression="int8"),
-                               tcfg)
-    params = tsteps.trainable(model)
-    state = tx.init(params)
-    grads = {n: torch.randn_like(p) for n, p in params.items()}
-    _, state = tx.update(grads, state, params)
-    host = convert.opt_state_to_jax(state, tcfg)
-    assert [type(s).__name__ for s in host] == [
-        "ClipState", "ErrorFeedbackState", "ScaleByAdamState", "ClipState",
-        "ScaleByScheduleState"]
-    assert host[2].count.dtype == np.int32 and host[2].count.shape == ()
-    stacked = host[1].error["unit"][0]["ffn"]["up"]["b_in"]
-    assert stacked.shape[0] == tcfg.n_layers
-    back = convert.load_jax_opt_state(tcfg, state, host)
-    flat_a = tckpt._flatten(tckpt._to_host(state))
-    flat_b = tckpt._flatten(tckpt._to_host(back))
-    assert flat_a.keys() == flat_b.keys()
-    for k in flat_a:
-        np.testing.assert_array_equal(flat_a[k], flat_b[k], err_msg=k)
+    np.testing.assert_allclose(res.losses, want, rtol=1e-4)

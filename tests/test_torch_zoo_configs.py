@@ -25,6 +25,7 @@ from repro_torch.serve import ServeEngine
 from repro_torch.serve.cache import (PagedCachePool,
                                      chunked_prefill_supported,
                                      paged_supported)
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 VARIANTS = ("", "-smoke", "-butterfly", "-butterfly-smoke")
 NAMES = [a + v for a in jreg.names() for v in VARIANTS]
