@@ -390,6 +390,27 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     default's bits and refused ones raising before any launch, and the
     Trainer's ``ExecutionRecord.tuning`` filled. Every bound the script
     prints comes from ``repro_torch.launch.roofline``.
+37. Training on a butterfly data mesh (ROADMAP item 6a): two ranks of one
+    world share the card over gloo (``repro_torch.runtime.dist.
+    spawn_ranks``; NCCL refuses two ranks on one device); printed: the
+    backend, each rank's device, the collectives gloo took on CUDA
+    tensors, and a one-rank NCCL world's all_reduce with NCCL's version.
+    ``sharded_sandwich_apply`` at the three full-width sites at 8,192 and
+    8,191 rows and ``sharded_butterfly_apply`` at 70,000 x 1024 on a
+    ``(2,)`` mesh against the unsharded kernel on the same inputs: the
+    forward within rtol/atol 1e-5, dx and the weight gradients within
+    1e-5 of max|want|, the ranks' results bit-identical, each rank's
+    launches (one forward and one backward call's), the collectives'
+    bytes and ms a call. ``smollm-135m-butterfly`` trained in float32 from
+    seed 0 at 256 x 4 for 3 steps unsharded here, then on the mesh: the
+    first loss within rtol 1e-4 and all within rtol 5e-3 / atol 1e-4,
+    every butterfly leaf within 1e-3 relative norm, the ranks' parameters
+    bit-identical, ``mesh_layout`` ``data=2``, each rank's sandwich
+    launches a step the unsharded run's; step p50, peak memory and the
+    all_reduce and gather ms a step per rank. The training CLI with
+    ``--simulated-devices 2 --mesh-shape 2 --device cuda`` on the smoke
+    arch as a subprocess: rc 0, its ``[train]`` lines. The phase's seconds
+    (budget 90).
 
 The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
 but ``auto`` or ``cuda``: the plain versions would stand in for the
@@ -4449,6 +4470,239 @@ def phase_launch_tools(torch, np, dev, kernel: str, sizes=LAUNCH) -> dict:
             "launch_tools_s": phase_s, "tuning_choices": len(entries)}
 
 
+# phase 37's sizes: the three full-width sites at the training run's rows
+# (and one fewer: the padded case), the encoder's butterfly shape, the
+# training run (seq_len, global batch, steps), the CLI's smoke run (arch,
+# steps, seq_len, global batch)
+MESH = dict(ranks=2, rows=(8192, 8191), butterfly=(70000, 1024),
+            train=(256, 4, 3), cli=("smollm-135m-butterfly-smoke", 2, 32, 4),
+            budget_s=90.0)
+SITE_TOL = 1e-5             # the reference's sharded-vs-unsharded gate
+MESH_LOSS_TOL = ((1e-4, 0.0), (5e-3, 1e-4))   # (rtol, atol): first, all
+
+
+def _mb(n: float) -> str:
+    return f"{n / 2**20:.2f} MiB"
+
+
+def _per_call(stats: dict) -> str:
+    """A collectives' record as calls, bytes and ms per call."""
+    return "; ".join(
+        f"{k} {int(v['calls'])} calls, {_mb(v['bytes'] / max(v['calls'], 1))}"
+        f" and {1e3 * v['seconds'] / max(v['calls'], 1):.3f} ms a call"
+        for k, v in stats.items() if v["calls"])
+
+
+def phase_mesh(torch, np, cfg, dev, kernel: str, kernels: dict,
+               sizes=MESH) -> dict:
+    """Phase 37, training on a butterfly data mesh
+    (:mod:`repro_torch.runtime.butterfly_sharding`): ``sizes["ranks"]``
+    ranks of one world on ``dev`` (:func:`repro_torch.runtime.dist.
+    spawn_ranks`; on one card they share it over gloo), the rank side in
+    :mod:`repro_torch.launch.mesh_check`.
+
+    a. The world: backend, each rank's device, the collectives the backend
+       took on its tensors; on a card also a one-rank NCCL world's
+       all_reduce and NCCL's version.
+    b. ``sharded_sandwich_apply`` at ``cfg``'s three sites at each of
+       ``sizes["rows"]`` and ``sharded_butterfly_apply`` at
+       ``sizes["butterfly"]`` on a ``(ranks,)`` mesh against ``kernel``
+       alone on the same inputs: forward within SITE_TOL (rtol and atol),
+       every gradient within GRAD_TOL of max|want|, the ranks' results
+       equal bit for bit; each rank's launches and the collectives' bytes
+       and ms a call.
+    c. ``cfg`` trained in float32 from seed 0 at ``sizes["train"]``, first
+       unsharded in this process, then on the mesh: losses within
+       MESH_LOSS_TOL, every butterfly leaf after the last step within
+       STEP_F32_TOL of the unsharded run in relative norm, the ranks'
+       parameters equal bit for bit, ``mesh_layout`` ``data=<ranks>``, each
+       rank's sandwich launches a step the unsharded run's. Step p50, peak
+       memory and the collectives' ms a step per rank.
+    d. The training CLI with ``--simulated-devices`` and ``--mesh-shape``
+       as a subprocess: rc 0, its ``[train]`` lines.
+
+    A failed rank fails the phase. Returns a summary."""
+    import os
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh_check
+    from repro_torch.models import common as cm
+    from repro_torch.runtime import dist as rdist
+    from repro_torch.train.trainer import Trainer
+    t_phase = time.monotonic()
+    n = sizes["ranks"]
+    free_device(torch, dev)
+    on_card = dev.type == "cuda"
+    from repro_torch.kernels import butterfly as kb
+    from repro_torch.kernels import sandwich as ks
+
+    # c, first half: the unsharded run, here
+    seq, batch, steps = sizes["train"]
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=2, total_steps=20,
+                     checkpoint_every=0)
+    mesh_check.zero_launches()
+    trainer = Trainer(mesh_check.mesh_config(cfg, None), tc, seq_len=seq,
+                      global_batch=batch, device=dev)
+    base = trainer.run(steps)
+    sync(torch, dev)
+    base_per_step = {k: v / steps for k, v in mesh_check.launches().items()}
+    base_leaves = {name: p.detach().float().cpu().numpy()
+                   for name, p in trainer.model.named_parameters()
+                   if name.endswith(mesh_check.LEAVES)}
+    del trainer
+    free_device(torch, dev)
+    if on_card:
+        # a one-rank NCCL world, joined here: the backend of ranks that
+        # each own a card
+        rdist.init_world(0, 1, f"tcp://localhost:{rdist._free_port()}",
+                         "cuda")
+        try:
+            nccl = mesh_check.probe_nccl()
+        finally:
+            rdist.shutdown()
+
+    # the ranks: a, b and c's second half in one world
+    bc = cfg.butterfly
+    specs = [(name, cm.site_butterfly_spec(bc.seed, key, n_in, n_out,
+                                           bc.k_factor, bc.use_bias))
+             for name, (key, n_in, n_out) in sites(cfg).items()]
+    t_ranks = time.monotonic()
+    per_rank = rdist.spawn_ranks(
+        n, mesh_check.phase, specs, sizes["rows"], sizes["butterfly"], (n,),
+        kernel, mesh_check.mesh_config(cfg, (n,)), tc, seq, batch, steps,
+        device=dev.type)
+    say(f"mesh ranks: {n} spawned, their work and exit "
+        f"{time.monotonic() - t_ranks:.1f} s")
+
+    # a. the world and its collectives
+    for r in per_rank:
+        p = r["probe"]
+        say(f"mesh world: {p['world']}; took {', '.join(p['took'])}"
+            + (f"; refused {p['refused']}" if p["refused"] else ""))
+    if on_card:
+        say(f"mesh nccl: {nccl['world']}, NCCL {nccl['nccl']}, all_reduce "
+            f"of 4 MiB {nccl['ms']:.3f} ms")
+
+    # b. the sites against the kernel alone
+    want_launches = {"sandwich": {"sandwich_fwd": ks.FWD_KERNELS,
+                                  "sandwich_bwd": ks.BWD_KERNELS,
+                                  "butterfly_fwd": 0, "butterfly_bwd": 0},
+                     "butterfly": {"sandwich_fwd": 0, "sandwich_bwd": 0,
+                                   "butterfly_fwd": 1,
+                                   "butterfly_bwd": kb.BWD_KERNELS}}
+    worst = {"fwd": 0.0, "grad": 0.0}
+    for i, case in enumerate(per_rank[0]["sites"]["cases"]):
+        what = case["what"]
+        others = [r["sites"]["cases"][i] for r in per_rank]
+        if len({c["digest"] for c in others}) != 1:
+            raise AssertionError(f"mesh site {what}: the ranks differ "
+                                 f"({[c['digest'] for c in others]})")
+        for c in others:
+            want = {k: v * on_card for k, v in
+                    want_launches[what.split()[0]].items()}
+            if c["launches"] != want:
+                raise AssertionError(f"mesh site {what}: rank launches "
+                                     f"{c['launches']}, expected {want}")
+        if not case["fwd_ok"] or not case["grad_err"] <= GRAD_TOL["float32"]:
+            raise AssertionError(
+                f"mesh site {what}: forward max|Δ| {case['fwd_err']:.3e} "
+                f"(rtol/atol {SITE_TOL}: {case['fwd_ok']}), gradients "
+                f"max|Δ|/max|want| {case['grad_err']:.3e} (tol "
+                f"{GRAD_TOL['float32']})")
+        worst["fwd"] = max(worst["fwd"], case["fwd_err"])
+        worst["grad"] = max(worst["grad"], case["grad_err"])
+        say(f"mesh site {what} on {n} ranks vs {kernel} alone: forward "
+            f"max|Δ| {case['fwd_err']:.3e}, gradients max|Δ|/max|want| "
+            f"{case['grad_err']:.3e}; sharded {case['ms']:.2f} ms vs "
+            f"{case['local_ms']:.2f} ms alone; each rank's launches "
+            f"{case['launches']}; {_per_call(case['collectives'])}")
+    bfly = per_rank[0]["sites"]["cases"][-1]
+    add_launches(kernels, "mesh butterfly rank 0",
+                 {k: v for k, v in bfly["launches"].items()
+                  if k.startswith("butterfly")})
+
+    # c. training on the mesh against the unsharded run
+    ranks = [r["train"] for r in per_rank]
+    (rtol0, atol0), (rtol, atol) = MESH_LOSS_TOL
+    for r in ranks:
+        got, want = np.array(r["losses"]), np.array(base.losses)
+        ok = (abs(got[0] - want[0]) <= atol0 + rtol0 * abs(want[0])
+              and np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+        if not ok or r["mesh_layout"] != f"data={n}":
+            raise AssertionError(f"mesh train rank {r['rank']}: losses "
+                                 f"{r['losses']} vs unsharded "
+                                 f"{base.losses}, layout "
+                                 f"{r['mesh_layout']!r}")
+        if r["launches_per_step"] != base_per_step:
+            raise AssertionError(f"mesh train rank {r['rank']}: launches a "
+                                 f"step {r['launches_per_step']} vs "
+                                 f"unsharded {base_per_step}")
+    if len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError(f"mesh train: the ranks' parameters differ "
+                             f"({[r['digest'] for r in ranks]})")
+    rel = {k: float(np.linalg.norm(v - base_leaves[k])
+                    / max(np.linalg.norm(base_leaves[k]), 1e-30))
+           for k, v in ranks[0]["leaves"].items()}
+    if set(rel) != set(base_leaves) or not max(rel.values()) <= STEP_F32_TOL:
+        bad = {k: v for k, v in rel.items() if not v <= STEP_F32_TOL}
+        raise AssertionError(f"mesh train: butterfly leaves beyond "
+                             f"{STEP_F32_TOL}: {dict(list(bad.items())[:5])}")
+    say(f"mesh train {cfg.name} float32, {seq} x {batch}, {steps} steps, "
+        f"unsharded vs {n} ranks: losses "
+        + " ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(base.losses,
+                                                        ranks[0]["losses"]))
+        + f"; {len(rel)} butterfly leaves, relative norm of the difference "
+        f"max {max(rel.values()):.3e}; ranks bit-identical "
+        f"({ranks[0]['digest']}); {ranks[0]['exec']}; launches a step "
+        f"{base_per_step}")
+    summary = {"mesh_train_losses": ranks[0]["losses"],
+               "mesh_train_unsharded_losses": base.losses,
+               "mesh_leaf_rel_max": max(rel.values())}
+    base_ms = sorted(1e3 * t for t in base.step_times)
+    say(f"mesh train unsharded: step p50 {base_ms[len(base_ms) // 2]:.1f} "
+        f"ms (steps " + " ".join(f"{t:.1f}" for t in base_ms) + ")")
+    for r in ranks:
+        ms = sorted(1e3 * t for t in r["step_times"])
+        coll = " ".join(f"{k} {1e3 * v['seconds'] / steps:.2f} ms "
+                        f"({v['calls'] / steps:.0f} calls, "
+                        f"{_mb(v['bytes'] / steps)})"
+                        for k, v in r["collectives"].items())
+        peak = ("not measured (no card)" if r["peak_mib"] is None
+                else f"{r['peak_mib']:.1f} MiB")
+        say(f"mesh train rank {r['rank']}: step p50 {ms[len(ms) // 2]:.1f} "
+            f"ms (steps " + " ".join(f"{t:.1f}" for t in ms) + f"), peak "
+            f"{peak}; a step's collectives: {coll}")
+        summary[f"mesh_rank{r['rank']}_step_p50_ms"] = ms[len(ms) // 2]
+    add_launches(kernels, "mesh train rank 0",
+                 {k: int(v * steps) for k, v in
+                  ranks[0]["launches_per_step"].items()
+                  if k.startswith("sandwich")})
+
+    # d. the CLI
+    arch, cli_steps, cli_seq, cli_batch = sizes["cli"]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+           "--simulated-devices", str(n), "--mesh-shape", str(n), "--device",
+           dev.type, "--steps", str(cli_steps), "--seq-len", str(cli_seq),
+           "--global-batch", str(cli_batch), "--checkpoint-every", "0"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    done = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600, cwd=str(ROOT))
+    lines = [ln for ln in done.stdout.splitlines()
+             if ln.startswith("[train]")]
+    for ln in lines:
+        say(f"mesh cli: {ln}")
+    if (done.returncode != 0 or len(lines) != 2
+            or not lines[1].endswith(f"mesh=data={n}]")):
+        raise AssertionError(f"mesh cli: rc {done.returncode}, "
+                             f"{len(lines)} [train] lines; stderr "
+                             f"{done.stderr[-2000:]}")
+    phase_s = time.monotonic() - t_phase
+    say(f"mesh: phase {phase_s:.1f} s (budget {sizes['budget_s']} s)")
+    summary["mesh_s"] = phase_s
+    summary["mesh_site_err"] = dict(worst)
+    return summary
+
+
 # the kernels line's entries, in its order; the timing phases fill them in
 KERNEL_ORDER = ("sandwich_fwd (sandwich_factors + sandwich_rows)",
                 "paged_decode_attention", "sandwich_bwd", "butterfly_fwd",
@@ -4459,8 +4713,9 @@ COUNTER_ENTRY = {"sandwich_fwd": KERNEL_ORDER[0],
 # at a time): the kernels' checks (phases 3-5, the wide and zoo sites, the
 # butterfly and flash kernels), serving (6-8, 6a-6e), training (9-11, the
 # CLI), the encoder-decoder and benches, the paper's layers (20-22), the
-# zoo (24-35) and the launch tooling (36)
-GROUPS = ("kernels", "serve", "train", "encdec", "paper", "zoo", "launch")
+# zoo (24-35), the launch tooling (36) and the mesh (37)
+GROUPS = ("kernels", "serve", "train", "encdec", "paper", "zoo", "launch",
+          "mesh")
 
 
 def entry(kernels: dict, counter: str) -> dict:
@@ -4488,8 +4743,8 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         bench=None, wide=WIDE, cli=CLI_SERVE, layers=LAYER_API_LAYERS,
         fit=QUICKSTART_FIT, sketch_run=SKETCH_RUN, gated=GATED_SHAPES,
         nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS, zoo=ZOO,
-        launch=LAUNCH, groups=GROUPS) -> list:
-    """Phases 3 to 36 on ``cfg`` and ``dev``; ``kernel`` is the backend
+        launch=LAUNCH, mesh=MESH, groups=GROUPS) -> list:
+    """Phases 3 to 37 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
     ``encdec_shape`` the encoder-decoder's (n, d, k), ``encdec_steps`` its
@@ -4502,10 +4757,11 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     :func:`phase_wide` and ``cli`` the serving tier's sizes of
     :func:`phase_serve_cli`; ``layers``, ``fit``, ``sketch_run``,
     ``gated``, ``nonlinear_steps`` and ``lm_steps`` size phases 20 to 22,
-    ``zoo`` the zoo's phases (:data:`ZOO`) and ``launch`` phase 36's
-    (:data:`LAUNCH`). ``groups`` (of :data:`GROUPS`; all on the card) picks
-    the phases run; a group run without the one before it takes no error
-    from it and adds its launches to stub entries.
+    ``zoo`` the zoo's phases (:data:`ZOO`), ``launch`` phase 36's
+    (:data:`LAUNCH`) and ``mesh`` phase 37's (:data:`MESH`). ``groups``
+    (of :data:`GROUPS`; all on the card) picks the phases run; a group run
+    without the one before it takes no error from it and adds its launches
+    to stub entries.
     Prints a ``summary:`` line of the end-to-end readings and returns the
     ``kernels`` list."""
     device_fn = device_fn or time_fn
@@ -4609,6 +4865,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
                                  device_fn, zoo))
     if "launch" in groups:
         summary.update(phase_launch_tools(torch, np, dev, kernel, launch))
+    if "mesh" in groups:
+        summary.update(phase_mesh(torch, np, cfg, dev, kernel, kernels,
+                                  mesh))
     say("summary: " + json.dumps(summary))
     return [kernels[n] for n in KERNEL_ORDER if n in kernels]
 

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core import butterfly as bf
 from repro_torch.kernels import sandwich as ks
-from repro_torch.kernels.context import ContextLike
+from repro_torch.kernels.context import ContextLike, resolve_execution
+from repro_torch.runtime import butterfly_sharding as bsh
 
 __all__ = ["ButterflySpec", "default_k", "make_spec",
            "init_butterfly_linear", "init_from_dense", "dense_core",
@@ -150,18 +151,36 @@ def butterfly_linear_apply(spec: ButterflySpec,
     optionally the int32 index tensors ``idx_in``/``idx_out`` (built from
     the spec when absent). Zero-padding to ``pad_in`` and slicing back to
     ``n_out`` happen inside :func:`repro_torch.kernels.sandwich.
-    sandwich_forward`; the bias is added here.
+    sandwich_forward`; the bias is added here. A context with a mesh shards
+    the whole layer's rows (kernel and bias) over the mesh's data axes,
+    with replicated weights and all-reduced weight gradients
+    (:func:`repro_torch.runtime.butterfly_sharding.
+    sharded_butterfly_linear_apply`).
     """
     if x.shape[-1] != spec.n_in:
         raise ValueError(f"expected last dim {spec.n_in}, got {x.shape[-1]}")
+    ctx = resolve_execution(context)
+    axes = bsh.sharded_route(ctx)
+    if axes:
+        return bsh.sharded_butterfly_linear_apply(spec, params, x,
+                                                  context=ctx, axes=axes)
+    return _local_linear_apply(spec, params, x, ctx)
+
+
+def _local_linear_apply(spec: ButterflySpec,
+                        params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                        ctx) -> torch.Tensor:
+    """:func:`butterfly_linear_apply` on one device under a finalized
+    context: no resolution, no mesh routing (a shard of a sharded region
+    runs this)."""
     idx = {}
     for key, val in (("idx_in", spec.idx_in), ("idx_out", spec.idx_out)):
         idx[key] = params[key] if key in params else torch.tensor(
             val, dtype=torch.int32, device=x.device)
-    z = ks.sandwich_forward(
+    z = ks._local_sandwich(
         x.contiguous(), params["b_in"], params["core"], params["b_out"],
-        idx["idx_in"], idx["idx_out"], scale_in=spec.scale_in,
-        scale_out=spec.scale_out, n_out=spec.n_out, context=context)
+        idx["idx_in"], idx["idx_out"], spec.scale_in, spec.scale_out,
+        spec.n_out, ctx.local())
     if spec.use_bias and "bias" in params:
         z = z + params["bias"].to(x.dtype)
     return z

@@ -45,6 +45,7 @@ from repro_torch.kernels.context import (ContextLike, resolve_execution,
                                          tensor_route)
 from repro_torch.kernels.tuning import default_segment, row_slots
 from repro_torch.obs.profiling import annotate
+from repro_torch.runtime import butterfly_sharding as bsh
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 32768             # one float32 row in shared memory (128 KB)
@@ -332,8 +333,21 @@ def butterfly_apply(x: torch.Tensor, w: torch.Tensor, *,
     ``context`` follows :mod:`repro_torch.kernels.context`; a ``segment``
     other than ⌈√p⌉, or a ``block_b`` that either direction does not take,
     is refused here, before the forward (:mod:`repro_torch.kernels.
-    tuning`)."""
+    tuning`). A context with a mesh shards the rows over its data axes
+    (:func:`repro_torch.runtime.butterfly_sharding.
+    sharded_butterfly_apply`)."""
     ctx = resolve_execution(context)
+    axes = bsh.sharded_route(ctx)
+    if axes:
+        return bsh.sharded_butterfly_apply(x, w, context=ctx, axes=axes,
+                                           transpose=transpose)
+    return _local_butterfly_apply(x, w, transpose, ctx)
+
+
+def _local_butterfly_apply(x: torch.Tensor, w: torch.Tensor,
+                           transpose: bool, ctx) -> torch.Tensor:
+    """:func:`butterfly_apply` on one device under a finalized context: no
+    resolution, no mesh routing (a shard of a sharded region runs this)."""
     tuning.resolve_segment(w.shape[0], ctx.segment)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         tuning.launch_block_b(ctx.block_b, "butterfly", w.shape[-1],

@@ -33,20 +33,26 @@ the reference's do and go to the tile rule
 refuses them with ``ValueError`` before any launch: the butterfly
 backward's tile rows are a launch parameter, the other tiles are compiled
 in, and the backward's register schedule takes ⌈√p⌉ alone.
-``mesh_shape``/``mesh_axes`` exist so that the reference's configs
-construct; a context that sets one is refused at resolution, naming the
-ROADMAP item that brings it (the multi-device path of item 6), as the
-serving CLI refuses ``--mesh-shape``. The reference's ``vmem_budget``,
-``flash_block_q`` and prebuilt jax ``Mesh`` have no torch meaning and are
-left out: the tile rule's budget is the card's opt-in shared memory, and
-the flash kernels' tiles are their own.
+``mesh_shape`` opts into multi-device execution: resolution builds the
+mesh (:func:`repro_torch.launch.mesh.butterfly_mesh`, ``(d,)`` ->
+``("data",)``, ``(p, d)`` -> ``("pod", "data")``) unless ``mesh``, a
+prebuilt :class:`~repro_torch.launch.mesh.Mesh`, is given, which wins; an
+ambient sharding context's mesh (:mod:`repro_torch.runtime.sharding`) is
+reused when it has the requested shape. ``mesh_axes`` names the axes to
+shard over. A context with a mesh routes the butterfly entry points
+through :mod:`repro_torch.runtime.butterfly_sharding`. The reference's
+``vmem_budget`` and ``flash_block_q`` have no torch meaning and are left
+out: the tile rule's budget is the card's opt-in shared memory, and the
+flash kernels' tiles are their own.
 
 The ambient stack is per thread (``threading.local``): the router's driver
 thread and the async client run kernels off the main thread, and one
 thread's ``with use_execution(...)`` must not reroute another's calls.
 
 A finalized context (one :func:`resolve_execution` returned) keeps its
-backend. Passed as the explicit layer again it comes back as it is when no
+backend and its mesh (a shard's :meth:`ExecutionContext.local` context
+stays local under the caller's mesh block). Passed as the explicit layer
+again it comes back as it is when no
 ambient block is open, or when the innermost block is that same context;
 under another block, the block and then the default fill the fields it
 leaves unset (``segment``, ``profile``), as the reference refolds. The
@@ -67,7 +73,7 @@ import dataclasses
 import os
 import threading
 from dataclasses import dataclass
-from typing import Literal, Optional, Tuple, Union
+from typing import Any, Literal, Optional, Tuple, Union
 
 import torch
 
@@ -81,6 +87,7 @@ __all__ = [
     "resolve_backend",
     "resolve_device",
     "resolve_execution",
+    "requests_mesh",
     "resolve_for_device",
     "route_context",
     "tensor_route",
@@ -185,9 +192,14 @@ class ExecutionContext:
     * ``profile`` — ``torch.profiler.record_function`` ranges around the
       kernel call sites (:mod:`repro_torch.obs.profiling`); ``None`` =
       unset: the ``REPRO_PROFILE`` variable, default off.
-    * ``mesh_shape``, ``mesh_axes`` — carried so that the reference's
-      configs construct; refused by :func:`resolve_execution` (ROADMAP
-      item 6).
+    * ``mesh_shape`` — opt-in multi-device execution: ``(2,)`` builds a
+      ``("data",)`` mesh, ``(2, 2)`` a ``("pod", "data")`` mesh
+      (:func:`repro_torch.launch.mesh.butterfly_mesh`); activations shard
+      by rows with replicated weights and all-reduced weight gradients.
+    * ``mesh`` — a prebuilt :class:`~repro_torch.launch.mesh.Mesh`; wins
+      over ``mesh_shape``.
+    * ``mesh_axes`` — the mesh axes to shard over (default: the ``("pod",
+      "data")`` candidates present in the mesh).
 
     Hashable and frozen: safe to key caches on and to store on a module
     (:class:`repro_torch.nn.ButterflyLinear`).
@@ -198,6 +210,7 @@ class ExecutionContext:
     segment: Optional[int] = None
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Optional[Tuple[str, ...]] = None
+    mesh: Optional[Any] = None
     profile: Optional[bool] = None
 
     def __post_init__(self):
@@ -245,18 +258,21 @@ class ExecutionContext:
         return ExecutionContext(**kw)
 
     def local(self) -> "ExecutionContext":
-        """The same policy without a mesh: what one shard of a sharded
-        region runs."""
-        if self.mesh_shape is None and self.mesh_axes is None:
+        """The same policy without the mesh: what one shard of a sharded
+        region runs, so that a shard never routes again. The local context
+        of a finalized one is finalized (and keeps having no mesh under a
+        caller's mesh block)."""
+        if self.mesh is None and self.mesh_shape is None:
             return self
-        return dataclasses.replace(self, mesh_shape=None, mesh_axes=None)
+        ctx = dataclasses.replace(self, mesh=None, mesh_shape=None)
+        return _finalized(ctx) if getattr(self, "_final", False) else ctx
 
     # -- introspection ----------------------------------------------------
 
     def mesh_layout(self) -> str:
-        """The resolved mesh as ``"data=8"``: always ``""`` in the port,
-        which runs on one device until ROADMAP item 6."""
-        return ""
+        """The resolved mesh as ``"data=2"`` or ``"pod=2,data=2"`` (``""``
+        without one)."""
+        return self.mesh.describe() if self.mesh is not None else ""
 
     def describe(self) -> str:
         """One-line summary of every set field (logs, ``TrainResult``)."""
@@ -265,7 +281,9 @@ class ExecutionContext:
             v = getattr(self, name)
             if v is not None:
                 parts.append(f"{name}={v}")
-        if self.mesh_shape is not None:
+        if self.mesh is not None:
+            parts.append(f"mesh={self.mesh_layout()}")
+        elif self.mesh_shape is not None:
             parts.append(f"mesh_shape={self.mesh_shape}")
         if self.mesh_axes is not None:
             parts.append(f"mesh_axes={self.mesh_axes}")
@@ -344,12 +362,40 @@ def current_execution() -> Optional[ExecutionContext]:
 # Resolution
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(ctx: ExecutionContext) -> None:
-    if ctx.mesh_shape is not None or ctx.mesh_axes is not None:
-        raise ValueError(
-            f"mesh_shape={ctx.mesh_shape}, mesh_axes={ctx.mesh_axes}: the "
-            f"port runs on one device; multi-device execution comes with "
-            f"ROADMAP queue 1, item 6")
+def _resolve_mesh(merged: ExecutionContext):
+    """``merged.mesh``, else the mesh of ``merged.mesh_shape`` (``None``
+    without one): an ambient sharding context's when its layout is that
+    shape (a context that asks for another shape wins over the ambient
+    mesh), else :func:`~repro_torch.launch.mesh.butterfly_mesh`'s."""
+    if merged.mesh is not None:
+        return merged.mesh
+    if merged.mesh_shape is None:
+        return None
+    from repro_torch.runtime import sharding as rsharding
+    sctx = rsharding.active_ctx()
+    if (sctx is not None and sctx.mesh is not None
+            and tuple(sctx.mesh.shape.values()) == merged.mesh_shape):
+        return sctx.mesh
+    from repro_torch.launch.mesh import butterfly_mesh
+    return butterfly_mesh(merged.mesh_shape)
+
+
+def _fold(context: ContextLike, default: ContextLike) -> ExecutionContext:
+    """The explicit layer over this thread's ambient stack over
+    ``default``, unresolved."""
+    ctx = ExecutionContext.coerce(context) or _UNSET
+    return ctx.over(current_execution()).over(
+        ExecutionContext.coerce(default))
+
+
+def requests_mesh(context: ContextLike = None,
+                  default: ContextLike = None) -> bool:
+    """Whether ``context`` over ``default`` sets a mesh field (``mesh``,
+    ``mesh_shape`` or ``mesh_axes``), decided without building a mesh (the
+    serving engine's refusal)."""
+    merged = _fold(context, default)
+    return any(f is not None for f in (merged.mesh, merged.mesh_shape,
+                                       merged.mesh_axes))
 
 
 def resolve_execution(context: ContextLike = None,
@@ -359,11 +405,12 @@ def resolve_execution(context: ContextLike = None,
     ``context`` is the explicit per-call layer, ``default`` the layer/config
     layer (e.g. :meth:`ExecutionContext.from_butterfly_config`); this
     thread's ambient stack sits between them. The result has a validated
-    backend (``"auto"`` still routes by the tensor's device) and no mesh
-    (refused with ``ValueError``). Idempotent. A
-    finalized context passed as ``context`` keeps its backend, and comes
-    back as it is unless an ambient block other than itself is open: then
-    the block, and then ``default``, fill its unset fields. ``block_b`` and
+    backend (``"auto"`` still routes by the tensor's device) and a built
+    ``mesh`` or ``None`` (:func:`_resolve_mesh`; a mesh larger than the
+    world raises ``RuntimeError``). Idempotent. A finalized context passed
+    as ``context`` keeps its backend and its mesh, and comes back as it is
+    unless an ambient block other than itself is open: then the block, and
+    then ``default``, fill its other unset fields. ``block_b`` and
     ``segment`` go on to the tile rule at the call.
     """
     ctx = ExecutionContext.coerce(context)
@@ -372,16 +419,16 @@ def resolve_execution(context: ContextLike = None,
         if ambient is None or ambient is ctx:
             return ctx
         merged = ctx.over(ambient).over(ExecutionContext.coerce(default))
-        merged = dataclasses.replace(merged, backend=ctx.backend)
+        merged = dataclasses.replace(
+            merged, backend=ctx.backend, mesh=ctx.mesh,
+            mesh_shape=ctx.mesh_shape, mesh_axes=ctx.mesh_axes)
         if merged == ctx:
             return ctx
-        _refuse_unported(merged)
         return _finalized(merged)
-    merged = (ctx or _UNSET).over(current_execution())
-    merged = merged.over(ExecutionContext.coerce(default))
-    _refuse_unported(merged)
+    merged = _fold(ctx, default)
     return _finalized(dataclasses.replace(
-        merged, backend=resolve_backend(merged.backend)))
+        merged, backend=resolve_backend(merged.backend),
+        mesh=_resolve_mesh(merged)))
 
 
 def resolve_for_device(context: ContextLike = None,

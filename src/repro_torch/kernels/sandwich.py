@@ -76,6 +76,7 @@ from repro_torch.kernels import build, tuning
 from repro_torch.kernels.context import (ContextLike, resolve_execution,
                                          route_context, tensor_route)
 from repro_torch.obs.profiling import annotate
+from repro_torch.runtime import butterfly_sharding as bsh
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -586,9 +587,25 @@ def sandwich_forward(x: torch.Tensor, b_in: torch.Tensor, core: torch.Tensor,
     launches in ``sandwich_forward.launches``. The row kernels' tiles are
     compiled in (64 rows forward, 32 backward): a ``block_b`` other than
     the forward's, or any ``block_b`` where the call is differentiable, is
-    refused before any launch (:mod:`repro_torch.kernels.tuning`).
+    refused before any launch (:mod:`repro_torch.kernels.tuning`). A
+    context with a mesh shards the rows over its data axes
+    (:func:`repro_torch.runtime.butterfly_sharding.sharded_sandwich_apply`;
+    each rank counts its own launches).
     """
     ctx = resolve_execution(context)
+    axes = bsh.sharded_route(ctx)
+    if axes:
+        return bsh.sharded_sandwich_apply(
+            x, b_in, core, b_out, idx_in, idx_out, scale_in=scale_in,
+            scale_out=scale_out, n_out=n_out, context=ctx, axes=axes)
+    return _local_sandwich(x, b_in, core, b_out, idx_in, idx_out, scale_in,
+                           scale_out, n_out, ctx)
+
+
+def _local_sandwich(x, b_in, core, b_out, idx_in, idx_out, scale_in,
+                    scale_out, n_out, ctx) -> torch.Tensor:
+    """:func:`sandwich_forward` on one device under a finalized context: no
+    resolution, no mesh routing (a shard of a sharded region runs this)."""
     route = tensor_route(ctx.backend, x)
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, b_in, core, b_out))

@@ -26,9 +26,9 @@ judged on the argument bytes alone against the card's 80 GB, and each JSON
 says so (``fit_basis``). The reference's half-batch prefill retry is
 decided on the same count.
 
-The production meshes (the reference's ``16x16`` and ``2x16x16`` pods)
-and its simulated devices wait for the multi-device path (ROADMAP item
-6); every cell here is one card, mesh ``h100x1``.
+The dry-run on the production meshes (the reference's ``16x16`` and
+``2x16x16`` pods) comes with ROADMAP queue 1, item 6c; every cell here is
+one card, mesh ``h100x1``.
 """
 
 from __future__ import annotations

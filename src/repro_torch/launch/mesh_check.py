@@ -1,0 +1,267 @@
+"""The rank side of ``chip_smoke.py``'s mesh phase: work that each rank of a
+:func:`repro_torch.runtime.dist.spawn_ranks` world runs and returns to the
+parent as plain numbers (it lives in the package because ``spawn``
+re-imports the target's module in every rank).
+
+* :func:`probe_collectives` — which collectives the world's backend takes
+  on this rank's tensors (on a card shared over gloo: only some), and that
+  an ``all_reduce`` sums right.
+* :func:`probe_nccl` — one ``all_reduce`` in a one-rank NCCL world, the
+  backend a run with a card a rank takes.
+* :func:`check_sites` — :func:`~repro_torch.runtime.butterfly_sharding.
+  sharded_sandwich_apply` at sandwich sites and :func:`~repro_torch.
+  runtime.butterfly_sharding.sharded_butterfly_apply` held against the
+  same kernel unsharded on the same inputs, forward and gradients, with
+  each rank's launches and collectives.
+* :func:`train` — the Trainer on a mesh: losses, a digest of every
+  parameter's bytes (ranks must agree bit for bit), the butterfly leaves
+  (rank 0), launches per step, step times, peak memory, collectives.
+* :func:`phase` — the three rank-side parts of the phase in one world
+  (a spawned rank takes seconds to reach a card).
+
+Every input comes from a seed, the same on every rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import butterfly as bf
+from repro_torch.kernels import butterfly as kb
+from repro_torch.kernels import sandwich as ks
+from repro_torch.kernels.context import (ExecutionContext, resolve_execution,
+                                         route_context)
+from repro_torch.runtime import butterfly_sharding as bsh
+from repro_torch.runtime import dist as rdist
+
+COUNTERS = (("sandwich_fwd", ks.sandwich_forward),
+            ("sandwich_bwd", ks.sandwich_backward),
+            ("butterfly_fwd", kb.butterfly_forward),
+            ("butterfly_bwd", kb.butterfly_backward))
+LEAVES = ("b_in", "core", "b_out")
+
+
+def zero_launches() -> None:
+    for _, fn in COUNTERS:
+        fn.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in COUNTERS}
+
+
+def digest(tensors: Sequence[torch.Tensor]) -> str:
+    """sha256 over the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy())
+    return h.hexdigest()[:16]
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def probe_collectives() -> dict:
+    """Each collective tried once on this rank's device; those the backend
+    refuses are named with the first line of its error."""
+    world = rdist.current_world()
+    dev, n = world.device, world.size
+    mine = torch.full((4 * n,), float(world.rank + 1), device=dev)
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(mine.clone()),
+        "broadcast": lambda: dist.broadcast(mine.clone(), 0),
+        "barrier": dist.barrier,
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(mine) for _ in range(n)], mine),
+        "all_gather_into_tensor": lambda: bsh._ALL_GATHER(
+            torch.empty(4 * n * n, device=dev), mine),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), mine),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(mine), mine),
+    }
+    took, refused = [], {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            _sync(dev)
+            took.append(name)
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            refused[name] = (str(e).strip().splitlines() or [""])[0][:160]
+    total = mine.clone()
+    dist.all_reduce(total)
+    want = n * (n + 1) / 2
+    if not bool((total == want).all()):
+        raise AssertionError(f"all_reduce gave {total[0].item()}, want "
+                             f"{want}")
+    return {"world": world.describe(), "backend": world.backend,
+            "device": str(dev), "took": took, "refused": refused}
+
+
+def probe_nccl() -> dict:
+    """One all_reduce in this (one-rank, NCCL) world: the parent joins
+    one for it (:func:`~repro_torch.runtime.dist.init_world`) and leaves
+    it."""
+    world = rdist.current_world()
+    t = torch.ones(1 << 20, device=world.device)
+    t0 = time.perf_counter()
+    dist.all_reduce(t)
+    _sync(world.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if world.backend != "nccl" or not bool((t == 1.0).all()):
+        raise AssertionError(f"{world.describe()}: all_reduce of ones gave "
+                             f"{t[0].item()}")
+    return {"world": world.describe(),
+            "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+            "ms": ms}
+
+
+def _grads(out: torch.Tensor, g: torch.Tensor, leaves) -> list:
+    return list(torch.autograd.grad(out, leaves, g))
+
+
+def _collective_stats() -> dict:
+    return {k: dict(v) for k, v in bsh.collectives.stats.items()}
+
+
+def _compare(got: list, want: list) -> Tuple[float, float]:
+    """(max |Δ| of the first (the forward), max over the rest of |Δ| /
+    max|want|)."""
+    fwd = float((got[0] - want[0]).abs().max())
+    grad = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(got[1:], want[1:]))
+    return fwd, grad
+
+
+def check_sites(sites: Sequence[Tuple[str, object]], rows: Sequence[int],
+                butterfly: Tuple[int, int], mesh_shape: Tuple[int, ...],
+                kernel: str, seed: int = 0) -> dict:
+    """At each of ``sites`` ((name, ButterflySpec)) and each of ``rows``:
+    the sandwich's forward and its gradients for a random cotangent
+    through :func:`bsh.sharded_sandwich_apply` on ``mesh_shape``, against
+    ``kernel`` alone on the same inputs. Then the butterfly at
+    ``butterfly`` = (rows, n) the same way. Returns per case the errors,
+    this rank's launches of the sharded call, its collectives and a digest
+    of its output (ranks must agree)."""
+    from repro_torch.core import layers as bl
+    world = rdist.current_world()
+    dev = world.device
+    mesh_ctx = resolve_execution(ExecutionContext(backend=kernel,
+                                                  mesh_shape=mesh_shape))
+    local = route_context(kernel)
+    out = []
+
+    def run(fn, leaves, g, ctx):
+        zero_launches()
+        bsh.collectives.reset()
+        bsh.collectives.timed = ctx is mesh_ctx
+        _sync(dev)
+        t0 = time.perf_counter()
+        y = fn(ctx)
+        res = [y.detach()] + _grads(y, g, leaves)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        bsh.collectives.timed = False
+        return res, ms, launches(), _collective_stats()
+
+    for name, spec in sites:
+        gen = torch.Generator().manual_seed(seed)
+        params = {k: v.to(dev).requires_grad_()
+                  for k, v in bl.init_butterfly_linear(gen, spec).items()}
+        idx = [torch.tensor(v, dtype=torch.int32, device=dev)
+               for v in (spec.idx_in, spec.idx_out)]
+        for r in rows:
+            x = torch.randn(r, spec.n_in, generator=gen).to(
+                dev).requires_grad_()
+            g = torch.randn(r, spec.n_out, generator=gen).to(dev)
+            leaves = [x, params["b_in"], params["core"], params["b_out"]]
+
+            def fn(ctx):
+                return bsh.sharded_sandwich_apply(
+                    x, params["b_in"], params["core"], params["b_out"],
+                    *idx, scale_in=spec.scale_in, scale_out=spec.scale_out,
+                    n_out=spec.n_out, context=ctx)
+            want, want_ms, _, _ = run(fn, leaves, g, local)
+            got, ms, counts, coll = run(fn, leaves, g, mesh_ctx)
+            fwd, grad = _compare(got, want)
+            ok = bool(torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5))
+            out.append({"what": f"sandwich {name} {spec.n_in}->"
+                                f"{spec.n_out} x {r}", "fwd_err": fwd,
+                        "fwd_ok": ok, "grad_err": grad, "ms": ms,
+                        "local_ms": want_ms, "launches": counts,
+                        "collectives": coll, "digest": digest(got)})
+            del x, g, leaves, got, want
+    r, n = butterfly
+    gen = torch.Generator().manual_seed(seed + 1)
+    w = bf.fjlt_weights(gen, n).to(dev).requires_grad_()
+    x = torch.randn(r, n, generator=gen).to(dev)
+    g = torch.randn(r, n, generator=gen).to(dev)
+
+    def bfn(ctx):
+        return bsh.sharded_butterfly_apply(x, w, context=ctx)
+    want, want_ms, _, _ = run(bfn, [w], g, local)
+    got, ms, counts, coll = run(bfn, [w], g, mesh_ctx)
+    fwd, grad = _compare(got, want)
+    ok = bool(torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5))
+    out.append({"what": f"butterfly {r} x {n}", "fwd_err": fwd,
+                "fwd_ok": ok, "grad_err": grad, "ms": ms,
+                "local_ms": want_ms, "launches": counts, "collectives": coll,
+                "digest": digest(got)})
+    return {"rank": world.rank, "cases": out}
+
+
+def train(cfg, tc, seq_len: int, batch: int, steps: int,
+          leaves: bool) -> dict:
+    """``Trainer(cfg, tc)`` ``steps`` steps on this rank's device; with
+    ``leaves``, the butterfly leaves after the last step as numpy."""
+    from repro_torch.train.trainer import Trainer
+    world = rdist.current_world()
+    dev = world.device
+    trainer = Trainer(cfg, tc, seq_len=seq_len, global_batch=batch,
+                      device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    bsh.collectives.reset()
+    bsh.collectives.timed = True
+    res = trainer.run(steps)
+    bsh.collectives.timed = False
+    counts = launches()
+    named = list(trainer.model.named_parameters())
+    return {
+        "rank": world.rank, "losses": res.losses,
+        "step_times": res.step_times, "mesh_layout": res.mesh_layout,
+        "exec": res.execution.describe(),
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "collectives": _collective_stats(),
+        "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                     if dev.type == "cuda" else None),
+        "digest": digest([p for _, p in named]),
+        "leaves": ({n: p.detach().float().cpu().numpy() for n, p in named
+                    if n.endswith(LEAVES)} if leaves else None)}
+
+
+def phase(sites, rows, butterfly, mesh_shape, kernel, cfg, tc, seq_len,
+          batch, steps) -> dict:
+    """:func:`probe_collectives`, :func:`check_sites` and :func:`train`
+    (with the leaves on rank 0) on this rank."""
+    return {"probe": probe_collectives(),
+            "sites": check_sites(sites, rows, butterfly, mesh_shape,
+                                 kernel),
+            "train": train(cfg, tc, seq_len, batch, steps,
+                           rdist.rank() == 0)}
+
+
+def mesh_config(cfg, mesh_shape):
+    """``cfg`` in float32 compute with ``mesh_shape`` in its butterfly
+    config (``None``: unsharded)."""
+    return cfg.with_(compute_dtype="float32", butterfly=dataclasses.replace(
+        cfg.butterfly, mesh_shape=mesh_shape))

@@ -37,7 +37,7 @@ timelines through one shared :class:`repro_torch.obs.Tracer` (replica
 admits whole prompts (power-of-two buckets; exact lengths for archs with
 sliding-window rings, which never chunk). Not ported yet, and refused
 with a message rather than ignored: ``--mesh-shape`` and
-``--simulated-devices`` (multi-device serving; ROADMAP queue 1, item 6).
+``--simulated-devices`` (the sharded engine; ROADMAP queue 1, item 6b).
 ``--arch`` takes every registry name (the recurrent archs serve on the
 dense pool, whole prompts at their exact lengths; the frontend and encoder
 archs admit whole prompts in power-of-two buckets). A frontend arch's
@@ -149,17 +149,18 @@ def _parser() -> argparse.ArgumentParser:
                          "Chrome trace-event JSON here; tracing stays off "
                          "without this flag")
     ap.add_argument("--mesh-shape", default="",
-                    help="multi-device serving (not ported)")
+                    help="sharded serving (not ported: ROADMAP 6b)")
     ap.add_argument("--simulated-devices", type=int, default=0,
-                    help="simulated host devices (not ported)")
+                    help="simulated host devices (not ported: ROADMAP 6b)")
     return ap
 
 
 def _refuse_unported(args) -> None:
     if args.mesh_shape or args.simulated_devices:
         raise SystemExit("--mesh-shape and --simulated-devices are not "
-                         "ported: the port serves on one device (ROADMAP "
-                         "queue 1, item 6, brings multi-device serving)")
+                         "ported for serving: the port serves on one device "
+                         "(ROADMAP queue 1, item 6b, brings the sharded "
+                         "engine; training takes them)")
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

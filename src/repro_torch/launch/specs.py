@@ -5,9 +5,10 @@ Counterpart of ``repro.launch.specs``. ``batch_specs``, ``decode_specs``
 and ``abstract_model`` build meta tensors on the port's own modules;
 ``param_counts`` and ``model_flops`` keep the reference's formulas. The
 reference's sharding trees (``batch_shardings``, ``cache_shardings``,
-``param_shardings``, ``replicated``, ``_CACHE_AXES``) wait for the
-multi-device path (ROADMAP queue 1, item 6): one card has nothing to
-shard.
+``param_shardings``, ``replicated``, ``_CACHE_AXES``) come with ROADMAP
+queue 1, item 6c, beside ``kv_layout`` and a logical-axes table for the
+port's leaves; the butterfly sites' row sharding (item 6a) needs none of
+them.
 """
 
 from __future__ import annotations

@@ -33,8 +33,9 @@ Two places differ in form from the reference and not in value:
   no float is added atomically. The combine reads dropped choices from a
   zero row in the same way.
 
-The reference's expert-parallel path (``_moe_apply_ep``) is multi-device
-and is ROADMAP item 6.
+The reference's expert-parallel path (``_moe_apply_ep``, with
+``moe_token_chunk``) shards experts over a mesh's ``model`` axis; it comes
+with ROADMAP queue 1, item 6d.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
-"""Failure detection and straggler accounting.
+"""Failure detection, elastic re-mesh planning and straggler accounting.
 
-Copies of ``HeartbeatMonitor``, ``StragglerMonitor`` and
-``MitigationAction`` from ``repro.runtime.fault_tolerance``: a heartbeat
-watchdog (the serving client's wedge detector) and EMA step-time tracking
-per worker with the rebalance/evict policy. The rest of that module
-(elastic meshes) is not ported.
+Copies of ``HeartbeatMonitor``, ``MeshPlan``, ``plan_elastic_mesh``,
+``StragglerMonitor`` and ``MitigationAction`` from
+``repro.runtime.fault_tolerance``: a heartbeat watchdog (the serving
+client's wedge detector), the largest valid (pod, data, model) mesh from
+the surviving devices (:func:`plan_elastic_mesh`; its plan's shape and axes
+build a :class:`repro_torch.launch.mesh.Mesh` over the survivors' ranks),
+and EMA step-time tracking per worker with the rebalance/evict policy.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -78,6 +80,51 @@ class HeartbeatMonitor:
         self.close()
         return False
 
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-mesh planning
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshPlan:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    dropped_devices: int
+
+    @property
+    def n_devices(self) -> int:
+        return int(np.prod(self.shape))
+
+
+def plan_elastic_mesh(alive_devices: int, model_parallelism: int,
+                      global_batch: int,
+                      pods: int = 1) -> MeshPlan:
+    """Largest valid mesh from survivors.
+
+    Keeps the ``model`` axis fixed (parameter layouts must still fit) and
+    shrinks the ``data`` axis to the largest value such that
+    ``pods * data * model <= alive`` and data divides the global batch.
+    Surplus devices idle as hot spares (``dropped_devices``).
+    """
+    if alive_devices < model_parallelism:
+        raise ValueError(
+            f"cannot re-mesh: {alive_devices} survivors < "
+            f"model parallelism {model_parallelism}")
+    per_pod = alive_devices // pods
+    data = max(1, per_pod // model_parallelism)
+    while data > 1 and global_batch % (data * pods):
+        data -= 1
+    shape: Tuple[int, ...]
+    if pods > 1:
+        shape = (pods, data, model_parallelism)
+        axes = ("pod", "data", "model")
+    else:
+        shape = (data, model_parallelism)
+        axes = ("data", "model")
+    used = int(np.prod(shape))
+    return MeshPlan(shape=shape, axes=axes,
+                    dropped_devices=alive_devices - used)
 
 @dataclass
 class MitigationAction:

@@ -337,6 +337,13 @@ class ServeEngine:
                 "spec_k > 0 requires greedy sampling (temperature=0): "
                 "verification commits the model's argmax targets, which is "
                 f"only lossless under greedy — got {sampling}")
+        if exctx.requests_mesh(
+                context, exctx.ExecutionContext.from_butterfly_config(
+                    cfg.butterfly)):
+            raise ValueError(
+                "the serving engine runs on one device: a context with a "
+                "mesh field (mesh, mesh_shape, mesh_axes) is not served; "
+                "sharded serving comes with ROADMAP queue 1, item 6b")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pool = make_pool(cfg, slots, int(max_len), kind=pool,

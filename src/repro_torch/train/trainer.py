@@ -16,6 +16,16 @@ The ``Trainer`` resolves one
 :attr:`TrainResult.execution` reports it. A model without butterfly sites
 records ``"dense"``.
 
+With ``ButterflyConfig.mesh_shape`` set, the context carries the mesh
+(built at construction, where a mesh larger than the world fails loudly
+rather than mid-step), the steps run under the sharding context too, and
+every butterfly site shards its rows over the mesh's data axes
+(:mod:`repro_torch.runtime.butterfly_sharding`). Every rank runs the whole
+step on the whole global batch, from the same seed and the same batches,
+as the reference's module does under its mesh: only the sites' rows are
+split, and the weight gradients they all-reduce leave every rank's
+parameters the same. Only rank 0 writes checkpoints; every rank restores.
+
 Checkpoints use the reference's layout
 (:mod:`repro_torch.checkpoint.checkpointing`): params and the optimizer
 state under the reference's keys, layers stacked as ``unit``
@@ -42,6 +52,8 @@ from repro_torch.kernels import context as exctx
 from repro_torch.kernels import tuning
 from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
+from repro_torch.runtime import dist as rdist
+from repro_torch.runtime import sharding as rsh
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
 from repro_torch.train import steps as steps_lib
 
@@ -60,7 +72,8 @@ class ExecutionRecord:
       asked for them all, ``"process-wide: "`` and every choice; ``""``
       where the plain twins ran (a CPU run, or a dense model): nothing was
       queried.
-    * ``mesh_layout`` — ``""``: the port runs on one device.
+    * ``mesh_layout`` — e.g. ``"data=2"`` or ``"pod=2,data=2"``; ``""``
+      on one device.
     """
 
     backend: str = "dense"
@@ -123,9 +136,11 @@ class Trainer:
                 None, self.device,
                 default=exctx.ExecutionContext.from_butterfly_config(bc))
             self.kernel_backend = self.exec_ctx.backend
+            self.mesh = self.exec_ctx.mesh
         else:
             self.exec_ctx = None
             self.kernel_backend = "dense"
+            self.mesh = None
         self.step_fn = steps_lib.make_train_step(
             model_cfg, self.tx, train_cfg.microbatches, self.exec_ctx)
         self.ckpt = (CheckpointManager(train_cfg.checkpoint_dir,
@@ -171,17 +186,35 @@ class Trainer:
                                                 tree["opt"])
 
     def _scope(self):
-        """The run's frozen context as the ambient one (no-op for dense
-        models)."""
-        if self.exec_ctx is None:
-            return contextlib.nullcontext()
-        return exctx.use_execution(self.exec_ctx)
+        """The run's frozen context as the ambient one, and the sharding
+        context when it has a mesh (no-op for dense models)."""
+        stack = contextlib.ExitStack()
+        if self.exec_ctx is not None:
+            stack.enter_context(exctx.use_execution(self.exec_ctx))
+        if self.mesh is not None:
+            stack.enter_context(rsh.use_sharding(self.mesh))
+        return stack
+
+    def _barrier(self) -> None:
+        """Wait for every rank that runs this trainer (the mesh's, or the
+        world's without a mesh), so that none reads a checkpoint rank 0 is
+        still writing."""
+        if self.mesh is not None:
+            if self.mesh.size > 1:
+                torch.distributed.barrier(
+                    group=self.mesh.group(self.mesh.axis_names))
+        elif rdist.world_size() > 1:
+            torch.distributed.barrier()
 
     def run(self, steps: int, model: Optional[LM] = None, opt_state=None,
             resume: bool = True) -> TrainResult:
         """``steps`` train steps from ``model``/``opt_state`` (fresh from
         ``tc.seed`` when ``model`` is None; a fresh optimizer state when
-        ``opt_state`` is None), or from the newest valid checkpoint."""
+        ``opt_state`` is None), or from the newest valid checkpoint. Under
+        a mesh, every rank of it calls this; a rank outside it raises."""
+        if self.mesh is not None and self.mesh.coordinate is None:
+            raise RuntimeError(f"rank {rdist.rank()} is not in the mesh "
+                               f"{self.mesh.describe()}; it trains nothing")
         if model is None:
             model, opt_state = self.init_state(self.tc.seed)
         elif opt_state is None:
@@ -214,7 +247,8 @@ class Trainer:
                 losses.append(loss)
                 step_times.append(dt)
                 if (self.ckpt is not None and self.tc.checkpoint_every
-                        and (i + 1) % self.tc.checkpoint_every == 0):
+                        and (i + 1) % self.tc.checkpoint_every == 0
+                        and rdist.rank() == 0):
                     params = steps_lib.trainable(model)
                     self.ckpt.save(i + 1, {
                         "params": convert.to_jax_params(params, self.cfg),
@@ -225,6 +259,8 @@ class Trainer:
             prefetch.close()
             if self.ckpt is not None:
                 self.ckpt.wait()
+        if self.ckpt is not None:
+            self._barrier()
         self.model = model
         self.opt_state = opt_state
         # the choices are made at the launches: report those this run
@@ -246,4 +282,6 @@ class Trainer:
                            execution=ExecutionRecord(
                                backend=self.kernel_backend,
                                tuning=tuning_summary,
+                               mesh_layout=(self.exec_ctx.mesh_layout()
+                                            if self.exec_ctx else ""),
                                context=self.exec_ctx))

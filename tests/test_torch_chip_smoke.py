@@ -16,7 +16,9 @@ configs served, the MoE trained one step and its greedy tokens, gemma3's
 rings served, trained and its tokens, and the recurrent archs' smoke
 configs served on the dense pool, trained and their tokens with 1- and
 2-token prompts, and the frontend and encoder archs' smoke configs served
-with their stub inputs, trained and their tokens on both pools) runs on the smoke-sized butterfly config with the plain
+with their stub inputs, trained and their tokens on both pools, and the
+mesh phase's ranks on the CPU) runs on the smoke-sized butterfly config
+with the plain
 PyTorch versions in place of the kernels, so wrong paths, shapes and
 control flow show up before the script reaches a card. Also the script's refusals: no result
 and a non-zero exit without a CUDA device, or alone in a directory."""
@@ -114,7 +116,10 @@ REHEARSAL = dict(
     fit=(64, 8, 32, 5), sketch_run=(64, 48, 16, 8, 24, 8, 20),
     gated=((16, 64),), nonlinear_steps=2, lm_steps=2, zoo=ZOO_SMOKE,
     launch=dict(archs=("smollm-135m-smoke", "xlstm-125m-smoke"),
-                shapes=("decode_32k",), limit_s=None))
+                shapes=("decode_32k",), limit_s=None),
+    mesh=dict(ranks=2, rows=(64, 63), butterfly=(37, 128),
+              train=(16, 4, 2), cli=("smollm-135m-butterfly-smoke", 1, 16,
+                                     3), budget_s=None))
 
 
 def rehearse(capsys, *groups, smoke=None):

@@ -8,10 +8,11 @@ beats the config layer (``ButterflyConfig`` via
 per process); the resolved segment is the reference's on the same layers.
 Also: nested blocks merge field by field, resolution is idempotent and
 hashable, ``coerce`` takes backend strings, ``backend=`` is a
-``TypeError`` at every entry point, ``mesh_shape`` refused at resolution
-and a ``block_b`` the kernel does not take refused by the tile rule at the
+``TypeError`` at every entry point, ``mesh_shape`` resolved to its mesh
+(a mesh larger than the world raising) and refused by the serving engine,
+a ``block_b`` the kernel does not take refused by the tile rule at the
 call, each naming its ROADMAP item, a finalized context refolded under
-another block, the stack is per thread, the profile gate's order, the
+another block (keeping its backend and its mesh), the stack is per thread, the profile gate's order, the
 butterfly backward's one segment (another refused, naming item 7), and an
 engine frozen against an ambient block entered after construction.
 """
@@ -101,32 +102,56 @@ def test_segment_resolves_as_the_reference_does():
     ("mesh_axes", ("data",), "item 6")])
 def test_unported_fields_merge_and_are_refused(field, value, item):
     """block_b and the mesh fields ride the composition like the others.
-    Resolution refuses the mesh fields, naming the ROADMAP item; it keeps
-    block_b, which the tile rule (item 7) refuses at a call whose kernel
-    does not take it, before any work (the butterfly forward at n = 64
-    owns 16 rows a block)."""
+    Resolution keeps block_b, which the tile rule (item 7) refuses at a call
+    whose kernel does not take it, before any work (the butterfly forward
+    at n = 64 owns 16 rows a block). A mesh_shape resolves to its mesh
+    (ROADMAP item 6a): in this one-rank process a (pod, data) mesh of 8
+    raises, naming both ways to get the ranks; mesh_axes alone resolves
+    to no mesh, and ``local()`` keeps it as the reference's does. The
+    serving engine refuses both mesh fields before any tick (item 6b)."""
     ctx = ExecutionContext(**{field: value})
 
     def call():
-        if field != "block_b":
+        if field == "mesh_shape":
             return exctx.resolve_execution(None)
+        if field == "mesh_axes":
+            got = exctx.resolve_execution(None)
+            assert (got.mesh, got.mesh_axes, got.mesh_layout()) == \
+                (None, value, "")
+            return _engine()
         assert exctx.resolve_execution(None).block_b == value
         return kb.butterfly_forward(torch.zeros(2, 64), torch.zeros(6, 2, 64))
 
     with use_execution(ctx):
         assert getattr(exctx.current_execution(), field) == \
             (tuple(value) if isinstance(value, tuple) else value)
+        if field == "mesh_shape":
+            with pytest.raises(RuntimeError, match="needs 8 ranks") as e:
+                call()
+            assert "--simulated-devices 8" in str(e.value)
+            assert "torchrun" in str(e.value)
         with pytest.raises(ValueError, match=item):
-            call()
+            call() if field != "mesh_shape" else _engine()
     if field == "block_b":
         assert exctx.resolve_execution(ctx).block_b == value
         with pytest.raises(ValueError, match=item):
             kb.butterfly_forward(torch.zeros(2, 64), torch.zeros(6, 2, 64),
                                  context=ctx)
-    else:
-        with pytest.raises(ValueError, match=item):
+    elif field == "mesh_shape":
+        with pytest.raises(RuntimeError, match="--simulated-devices 8"):
             exctx.resolve_execution(ctx)
-    assert ctx.local().mesh_shape is None and ctx.local().mesh_axes is None
+    jlocal = jctx.ExecutionContext(**{field: value}).local()
+    assert ctx.local().mesh_shape is None and ctx.local().mesh is None
+    assert ctx.local().mesh_axes == jlocal.mesh_axes
+
+
+def _engine(cfg=None):
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import ServeEngine
+    cfg = cfg or registry.get("smollm-135m-butterfly-smoke")
+    model = LM(cfg, generator=torch.Generator().manual_seed(0))
+    return ServeEngine(cfg, model, slots=1, max_len=32, device="cpu")
 
 
 @pytest.mark.parametrize("field,value,item", [("block_b", 8, "item 7"),
@@ -134,10 +159,13 @@ def test_unported_fields_merge_and_are_refused(field, value, item):
 def test_butterfly_config_with_unported_field_is_refused(field, value,
                                                          item):
     """A ButterflyConfig with block_b or mesh_shape constructs (the
-    reference's configs do). The Trainer, the engine and a layer refuse
-    mesh_shape at resolution; block_b = 8 resolves, and the tile rule
+    reference's configs do). block_b = 8 resolves, and the tile rule
     refuses it at the first sandwich call (its row kernels own 64 rows
-    forward and 32 backward), before any work."""
+    forward and 32 backward), before any work. mesh_shape = (8,) resolves
+    to its mesh (item 6a): in this one-rank process the Trainer raises at
+    construction, not mid-step, and a layer at its first call, naming both
+    ways to get the ranks; the serving engine refuses it before any tick
+    (item 6b)."""
     from repro_torch.configs import registry
     from repro_torch.models.lm import LM
     from repro_torch.serve import ServeEngine
@@ -156,13 +184,15 @@ def test_butterfly_config_with_unported_field_is_refused(field, value,
         with pytest.raises(ValueError, match=item):
             model.head(torch.zeros(1, bad.d_model))
         return
-    with pytest.raises(ValueError, match=item):
+    too_large = r"butterfly mesh_shape \(8,\) needs 8 ranks but the world " \
+        r"has 1; .* --simulated-devices 8 .* torchrun"
+    with pytest.raises(RuntimeError, match=too_large):
         Trainer(bad, TrainConfig(checkpoint_every=0), seq_len=16,
                 global_batch=2, device="cpu")
     model = LM(bad, generator=torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match=item):
         ServeEngine(bad, model, slots=1, max_len=32, device="cpu")
-    with pytest.raises(ValueError, match=item):
+    with pytest.raises(RuntimeError, match=too_large):
         model.head(torch.zeros(1, bad.d_model))
 
 
@@ -228,8 +258,11 @@ def test_finalized_context_refolds_under_an_ambient_block():
         with use_execution(ExecutionContext(block_b=8)):
             assert exctx.resolve_execution(ctx).block_b == 8
         with use_execution(ExecutionContext(mesh_shape=(2,))):
-            with pytest.raises(ValueError, match="item 6"):
-                exctx.resolve_execution(ctx)
+            # a finalized context keeps its mesh (none): the block's
+            # mesh_shape, which this one-rank process could not build,
+            # never reaches it
+            assert exctx.resolve_execution(ctx).mesh is None
+            assert exctx.resolve_execution(ctx).mesh_shape is None
 
 
 def test_coerce_accepts_backend_strings():

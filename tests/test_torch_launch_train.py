@@ -6,8 +6,8 @@ Compression: the same gradients through the reference's transform and the
 port's, 3 updates, compressed gradients and error buffers at 1e-6; the
 port's per-layer leaves grouped as the reference's stacked ``unit`` leaf
 give the stacked leaf's result. The CLI takes the reference's flags,
-refuses its multi-device and XLA flags naming why, and trains on the CPU
-with ``--device cpu``. ``ExecutionRecord``: ``torch`` on the CPU,
+refuses its XLA flags naming why, takes its multi-device flags' paths, and
+trains on the CPU with ``--device cpu``. ``ExecutionRecord``: ``torch`` on the CPU,
 ``dense`` without butterfly sites.
 """
 
@@ -215,9 +215,47 @@ def test_cli_parses_the_reference_command_line():
     (["--simulated-devices", "8"], "item 6"),
     (["--distributed"], "item 6"),
     (["--xla-perf-flags"], "no torch meaning")])
-def test_cli_refuses_unported_flags(flags, why):
-    with pytest.raises(SystemExit, match=why):
-        train_cli.main(["--arch", SMOKE, "--device", "cpu"] + flags)
+def test_cli_refuses_unported_flags(flags, why, monkeypatch, capsys):
+    """``--xla-perf-flags`` exits: XLA's flags have no torch meaning. The
+    multi-device flags (ROADMAP ``why``, its part 6a) take their paths: a
+    ``(pod, data)`` mesh of 8 in this one-rank process raises naming both
+    ways to get the ranks; ``--simulated-devices 8`` hands its 8 CPU ranks
+    to ``spawn_ranks`` (run for real in
+    ``tests/test_torch_sharded_train.py``); ``--distributed`` joins the
+    world torchrun's variables describe, here one gloo rank, trains and
+    leaves it."""
+    argv = ["--arch", SMOKE, "--device", "cpu", "--steps", "1",
+            "--seq-len", "8", "--global-batch", "2"] + flags
+    if flags[0] == "--xla-perf-flags":
+        with pytest.raises(SystemExit, match=why):
+            train_cli.main(argv)
+    elif flags[0] == "--mesh-shape":
+        with pytest.raises(RuntimeError, match="butterfly mesh_shape "
+                           r"\(2, 4\) needs 8 ranks but the world has 1"):
+            train_cli.main(argv)
+    elif flags[0] == "--simulated-devices":
+        from repro_torch.runtime import dist as rdist
+        calls = []
+        monkeypatch.setattr(rdist, "spawn_ranks", lambda n, fn, *a, **k: (
+            calls.append((n, fn, a, k)) or ["rank 0's result"]))
+        assert train_cli.main(argv) == "rank 0's result"
+        (n, fn, (args, cfg), kw), = calls
+        assert (n, fn, kw, cfg.name) == (8, train_cli._train,
+                                         {"device": "cpu"}, SMOKE)
+        assert args.simulated_devices == 8
+    else:
+        from repro_torch.runtime import dist as rdist
+        with pytest.raises(RuntimeError, match="missing RANK, WORLD_SIZE"):
+            train_cli.main(argv)
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                     ("MASTER_ADDR", "localhost"),
+                     ("MASTER_PORT", str(rdist._free_port()))):
+            monkeypatch.setenv(k, v)
+        res = train_cli.main(argv)
+        assert res.steps_run == 1 and rdist.current_world() is None
+        assert not torch.distributed.is_initialized()
+        assert (f"[train] {SMOKE} | 1 process(es), 1 device(s) (cpu, gloo)"
+                in capsys.readouterr().out)
 
 
 def test_cli_refuses_archs_the_port_lacks(capsys):

@@ -1,0 +1,36 @@
+"""Rehearsal of `chip_smoke.py` on the CPU, phase 37, training on a
+butterfly data mesh: two gloo ranks on the CPU in place of two on the
+card, the smoke config's three sites at 64 and 63 rows and the butterfly
+at 37 x 128 sharded against the plain versions alone, the smoke config
+trained 2 steps at 16 x 4 unsharded and on the mesh, and the training
+CLI's `--simulated-devices 2 --mesh-shape 2 --device cpu` as a
+subprocess."""
+
+from test_torch_chip_smoke import rehearse
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
+
+
+def test_rehearsal_mesh(capsys):
+    _, kernels, out = rehearse(capsys, "mesh")
+    assert "mesh world: rank 0 of 2 on cpu over gloo; took all_reduce" \
+        in out
+    assert "mesh world: rank 1 of 2 on cpu over gloo" in out
+    assert "mesh nccl" not in out               # a card's world alone
+    for what in ("sandwich up_gate 64->128 x 64",
+                 "sandwich down 128->64 x 63",
+                 "sandwich lm_head 64->512 x 64", "butterfly 37 x 128"):
+        assert f"mesh site {what} on 2 ranks vs torch alone: forward" in out
+    assert "mesh train smollm-135m-butterfly-smoke float32, 16 x 4, 2 " \
+        "steps, unsharded vs 2 ranks: losses" in out
+    assert "backend=torch mesh=data=2" in out
+    assert "mesh train rank 1: step p50 " in out
+    assert "peak not measured (no card)" in out
+    assert "mesh cli: [train] smollm-135m-butterfly-smoke | 2 process(es)" \
+        ", 2 device(s) (cpu, gloo)" in out
+    assert "mesh cli: [train] done: loss" in out
+    assert "mesh: phase " in out
+    # the plain versions launch nothing; the paths are recorded
+    assert kernels["sandwich_bwd"]["launches_by_path"] == {
+        "mesh train rank 0": 0}
+    assert kernels["butterfly_fwd"]["launches_by_path"] == {
+        "mesh butterfly rank 0": 0}
