@@ -392,7 +392,8 @@ def requests_mesh(context: ContextLike = None,
                   default: ContextLike = None) -> bool:
     """Whether ``context`` over ``default`` sets a mesh field (``mesh``,
     ``mesh_shape`` or ``mesh_axes``), decided without building a mesh (the
-    serving engine's refusal)."""
+    serving engine's refusal of a mesh on an arch without butterfly
+    sites)."""
     merged = _fold(context, default)
     return any(f is not None for f in (merged.mesh, merged.mesh_shape,
                                        merged.mesh_axes))

@@ -32,14 +32,15 @@ import torch.distributed as dist
 from repro_torch.runtime import dist as rdist
 
 __all__ = ["Mesh", "butterfly_mesh", "make_mesh", "make_production_mesh",
-           "simulated_mesh", "single_device_mesh"]
+           "parse_mesh_shape", "production_layout", "simulated_mesh",
+           "single_device_mesh"]
 
 
 def _too_few(what: str, ndev: int) -> RuntimeError:
     return RuntimeError(
         f"{what} needs {ndev} ranks but the world has {rdist.world_size()}; "
         f"use a smaller mesh on this host, or start {ndev} ranks: "
-        f"--simulated-devices {ndev} (launch/train.py; "
+        f"--simulated-devices {ndev} (launch/train.py, launch/serve.py; "
         f"runtime.dist.spawn_ranks) on one host, or torchrun "
         f"--nproc-per-node {ndev} ... --distributed")
 
@@ -167,12 +168,39 @@ def single_device_mesh() -> Mesh:
     return make_mesh((1, 1), ("data", "model"))
 
 
+def _production(multi_pod: bool) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """Single-pod 16x16 (data, model) or 2-pod 2x16x16 (pod, data, model):
     256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = _production(multi_pod)
     return Mesh(shape, axes, what=f"production mesh {shape}")
+
+
+def production_layout(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh's layout alone (shape and axes, no ranks and no
+    groups): what the dry-run's accounting reads, which needs no world of
+    256 or 512 ranks."""
+    return _Layout(*_production(multi_pod))
+
+
+def parse_mesh_shape(text: str) -> Tuple[int, ...]:
+    """A CLI's ``--mesh-shape``: ``"2"`` -> ``(2,)`` (a ``("data",)``
+    mesh), ``"1x2"`` -> ``(1, 2)`` (``("pod", "data")``); ``SystemExit``
+    with the reference's message otherwise."""
+    try:
+        shape = tuple(int(s) for s in text.split("x"))
+        if not shape or any(s <= 0 for s in shape):
+            raise ValueError(shape)
+    except ValueError:
+        raise SystemExit(
+            f"invalid --mesh-shape {text!r}: expected e.g. "
+            f"'8' (data mesh) or '2x4' (pod x data)") from None
+    return shape
 
 
 def simulated_mesh(ndev: int = 8, axes: Sequence[str] = ("data",),

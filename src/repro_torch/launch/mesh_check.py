@@ -18,6 +18,11 @@ re-imports the target's module in every rank).
   (rank 0), launches per step, step times, peak memory, collectives.
 * :func:`phase` — the three rank-side parts of the phase in one world
   (a spawned rank takes seconds to reach a card).
+* :func:`serve` — phase 38's rank side: the sharded serving engine on a
+  ``(ranks,)`` mesh, rank 0 submitting the requests through its
+  :class:`~repro_torch.serve.mesh_serve.MeshServe` and the others
+  following it; each rank's tokens, ticks, per-tick wall, launches and
+  gathers, and peak memory.
 
 Every input comes from a seed, the same on every rank.
 """
@@ -265,3 +270,69 @@ def mesh_config(cfg, mesh_shape):
     config (``None``: unsharded)."""
     return cfg.with_(compute_dtype="float32", butterfly=dataclasses.replace(
         cfg.butterfly, mesh_shape=mesh_shape))
+
+
+def serve(cfg, prompts, slots: int, max_len: int, chunk: int, max_new: int,
+          timeout: float) -> dict:
+    """Serve ``prompts`` greedily (``max_new`` tokens each) on this rank's
+    engine over a ``(world,)`` mesh: ``cfg`` from seed 0
+    (:func:`repro_torch.serve.loader.init_params`, the weights every rank
+    and an unsharded run draw alike), ``slots`` lanes of the paged pool at
+    ``max_len``, chunks of ``chunk``. Every tick is timed between two
+    synchronisations with its launches and gathers (the gathers' seconds
+    too: :data:`~repro_torch.runtime.butterfly_sharding.collectives` is
+    timed, a synchronisation around each)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import Request, ServeEngine, loader
+    from repro_torch.serve.mesh_serve import MeshServe
+    world = rdist.current_world()
+    dev = world.device
+    model = loader.init_params(cfg, seed=0, device=dev)
+    engine = ServeEngine(cfg, model, slots=slots, max_len=max_len,
+                         prefill_chunk=chunk, device=dev,
+                         context=ExecutionContext(mesh_shape=(world.size,)))
+    records = []
+    step = engine.step
+
+    def timed(now=None):
+        m, stats = engine.metrics, bsh.collectives.stats
+        before = (m.chunk_ticks, m.decode_steps, ks.sandwich_forward.launches,
+                  pa.paged_decode_attention.launches,
+                  stats["gather"]["calls"], stats["gather"]["seconds"])
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = step(now)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = (m.chunk_ticks, m.decode_steps, ks.sandwich_forward.launches,
+                 pa.paged_decode_attention.launches,
+                 stats["gather"]["calls"], stats["gather"]["seconds"])
+        d = [a - b for a, b in zip(after, before)]
+        records.append({"ms": ms, "chunk": d[0], "decode": d[1],
+                        "sandwich": d[2], "paged": d[3], "gathers": d[4],
+                        "gather_ms": d[5] * 1e3})
+        return out
+
+    engine.step = timed
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    bsh.collectives.reset()
+    bsh.collectives.timed = True
+    try:
+        mirror = MeshServe(engine, timeout=timeout)
+        if mirror.leader:
+            for p in prompts:
+                mirror.submit(Request(prompt=p, max_new_tokens=max_new))
+            mirror.run_until_idle()
+            mirror.stop()
+        else:
+            mirror.follow()
+    finally:
+        bsh.collectives.timed = False
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**20
+            if dev.type == "cuda" else None)
+    return {"rank": world.rank, "world": world.describe(),
+            "tokens": [f.result(0).tokens for f in mirror.futures],
+            "ticks": engine.metrics.ticks, "records": records,
+            "peak_mib": peak, "layout": engine.mesh_layout(),
+            "captures": engine.graphs.captures}

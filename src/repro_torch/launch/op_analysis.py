@@ -15,7 +15,14 @@ nothing is allocated and nothing launches — and accumulates:
   written (views and allocations move nothing). Every op counts, where
   XLA's fusions would keep intermediates on chip: an upper estimate of an
   eager step's traffic;
-* the counts, FLOPs and bytes by op kind.
+* the counts, FLOPs and bytes by op kind;
+* of those bytes, a group's (``bytes_by_group``): the reads and writes
+  of the tensors given to :meth:`OpTally.mark` under that group (a
+  model's ``"weights"``, its ``"caches"``) and of the tensors computed
+  from that group's alone (a view, a cast); and as ``"state"`` every
+  byte counted inside :meth:`OpTally.state` (the optimizer's update). A
+  mesh's dry-run spreads each group by its own sharding
+  (:mod:`repro_torch.launch.dryrun`).
 
 Loops are counted once and multiplied. Inside :meth:`OpTally.repeat`
 every count is multiplied by ``n``; with ``loops=True`` the tally installs
@@ -40,9 +47,10 @@ multiplier and that of the loops it runs again.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -101,7 +109,12 @@ class OpTally:
     counts: Counter = field(default_factory=Counter)
     flops_by_kind: Counter = field(default_factory=Counter)
     bytes_by_kind: Counter = field(default_factory=Counter)
+    bytes_by_group: Counter = field(default_factory=Counter)
     _mult: float = 1.0
+    _in_state: bool = False
+    # id -> (weakref, group) of every marked tensor and tensor computed
+    # from one group's alone (an id alone could be reused by a later one)
+    _marks: Dict[int, Tuple[weakref.ref, str]] = field(default_factory=dict)
     # (first, last + 1) autograd sequence numbers of the nodes created in a
     # repeat(n) block, and n
     _scopes: List[Tuple[int, int, float]] = field(default_factory=list)
@@ -123,6 +136,26 @@ class OpTally:
             if last > first:
                 self._scopes.append((first, last, n))
                 self._memo.clear()
+
+    def mark(self, tensors: Iterable[torch.Tensor], group: str) -> None:
+        """Count the bytes of ``tensors``, and of what is computed from
+        them alone, as ``group``'s."""
+        for t in tensors:
+            self._marks[id(t)] = (weakref.ref(t), group)
+
+    def group_of(self, t: torch.Tensor) -> Optional[str]:
+        ref, group = self._marks.get(id(t), (None, None))
+        return group if ref is not None and ref() is t else None
+
+    @contextlib.contextmanager
+    def state(self):
+        """Every byte counted inside the block is the optimizer state's
+        (the update of the weights, their gradients and moments)."""
+        prev, self._in_state = self._in_state, True
+        try:
+            yield
+        finally:
+            self._in_state = prev
 
     def _node_factor(self, node) -> float:
         """The product of the repeat blocks the forward op of ``node`` ran
@@ -176,7 +209,8 @@ class OpTally:
         return False
 
     def add(self, kind: str, flops: float, nbytes: float,
-            matmul: bool) -> None:
+            matmul: bool, groups: Optional[Counter] = None) -> None:
+        """Count one op: ``nbytes`` moved, ``groups`` of them by group."""
         m = self.multiplier()
         self.counts[kind] += m
         if flops:
@@ -187,12 +221,19 @@ class OpTally:
         if nbytes:
             self.bytes += m * nbytes
             self.bytes_by_kind[kind] += m * nbytes
+            if self._in_state:
+                self.bytes_by_group["state"] += m * nbytes
+            else:
+                for g, b in (groups or {}).items():
+                    self.bytes_by_group[g] += m * b
 
     def to_dict(self) -> Dict:
         top = dict(sorted(self.flops_by_kind.items(),
                           key=lambda kv: -kv[1])[:12])
         return {"flops": self.flops, "matmul_flops": self.matmul_flops,
-                "bytes": self.bytes, "ops": sum(self.counts.values()),
+                "bytes": self.bytes,
+                "bytes_by_group": dict(self.bytes_by_group),
+                "ops": sum(self.counts.values()),
                 "flops_by_kind": top}
 
 
@@ -203,13 +244,23 @@ class _TallyMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        self.tally._enter_op()
+        tally = self.tally
+        tally._enter_op()
         out = func(*args, **kwargs)
-        self.tally._exit_op()
+        tally._exit_op()
+        ins, seen = [], set()
+        for t in list(_tensors(args)) + list(_tensors(kwargs)):
+            if id(t) not in seen:
+                seen.add(id(t))
+                ins.append(t)
+        groups = [tally.group_of(t) for t in ins]
+        common = groups[0] if ins and len(set(groups)) == 1 else None
+        if common is not None:
+            tally.mark(_tensors(out), common)
         packet = func._overloadpacket
         kind = packet.__name__
         if kind in _FREE or func.is_view:
-            self.tally.counts[kind] += self.tally.multiplier()
+            tally.counts[kind] += tally.multiplier()
             return out
         flops, matmul = 0, False
         if packet in flop_registry:
@@ -220,12 +271,15 @@ class _TallyMode(TorchDispatchMode):
             flops = sum(t.numel() for t in _tensors(out))
         if kind in ("copy_", "_to_copy", "clone", "contiguous"):
             flops = 0                      # data movement, no arithmetic
-        seen = set()
-        nbytes = 0
-        for t in list(_tensors(args)) + list(_tensors(kwargs)):
-            if id(t) not in seen:
-                seen.add(id(t))
-                nbytes += _nbytes(t)
-        nbytes += sum(_nbytes(t) for t in _tensors(out))
-        self.tally.add(kind, flops, nbytes, matmul)
+        nbytes, by_group = 0, Counter()
+        for t, g in zip(ins, groups):
+            nbytes += _nbytes(t)
+            if g is not None:
+                by_group[g] += _nbytes(t)
+        for t in _tensors(out):
+            nbytes += _nbytes(t)
+            g = tally.group_of(t)
+            if g is not None:
+                by_group[g] += _nbytes(t)
+        tally.add(kind, flops, nbytes, matmul, by_group)
         return out

@@ -94,12 +94,18 @@ def diff_table(base: List[Dict], new: List[Dict], cells: List) -> str:
 
 
 def render(records: List[Dict]) -> str:
-    """Both tables, headed with the card they are bounds for."""
-    return "\n".join([
-        f"## Roofline on one H100 (h100x1; {CARD})\n",
-        roofline_table(records),
-        "\n## Dry-run detail\n",
-        dryrun_table(records)])
+    """A roofline table a mesh (one card first, then the pods, whose
+    terms are a card's share of the one-card tally and whose argument
+    bytes are a card's under the sharding trees) and the detail table,
+    headed with the card they are bounds for."""
+    meshes = sorted({r["mesh"] for r in records},
+                    key=lambda m: (m != "h100x1", m)) or ["h100x1"]
+    out = []
+    for mesh in meshes:
+        what = "one H100" if mesh == "h100x1" else "a card of the pod"
+        out += [f"## Roofline on {what} ({mesh}; {CARD})\n",
+                roofline_table(records, mesh), ""]
+    return "\n".join(out + ["## Dry-run detail\n", dryrun_table(records)])
 
 
 def main(argv=None):

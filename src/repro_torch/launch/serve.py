@@ -35,9 +35,20 @@ timelines through one shared :class:`repro_torch.obs.Tracer` (replica
 
 ``--pool dense`` serves one full row per slot; ``--prefill-chunk 0``
 admits whole prompts (power-of-two buckets; exact lengths for archs with
-sliding-window rings, which never chunk). Not ported yet, and refused
-with a message rather than ignored: ``--mesh-shape`` and
-``--simulated-devices`` (the sharded engine; ROADMAP queue 1, item 6b).
+sliding-window rings, which never chunk).
+
+The reference's mesh flags, one process a rank
+(:mod:`repro_torch.runtime.dist`): ``--mesh-shape 2`` (a ``("data",)``
+mesh) or ``1x2`` (``("pod", "data")``) shards every butterfly site's rows
+over the mesh (a butterfly arch only); ``--simulated-devices N`` starts N
+ranks on this host (CPU ranks over gloo with ``--device cpu``, else ranks
+on the card, over gloo when they share it). Every rank of the mesh builds
+the same engines; rank 0 replays the trace, prints (its header ending
+``| mesh=data=2``) and writes ``--metrics-json`` and ``--trace-out``, and
+the other ranks mirror its control flow
+(:class:`~repro_torch.serve.mesh_serve.MeshServe`). Without
+``--simulated-devices`` the world is this process alone, and a mesh
+larger than one rank raises, naming the flag.
 ``--arch`` takes every registry name (the recurrent archs serve on the
 dense pool, whole prompts at their exact lengths; the frontend and encoder
 archs admit whole prompts in power-of-two buckets). A frontend arch's
@@ -47,7 +58,8 @@ trace's: ``frontend_embeds`` (1, frontend_tokens, d_model) for
 internvl2-1b, ``frames`` (1, enc_seq, d_model) for seamless-m4t-medium.
 
 :func:`main` takes ``argv`` and returns the document ``--metrics-json``
-writes, so it can be called in-process.
+writes (rank 0's under ``--simulated-devices``), so it can be called
+in-process.
 """
 
 from __future__ import annotations
@@ -149,37 +161,72 @@ def _parser() -> argparse.ArgumentParser:
                          "Chrome trace-event JSON here; tracing stays off "
                          "without this flag")
     ap.add_argument("--mesh-shape", default="",
-                    help="sharded serving (not ported: ROADMAP 6b)")
+                    help="serve over a butterfly data mesh, e.g. '2' for a "
+                         "(data,) mesh or '1x2' for (pod, data); requires "
+                         "a butterfly arch (the sites' rows sharded over "
+                         "the ranks)")
     ap.add_argument("--simulated-devices", type=int, default=0,
-                    help="simulated host devices (not ported: ROADMAP 6b)")
+                    help="start N ranks on this host (must be >= the mesh "
+                         "size): CPU ranks over gloo with --device cpu, "
+                         "else ranks on the card; rank 0 replays the "
+                         "trace and prints")
     return ap
 
 
-def _refuse_unported(args) -> None:
-    if args.mesh_shape or args.simulated_devices:
-        raise SystemExit("--mesh-shape and --simulated-devices are not "
-                         "ported for serving: the port serves on one device "
-                         "(ROADMAP queue 1, item 6b, brings the sharded "
-                         "engine; training takes them)")
-
-
-def main(argv: Optional[List[str]] = None) -> Dict:
+def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
     if args.replicas < 1:
         raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
-
-    import numpy as np
+    if args.simulated_devices < 0:
+        raise SystemExit(f"--simulated-devices must be >= 1, got "
+                         f"{args.simulated_devices}")
 
     from repro_torch.kernels import build
-    from repro_torch.launch import ported_config
     from repro_torch.kernels.context import resolve_device
+    from repro_torch.launch import ported_config
+    from repro_torch.launch.train import with_mesh
+    from repro_torch.runtime import dist as rdist
+
+    cfg = with_mesh(ported_config(args.arch), args)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        # before any rank or driver starts: a first-use nvcc would count
+        # against a tick
+        build.build(SERVE_LIBRARIES)
+    if args.simulated_devices:
+        return rdist.spawn_ranks(args.simulated_devices, _serve, args, cfg,
+                                 device=dev.type)[0]
+    return _serve(args, cfg, dev)
+
+
+def _serve(args, cfg, dev=None) -> Optional[Dict]:
+    """Serve on this rank (``dev``, or the joined world's device): rank 0
+    replays the trace and returns the telemetry document; on a mesh of
+    several ranks the others follow it (:class:`~repro_torch.serve.
+    mesh_serve.MeshServe`) and return ``None``, as does a rank outside the
+    mesh."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import butterfly_mesh
     from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
+    from repro_torch.runtime import dist as rdist
     from repro_torch.serve import (FaultInjector, Router, SamplingParams,
                                    ServeClient, ServeEngine, loader, trace)
+    from repro_torch.serve.mesh_serve import MeshServe
 
-    cfg = ported_config(args.arch)
-    dev = resolve_device(args.device)
+    world = rdist.current_world()
+    if world is not None:
+        dev = world.device
+    leader = rdist.rank() == 0
+    shape = cfg.butterfly.mesh_shape if cfg.butterfly is not None else None
+    # building the mesh is collective: every rank of the world takes part,
+    # those outside it included
+    mesh = butterfly_mesh(shape) if shape is not None else None
+    if mesh is not None and mesh.coordinate is None:
+        return None                     # a spare rank beyond the mesh
+    multi = mesh is not None and mesh.size > 1
+    if not (leader or multi):
+        return None                     # without a mesh rank 0 serves alone
     step, model = loader.load_for_serving(cfg, args.checkpoint_dir,
                                           seed=args.seed, device=dev)
     src = f"checkpoint step {step}" if step is not None else "fresh init"
@@ -195,7 +242,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     # replica i is pid i in the Chrome trace, and the registry keeps the
     # per-replica families apart via the {"replica": i} label
     obs_registry = MetricsRegistry()
-    tracer = Tracer() if args.trace_out else NULL_TRACER
+    tracer = Tracer() if args.trace_out and leader else NULL_TRACER
     engines = [ServeEngine(
         cfg, m, slots=args.slots, max_len=args.max_len,
         pool=args.pool, page_size=args.page_size,
@@ -209,15 +256,20 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         replica=i)
         for i, (m, faults) in enumerate(zip(models, injectors))]
     engine, faults = engines[0], injectors[0]
-    if dev.type == "cuda":
-        build.build(SERVE_LIBRARIES)
+    router = Router(engines) if args.replicas > 1 else None
+    mirror = MeshServe(router or engine) if multi else None
+    if not leader:
+        mirror.follow()
+        return None
     print(f"[serve] {cfg.name} | params: {src} | slots={args.slots} "
           f"max_len={args.max_len} pool={engine.pool.kind} "
           f"chunk={engine.prefill_chunk} admission={engine.admission} "
           f"spec_k={engine.spec_k} "
           f"sampling=(T={args.temperature}, "
           f"k={args.top_k}, p={args.top_p}) | device={dev.type}"
-          + (f" | replicas={args.replicas}" if args.replicas > 1 else ""))
+          + (f" | replicas={args.replicas}" if args.replicas > 1 else "")
+          + (f" | mesh={engine.mesh_layout()}" if engine.mesh is not None
+             else ""), flush=True)
 
     hi = min(args.max_prompt, args.max_len - args.max_new)
     if hi < args.min_prompt:
@@ -269,7 +321,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         return t
 
     if args.replicas == 1:
-        with ServeClient(engine) as client:
+        with (mirror or ServeClient(engine)) as client:
             flusher = start_flusher(engine.telemetry)
             try:
                 futs, shed = trace.replay(client.submit, items,
@@ -305,11 +357,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                   f"shed={shed} cancelled={snap['cancelled']} "
                   f"deadline_expired={snap['deadline_expired']}{inj}")
     else:
-        router = Router(engines)
-        with router:
+        with (mirror or router) as front:
             flusher = start_flusher(router.telemetry)
             try:
-                futs, shed = trace.replay(router.submit, items,
+                futs, shed = trace.replay(front.submit, items,
                                           request_kw={"extras": extras})
                 for fut in futs:
                     show(fut)

@@ -1,25 +1,45 @@
-"""Abstract inputs and parameter accounting for the dry-run, on ``meta``
-tensors: nothing is allocated for the full-size configs.
+"""Abstract inputs, sharding trees and parameter accounting for the
+dry-run, on ``meta`` tensors: nothing is allocated for the full-size
+configs.
 
 Counterpart of ``repro.launch.specs``. ``batch_specs``, ``decode_specs``
 and ``abstract_model`` build meta tensors on the port's own modules;
-``param_counts`` and ``model_flops`` keep the reference's formulas. The
-reference's sharding trees (``batch_shardings``, ``cache_shardings``,
-``param_shardings``, ``replicated``, ``_CACHE_AXES``) come with ROADMAP
-queue 1, item 6c, beside ``kv_layout`` and a logical-axes table for the
-port's leaves; the butterfly sites' row sharding (item 6a) needs none of
-them.
+``param_counts`` and ``model_flops`` keep the reference's formulas.
+
+The sharding half: :func:`batch_shardings`, :func:`cache_shardings`,
+:func:`param_shardings` and :func:`replicated` return
+:class:`~repro_torch.runtime.sharding.PartitionSpec` trees over the port's
+own leaves (a batch dict, the flat cache dict, the model's parameter
+names), resolved by the reference's rules
+(:func:`~repro_torch.runtime.sharding.logical_to_pspec`). The port has no
+``NamedSharding``: a mesh and a spec stand for one, and
+:func:`sharded_bytes` is a leaf's bytes on one card under them. The
+logical axes come from one table each: :data:`PARAM_AXES` for the
+parameters (keyed by the reference leaf that holds a port parameter,
+:func:`repro_torch.convert.reference_key`, so that the reference's
+``ParamSpec`` axes are not guessed a second time; the tests hold every
+entry against them), :data:`_CACHE_AXES` and
+:func:`repro_torch.models.attention.kv_layout` for the caches. The port
+executes only the butterfly sites' rows over ``pod``/``data``
+(:mod:`repro_torch.runtime.butterfly_sharding`); every other axis here is
+launch accounting.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+import math
+import re
+from typing import Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import lm
+from repro_torch.models.attention import kv_layout
+from repro_torch.runtime import sharding as sh
+from repro_torch.runtime.sharding import PartitionSpec
 from repro_torch.serve import cache as sc
 
 META = torch.device("meta")
@@ -70,6 +90,161 @@ def tensor_bytes(tensors) -> int:
     if isinstance(tensors, dict):
         tensors = tensors.values()
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# Sharding trees
+# ---------------------------------------------------------------------------
+
+_STAGES = ("stages", "butterfly_pair", "butterfly_n")
+#: a butterfly site's leaves (``ffn.up``, ``ffn.gate``, ``ffn.down``,
+#: ``head``): weights replicated by the rules, rows sharded at run time
+_SITE_AXES = {"b_in": _STAGES, "b_out": _STAGES,
+              "core": ("butterfly_core_out", "butterfly_core_in"),
+              "bias": ("butterfly_bias",)}
+_SITES = ("ffn.up", "ffn.gate", "ffn.down", "head")
+_ATTN = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+
+#: the logical axes of every reference leaf holding a port parameter, one
+#: layer's (the stacked repeat axis of a ``unit`` leaf is not in them):
+#: keyed by the reference key with its ``unit[i].``/``tail[j].``/
+#: ``enc_unit[0].`` prefix dropped; a site's leaves are in
+#: :data:`_SITE_AXES`
+PARAM_AXES: Dict[str, Tuple] = {
+    "embed.table": ("vocab", "embed"),
+    "final_norm": (None,), "enc_norm": (None,),
+    "frontend_proj": ("embed", None),
+    "head.w": ("embed", "vocab"),
+    "norm1": (None,), "norm2": (None,), "norm_x": (None,),
+    **{f"attn.{k}": v for k, v in _ATTN.items()},
+    **{f"xattn.{k}": v for k, v in _ATTN.items()},
+    "ffn.up.w": ("embed", "mlp"), "ffn.gate.w": ("embed", "mlp"),
+    "ffn.down.w": ("mlp", "embed"),
+    "ffn.router": ("embed", None),
+    "ffn.w_gate": ("experts", "embed", "expert_mlp"),
+    "ffn.w_up": ("experts", "embed", "expert_mlp"),
+    "ffn.w_down": ("experts", "expert_mlp", "embed"),
+    "rec.b_a": (None,), "rec.b_x": (None,), "rec.lam": (None,),
+    "rec.conv": (None, "rnn_state"),
+    "rec.w_a": ("rnn_state", None), "rec.w_x": ("rnn_state", None),
+    "rec.w_in": ("embed", "rnn_state"),
+    "rec.w_gate_branch": ("embed", "rnn_state"),
+    "rec.w_out": ("rnn_state", "embed"),
+    "mlstm.b_fgate": (None,), "mlstm.b_igate": (None,),
+    "mlstm.conv": (None, "mlp"), "mlstm.headnorm": (None,),
+    "mlstm.w_up": ("embed", "mlp"), "mlstm.w_down": ("mlp", "embed"),
+    "mlstm.w_fgate": ("mlp", None), "mlstm.w_igate": ("mlp", None),
+    "mlstm.wq": ("mlp", None), "mlstm.wk": ("mlp", None),
+    "mlstm.wv": ("mlp", None),
+    "slstm.b_zifo": (None,), "slstm.groupnorm": (None,),
+    "slstm.r_zifo": (None, None, None),
+    "slstm.w_zifo": ("embed", "mlp"), "slstm.ffn_up": ("embed", "mlp"),
+    "slstm.ffn_gate": ("embed", "mlp"), "slstm.ffn_down": ("mlp", "embed"),
+}
+
+_LAYER_PREFIX = re.compile(r"^(unit|tail|enc_unit)\[\d+\]\.")
+
+
+def param_axes(name: str, cfg: ModelConfig) -> Tuple:
+    """The logical axes of the port parameter ``name`` of a model of
+    ``cfg``: its reference leaf's (:data:`PARAM_AXES`); ``KeyError`` for a
+    leaf the table does not know."""
+    path = _LAYER_PREFIX.sub("", convert.reference_key(name, cfg))
+    site, _, leaf = path.rpartition(".")
+    if site in _SITES and leaf in _SITE_AXES:
+        return _SITE_AXES[leaf]
+    if path not in PARAM_AXES:
+        raise KeyError(f"no logical axes for {name} (reference leaf "
+                       f"{path!r}); add it to PARAM_AXES")
+    return PARAM_AXES[path]
+
+
+def param_shardings(cfg: ModelConfig, mesh, rules=sh.DEFAULT_RULES
+                    ) -> Dict[str, PartitionSpec]:
+    """``{parameter name: PartitionSpec}`` over the port model's
+    parameters on ``mesh``."""
+    return {n: sh.logical_to_pspec(param_axes(n, cfg), p.shape, mesh, rules)
+            for n, p in abstract_model(cfg).named_parameters()}
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                    rules=sh.DEFAULT_RULES) -> Dict[str, PartitionSpec]:
+    """Every batch input sharded on its leading (batch) dim."""
+    return {k: sh.logical_to_pspec(("batch",) + (None,) * (v.dim() - 1),
+                                   v.shape, mesh, rules)
+            for k, v in batch_specs(cfg, shape).items()}
+
+
+#: the logical axes of a recurrent block's state leaves (the reference's
+#: table, by the field name after the port's ``rec_``/``mlstm_``/``slstm_``
+#: prefix)
+_CACHE_AXES = {
+    "h": ("batch", "rnn_state"),
+    "conv": ("batch", None, "rnn_state"),
+    "C": ("batch", "heads", None, None),
+    "n": ("batch", "heads", None),
+    "m": ("batch", "heads"),
+    "c": ("batch", None),
+}
+_KV_KEYS = ("k", "v", "ring_k", "ring_v", "cross_k", "cross_v")
+
+
+def _cache_leaf_axes(cfg: ModelConfig, key: str, ndim: int) -> Tuple:
+    """One layer's axes of the cache entry ``key`` (``ndim`` its dims
+    without the stacked layer axis), as the reference's
+    ``_cache_leaf_axes`` gives them for that layer's leaf."""
+    if key in _KV_KEYS:
+        axes = kv_layout(cfg, "decode")
+    else:
+        field = key.split("_", 1)[1]
+        axes = _CACHE_AXES.get(field, ("batch",) + (None,) * (ndim - 1))
+    if len(axes) < ndim:
+        axes = (None,) * (ndim - len(axes)) + tuple(axes)
+    return tuple(axes[:ndim])
+
+
+def cache_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                    rules=sh.DEFAULT_RULES) -> Dict[str, PartitionSpec]:
+    """``{cache key: PartitionSpec}`` over the flat cache dict of the dense
+    layout at ``shape`` (:func:`decode_specs`). Each entry takes its
+    reference leaf's axes (:func:`_cache_leaf_axes`, under
+    :func:`~repro_torch.runtime.sharding.use_sharding` of ``mesh`` for
+    :func:`kv_layout`) after the stacked layer axis, which stays
+    replicated."""
+    out = {}
+    with sh.use_sharding(mesh, rules):
+        for key, t in decode_specs(cfg, shape)[1].items():
+            axes = _cache_leaf_axes(cfg, key, t.dim() - 1)
+            out[key] = sh.logical_to_pspec((None,) + axes, t.shape, mesh,
+                                           rules)
+    return out
+
+
+def replicated(mesh) -> PartitionSpec:
+    """The spec of a replicated argument (a step's count, a decode
+    position)."""
+    return PartitionSpec()
+
+
+def sharded_bytes(t: torch.Tensor, spec: Sequence, mesh) -> int:
+    """Bytes of ``t`` on one card of ``mesh`` under ``spec``: each dim
+    divided by the product of its mesh axes' sizes, rounded up."""
+    n = 1
+    for i, d in enumerate(t.shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        n *= -(-d // math.prod(mesh.shape[a] for a in axes))
+    return n * t.element_size()
+
+
+def tree_bytes(tensors: Dict[str, torch.Tensor],
+               specs: Dict[str, Sequence], mesh) -> int:
+    """:func:`sharded_bytes` summed over a dict of tensors."""
+    return sum(sharded_bytes(t, specs[k], mesh) for k, t in tensors.items())
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,7 @@ from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["main"]
+__all__ = ["main", "with_mesh"]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -79,7 +79,7 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _with_mesh(cfg, args):
+def with_mesh(cfg, args):
     """``cfg`` with ``--mesh-shape`` in its butterfly config; the
     reference's messages for a dense arch and a malformed shape."""
     if not args.mesh_shape:
@@ -89,14 +89,8 @@ def _with_mesh(cfg, args):
         raise SystemExit(
             f"--mesh-shape needs a butterfly arch (try "
             f"{args.arch}-butterfly); {cfg.name} has no butterfly sites")
-    try:
-        shape = tuple(int(s) for s in args.mesh_shape.split("x"))
-        if not shape or any(s <= 0 for s in shape):
-            raise ValueError(shape)
-    except ValueError:
-        raise SystemExit(
-            f"invalid --mesh-shape {args.mesh_shape!r}: expected e.g. "
-            f"'8' (data mesh) or '2x4' (pod x data)") from None
+    from repro_torch.launch.mesh import parse_mesh_shape
+    shape = parse_mesh_shape(args.mesh_shape)
     return cfg.with_(butterfly=dc_replace(cfg.butterfly, mesh_shape=shape))
 
 
@@ -120,7 +114,7 @@ def main(argv: Optional[List[str]] = None):
     from repro_torch.launch import ported_config
     from repro_torch.runtime import dist as rdist
 
-    cfg = _with_mesh(ported_config(args.arch), args)
+    cfg = with_mesh(ported_config(args.arch), args)
     device = resolve_device(args.device)
     if args.simulated_devices:
         return rdist.spawn_ranks(args.simulated_devices, _train, args, cfg,

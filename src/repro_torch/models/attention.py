@@ -37,6 +37,11 @@ Counterpart of ``repro.models.attention.attention``.
 
 Every cache is updated in place and no branch synchronises with the host,
 so a decode tick captures as one CUDA graph.
+
+:func:`kv_layout` is the reference's one K/V and cache layout on the
+ambient mesh. The port holds K/V whole on every rank (it has no tensor
+parallelism): the layout names the logical axes the launch accounting
+(:mod:`repro_torch.launch.specs`) shards the caches by.
 """
 
 from __future__ import annotations
@@ -52,6 +57,25 @@ from repro_torch.kernels.context import ContextLike
 from repro_torch.models import common as cm
 from repro_torch.nn.linear import scaled_normal
 from repro_torch.runtime import loops
+
+
+def kv_layout(cfg: ModelConfig, mode: str) -> Tuple:
+    """The logical axes of K/V and of the cache, ``(batch, seq, kv_heads,
+    head_dim)``, on the ambient sharding context's mesh
+    (:func:`repro_torch.runtime.sharding.active_ctx`), as the reference's:
+    the KV heads over ``model`` when that axis divides them, else the
+    sequence (``seq_kv``) outside training."""
+    from repro_torch.runtime.sharding import active_ctx
+    ctx = active_ctx()
+    kv_ok = False
+    if (ctx is not None and ctx.mesh is not None
+            and "model" in ctx.mesh.shape):
+        kv_ok = cfg.n_kv_heads % ctx.mesh.shape["model"] == 0
+    if kv_ok:
+        return ("batch", None, "kv_heads", None)
+    if mode == "train":
+        return ("batch", None, None, None)
+    return ("batch", "seq_kv", None, None)
 
 
 class Attention(nn.Module):

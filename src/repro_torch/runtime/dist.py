@@ -10,7 +10,7 @@ in a ``torch.distributed`` process group, and a mesh
   (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
   ``MASTER_ADDR``, ``MASTER_PORT``): the training CLI's ``--distributed``.
 * :func:`spawn_ranks` starts ``n`` ranks on this host (the ``spawn``
-  context, a free local port), runs ``fn(*args)`` in each and returns each
+  context, a TCP store the caller holds on a free local port), runs ``fn(*args)`` in each and returns each
   rank's result to the caller: the CLI's ``--simulated-devices N``, the
   tests and ``chip_smoke.py``. A rank that raises makes it raise with that
   rank's traceback, after it has stopped every rank it started.
@@ -28,13 +28,14 @@ sites build what they need from those it takes
 
 from __future__ import annotations
 
+import datetime
 import os
 import queue
 import socket
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -82,14 +83,19 @@ def current_world() -> Optional[World]:
     return _WORLD
 
 
-def init_world(rank: int, size: int, init_method: str,
-               device: str = "cpu", local_rank: Optional[int] = None,
-               local_size: Optional[int] = None) -> World:
+def init_world(rank: int, size: int, init_method: Union[str, dist.Store],
+               device: str = "cuda", local_rank: Optional[int] = None,
+               local_size: Optional[int] = None,
+               timeout: Optional[float] = None) -> World:
     """Join a world of ``size`` ranks as ``rank`` through ``init_method``
-    (``tcp://host:port``). ``device`` is ``"cpu"`` or ``"cuda"``; a CUDA
-    rank runs on its own card ``cuda:<local_rank>`` over NCCL when this
-    host's ``local_size`` ranks each have one, else on
-    ``cuda:<local_rank mod cards>`` over gloo."""
+    (``tcp://host:port``, or a ``torch.distributed.Store`` the ranks
+    share). ``device`` is ``"cuda"`` (the default; raises
+    without a card) or ``"cpu"``; a CUDA rank runs on its own card
+    ``cuda:<local_rank>`` over NCCL when this host's ``local_size`` ranks
+    each have one, else on ``cuda:<local_rank mod cards>`` over gloo.
+    ``timeout`` (seconds, ``None`` = torch's default) bounds each
+    collective of the world: a rank left waiting for a peer that never
+    issues its side fails instead of hanging."""
     global _WORLD
     local_rank = rank if local_rank is None else local_rank
     local_size = size if local_size is None else local_size
@@ -105,16 +111,22 @@ def init_world(rank: int, size: int, init_method: str,
         backend, dev = "gloo", torch.device("cpu")
     else:
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=size)
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
+    if isinstance(init_method, dist.Store):
+        kw["store"] = init_method
+    else:
+        kw["init_method"] = init_method
+    dist.init_process_group(backend, rank=rank, world_size=size, **kw)
     _WORLD = World(rank=rank, size=size, backend=backend, device=dev)
     return _WORLD
 
 
 def init_from_env(device: Optional[str] = None) -> World:
     """Join the world that ``torchrun`` describes in the environment.
-    ``device`` ``None`` means ``"cuda"`` where a card is visible, else
-    ``"cpu"``."""
+    ``device`` ``None`` means ``"cuda"``, which raises without a card
+    (:func:`~repro_torch.kernels.context.resolve_device`'s rule); pass
+    ``"cpu"`` for CPU ranks."""
     env = os.environ
     missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
                            "MASTER_PORT") if k not in env]
@@ -124,11 +136,10 @@ def init_from_env(device: Optional[str] = None) -> World:
     size = int(env["WORLD_SIZE"])
     local_rank = int(env.get("LOCAL_RANK", env["RANK"]))
     local_size = int(env.get("LOCAL_WORLD_SIZE", size))
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     return init_world(int(env["RANK"]), size,
                       f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-                      device, local_rank, local_size)
+                      "cuda" if device is None else device, local_rank,
+                      local_size)
 
 
 def shutdown() -> None:
@@ -149,12 +160,14 @@ def _free_port() -> int:
 
 
 def _rank_main(rank: int, n: int, port: int, device: str, threads: int,
-               fn: Callable, args: Sequence, results) -> None:
+               group_timeout: Optional[float], fn: Callable, args: Sequence,
+               results) -> None:
     """One spawned rank: join the world, run ``fn(*args)``, put
     ``(rank, ok, result or traceback)`` on ``results``, leave."""
     try:
         torch.set_num_threads(threads)
-        init_world(rank, n, f"tcp://localhost:{port}", device)
+        store = dist.TCPStore("localhost", port, n, is_master=False)
+        init_world(rank, n, store, device, timeout=group_timeout)
         results.put((rank, True, fn(*args)))
     except BaseException:               # reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
@@ -162,29 +175,40 @@ def _rank_main(rank: int, n: int, port: int, device: str, threads: int,
         shutdown()
 
 
-def spawn_ranks(n: int, fn: Callable, *args: Any, device: str = "cpu",
-                threads: Optional[int] = None,
-                timeout: float = 1800.0) -> List[Any]:
+def spawn_ranks(n: int, fn: Callable, *args: Any, device: str = "cuda",
+                threads: Optional[int] = None, timeout: float = 1800.0,
+                group_timeout: Optional[float] = None) -> List[Any]:
     """Run ``fn(*args)`` in ``n`` new ranks of one world on this host and
     return their results in rank order. ``fn`` and ``args`` are pickled
     (``fn`` by its import path: a function of a module, not of
-    ``__main__``). ``device``: ``"cpu"`` (gloo) or ``"cuda"`` (NCCL when
-    the host has a card for each rank, else all ranks on ``cuda:0`` over
-    gloo). ``threads``: torch's intra-op threads a rank (default: this
+    ``__main__``). ``device``: ``"cuda"`` (the default: NCCL when the host
+    has a card for each rank, else all ranks on ``cuda:0`` over gloo;
+    raises before any rank starts when there is no card) or ``"cpu"``
+    (gloo). ``threads``: torch's intra-op threads a rank (default: this
     process's, shared out). Raises ``RuntimeError`` with the rank's
     traceback when a rank fails, exits without a result, or the ranks
     outlast ``timeout`` seconds; every rank is stopped before it returns or
-    raises."""
+    raises. ``group_timeout`` is :func:`init_world`'s ``timeout`` in every
+    rank: a collective that one rank never matches fails its peers after
+    that many seconds, so a divergence fails rather than hangs."""
     if n < 1:
         raise ValueError(f"need at least one rank, got {n}")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' asked for, but no CUDA device is "
+                           "available; pass device='cpu' for CPU ranks")
     if threads is None:
         threads = max(1, torch.get_num_threads() // n)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    # the world's store, held here from bind to the end: a port freed and
+    # bound again later could be taken meanwhile by another world on this
+    # host, whose ranks would then meet these in one store
+    store = dist.TCPStore("localhost", 0, n, is_master=True,
+                          wait_for_workers=False)
+    port = store.port
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, n, port, device, threads, fn, args,
-                               results), name=f"rank{r}")
+                         args=(r, n, port, device, threads, group_timeout,
+                               fn, args, results), name=f"rank{r}")
              for r in range(n)]
     for p in procs:
         p.start()
@@ -224,4 +248,5 @@ def spawn_ranks(n: int, fn: Callable, *args: Any, device: str = "cpu",
                 p.join(timeout=10.0)
         results.close()
         results.join_thread()
+        del store
     return [got[r] for r in range(n)]

@@ -69,6 +69,23 @@ under ``frozen_execution`` of the engine's context, so a block entered
 after construction changes nothing, eager or replayed, and the graph keys
 need not carry the context.
 
+On a mesh: a context with a mesh, from any layer of that order (the
+explicit ``context=``, an ambient block, ``ButterflyConfig.mesh_shape``,
+or a prebuilt ``mesh``), is resolved once here as well (a mesh larger
+than the world raises, naming ``--simulated-devices`` and ``torchrun``;
+an arch without butterfly sites is refused). Each tick then also opens
+the mesh's sharding context, and every butterfly site runs through
+:func:`repro_torch.runtime.butterfly_sharding.shard_batch_apply`: each
+rank runs the sandwich kernel on its own rows and the rows are gathered
+back, global in and global out; everything else (the paged decode,
+attention, norms, sampling) runs whole on every rank. The port runs one
+process a rank, so every rank holds an engine and the ranks must take
+the same host decisions on every tick:
+:mod:`repro_torch.serve.mesh_serve` mirrors rank 0's request stream and
+clock to the others. A mesh of more than one rank ticks eagerly on a card
+too (gloo collectives cannot be captured in a CUDA graph), with the CPU's
+counters (``graphs.captures`` is false).
+
 Observability, as the reference's engine: a ``tracer``
 (:class:`repro_torch.obs.Tracer`; the no-op ``NULL_TRACER`` by default)
 records the request lifecycle on per-request lanes (``tid = rid + 1``) and
@@ -90,6 +107,7 @@ weights are never copied while a tick runs.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import threading
 import time
@@ -107,6 +125,7 @@ from repro_torch.kernels.context import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracing import NULL_TRACER, TRACK_ENGINE
+from repro_torch.runtime import sharding as rsh
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import steps as steps_lib
 from repro_torch.serve.cache import (PoolExhausted,
@@ -305,7 +324,12 @@ class ServeEngine:
       metric label.
     * ``context`` — the execution context (an ``ExecutionContext``, a
       backend string or ``None``), resolved once here and frozen
-      (``engine.context``; module docstring).
+      (``engine.context``, its mesh ``engine.mesh``; module docstring).
+
+    The attribute ``clock`` (``time.monotonic``) is the wall clock of the
+    request metrics and of ``deadline_s``; :meth:`step`'s ``now`` overrides
+    it for a tick's deadline pass. A mesh's mirror replaces it
+    (:mod:`repro_torch.serve.mesh_serve`).
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int = 4,
@@ -337,13 +361,14 @@ class ServeEngine:
                 "spec_k > 0 requires greedy sampling (temperature=0): "
                 "verification commits the model's argmax targets, which is "
                 f"only lossless under greedy — got {sampling}")
-        if exctx.requests_mesh(
+        if (exctx.requests_mesh(
                 context, exctx.ExecutionContext.from_butterfly_config(
-                    cfg.butterfly)):
+                    cfg.butterfly))
+                and not (cfg.butterfly is not None and cfg.butterfly.sites)):
             raise ValueError(
-                "the serving engine runs on one device: a context with a "
-                "mesh field (mesh, mesh_shape, mesh_axes) is not served; "
-                "sharded serving comes with ROADMAP queue 1, item 6b")
+                f"a mesh shards the butterfly sites' rows, and {cfg.name} "
+                f"has no butterfly sites: serve a butterfly arch (e.g. "
+                f"smollm-135m-butterfly) on a mesh, or this one without")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pool = make_pool(cfg, slots, int(max_len), kind=pool,
@@ -378,6 +403,12 @@ class ServeEngine:
             context, self.device,
             default=exctx.ExecutionContext.from_butterfly_config(
                 cfg.butterfly))
+        self.mesh = self.context.mesh
+        if self.mesh is not None and self.mesh.coordinate is None:
+            from repro_torch.runtime import dist as rdist
+            raise RuntimeError(f"rank {rdist.rank()} is not in the mesh "
+                               f"{self.mesh.describe()}; it serves nothing")
+        self.clock: Callable[[], float] = time.monotonic
         self.model = model.to(self.device)
         self.slots = slots
         self.max_len = int(max_len)
@@ -403,8 +434,11 @@ class ServeEngine:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.obs = registry if registry is not None else MetricsRegistry()
         self._name_tracks()
+        # a tick on a mesh of several ranks issues gloo collectives, which
+        # a CUDA graph cannot capture: its entries run eagerly
         self.graphs = GraphCache(self.device, tracer=self.tracer,
-                                 pid=self.replica)
+                                 pid=self.replica,
+                                 capture=self.mesh_ranks() == 1)
         self.metrics = self._fresh_metrics()
         self._tick_hist = self.obs.histogram(
             "serve_tick_seconds", "wall time per engine tick",
@@ -416,7 +450,26 @@ class ServeEngine:
                              pool_kind=self.pool.kind,
                              admission=self.admission,
                              total_pages=self.pool.total_pages,
-                             spec_k=self.spec_k)
+                             spec_k=self.spec_k, clock=self.clock)
+
+    def mesh_ranks(self) -> int:
+        """The ranks of the engine's mesh (1 without one)."""
+        return self.mesh.size if self.mesh is not None else 1
+
+    def mesh_layout(self) -> str:
+        """The mesh as ``"data=2"`` or ``"pod=2,data=2"``; ``""`` without
+        one."""
+        return self.context.mesh_layout()
+
+    def _scope(self):
+        """A tick's scope: the engine's frozen context alone, and the
+        sharding context of its mesh when it has one (the Trainer's
+        pattern)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(exctx.frozen_execution(self.context))
+        if self.mesh is not None:
+            stack.enter_context(rsh.use_sharding(self.mesh))
+        return stack
 
     # -- observability ------------------------------------------------
 
@@ -834,17 +887,20 @@ class ServeEngine:
 
     # -- the tick loop -------------------------------------------------
 
-    def step(self) -> int:
+    def step(self, now: Optional[float] = None) -> int:
         """One engine tick: cancels, deadlines, admission, the
         ``engine.tick`` fault site, page growth (incremental admission),
         one prefill chunk, then one pooled decode. Returns the number of
-        slots still active after the tick."""
-        with self._step_lock, exctx.frozen_execution(self.context):
+        slots still active after the tick. ``now`` is the clock reading
+        ``deadline_s`` is judged against (``clock()`` when ``None``): the
+        ranks of a mesh judge against the one reading rank 0 took
+        (:mod:`repro_torch.serve.mesh_serve`)."""
+        with self._step_lock, self._scope():
             tick = self.metrics.ticks
             t_wall = time.monotonic()
             tt0 = self.tracer.now()
             self._process_cancels()
-            self._expire_deadlines()
+            self._expire_deadlines(self.clock() if now is None else now)
             self._admit()
             self.metrics.on_occupancy(self.occupied_slots())
             if self.faults is not None:
@@ -1119,7 +1175,7 @@ class ServeEngine:
         self._resolve_dead([(s, RequestCancelled(s.rid)) for s in hit],
                            self.metrics.on_cancel)
 
-    def _deadline_reason(self, slot: _Slot) -> Optional[str]:
+    def _deadline_reason(self, slot: _Slot, now: float) -> Optional[str]:
         req = slot.req
         if req.deadline_ticks is None and req.deadline_s is None:
             return None
@@ -1132,22 +1188,23 @@ class ServeEngine:
                 return (f"{waited} ticks since submit >= deadline_ticks="
                         f"{req.deadline_ticks}")
         if req.deadline_s is not None:
-            waited_s = self.metrics.clock() - rm.submit_t
+            waited_s = now - rm.submit_t
             if waited_s >= req.deadline_s:
                 return (f"{waited_s:.3f}s since submit >= deadline_s="
                         f"{req.deadline_s}")
         return None
 
-    def _expire_deadlines(self) -> None:
+    def _expire_deadlines(self, now: float) -> None:
         with self._lock:
-            expired = [(s, self._deadline_reason(s)) for s in self._queue]
+            expired = [(s, self._deadline_reason(s, now))
+                       for s in self._queue]
             expired = [(s, r) for s, r in expired if r is not None]
             for s, _ in expired:
                 self._queue.remove(s)
         for i, s in enumerate(self._slots):
             if s is None:
                 continue
-            r = self._deadline_reason(s)
+            r = self._deadline_reason(s, now)
             if r is not None:
                 self._slots[i] = None
                 self._release_slot(i)

@@ -21,7 +21,10 @@ state into them, runs the entry, and reads its outputs.
   runs: an entry's outputs hold only until the next run of any entry. A
   capture that fails raises, naming the key; nothing carries on eagerly.
 * **On the CPU** a build and a replay are eager calls of the step, and the
-  same counters are kept, so tests can hold "one build per key".
+  same counters are kept, so tests can hold "one build per key". A cache
+  made with ``capture=False`` runs its entries so on a card too: an
+  engine on a mesh of more than one rank, whose ticks issue gloo
+  collectives, which a CUDA graph cannot capture.
 
 Every build is a structured event, as the reference's cold compiles are:
 it appends ``{"key": format_key(key), "seconds": …}`` to
@@ -91,7 +94,8 @@ class GraphCache:
     ``replays`` (runs after the build) counters, and ``events`` (one
     ``{"key", "seconds"}`` per build)."""
 
-    def __init__(self, device: torch.device, tracer=None, pid: int = 0):
+    def __init__(self, device: torch.device, tracer=None, pid: int = 0,
+                 capture: bool = True):
         self.device = torch.device(device)
         self._entries: Dict[Tuple, GraphEntry] = {}
         self.traces: Dict[Tuple, int] = {}
@@ -100,6 +104,8 @@ class GraphCache:
         self._tracer = tracer if tracer is not None else NULL_TRACER
         self._pid = int(pid)
         self._cuda = self.device.type == "cuda"
+        #: whether builds capture CUDA graphs (on a card, unless refused)
+        self.captures = self._cuda and capture
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
 
@@ -123,7 +129,7 @@ class GraphCache:
         if e.key not in self.traces:
             t0 = time.monotonic()
             tt0 = self._tracer.now()
-            out = self._capture(e) if self._cuda else e.fn(**e.inputs)
+            out = self._capture(e) if self.captures else e.fn(**e.inputs)
             self.traces[e.key] = 1
             self.replays[e.key] = 0
             key, dt = format_key(e.key), round(time.monotonic() - t0, 6)
@@ -133,7 +139,7 @@ class GraphCache:
                                   cat="compile", key=key, seconds=dt)
             return out
         self.replays[e.key] += 1
-        if not self._cuda:
+        if not self.captures:
             return e.fn(**e.inputs)
         e.graph.replay()
         for name, counter in COUNTED:

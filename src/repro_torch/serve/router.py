@@ -384,12 +384,13 @@ class Router:
         return any(r.dead is None and r.engine.has_work()
                    for r in self.replicas)
 
-    def step(self) -> int:
+    def step(self, now: Optional[float] = None) -> int:
         """One round-robin pass: requeue off draining replicas, then tick
-        every replica that has work (one engine tick each). Returns the
-        aggregate number of occupied slots after the pass. Single-driver
-        contract: call from one thread only (the TickDriver's, or the
-        test's)."""
+        every replica that has work (one engine tick each, in replica
+        order). Returns the aggregate number of occupied slots after the
+        pass. Single-driver contract: call from one thread only (the
+        TickDriver's, or the test's). ``now`` is each tick's deadline
+        reading (:meth:`ServeEngine.step`)."""
         self._process_drains()
         worked = False
         for i, r in enumerate(self.replicas):
@@ -397,7 +398,10 @@ class Router:
                 continue
             worked = True
             try:
-                r.engine.step()
+                if now is None:
+                    r.engine.step()
+                else:
+                    r.engine.step(now)
             except BaseException as e:
                 self._on_replica_error(i, e)
         occupied = sum(r.engine.occupied_slots() for r in self.replicas

@@ -181,3 +181,90 @@ def _digest(model) -> str:
     for _, p in sorted(model.named_parameters()):
         h.update(p.detach().contiguous().view(torch.uint8).numpy())
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving (tests/test_torch_sharded_serve.py)
+# ---------------------------------------------------------------------------
+
+SNAPSHOT_KEYS = ("preempted", "recompute_tokens", "cancelled",
+                 "deadline_expired", "requests_finished", "ticks")
+
+
+def _serve_outcome(fut):
+    exc = fut.exception(timeout=0)
+    if exc is None:
+        return list(fut.result(timeout=0).tokens)
+    return type(exc).__name__
+
+
+def serve_cases(tcfg, params_np, specs, cases, timeout):
+    """Each serving case on this rank, every rank's engines over one
+    ``(world,)`` mesh: rank 0 plays the case's script through its
+    :class:`~repro_torch.serve.mesh_serve.MeshServe` and the others follow
+    it. A case is ``{"replicas", "kw", "faults", "script"}``; the script's
+    actions are ``("submit", prompt, max_new, request kw)``, ``("step",
+    n)``, and a :class:`MeshServe` call with its arguments (``("cancel",
+    rid)``, ``("drain", i)``, ``("undrain", i)``, ``("swap_checkpoint",
+    i, directory)``); the engines then run until idle. Returns, per case, the outcome of every
+    submit (tokens, or the failure's type name), each engine's ticks and
+    counters, a digest of every logits tensor sampled here (in order),
+    the layout, the gathers a tick took and whether graphs capture."""
+    import copy
+
+    from repro_torch.runtime import butterfly_sharding as bsh
+    from repro_torch.serve import FaultInjector, Request, Router, ServeEngine
+    from repro_torch.serve.mesh_serve import MeshServe
+    base = convert.from_jax_params(tcfg, params_np, specs, device="cpu")
+    ctx = exctx.ExecutionContext(mesh_shape=(rdist.world_size(),))
+    out = []
+    for case in cases:
+        faults = case.get("faults") or {}
+        engines = [ServeEngine(
+            tcfg, copy.deepcopy(base), seed=0, device="cpu", context=ctx,
+            replica=i, faults=(FaultInjector(at=faults[i]) if i in faults
+                               else None), **case["kw"])
+            for i in range(case["replicas"])]
+        sampled = hashlib.sha256()
+        n_sampled = [0]
+        for e in engines:
+            def hooked(logits, gen, _fn=e._sample_fn):
+                sampled.update(logits.detach().contiguous().view(
+                    torch.uint8).numpy())
+                n_sampled[0] += 1
+                return _fn(logits, gen)
+            e._sample_fn = hooked
+        target = engines[0] if len(engines) == 1 else Router(engines)
+        mirror = MeshServe(target, timeout=timeout)
+        bsh.collectives.reset()
+        if mirror.leader:
+            for action in case["script"]:
+                kind = action[0]
+                if kind == "submit":
+                    _, prompt, max_new, kw = action
+                    mirror.submit(Request(prompt=prompt,
+                                          max_new_tokens=max_new, **kw))
+                elif kind == "step":
+                    for _ in range(action[1]):
+                        mirror.step()
+                else:
+                    getattr(mirror, kind)(*action[1:])
+            mirror.run_until_idle(max_ticks=400)
+            mirror.stop()
+        else:
+            mirror.follow()
+        ticks = [e.metrics.ticks for e in engines]
+        out.append({
+            "outcomes": [_serve_outcome(f) for f in mirror.futures],
+            "ticks": ticks, "mirror_ticks": mirror.ticks,
+            "counters": [{k: e.metrics.snapshot()[k] for k in SNAPSHOT_KEYS}
+                         for e in engines],
+            "logits": sampled.hexdigest()[:16], "sampled": n_sampled[0],
+            "layout": engines[0].mesh_layout(),
+            "gathers": bsh.collectives.stats["gather"]["calls"],
+            "captures": engines[0].graphs.captures,
+            "dead": ([r.dead is not None for r in target.replicas]
+                     if len(engines) > 1 else [False]),
+            "swaps": getattr(target, "swaps", 0),
+            "errors": [type(e).__name__ for e in mirror.errors]})
+    return out

@@ -185,7 +185,7 @@ def worlds():
             mine = [c for c in CASES if int(np.prod(c[0])) == n]
             got = rdist.spawn_ranks(n, ranks.cases_and_checks,
                                     [inputs[_id(c)] for c in mine],
-                                    threads=1)
+                                    device="cpu", threads=1)
             out[n] = ([g[1] for g in got],
                       {_id(c): [g[0][i] for g in got]
                        for i, c in enumerate(mine)})

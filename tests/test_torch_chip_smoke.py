@@ -119,7 +119,9 @@ REHEARSAL = dict(
                 shapes=("decode_32k",), limit_s=None),
     mesh=dict(ranks=2, rows=(64, 63), butterfly=(37, 128),
               train=(16, 4, 2), cli=("smollm-135m-butterfly-smoke", 1, 16,
-                                     3), budget_s=None))
+                                     3), budget_s=None),
+    mesh_serve=dict(ranks=2, engine=(2, 64, 16), requests=(3, 5, 20, 4),
+                    cli=("smollm-135m-butterfly-smoke", 3), budget_s=None))
 
 
 def rehearse(capsys, *groups, smoke=None):

@@ -108,7 +108,9 @@ def test_unported_fields_merge_and_are_refused(field, value, item):
     (ROADMAP item 6a): in this one-rank process a (pod, data) mesh of 8
     raises, naming both ways to get the ranks; mesh_axes alone resolves
     to no mesh, and ``local()`` keeps it as the reference's does. The
-    serving engine refuses both mesh fields before any tick (item 6b)."""
+    serving engine (item 6b) resolves them as well, at construction:
+    it refuses the mesh of 8 there, before any tick, and serves unsharded
+    under ``mesh_axes`` alone."""
     ctx = ExecutionContext(**{field: value})
 
     def call():
@@ -130,8 +132,17 @@ def test_unported_fields_merge_and_are_refused(field, value, item):
                 call()
             assert "--simulated-devices 8" in str(e.value)
             assert "torchrun" in str(e.value)
-        with pytest.raises(ValueError, match=item):
-            call() if field != "mesh_shape" else _engine()
+        if field == "mesh_shape":
+            with pytest.raises(RuntimeError, match="needs 8 ranks.*"
+                               "--simulated-devices 8"):
+                _engine()
+        elif field == "mesh_axes":
+            eng = call()
+            assert eng.mesh is None and eng.mesh_layout() == ""
+            assert eng.context.mesh_axes == value
+        else:
+            with pytest.raises(ValueError, match=item):
+                call()
     if field == "block_b":
         assert exctx.resolve_execution(ctx).block_b == value
         with pytest.raises(ValueError, match=item):
@@ -164,8 +175,8 @@ def test_butterfly_config_with_unported_field_is_refused(field, value,
     forward and 32 backward), before any work. mesh_shape = (8,) resolves
     to its mesh (item 6a): in this one-rank process the Trainer raises at
     construction, not mid-step, and a layer at its first call, naming both
-    ways to get the ranks; the serving engine refuses it before any tick
-    (item 6b)."""
+    ways to get the ranks; so does the serving engine (item 6b), before
+    any tick."""
     from repro_torch.configs import registry
     from repro_torch.models.lm import LM
     from repro_torch.serve import ServeEngine
@@ -190,7 +201,7 @@ def test_butterfly_config_with_unported_field_is_refused(field, value,
         Trainer(bad, TrainConfig(checkpoint_every=0), seq_len=16,
                 global_batch=2, device="cpu")
     model = LM(bad, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match=item):
+    with pytest.raises(RuntimeError, match=too_large):
         ServeEngine(bad, model, slots=1, max_len=32, device="cpu")
     with pytest.raises(RuntimeError, match=too_large):
         model.head(torch.zeros(1, bad.d_model))

@@ -99,12 +99,35 @@ def test_cli_rejects_bad_geometry():
         _run("--replicas", "0")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (("--mesh-shape", "8"), "item 6"), (("--simulated-devices", "8"),
-                                        "item 6")])
-def test_cli_refuses_unported_flags(flags, item):
-    with pytest.raises(SystemExit, match=item):
+@pytest.mark.parametrize("flags", [
+    ("--mesh-shape", "2x4"), ("--simulated-devices", "8", "--mesh-shape",
+                              "8")])
+def test_cli_refuses_unported_flags(flags, monkeypatch):
+    """The mesh flags are the reference's (ROADMAP 6b): a ``(pod, data)``
+    mesh of 8 in this one-rank process is refused before any request,
+    naming both ways to get the ranks, and so is a mesh on the dense
+    arch; ``--simulated-devices 8`` hands its 8 CPU ranks to
+    ``spawn_ranks`` with the butterfly config's mesh (run for real in
+    ``tests/test_torch_rehearsal_mesh.py`` and
+    ``tests/test_torch_sharded_serve.py``)."""
+    bfly = ["--arch", "smollm-135m-butterfly-smoke"]
+    with pytest.raises(SystemExit, match="needs a butterfly arch"):
         _run(*flags)
+    if flags[0] == "--mesh-shape":
+        with pytest.raises(RuntimeError, match=r"butterfly mesh_shape "
+                           r"\(2, 4\) needs 8 ranks but the world has 1"):
+            _run(*flags, *bfly)
+        return
+    from repro_torch.runtime import dist as rdist
+    calls = []
+    monkeypatch.setattr(rdist, "spawn_ranks", lambda n, fn, *a, **k: (
+        calls.append((n, fn, a, k)) or ["rank 0's document"]))
+    assert _run(*flags, *bfly) == "rank 0's document"
+    (n, fn, (args, cfg), kw), = calls
+    assert (n, fn, kw) == (8, serve_cli._serve, {"device": "cpu"})
+    assert cfg.name == "smollm-135m-butterfly-smoke"
+    assert cfg.butterfly.mesh_shape == (8,)
+    assert args.simulated_devices == 8 and args.mesh_shape == "8"
 
 
 @pytest.mark.parametrize("flags,kind,chunk", [

@@ -27,6 +27,7 @@ from repro_torch.configs.base import SHAPES, cell_applicable
 from repro_torch.core.layers import ButterflySpec
 from repro_torch.launch import dryrun, report
 from repro_torch.launch import roofline as rl
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import specs
 from repro_torch.launch.op_analysis import OpTally
 from repro_torch.models import common as cm
@@ -335,6 +336,121 @@ def test_dryrun_cell_writes_its_json_and_the_report_renders_it(tmp_path,
     assert rl.CARD in text
     rows = [ln for ln in text.splitlines() if ln.startswith("| smollm")]
     assert len(rows) == 4                     # two cells, in both tables
+
+
+@pytest.mark.parametrize("choice,mesh,n", [("single", "pod16x16", 256),
+                                            ("multi", "pod2x16x16", 512)])
+def test_dryrun_on_a_production_mesh(tmp_path, capsys, choice, mesh, n):
+    """``--mesh single|multi``: the reference's pods laid out without
+    ranks. A training cell and a decode cell of the xLSTM smoke arch each
+    write ``<arch>__<shape>__<mesh>.json``: argument bytes a card from the
+    sharding trees (the parts summed, each under the one-card bytes and
+    the parameters' equal to ``specs.tree_bytes`` of
+    ``param_shardings``), the one-card tally spread over ``n`` devices
+    (shared with the one-card cell, not made again) and spread by the
+    trees (each group of its bytes as its tensors shard), ``model_flops``
+    over ``n``, the reference's microbatches over the pod's data axes,
+    what the port executes, and collectives said to be not modelled."""
+    arch = "xlstm-125m-smoke"
+    cfg = registry.get(arch)
+    dryrun.main(["--arch", arch, "--shape", "train_4k,decode_32k",
+                 "--out", str(tmp_path), "--mesh", "h100x1"])
+    tallied = dict(dryrun._TALLIES)
+    dryrun.main(["--arch", arch, "--shape", "train_4k,decode_32k",
+                 "--out", str(tmp_path), "--mesh", choice])
+    assert dryrun._TALLIES == tallied
+    assert f"0 failed" in capsys.readouterr().out
+    layout = tmesh.production_layout(multi_pod=choice == "multi")
+    n_dp = layout.size // layout.shape["model"]
+    for shape in (SHAPES[0], SHAPES[2]):
+        with open(tmp_path / f"{arch}__{shape.name}__h100x1.json") as f:
+            one = json.load(f)
+        with open(tmp_path / f"{arch}__{shape.name}__{mesh}.json") as f:
+            r = json.load(f)
+        assert r["status"] == "ok" and r["n_devices"] == n
+        assert r["mesh_shape"] == layout.shape
+        parts = r["argument_parts"]
+        assert parts["total"] == sum(v for k, v in parts.items()
+                                     if k != "total") == r["argument_bytes"]
+        for k, v in parts.items():
+            assert 0 < v <= one["argument_parts"][k], k
+        named = dict(specs.abstract_model(cfg).named_parameters())
+        assert parts["params"] == specs.tree_bytes(
+            named, specs.param_shardings(cfg, layout), layout)
+        # the batch splits over pod x data here, so the FLOPs over all
+        assert r["flops_per_device"] == pytest.approx(
+            one["flops_per_device"] / n, rel=1e-12)
+        group = one["tally"]["bytes_by_group"]
+        rest = one["bytes_per_device"] - sum(group.values())
+        gathered = {k: tuple(None if e in (None, "data", "pod")
+                             or "data" in e else e for e in v)
+                    for k, v in specs.param_shardings(cfg, layout).items()}
+        read = specs.tree_bytes(named, gathered, layout)
+        whole = specs.tensor_bytes(named)
+        passes = r.get("microbatches", 1) / one.get("microbatches", 1)
+        want = (group.get("weights", 0) * passes * read / whole
+                + group.get("state", 0) * parts["params"] / whole
+                + group.get("caches", 0) * parts.get("caches", 0)
+                / one["argument_parts"].get("caches", 1)
+                + rest / n_dp)
+        assert r["bytes_per_device"] == pytest.approx(want, rel=1e-12)
+        assert r["model_flops"] == specs.model_flops(cfg, shape, n)[0]
+        assert r["hbm_fit"] and "not modelled" in r["collectives"]
+        assert r["executes"]["accounting_only"] == ["model"]
+        assert r["executes"]["sharded"] == [a for a in ("pod", "data")
+                                            if a in layout.shape]
+        if shape.kind == "train":
+            assert r["microbatches"] == dryrun.choose_microbatches(
+                cfg, shape, n_dp)
+    report.main([str(tmp_path)])
+    assert f"({mesh};" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mesh", ["pod16x16", "pod2x16x16"])
+def test_pod_memory_term_reads_what_a_card_holds(mesh):
+    """A weight- and cache-bound decode cell at full size on a pod: every
+    card reads at least the parameters and caches it stores, and each
+    weight whole over ``pod``/``data``, which FSDP gathers before a read;
+    so the memory term is at least those bytes over the card's rate, and
+    well above the one-card traffic spread evenly over the devices."""
+    arch, shape = "smollm-135m", SHAPES[2]
+    assert shape.kind == "decode"
+    cfg = registry.get(arch)
+    one = dryrun.run_cell(arch, shape.name, verbose=False)
+    r = dryrun.run_cell(arch, shape.name, verbose=False, mesh=mesh)
+    layout = tmesh.production_layout(multi_pod=mesh == "pod2x16x16")
+    parts = r["argument_parts"]
+    assert r["t_memory"] >= (parts["params"] + parts["caches"]) / rl.HBM_BW
+    named = dict(specs.abstract_model(cfg).named_parameters())
+    model_only = {k: tuple(e if e == "model" else None for e in v)
+                  for k, v in specs.param_shardings(cfg, layout).items()}
+    read = specs.tree_bytes(named, model_only, layout)
+    assert read > parts["params"]
+    assert r["bytes_per_device"] >= read
+    assert r["bytes_per_device"] > 2 * one["bytes_per_device"] / layout.size
+
+
+def test_tally_groups_weight_cache_and_state_bytes():
+    """The tally's groups: a marked weight's reads, and the reads and
+    writes of what is computed from it alone (its transpose, its cast);
+    a marked cache's in-place write; every byte inside ``state()``."""
+    meta = torch.device("meta")
+    w = torch.empty(16, 8, device=meta)
+    cache = torch.empty(4, 16, device=meta)
+    x = torch.empty(4, 8, device=meta)
+    tally = OpTally()
+    tally.mark([w], "weights")
+    tally.mark([cache], "caches")
+    with tally:
+        y = x @ w.t()                        # reads w: 512
+        wb = w.to(torch.bfloat16)            # reads 512, writes 256
+        cache.copy_(y)                       # cache read and written: 512
+        with tally.state():
+            w.add_(torch.empty_like(w))      # all 1536 bytes: state
+    assert wb.dtype == torch.bfloat16
+    assert dict(tally.bytes_by_group) == {"weights": 512 + 768,
+                                          "caches": 512, "state": 1536}
+    assert tally.bytes == (128 + 512 + 256) + 768 + (512 + 256) + 1536
 
 
 # ---------------------------------------------------------------------------

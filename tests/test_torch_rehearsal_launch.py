@@ -1,6 +1,8 @@
 """Rehearsal of `chip_smoke.py` on the CPU, phase 36, the launch tooling:
 the dry-run over two smoke archs and one shape (the card's run takes every
-registry arch and shape) with its tables rendered, its parameter counts
+registry arch and shape) on one card and the two production pods, with
+the one card's tables rendered and each cell's argument bytes a card and
+fit on the pods, its parameter counts
 held against a model built the way the serving phases build theirs, the
 tile rule's record (empty: the plain versions query nothing), the
 overrides honoured with the default's bits or refused before any work,
@@ -24,8 +26,11 @@ def test_rehearsal_launch_tools(capsys):
         "HBM3, 700.00 W)" in out
     for arch in ("smollm-135m-smoke", "xlstm-125m-smoke"):
         assert f"dryrun | | {arch} | decode_32k | " in out
-    assert "dryrun: 2 tallied, 0 skipped, 0 failed over 2 archs x 1 shapes" \
-        in out
+        assert f"dryrun pods {arch} x decode_32k: pod16x16 " in out
+    assert "GB a card, fit True; pod2x16x16 " in out
+    assert ("dryrun: 6 tallied, 0 skipped, 0 failed over 2 archs x 1 shapes "
+            "x 3 meshes (h100x1, pod16x16, pod2x16x16; collectives not "
+            "modelled)") in out
     assert (f"dryrun params xlstm-125m-butterfly-smoke ({cfg.n_layers} "
             f"layers): param_counts") in out
     assert "dryrun args serve xlstm-125m-butterfly-smoke 64 x 8: " in out

@@ -4,7 +4,10 @@ card, the smoke config's three sites at 64 and 63 rows and the butterfly
 at 37 x 128 sharded against the plain versions alone, the smoke config
 trained 2 steps at 16 x 4 unsharded and on the mesh, and the training
 CLI's `--simulated-devices 2 --mesh-shape 2 --device cpu` as a
-subprocess."""
+subprocess; and phase 38, sharded serving: the smoke config's 3 requests
+(5 to 20 prompt tokens, 4 new) on 2 slots, unsharded and on two gloo
+ranks, and the serving CLI's `--simulated-devices 2 --mesh-shape 2
+--replicas 2 --device cpu` as a subprocess."""
 
 from test_torch_chip_smoke import rehearse
 from test_torch_chip_smoke import one_torch_thread  # noqa: F401
@@ -34,3 +37,21 @@ def test_rehearsal_mesh(capsys):
         "mesh train rank 0": 0}
     assert kernels["butterfly_fwd"]["launches_by_path"] == {
         "mesh butterfly rank 0": 0}
+
+
+def test_rehearsal_mesh_serve(capsys):
+    _, kernels, out = rehearse(capsys, "mesh_serve")
+    for rank in (0, 1):
+        assert (f"mesh serve rank {rank} (rank {rank} of 2 on cpu over "
+                f"gloo): 3 requests, ") in out
+    assert "tokens equal to the unsharded engine's; decode tick p50" in out
+    assert "launches a decode tick 0 sandwich, 0 paged, 7 gathers" in out
+    assert "peak not measured (no card)" in out
+    assert "mesh serve unsharded (eager):" in out
+    assert "mesh serve cli: [serve] smollm-135m-butterfly-smoke" in out
+    assert "| replicas=2 | mesh=data=2" in out
+    assert "mesh serve cli: [serve] router: 3 requests over 2" in out
+    assert "mesh serve: phase " in out
+    # the plain versions launch nothing; the path is recorded
+    assert kernels["sandwich_fwd (sandwich_factors + sandwich_rows)"][
+        "launches_by_path"] == {"mesh serve rank 0": 0}

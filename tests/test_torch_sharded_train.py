@@ -66,7 +66,8 @@ def runs(tmp_path_factory):
     ckdir = str(tmp_path_factory.mktemp("mesh_ckpt"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         sharded = pool.submit(rdist.spawn_ranks, 2, ranks.train_runs, tcfg,
-                              params_np, specs, RUNS, ckdir, threads=1)
+                              params_np, specs, RUNS, ckdir, device="cpu",
+                              threads=1)
         want = {}
         for batch, steps in RUNS:
             trainer = JTrainer(jcfg, JTrainConfig(**TC), seq_len=32,

@@ -208,34 +208,65 @@ def test_one_rank_meshes_need_no_world():
 
 @pytest.mark.parametrize("how", ["explicit", "ambient", "config", "mesh"])
 def test_serve_engine_refuses_a_mesh_context(how):
-    """Serving under a mesh is ROADMAP item 6b: the engine refuses a
-    context with a mesh field at construction, before any tick, whichever
-    layer of the resolution order sets it."""
+    """The serving engine resolves a mesh from whichever layer of the
+    resolution order sets it, once, at construction: a one-rank mesh
+    needs no world, and serves the tokens the unsharded engine serves
+    (``engine.mesh_layout()`` ``data=1``). It refuses the contexts it
+    cannot serve before any tick: a mesh larger than this one-rank world
+    (naming ``--simulated-devices`` and torchrun), and a mesh on an arch
+    without butterfly sites."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.kernels.context import ExecutionContext, use_execution
     from repro_torch.models.lm import LM
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import Request, ServeEngine
     cfg = registry.get("smollm-135m-butterfly-smoke")
     model = LM(cfg, generator=torch.Generator().manual_seed(0))
-    context = None
-    block = ExecutionContext()
-    if how == "explicit":
-        context = ExecutionContext(mesh_shape=(2,))
-    elif how == "ambient":
-        block = ExecutionContext(mesh_shape=(4,))
-    elif how == "config":
-        cfg = cfg.with_(butterfly=dataclasses.replace(cfg.butterfly,
-                                                      mesh_shape=(2,)))
-    else:
-        context = ExecutionContext(mesh=tmesh.butterfly_mesh((1,)))
-    with use_execution(block):
-        with pytest.raises(ValueError, match="item 6b"):
-            ServeEngine(cfg, model, slots=1, max_len=32, device="cpu",
-                        context=context)
-    ServeEngine(cfg.with_(butterfly=dataclasses.replace(
-        cfg.butterfly, mesh_shape=None)), model, slots=1, max_len=32,
-        device="cpu")
+
+    def layers(shape):
+        """(cfg, explicit context, ambient block) asking for ``shape``
+        through the layer ``how`` names."""
+        if how == "explicit":
+            return cfg, ExecutionContext(mesh_shape=shape), None
+        if how == "ambient":
+            return cfg, None, ExecutionContext(mesh_shape=shape)
+        if how == "config":
+            return cfg.with_(butterfly=dataclasses.replace(
+                cfg.butterfly, mesh_shape=shape)), None, None
+        mesh = (tmesh.butterfly_mesh(shape) if shape == (1,)
+                else tmesh.make_mesh(shape, ("data",)))
+        return cfg, ExecutionContext(mesh=mesh), None
+
+    def engine(shape, arch_cfg=None):
+        c, context, block = layers(shape)
+        with use_execution(block or ExecutionContext()):
+            return ServeEngine(arch_cfg or c, model, slots=2, max_len=32,
+                               device="cpu", context=context)
+
+    def tokens(eng):
+        prompt = np.arange(3, 12, dtype=np.int32)
+        fut = eng.submit(Request(prompt=prompt, max_new_tokens=4))
+        eng.run_until_idle(max_ticks=50)
+        return fut.result(0).tokens
+
+    eng = engine((1,))
+    assert eng.mesh is tmesh.butterfly_mesh((1,))
+    assert eng.mesh_layout() == "data=1" and eng.mesh_ranks() == 1
+    assert eng.graphs.captures is False          # a CPU engine
+    assert tokens(eng) == tokens(ServeEngine(cfg, model, slots=2,
+                                             max_len=32, device="cpu"))
+    if how != "mesh":
+        with pytest.raises(RuntimeError, match=r"needs 2 ranks but the "
+                           r"world has 1.*--simulated-devices 2"):
+            engine((2,))
+    # the config layer carries a mesh only with a butterfly config: there,
+    # one without sites
+    dense = (cfg.with_(butterfly=dataclasses.replace(
+        cfg.butterfly, sites=(), mesh_shape=(1,))) if how == "config"
+        else registry.get("smollm-135m-smoke"))
+    with pytest.raises(ValueError, match="no butterfly sites"):
+        engine((1,), dense)
