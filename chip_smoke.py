@@ -428,6 +428,27 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
     runs the dry-run on the production meshes (``--mesh all``) and prints
     each cell's argument bytes a card and fit on ``pod16x16`` and
     ``pod2x16x16``.
+39. Expert parallelism and the GPipe pipeline (ROADMAP item 6d), on two
+    ranks sharing the card over gloo, spawned once
+    (``repro_torch.launch.mesh_check.ep_pipeline``): OLMoE-1B-7B's MoE
+    layer (d_model 2048, 64 experts, top 8, d_ff 1024, capacity 1.25) on
+    a ``(model,)`` mesh of 2, in float32 at 8 x 2048 tokens (two chunks of
+    8,192) and in bfloat16 at 4 x 2048, against the port's one-rank
+    ``moe_apply`` run chunk by chunk: output, aux loss and every gradient
+    within 1e-4 of max|want| (float32) or 5e-2 relative norm (bfloat16);
+    ``olmoe-1b-7b-butterfly`` at 2 of its 16 layers in float32, 2 x 1024
+    tokens, one forward and backward on the mesh against the same model
+    without it: loss and every butterfly leaf's gradient within 1e-3, the
+    head's sandwich launches as unsharded; ``smollm-135m-butterfly``'s
+    residual MLP block (576 -> 1536 -> 576 through the sandwich kernels)
+    stacked over 2 stages through ``pipeline_apply`` on a ``(stage,)``
+    mesh, x 8 x 256 x 576, 4 microbatches, against ``reference_apply``:
+    forward within 2e-4 and every gradient within 1e-3 of max|want|, each
+    rank's launches those of its 4 stage calls. Printed: each part's ms a
+    call on the mesh and alone, the all-reduces' and the handover's
+    calls, bytes and seconds (the handover an all-gather: gloo takes no
+    point-to-point operations on CUDA tensors). The phase's seconds
+    (budget 90).
 
 The script refuses to start when ``REPRO_KERNEL_BACKEND`` names anything
 but ``auto`` or ``cuda``: the plain versions would stand in for the
@@ -4718,7 +4739,7 @@ def phase_mesh(torch, np, cfg, dev, kernel: str, kernels: dict,
         coll = " ".join(f"{k} {1e3 * v['seconds'] / steps:.2f} ms "
                         f"({v['calls'] / steps:.0f} calls, "
                         f"{_mb(v['bytes'] / steps)})"
-                        for k, v in r["collectives"].items())
+                        for k, v in r["collectives"].items() if v["calls"])
         peak = ("not measured (no card)" if r["peak_mib"] is None
                 else f"{r['peak_mib']:.1f} MiB")
         say(f"mesh train rank {r['rank']}: step p50 {ms[len(ms) // 2]:.1f} "
@@ -4915,6 +4936,207 @@ def phase_mesh_serve(torch, np, cfg, dev, kernel: str, kernels: dict,
     return summary
 
 
+# phase 39's sizes: the ranks; the MoE layer (arch, moe_token_chunk, its
+# (dtype, batch, seq) shapes); the MoE LM (arch, layers, seq, batch); the
+# pipeline (arch, stages, batch, seq, microbatches); the phase's budget
+EP_PIPE = dict(ranks=2,
+               layer=("olmoe-1b-7b", 8192, (("float32", 8, 2048),
+                                            ("bfloat16", 4, 2048))),
+               lm=("olmoe-1b-7b-butterfly", 2, 1024, 2),
+               pipeline=("smollm-135m-butterfly", 2, 8, 256, 4),
+               budget_s=90.0)
+EP_TOL = {"float32": 1e-4,    # of each leaf's max|want|
+          "bfloat16": 5e-2}   # relative norm
+PIPE_TOL = (2e-4, 1e-3)       # forward, gradients: of max|want|
+
+
+def _coll(stats: dict, kind: str) -> str:
+    s = stats[kind]
+    return (f"{kind} {int(s['calls'])} calls, {_mb(s['bytes'])}, "
+            f"{s['seconds']:.3f} s")
+
+
+def _held(what: str, errs: dict, rule: str, tol: float) -> float:
+    """The worst error of ``errs`` (name -> :func:`mesh_check._errs`) by
+    ``rule`` (``"max"``: max|Δ| over max|want|, ``"rel"``: relative
+    norm); raises past ``tol`` or on a value that is not finite."""
+    worst = 0.0
+    for name, e in errs.items():
+        err = e["max"] / max(e["scale"], 1e-30) if rule == "max" \
+            else e["rel"]
+        if not e["finite"] or not err <= tol:
+            raise AssertionError(f"{what}: {name} {rule} error {err:.3e} "
+                                 f"beyond {tol} (finite {e['finite']})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_ep_pipeline(torch, np, dev, kernel: str, kernels: dict,
+                      sizes=EP_PIPE) -> dict:
+    """Phase 39, expert parallelism and the GPipe pipeline (ROADMAP 6d):
+    ``sizes["ranks"]`` ranks of one world on ``dev``, spawned once
+    (:func:`repro_torch.launch.mesh_check.ep_pipeline`; on one card they
+    share it over gloo).
+
+    a. The MoE layer of ``sizes["layer"]``'s arch at each of its shapes on
+       a ``(model,)`` mesh of the ranks, against the port's one-rank
+       ``moe_apply`` run chunk by chunk on rank 0 without the mesh: the
+       output, the aux loss and every gradient of ``sum(c * y) + aux``
+       within EP_TOL (float32: max|Δ| over each leaf's max|want|;
+       bfloat16: relative norm), the ranks' results' checksums equal.
+       Then the MoE LM of ``sizes["lm"]`` (float32, its first layers),
+       one forward and backward under the same mesh against the same
+       model on rank 0 without it: the loss and every butterfly leaf's
+       gradient within STEP_F32_TOL (relative), the ranks' losses equal,
+       and each rank's sandwich launches those of the run without the
+       mesh.
+    b. ``sizes["pipeline"]``'s arch's residual MLP block, stacked over the
+       stages, through ``pipeline_apply`` on a ``(stage,)`` mesh of the
+       ranks against ``reference_apply`` on rank 0: the forward and every
+       gradient within PIPE_TOL of max|want|; each rank's sandwich
+       launches those of its microbatches' stage calls; the handover's
+       route and its calls, bytes and seconds.
+
+    Printed: each part's ms a call on the mesh and alone, the
+    all-reduces' (and shifts') calls, bytes and seconds. A failed rank or
+    check fails the phase, and so does a wall past ``sizes["budget_s"]``.
+    Returns a summary."""
+    from repro_torch.kernels import sandwich as ks
+    from repro_torch.launch import mesh_check
+    from repro_torch.runtime import dist as rdist
+    t_phase = time.monotonic()
+    n = sizes["ranks"]
+    on_card = dev.type == "cuda"
+    if sizes["pipeline"][1] != n:
+        raise AssertionError(f"ep pipeline: {sizes['pipeline'][1]} stages "
+                             f"on {n} ranks")
+    free_device(torch, dev)
+    per_rank = rdist.spawn_ranks(n, mesh_check.ep_pipeline, sizes, kernel,
+                                 device=dev.type,
+                                 group_timeout=MESH_GROUP_TIMEOUT)
+    r0 = per_rank[0]
+    for r in per_rank:
+        say(f"ep world: {r['world']}"
+            + (f"; peak {r['peak_mib']:.1f} MiB" if on_card else "")
+            + "; walls " + ", ".join(f"{k} {v:.1f} s"
+                                     for k, v in r["walls"].items()))
+    summary = {}
+
+    # a. the layer
+    arch, chunk, _ = sizes["layer"]
+    for i, layer in enumerate(r0["layer"]):
+        dt, tokens = layer["dtype"], layer["tokens"]
+        what = f"ep layer {arch} {dt} {tokens} tokens"
+        if any(r["layer"][i]["checksums"] != layer["checksums"]
+               for r in per_rank):
+            raise AssertionError(f"{what}: the ranks differ")
+        for r in per_rank:
+            if r["layer"][i]["collectives"]["all_reduce"]["calls"] != 3:
+                raise AssertionError(
+                    f"{what}: rank {r['rank']} took "
+                    f"{r['layer'][i]['collectives']} (the expert-parallel "
+                    f"path all-reduces the output, the aux loss and the "
+                    f"gradients)")
+        rule = "max" if dt == "float32" else "rel"
+        worst = _held(what, layer["errs"], rule, EP_TOL[dt])
+        chunks = tokens // chunk if tokens > chunk and not tokens % chunk \
+            else 1
+        say(f"{what} ({chunks} chunk(s) of {min(chunk, tokens)}) on {n} "
+            f"model ranks vs one rank chunk by chunk: worst {rule} error "
+            f"{worst:.3e} (y {layer['errs']['y'][rule]:.3e}, aux "
+            f"{layer['errs']['aux']['rel']:.3e}); ms a call (forward and "
+            f"backward) "
+            + ", ".join(f"rank {r['rank']} {r['layer'][i]['ms']:.1f}"
+                        for r in per_rank)
+            + f", alone {layer['alone_ms']:.1f}; rank 0's "
+            + _coll(layer["collectives"], "all_reduce"))
+        summary[f"ep_layer_{dt}_ms"] = layer["ms"]
+        summary[f"ep_layer_{dt}_alone_ms"] = layer["alone_ms"]
+        summary[f"ep_layer_{dt}_err"] = worst
+
+    # the LM
+    lm_arch, layers, seq, batch = sizes["lm"]
+    lm = r0["lm"]
+    what = f"ep lm {lm_arch} {layers} layers float32 {batch} x {seq}"
+    losses = [r["lm"]["loss"] for r in per_rank]
+    if len(set(losses)) != 1:
+        raise AssertionError(f"{what}: the ranks' losses differ {losses}")
+    checksums_agree = all(r["lm"]["checksums"] == lm["checksums"]
+                          for r in per_rank)
+    worst = _held(what, lm["errs"], "rel", STEP_F32_TOL)
+    want_head = {"sandwich_fwd": ks.FWD_KERNELS * on_card,
+                 "sandwich_bwd": ks.BWD_KERNELS * on_card}
+    for r in per_rank:
+        got = {k: r["lm"]["launches"][k] for k in want_head}
+        if got != want_head or r["lm"]["launches"] != lm["alone_launches"]:
+            raise AssertionError(f"{what}: rank {r['rank']} launches "
+                                 f"{r['lm']['launches']}, without the mesh "
+                                 f"{lm['alone_launches']}")
+    say(f"{what} on {n} model ranks vs one rank: loss {lm['loss']:.6f} / "
+        f"{lm['alone_loss']:.6f} (aux {lm['aux']:.6f}), worst relative "
+        f"error {worst:.3e} over the loss and "
+        f"{len(lm['errs']) - 2} butterfly leaves' gradients (the ranks' "
+        f"checksums {'equal' if checksums_agree else 'differ'}); each "
+        f"rank's "
+        f"launches {lm['launches']} as without the mesh; ms a step "
+        + ", ".join(f"rank {r['rank']} {r['lm']['ms']:.1f}"
+                    for r in per_rank)
+        + f", alone {lm['alone_ms']:.1f}; rank 0's "
+        + _coll(lm["collectives"], "all_reduce"))
+    add_launches(kernels, "ep lm rank 0",
+                 {k: lm["launches"][k] for k in want_head})
+    summary.update(ep_lm_ms=lm["ms"], ep_lm_alone_ms=lm["alone_ms"],
+                   ep_lm_err=worst)
+
+    # b. the pipeline
+    p_arch, stages, batch, seq, micro = sizes["pipeline"]
+    pipe = r0["pipeline"]
+    what = (f"pipeline {p_arch} MLP blocks, {stages} stages, {batch} x "
+            f"{seq}, {micro} microbatches")
+    if any(r["pipeline"]["checksums"] != pipe["checksums"]
+           for r in per_rank):
+        raise AssertionError(f"{what}: the ranks differ")
+    fwd = _held(what, {"y": pipe["errs"]["y"]}, "max", PIPE_TOL[0])
+    grad = _held(what, {k: v for k, v in pipe["errs"].items() if k != "y"},
+                 "max", PIPE_TOL[1])
+    sites_a_stage = 3
+    want_pipe = {"sandwich_fwd": micro * sites_a_stage * ks.FWD_KERNELS,
+                 "sandwich_bwd": micro * sites_a_stage * ks.BWD_KERNELS}
+    want_pipe = {k: v * on_card for k, v in want_pipe.items()}
+    for r in per_rank:
+        got = {k: r["pipeline"]["launches"][k] for k in want_pipe}
+        if got != want_pipe:
+            raise AssertionError(f"{what}: rank {r['rank']} launches {got}, "
+                                 f"expected {want_pipe}")
+    want_route = "gather" if on_card else "p2p"
+    if pipe["route"] != want_route:
+        raise AssertionError(f"{what}: handover {pipe['route']!r}, "
+                             f"expected {want_route!r}")
+    say(f"{what} on {n} stage ranks vs reference_apply on one rank: "
+        f"forward max|Δ|/max|want| {fwd:.3e}, gradients {grad:.3e}; "
+        f"handover {pipe['route']} ({r0['world'].split(' over ')[-1]} on "
+        f"{dev.type} tensors): rank 0's "
+        + _coll(pipe["collectives"], "shift") + ", "
+        + _coll(pipe["collectives"], "all_reduce")
+        + f"; each rank's launches {want_pipe}; ms a call (forward and "
+        f"backward) "
+        + ", ".join(f"rank {r['rank']} {r['pipeline']['ms']:.1f}"
+                    for r in per_rank)
+        + f", alone {pipe['alone_ms']:.1f}")
+    add_launches(kernels, "pipeline rank 0",
+                 {k: pipe["launches"][k] for k in want_pipe})
+    summary.update(pipeline_ms=pipe["ms"], pipeline_alone_ms=pipe["alone_ms"],
+                   pipeline_fwd_err=fwd, pipeline_grad_err=grad)
+
+    phase_s = time.monotonic() - t_phase
+    say(f"ep pipeline: phase {phase_s:.1f} s (budget {sizes['budget_s']} s)")
+    if sizes["budget_s"] and phase_s > sizes["budget_s"]:
+        raise AssertionError(f"ep pipeline: phase {phase_s:.1f} s over its "
+                             f"budget {sizes['budget_s']} s")
+    summary["ep_pipeline_s"] = phase_s
+    return summary
+
+
 # the kernels line's entries, in its order; the timing phases fill them in
 KERNEL_ORDER = ("sandwich_fwd (sandwich_factors + sandwich_rows)",
                 "paged_decode_attention", "sandwich_bwd", "butterfly_fwd",
@@ -4925,10 +5147,10 @@ COUNTER_ENTRY = {"sandwich_fwd": KERNEL_ORDER[0],
 # at a time): the kernels' checks (phases 3-5, the wide and zoo sites, the
 # butterfly and flash kernels), serving (6-8, 6a-6e), training (9-11, the
 # CLI), the encoder-decoder and benches, the paper's layers (20-22), the
-# zoo (24-35), the launch tooling (36), the mesh (37) and sharded serving
-# (38)
+# zoo (24-35), the launch tooling (36), the mesh (37), sharded serving
+# (38), expert parallelism and the pipeline (39)
 GROUPS = ("kernels", "serve", "train", "encdec", "paper", "zoo", "launch",
-          "mesh", "mesh_serve")
+          "mesh", "mesh_serve", "ep_pipe")
 
 
 def entry(kernels: dict, counter: str) -> dict:
@@ -4956,9 +5178,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
         bench=None, wide=WIDE, cli=CLI_SERVE, layers=LAYER_API_LAYERS,
         fit=QUICKSTART_FIT, sketch_run=SKETCH_RUN, gated=GATED_SHAPES,
         nonlinear_steps=NONLINEAR_STEPS, lm_steps=LM_STEPS, zoo=ZOO,
-        launch=LAUNCH, mesh=MESH, mesh_serve=MESH_SERVE,
+        launch=LAUNCH, mesh=MESH, mesh_serve=MESH_SERVE, ep_pipe=EP_PIPE,
         groups=GROUPS) -> list:
-    """Phases 3 to 38 on ``cfg`` and ``dev``; ``kernel`` is the backend
+    """Phases 3 to 39 on ``cfg`` and ``dev``; ``kernel`` is the backend
     held against the plain versions (``"cuda"`` on the card),
     ``train_shape`` the training run's (seq_len, global_batch),
     ``encdec_shape`` the encoder-decoder's (n, d, k), ``encdec_steps`` its
@@ -4972,8 +5194,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     :func:`phase_serve_cli`; ``layers``, ``fit``, ``sketch_run``,
     ``gated``, ``nonlinear_steps`` and ``lm_steps`` size phases 20 to 22,
     ``zoo`` the zoo's phases (:data:`ZOO`), ``launch`` phase 36's
-    (:data:`LAUNCH`), ``mesh`` phase 37's (:data:`MESH`) and
-    ``mesh_serve`` phase 38's (:data:`MESH_SERVE`). ``groups``
+    (:data:`LAUNCH`), ``mesh`` phase 37's (:data:`MESH`),
+    ``mesh_serve`` phase 38's (:data:`MESH_SERVE`) and ``ep_pipe`` phase
+    39's (:data:`EP_PIPE`). ``groups``
     (of :data:`GROUPS`; all on the card) picks the phases run; a group run
     without the one before it takes no error from it and adds its launches
     to stub entries.
@@ -5086,6 +5309,9 @@ def run(torch, np, cfg, dev, *, kernel: str, time_fn, device_fn=None,
     if "mesh_serve" in groups:
         summary.update(phase_mesh_serve(torch, np, cfg, dev, kernel,
                                         kernels, mesh_serve))
+    if "ep_pipe" in groups:
+        summary.update(phase_ep_pipeline(torch, np, dev, kernel, kernels,
+                                         ep_pipe))
     say("summary: " + json.dumps(summary))
     return [kernels[n] for n in KERNEL_ORDER if n in kernels]
 

@@ -44,10 +44,14 @@ decided on the same count.
   data-parallel card before it is read), the optimizer state's and the
   caches' by all of their axes, every other byte (the activations) by
   the batch's axes, the FLOPs by the batch's axes and ``model``;
-* ``executes``: what the port runs today on such a mesh, the butterfly
-  sites' rows over ``pod``/``data``
-  (:mod:`repro_torch.runtime.butterfly_sharding`); the ``model`` axis is
-  accounting only, the port having no tensor parallelism;
+* ``executes``: what the port runs today on such a mesh
+  (:func:`executes`): the butterfly sites' rows over ``pod``/``data``
+  (:mod:`repro_torch.runtime.butterfly_sharding`), and for a MoE arch
+  whose ``n_experts`` the ``model`` axis divides, the MoE layers' experts
+  over ``model`` and their tokens over ``pod``/``data``
+  (:mod:`repro_torch.models.moe`, the reference's expert parallelism);
+  the ``model`` axis is accounting only for every other tensor, the port
+  having no tensor parallelism;
 * ``collectives``: not modelled (the reference reads them from the
   compiled HLO; the port has none to read), said in the record.
 
@@ -303,6 +307,24 @@ def _tally(arch: str, cfg: ModelConfig, shape: ShapeConfig, mb: int):
     return _TALLIES[key]
 
 
+def executes(cfg: ModelConfig, layout) -> Dict:
+    """What the port runs on a mesh of ``layout``: the axes the butterfly
+    sites' rows shard over (``sharded``), the axes the MoE experts run
+    over (``experts``: ``["model"]`` where that axis, larger than 1,
+    divides ``n_experts``, as the reference's ``moe_apply`` decides), and
+    the axes that are accounting only for every other tensor."""
+    model = layout.shape.get("model", 1)
+    ep = bool(cfg.n_experts) and model > 1 and cfg.n_experts % model == 0
+    what = "the butterfly sites' rows (runtime/butterfly_sharding.py)"
+    if ep:
+        what += (", the MoE layers' experts over model and their tokens "
+                 "over pod/data (models/moe.py)")
+    return {"sharded": [a for a in ("pod", "data") if a in layout.shape],
+            "experts": ["model"] if ep else [],
+            "what": what + "; every other tensor whole on every rank",
+            "accounting_only": ["model"] if "model" in layout.shape else []}
+
+
 def run_cell(arch: str, shape_name: str, out_dir: Optional[str] = None,
              verbose: bool = True, mesh: str = MESH) -> Dict:
     """One cell on ``mesh`` (``h100x1`` or a pod of :data:`PODS`): its
@@ -363,12 +385,7 @@ def run_cell(arch: str, shape_name: str, out_dir: Optional[str] = None,
     if layout is not None:
         result.update(
             mesh_shape=layout.shape, collectives=COLLECTIVES,
-            executes={"sharded": [a for a in ("pod", "data")
-                                  if a in layout.shape],
-                      "what": "the butterfly sites' rows "
-                              "(runtime/butterfly_sharding.py); every "
-                              "other tensor whole on every rank",
-                      "accounting_only": ["model"]},
+            executes=executes(cfg, layout),
             terms_basis="the one-card tally spread by the sharding "
                         "trees: weight traffic over the weights' axes "
                         "but pod/data (FSDP gathers them), optimizer "

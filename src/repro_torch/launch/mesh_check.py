@@ -23,6 +23,10 @@ re-imports the target's module in every rank).
   :class:`~repro_torch.serve.mesh_serve.MeshServe` and the others
   following it; each rank's tokens, ticks, per-tick wall, launches and
   gathers, and peak memory.
+* :func:`ep_pipeline` — phase 39's rank side: the expert-parallel MoE
+  layer (:func:`ep_layer`) and a MoE LM (:func:`ep_lm`) on a ``(model,)``
+  mesh, and the GPipe pipeline (:func:`pipeline_mlp`) on a ``(stage,)``
+  mesh, each held on rank 0 against its run without the mesh.
 
 Every input comes from a seed, the same on every rank.
 """
@@ -165,17 +169,10 @@ def check_sites(sites: Sequence[Tuple[str, object]], rows: Sequence[int],
     out = []
 
     def run(fn, leaves, g, ctx):
-        zero_launches()
-        bsh.collectives.reset()
-        bsh.collectives.timed = ctx is mesh_ctx
-        _sync(dev)
-        t0 = time.perf_counter()
-        y = fn(ctx)
-        res = [y.detach()] + _grads(y, g, leaves)
-        _sync(dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        bsh.collectives.timed = False
-        return res, ms, launches(), _collective_stats()
+        def call():
+            y = fn(ctx)
+            return [y.detach()] + _grads(y, g, leaves)
+        return _run(dev, call, ctx is mesh_ctx)
 
     for name, spec in sites:
         gen = torch.Generator().manual_seed(seed)
@@ -336,3 +333,259 @@ def serve(cfg, prompts, slots: int, max_len: int, chunk: int, max_new: int,
             "ticks": engine.metrics.ticks, "records": records,
             "peak_mib": peak, "layout": engine.mesh_layout(),
             "captures": engine.graphs.captures}
+
+
+# ---------------------------------------------------------------------------
+# Phase 39: expert parallelism and the GPipe pipeline
+# ---------------------------------------------------------------------------
+
+MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
+def _errs(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``max`` |Δ|, ``scale`` max|want|, ``rel`` the relative norm of the
+    difference, and whether ``got`` is finite."""
+    got, want = got.detach().float(), want.detach().float()
+    d = got - want
+    return {"max": float(d.abs().max()), "scale": float(want.abs().max()),
+            "rel": float(d.norm() / want.norm().clamp_min(1e-30)),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _checksums(tensors: Sequence[torch.Tensor]) -> list:
+    """Each tensor's float64 sum and sum of magnitudes, reduced on its
+    device (the ranks' results compared without copying gigabytes to the
+    host)."""
+    return [(float(t.double().sum()), float(t.double().abs().sum()))
+            for t in tensors]
+
+
+def _timed(dev: torch.device, fn):
+    """``(fn(), milliseconds)`` between two synchronisations."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _run(dev, fn, timed: bool):
+    """:func:`_timed` of ``fn`` with the launches and the collectives
+    counted from zero (timed collectives on the mesh's run only)."""
+    zero_launches()
+    bsh.collectives.reset()
+    bsh.collectives.timed = timed
+    try:
+        out, ms = _timed(dev, fn)
+    finally:
+        bsh.collectives.timed = False
+    return out, ms, launches(), _collective_stats()
+
+
+def ep_layer(arch: str, dtype: str, batch: int, seq: int, chunk: int,
+             mesh, seed: int) -> dict:
+    """``arch``'s MoE layer at ``(batch, seq)`` tokens in ``dtype`` on the
+    ambient mesh ``mesh`` (expert-parallel over its ``model`` axis): the
+    forward and the gradients of ``sum(c * y) + aux`` w.r.t. ``x`` and the
+    four leaves, timed, with the collectives. On rank 0 also the same
+    layer without the mesh, chunk by chunk (``chunk`` tokens, each with
+    its own capacity; aux the chunks' mean): the errors of the mesh's run
+    against it. Weights and inputs are drawn on the device from
+    ``seed``."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe as moem
+    from repro_torch.runtime import sharding as rsh
+    dev = rdist.current_world().device
+    cfg = registry.get(arch).with_(compute_dtype=dtype,
+                                   moe_token_chunk=chunk)
+    E, F = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device("meta"):
+        moe = moem.MoE(cfg)
+    moe = moe.to_empty(device=dev)
+    with torch.no_grad():
+        for name, fan_in in (("router", E), ("w_gate", E), ("w_up", E),
+                             ("w_down", F)):
+            getattr(moe, name).normal_(generator=gen).mul_(fan_in ** -0.5)
+    x = torch.randn(batch, seq, E, generator=gen, device=dev).to(
+        cfg.cdtype()).requires_grad_()
+    c = torch.randn(batch, seq, E, generator=gen, device=dev)
+    leaves = [x] + [getattr(moe, n) for n in MOE_LEAVES]
+
+    def grads(y, aux):
+        loss = (y.float() * c).sum() + aux
+        return [y.detach(), aux.detach()] + list(
+            torch.autograd.grad(loss, leaves))
+
+    def on_mesh():
+        with rsh.use_sharding(mesh):
+            return grads(*moem.moe_apply(cfg, moe, x))
+
+    def alone():
+        tokens = x.reshape(-1, 1, chunk, E) if (
+            batch * seq > chunk and batch * seq % chunk == 0) else x[None]
+        ys, auxs = zip(*(moem.moe_apply(cfg, moe, t) for t in tokens))
+        return grads(torch.cat(ys).reshape(x.shape), torch.stack(auxs).mean())
+
+    got, ms, _, coll = _run(dev, on_mesh, True)
+    out = {"dtype": dtype, "tokens": batch * seq, "ms": ms,
+           "collectives": coll, "checksums": _checksums(got)}
+    if rdist.rank() == 0:
+        want, out["alone_ms"], _, _ = _run(dev, alone, False)
+        out["errs"] = {k: _errs(a, b) for k, a, b in zip(
+            ("y", "aux", "x") + MOE_LEAVES, got, want)}
+    return out
+
+
+def ep_lm(arch: str, layers: int, seq: int, batch: int, mesh,
+          kernel: str) -> dict:
+    """``arch`` at ``layers`` layers in float32 from seed 0: the loss and
+    its gradients (one forward and backward, ``batch`` x ``seq`` tokens)
+    under the ambient mesh ``mesh``, timed, with the sandwich launches and
+    the collectives; on rank 0 also without the mesh on the same model:
+    the loss's and each butterfly leaf's gradient's errors."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.runtime import sharding as rsh
+    from repro_torch.serve import loader
+    dev = rdist.current_world().device
+    cfg = registry.get(arch).with_(n_layers=layers, compute_dtype="float32")
+    model = loader.init_params(cfg, seed=0, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    ctx = ExecutionContext(backend=kernel)
+    named = [(n, p) for n, p in model.named_parameters()
+             if n.endswith(LEAVES)]
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, m = lm.loss_fn(model, {"tokens": tokens, "targets": tokens},
+                             context=ctx)
+        loss.backward()
+        return [loss.detach(), m["aux"].detach()] + [
+            p.grad.detach().clone() for _, p in named]
+
+    def on_mesh():
+        with rsh.use_sharding(mesh):
+            return step()
+
+    got, ms, counts, coll = _run(dev, on_mesh, True)
+    out = {"ms": ms, "launches": counts, "collectives": coll,
+           "loss": float(got[0]), "aux": float(got[1]),
+           "checksums": _checksums(got)}
+    if rdist.rank() == 0:
+        want, out["alone_ms"], out["alone_launches"], _ = _run(
+            dev, step, False)
+        out["alone_loss"] = float(want[0])
+        out["errs"] = {k: _errs(a, b) for k, a, b in zip(
+            ["loss", "aux"] + [n for n, _ in named], got, want)}
+    return out
+
+
+def pipeline_mlp(arch: str, stages: int, batch: int, seq: int, micro: int,
+                 mesh, kernel: str) -> dict:
+    """``stages`` stacked residual MLP blocks of ``arch`` (``x + down(silu(
+    gate(x)) * up(x))`` through its butterfly sites, weights from seed 39)
+    on ``x (batch, seq, d_model)`` through :func:`~repro_torch.runtime.
+    pipeline.pipeline_apply` over the ``stage`` axis of ``mesh`` with
+    ``micro`` microbatches: the output and the gradients of ``sum(c * y)``
+    w.r.t. ``x`` and every stacked leaf, timed, with the launches, the
+    handover's route and the collectives; on rank 0 also
+    :func:`~repro_torch.runtime.pipeline.reference_apply` on the same
+    inputs and its errors."""
+    from repro_torch.configs import registry
+    from repro_torch.core import layers as bl
+    from repro_torch.models import common as cm
+    from repro_torch.runtime import pipeline as pp
+    dev = rdist.current_world().device
+    cfg = registry.get(arch)
+    bc = cfg.butterfly
+    E, F = cfg.d_model, cfg.d_ff
+    specs = {name: cm.site_butterfly_spec(bc.seed, key, n_in, n_out,
+                                          bc.k_factor, bc.use_bias)
+             for name, key, n_in, n_out in (("up", "mlp_up", E, F),
+                                            ("gate", "mlp_gate", E, F),
+                                            ("down", "mlp_down", F, E))}
+    gen = torch.Generator().manual_seed(39)
+    drawn = [{f"{name}.{k}": v for name, spec in specs.items()
+              for k, v in bl.init_butterfly_linear(gen, spec).items()}
+             for _ in range(stages)]
+    params = {k: torch.stack([d[k] for d in drawn]).to(
+        dev).requires_grad_() for k in drawn[0]}
+    dgen = torch.Generator(device=dev).manual_seed(40)
+    x = torch.randn(batch, seq, E, generator=dgen,
+                    device=dev).requires_grad_()
+    c = torch.randn(batch, seq, E, generator=dgen, device=dev)
+    ctx = ExecutionContext(backend=kernel)
+
+    def site(p, name, h):
+        return bl.butterfly_linear_apply(
+            specs[name], {k: p[f"{name}.{k}"] for k in LEAVES}, h,
+            context=ctx)
+
+    def stage_fn(p, h):
+        return h + site(p, "down", torch.nn.functional.silu(
+            site(p, "gate", h)) * site(p, "up", h))
+
+    leaves = [x] + list(params.values())
+
+    def grads(y):
+        return [y.detach()] + list(torch.autograd.grad((y * c).sum(),
+                                                       leaves))
+
+    def piped():
+        return grads(pp.pipeline_apply(stage_fn, params, x, mesh=mesh,
+                                       microbatches=micro))
+
+    got, ms, counts, coll = _run(dev, piped, True)
+    out = {"ms": ms, "launches": counts, "collectives": coll,
+           "route": pp.handover_route(mesh.group(("stage",)), dev),
+           "checksums": _checksums(got)}
+    if rdist.rank() == 0:
+        want, out["alone_ms"], out["alone_launches"], _ = _run(
+            dev, lambda: grads(pp.reference_apply(stage_fn, params, x)),
+            False)
+        out["errs"] = {k: _errs(a, b) for k, a, b in zip(
+            ["y", "x"] + list(params), got, want)}
+    return out
+
+
+def ep_pipeline(sizes: dict, kernel: str) -> dict:
+    """Phase 39's rank side in one world: :func:`ep_layer` at each of
+    ``sizes["layer"]``'s shapes and :func:`ep_lm` on a ``(model,)`` mesh
+    of the world, then :func:`pipeline_mlp` on a ``(stage,)`` mesh of
+    it."""
+    from repro_torch.launch import mesh as tmesh
+    world = rdist.current_world()
+    n = world.size
+    arch, chunk, shapes = sizes["layer"]
+    model_mesh = tmesh.make_mesh((n,), ("model",))
+    stage_mesh = tmesh.make_mesh((n,), ("stage",))
+    out = {"rank": world.rank, "world": world.describe(), "layer": [],
+           "walls": {}}
+    t0 = time.monotonic()
+
+    def lap(what):
+        nonlocal t0
+        _free(world.device)
+        out["walls"][what] = time.monotonic() - t0
+        t0 = time.monotonic()
+
+    for i, (dtype, batch, seq) in enumerate(shapes):
+        out["layer"].append(ep_layer(arch, dtype, batch, seq, chunk,
+                                     model_mesh, seed=39 + i))
+        lap(f"layer {dtype}")
+    out["lm"] = ep_lm(*sizes["lm"], model_mesh, kernel)
+    lap("lm")
+    out["pipeline"] = pipeline_mlp(*sizes["pipeline"], stage_mesh, kernel)
+    lap("pipeline")
+    if world.device.type == "cuda":
+        out["peak_mib"] = torch.cuda.max_memory_allocated(world.device) / 2**20
+    return out
+
+
+def _free(dev: torch.device) -> None:
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()

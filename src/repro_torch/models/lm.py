@@ -40,7 +40,10 @@ blocks (``"rec_h"``, ``"rec_conv"``, ``"mlstm_C"``, ..., ``"slstm_h"``:
 and drop the aux loss. Training: :func:`loss_fn` runs the stack without
 caches; with ``cfg.remat`` each decoder layer is checkpointed
 (``torch.utils.checkpoint``, the counterpart of the reference's
-``jax.checkpoint`` of the scan body) and runs again in the backward pass.
+``jax.checkpoint`` of the scan body) and runs again in the backward pass,
+under the ambient sharding context of its forward
+(:func:`~repro_torch.runtime.sharding.carry_ctx`: on a card the autograd
+engine recomputes it on a thread of its own).
 
 A block type the reference does not know raises ``ValueError``, as the
 reference's ``layer_specs`` does.
@@ -64,6 +67,7 @@ from repro_torch.models import rglru as rgm
 from repro_torch.models import xlstm as xm
 from repro_torch.nn.linear import scaled_normal
 from repro_torch.runtime import loops
+from repro_torch.runtime.sharding import carry_ctx
 
 #: the block types of the reference's ``layer_specs``
 BLOCK_TYPES = ("attn", "local", "global", "moe", "rec", "mlstm", "slstm",
@@ -272,7 +276,7 @@ def backbone(model: LM, x: torch.Tensor, *, positions: torch.Tensor,
         if caches is not None:
             cache = layer_cache(cfg, caches, i, index)
         if remat:
-            x, a = checkpoint(layer_apply, cfg, layer, x,
+            x, a = checkpoint(carry_ctx(layer_apply), cfg, layer, x,
                               positions=positions, context=context,
                               enc_out=enc_out, use_reentrant=False)
         else:

@@ -52,9 +52,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import context as exctx
 
-__all__ = ["collectives", "data_axes", "shard_count", "shard_batch_apply",
+__all__ = ["all_sum", "collectives", "data_axes", "shard_count", "shard_batch_apply",
            "sharded_butterfly_apply", "sharded_butterfly_linear_apply",
-           "sharded_route", "sharded_sandwich_apply"]
+           "sharded_route", "sharded_sandwich_apply", "sum_grads"]
 
 # Candidate batch axes, outermost first — the DEFAULT_RULES "batch" entry
 # of repro_torch.runtime.sharding.
@@ -98,7 +98,9 @@ def _shard_ctx(context: exctx.ContextLike, axes: Optional[Sequence[str]]):
 class CollectiveCounts:
     """Calls, bytes filled on this rank and (when ``timed``) seconds, per
     kind: ``"gather"`` (rows back into the whole tensor, forward outputs
-    and backward ``dx``) and ``"all_reduce"`` (the weight gradients)."""
+    and backward ``dx``), ``"all_reduce"`` (the weight gradients, and the
+    sums of :func:`all_sum`) and ``"shift"`` (a pipeline's handovers,
+    :mod:`repro_torch.runtime.pipeline`)."""
 
     def __init__(self):
         self.timed = False
@@ -107,7 +109,7 @@ class CollectiveCounts:
     def reset(self) -> None:
         self.stats: Dict[str, Dict[str, float]] = {
             k: {"calls": 0, "bytes": 0, "seconds": 0.0}
-            for k in ("gather", "all_reduce")}
+            for k in ("gather", "all_reduce", "shift")}
 
     def _run(self, kind: str, out: torch.Tensor, fn: Callable) -> None:
         s = self.stats[kind]
@@ -214,6 +216,45 @@ class _SumGrads(torch.autograd.Function):
         return (None,) + tuple(grads)
 
 
+class _AllSum(torch.autograd.Function):
+    """A tensor summed over ``group`` (in float32); the backward is the
+    identity: every rank holds the whole sum and computes the same loss, so
+    the cotangent it gets is already its own term's."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        total = t.to(torch.float32, copy=True)
+        _all_reduce(total, group)
+        return total.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` on every rank of it (:class:`_AllSum`):
+    the partial outputs of expert-parallel MoE ranks, a pipeline's last
+    stage's outputs."""
+    return _AllSum.apply(t, group)
+
+
+def sum_grads(group, tensors: Sequence[torch.Tensor]
+              ) -> Tuple[torch.Tensor, ...]:
+    """``tensors`` as they are, those that need a gradient passed through
+    :class:`_SumGrads` (one collective over ``group`` in the backward for
+    all of them); as they are without a gradient to take."""
+    tensors = tuple(tensors)
+    trained = [i for i, t in enumerate(tensors) if t.requires_grad]
+    if not (trained and torch.is_grad_enabled()):
+        return tensors
+    out = list(tensors)
+    for i, t in zip(trained, _SumGrads.apply(
+            group, *(tensors[i] for i in trained))):
+        out[i] = t
+    return tuple(out)
+
+
 def shard_batch_apply(fn: Callable, x: torch.Tensor,
                       weights: Sequence[torch.Tensor], mesh,
                       axes: Sequence[str]) -> torch.Tensor:
@@ -233,15 +274,8 @@ def shard_batch_apply(fn: Callable, x: torch.Tensor,
     if padded != b:
         x2 = F.pad(x2, (0, 0, 0, padded - b))
     xl = _TakeRows.apply(x2, group, index, nsh)
-    weights = tuple(weights)
-    trained = [i for i, w in enumerate(weights) if w.requires_grad]
-    if trained and torch.is_grad_enabled():
-        summed = _SumGrads.apply(group, *(weights[i] for i in trained))
-        weights = list(weights)
-        for i, w in zip(trained, summed):
-            weights[i] = w
-        weights = tuple(weights)
-    y2 = _GatherRows.apply(fn(xl, weights), group, index, nsh)
+    y2 = _GatherRows.apply(fn(xl, sum_grads(group, weights)), group, index,
+                           nsh)
     return y2[:b].reshape(*lead, y2.shape[-1])
 
 

@@ -31,7 +31,8 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 from repro_torch.runtime import pytree as pt
 
 __all__ = ["BUTTERFLY_AXES", "DEFAULT_RULES", "PartitionSpec",
-           "ShardingCtx", "active_ctx", "batch_axes", "constrain",
+           "ShardingCtx", "active_ctx", "batch_axes", "carry_ctx",
+           "constrain",
            "logical_to_pspec", "resolve_axis", "spec_pspecs",
            "use_sharding"]
 
@@ -173,6 +174,24 @@ class use_sharding:
 def active_ctx() -> Optional[ShardingCtx]:
     stack = _stack()
     return stack[-1] if stack else None
+
+
+def carry_ctx(fn):
+    """``fn`` under this thread's ambient context as it is now, on whichever
+    thread later calls it: a region that ``torch.utils.checkpoint``
+    recomputes on the autograd engine's device thread (which has no
+    ambient context of its own) sees the mesh its forward saw."""
+    ctx = active_ctx()
+    if ctx is None:
+        return fn
+
+    def run(*args, **kw):
+        _stack().append(ctx)
+        try:
+            return fn(*args, **kw)
+        finally:
+            _stack().pop()
+    return run
 
 
 def constrain(x, axes: Sequence[Optional[str]]):

@@ -268,3 +268,104 @@ def serve_cases(tcfg, params_np, specs, cases, timeout):
             "swaps": getattr(target, "swaps", 0),
             "errors": [type(e).__name__ for e in mirror.errors]})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism (tests/test_torch_moe_ep.py) and the GPipe pipeline
+# (tests/test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+
+MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
+def _meshes():
+    """This rank's meshes by (shape, axes), built once a world (building
+    one is collective: every rank builds the same ones in the same
+    order)."""
+    cache = globals().setdefault("_MESHES", {})
+
+    def get(shape, axes):
+        key = (tuple(shape), tuple(axes))
+        if key not in cache:
+            cache[key] = tmesh.make_mesh(*key)
+        return cache[key]
+    return get
+
+
+def moe_ep_cases(cases):
+    """Each case's ``moe_apply`` on its mesh under the ambient sharding
+    context: the output, the aux loss, and the gradients of ``sum(c * y) +
+    aux`` w.r.t. ``x`` and the four leaves (numpy), the path taken
+    (``"ep"`` when a ``model`` collective ran) and the data axes."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import moe as tmoe
+    from repro_torch.runtime import butterfly_sharding as bsh
+    mesh_of = _meshes()
+    out = []
+    for case in cases:
+        cfg = treg.get(case["arch"]).with_(compute_dtype="float32",
+                                            **case["cfg"])
+        moe = tmoe.MoE(cfg)
+        with torch.no_grad():
+            for name in MOE_LEAVES:
+                getattr(moe, name).copy_(torch.from_numpy(
+                    case["params"][name]))
+        x = _t(case["x"], True)
+        mesh = mesh_of(case["mesh"], case["axes"])
+        bsh.collectives.reset()
+        with rsh.use_sharding(mesh):
+            y, aux = tmoe.moe_apply(cfg, moe, x)
+        loss = (y * _t(case["c"])).sum() + aux
+        leaves = [x] + [getattr(moe, n) for n in MOE_LEAVES]
+        grads = torch.autograd.grad(loss, leaves)
+        out.append({"y": _np(y), "aux": float(aux.detach()),
+                    "grads": [_np(g) for g in grads],
+                    "all_reduces": bsh.collectives.stats["all_reduce"][
+                        "calls"],
+                    "dp": tmoe.dp_axes(mesh, x.shape[0])})
+    return out
+
+
+def _tanh_stage(params, x):
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def pipeline_cases(cases):
+    """Each case through ``pipeline_apply`` on its mesh: the output and the
+    gradients of ``sum(y ** 2)`` w.r.t. ``w``, ``b`` and ``x``, and the
+    shifts it took; ``"raises"`` cases give the error's text instead."""
+    from repro_torch.runtime import butterfly_sharding as bsh
+    from repro_torch.runtime import pipeline as tpipe
+    mesh_of = _meshes()
+    out = []
+    for case in cases:
+        mesh = mesh_of(case["mesh"], case["axes"])
+        params = {k: _t(case[k], True) for k in ("w", "b")}
+        x = _t(case["x"], True)
+        if case.get("raises"):
+            try:
+                tpipe.pipeline_apply(_tanh_stage, params, x, mesh=mesh,
+                                     microbatches=case["T"])
+                out.append({"error": ""})
+            except ValueError as e:
+                out.append({"error": str(e)})
+            continue
+        bsh.collectives.reset()
+        rule = tpipe.handover_route
+        # the all-gather that stands in for point-to-point operations
+        # where the backend takes none (gloo on CUDA tensors), taken here
+        # on CPU tensors by overriding the rule
+        if case["handover"] == "gather":
+            tpipe.handover_route = lambda group, device: "gather"
+        try:
+            y = tpipe.pipeline_apply(_tanh_stage, params, x, mesh=mesh,
+                                     microbatches=case["T"])
+            grads = torch.autograd.grad((y ** 2).sum(),
+                                        [params["w"], params["b"], x])
+        finally:
+            tpipe.handover_route = rule
+        shifts = bsh.collectives.stats["shift"]
+        out.append({"y": _np(y), "grads": [_np(g) for g in grads],
+                    "shifts": shifts["calls"], "shift_bytes": shifts["bytes"],
+                    "route": rule(mesh.group(("stage",)), x.device)})
+    return out

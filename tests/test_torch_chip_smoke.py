@@ -121,7 +121,13 @@ REHEARSAL = dict(
               train=(16, 4, 2), cli=("smollm-135m-butterfly-smoke", 1, 16,
                                      3), budget_s=None),
     mesh_serve=dict(ranks=2, engine=(2, 64, 16), requests=(3, 5, 20, 4),
-                    cli=("smollm-135m-butterfly-smoke", 3), budget_s=None))
+                    cli=("smollm-135m-butterfly-smoke", 3), budget_s=None),
+    ep_pipe=dict(ranks=2,
+                 layer=("olmoe-1b-7b-smoke", 16, (("float32", 2, 16),
+                                                  ("bfloat16", 2, 8))),
+                 lm=("olmoe-1b-7b-butterfly-smoke", 2, 16, 2),
+                 pipeline=("smollm-135m-butterfly-smoke", 2, 8, 16, 4),
+                 budget_s=None))
 
 
 def rehearse(capsys, *groups, smoke=None):

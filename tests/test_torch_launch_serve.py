@@ -10,6 +10,7 @@ checkpoint directory restores the newest valid step, and the bench prints
 the reference bench's rows."""
 
 import json
+import threading
 
 import pytest
 import torch
@@ -65,8 +66,31 @@ def test_cli_trace_out_and_metrics_interval(tmp_path, capsys):
     assert json.loads(out.read_text())["summary"]["requests_finished"] == 3
 
 
-def test_cli_two_replicas_writes_router_snapshot(tmp_path, capsys):
+def test_cli_two_replicas_writes_router_snapshot(tmp_path, capsys,
+                                                monkeypatch):
+    """Two replicas behind the router: both serve, and the snapshot, the
+    metrics and the trace name both. The trace's arrivals (50 req/s) are
+    all submitted before the replicas' first tick, so that the router's
+    least-outstanding dispatch (ties to the lowest index) splits the four
+    requests 2/2 on any host: replayed against live ticks, a replica that
+    finishes each request before the next arrives (a fast host, or a
+    replay thread held back by a loaded one) gets all four."""
     from repro_torch.obs.validate import validate_chrome_trace
+    from repro_torch.serve import Router, trace as ttrace
+    submitted = threading.Event()
+    replay, step = ttrace.replay, Router.step
+
+    def replay_then_tick(*args, **kw):
+        try:
+            return replay(*args, **kw)
+        finally:
+            submitted.set()
+
+    def step_after_replay(self, *args, **kw):
+        assert submitted.wait(timeout=120)
+        return step(self, *args, **kw)
+    monkeypatch.setattr(ttrace, "replay", replay_then_tick)
+    monkeypatch.setattr(Router, "step", step_after_replay)
     out = tmp_path / "router.json"
     trace = tmp_path / "router_trace.json"
     _run("--requests", "4", "--slots", "2", "--max-len", "48",
@@ -77,7 +101,7 @@ def test_cli_two_replicas_writes_router_snapshot(tmp_path, capsys):
     doc = json.loads(out.read_text())
     snap = doc["summary"]
     assert snap["replicas"] == 2 and snap["requests_finished"] == 4
-    assert sum(p["dispatched"] for p in snap["per_replica"]) == 4
+    assert [p["dispatched"] for p in snap["per_replica"]] == [2, 2]
     assert all(p["dead"] is None for p in snap["per_replica"])
     assert {"p50", "p95"} <= set(snap["latency_ms"])
     fam = doc["metrics"]["metrics"]["serve_requests_finished_total"]

@@ -397,6 +397,7 @@ def test_dryrun_on_a_production_mesh(tmp_path, capsys, choice, mesh, n):
         assert r["model_flops"] == specs.model_flops(cfg, shape, n)[0]
         assert r["hbm_fit"] and "not modelled" in r["collectives"]
         assert r["executes"]["accounting_only"] == ["model"]
+        assert r["executes"]["experts"] == []
         assert r["executes"]["sharded"] == [a for a in ("pod", "data")
                                             if a in layout.shape]
         if shape.kind == "train":
@@ -404,6 +405,23 @@ def test_dryrun_on_a_production_mesh(tmp_path, capsys, choice, mesh, n):
                 cfg, shape, n_dp)
     report.main([str(tmp_path)])
     assert f"({mesh};" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,ep", [
+    ("olmoe-1b-7b", True), ("dbrx-132b", True), ("smollm-135m", False),
+    ("olmoe-1b-7b-smoke", False)])
+def test_dryrun_executes_experts_over_model(arch, ep):
+    """On ``pod16x16`` the ``executes`` record names ``model`` as running
+    the experts where the MoE's expert count is a multiple of its 16 (64
+    and 16 experts; the smoke arch's 8 is not), as the reference's
+    ``moe_apply`` decides; ``model`` stays accounting only for every other
+    tensor, and a dense arch runs nothing over it."""
+    layout = tmesh.production_layout()
+    rec = dryrun.executes(registry.get(arch), layout)
+    assert rec["experts"] == (["model"] if ep else [])
+    assert rec["accounting_only"] == ["model"]
+    assert rec["sharded"] == ["data"]
+    assert ("experts over model" in rec["what"]) == ep
 
 
 @pytest.mark.parametrize("mesh", ["pod16x16", "pod2x16x16"])

@@ -55,3 +55,27 @@ def test_rehearsal_mesh_serve(capsys):
     # the plain versions launch nothing; the path is recorded
     assert kernels["sandwich_fwd (sandwich_factors + sandwich_rows)"][
         "launches_by_path"] == {"mesh serve rank 0": 0}
+
+
+def test_rehearsal_ep_pipeline(capsys):
+    """Phase 39 at smoke size on two gloo CPU ranks: the smoke OLMoE's MoE
+    layer on a `(model 2)` mesh in float32 (32 tokens, two chunks of 16)
+    and bfloat16 against one rank chunk by chunk, its butterfly LM at 2
+    layers, and smollm's butterfly MLP block over 2 pipeline stages (the
+    handover by point-to-point, which gloo takes on CPU tensors)."""
+    _, kernels, out = rehearse(capsys, "ep_pipe")
+    for rank in (0, 1):
+        assert f"ep world: rank {rank} of 2 on cpu over gloo" in out
+    assert ("ep layer olmoe-1b-7b-smoke float32 32 tokens (2 chunk(s) of "
+            "16) on 2 model ranks vs one rank chunk by chunk") in out
+    assert ("ep layer olmoe-1b-7b-smoke bfloat16 16 tokens (1 chunk(s) of "
+            "16) on 2 model ranks") in out
+    assert ("ep lm olmoe-1b-7b-butterfly-smoke 2 layers float32 2 x 16 on 2 "
+            "model ranks vs one rank: loss") in out
+    assert ("pipeline smollm-135m-butterfly-smoke MLP blocks, 2 stages, 8 x "
+            "16, 4 microbatches on 2 stage ranks vs reference_apply") in out
+    assert "handover p2p (gloo on cpu tensors): rank 0's shift 8 calls" in out
+    assert "ep pipeline: phase " in out
+    # the plain versions launch nothing; the paths are recorded
+    assert kernels["sandwich_bwd"]["launches_by_path"] == {
+        "ep lm rank 0": 0, "pipeline rank 0": 0}
